@@ -1,0 +1,564 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's kernels from ``src/repro_torch/csrc`` and drives the
+paper's solve — CGNR on the even-odd Schur complement of the Wilson
+operator — through ``repro_torch.core.plan.solve`` on the card.  Phases:
+
+0. build every kernel (one ``nvcc`` per source, all at once);
+1. banner: the card's name and power limit, and the measured
+   device-to-device copy bandwidth;
+2. kernel checks at 8^4 and 4x6x8x16: each kernel against its plain
+   PyTorch version; the hop kernel batched (N = 3) against three single
+   launches bitwise; frozen lanes and closed gates bitwise;
+3. goldens: the committed 4^4 seed-7 fixture solved through the kernels
+   (14 iterations Wilson, 13 twisted mass mu = 0.25, 14 for each of 4
+   batched RHS), and against the reference backend on the card;
+4. the main path at full size, 64x32x32x32 (T, Z, Y, X), mass 0.1,
+   tol 1e-6: a single-RHS Wilson solve, a 4-RHS Wilson solve and a
+   single-RHS twisted-mass solve; each must converge and verify with a
+   true relative residual below 10 tol, with hop launches 4I+4, update
+   and xpay launches I, and no plain-version call;
+5. timings at the main path's shapes: each kernel's median time over
+   CUDA events, held once more against its plain version on the same
+   inputs, beside the plain version's time, its bound and, for the
+   ungated xpay, one library call computing the same function;
+6. one traced single-RHS Wilson solve (``torch.profiler``): device time
+   by kernel and the card's idle share of the solve.
+
+Any failure raises; no phase's error is caught.  The last line is the
+JSON object ``{"ok": true, "device": {...}}``; the line before it lists
+the kernels.  Exits non-zero without printing a result when there is no
+CUDA device or the port's sources are missing.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+HOP_FLOPS_PER_SITE = 1320        # per output site and RHS (paper §5)
+MAIN_DIMS = (64, 32, 32, 32)     # T, Z, Y, X: the 32^3 x 64 lattice
+MASS, TOL, MU = 0.1, 1e-6, 0.25
+HOP_TOL = 1e-5                   # max-abs over max(1, max |plain|): f32 order
+CG_TOL = 1e-5                    # max-abs on fields, relative on norms
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        fail(msg)
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max())
+
+
+def scale(t: torch.Tensor) -> float:
+    return max(1.0, float(t.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# phase 1: banner
+# ---------------------------------------------------------------------------
+
+
+def copy_bandwidth(dev) -> float:
+    """Device-to-device copy rate in bytes/s (1 GiB read + 1 GiB written)."""
+    n = 1 << 28
+    src = torch.empty(n, dtype=torch.float32, device=dev).uniform_()
+    dst = torch.empty_like(src)
+    ms = time_ms(lambda: dst.copy_(src), reps=10)
+    del src, dst
+    return 2 * 4 * n / (ms * 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernel checks at small shapes
+# ---------------------------------------------------------------------------
+
+
+def random_packed(gen, dims, n):
+    from repro_torch.core import lattice as tl
+    lat = tl.LatticeShape(*dims)
+    ue, uo = tl.split_eo_gauge(tl.random_gauge(gen, lat))
+    psi = torch.stack([tl.split_eo(tl.random_spinor(gen, lat))[0]
+                       for _ in range(n)])
+    acc = torch.stack([tl.split_eo(tl.random_spinor(gen, lat))[1]
+                       for _ in range(n)])
+    return (tl.pack_gauge(ue), tl.pack_gauge(uo), tl.pack_spinor(psi),
+            tl.pack_spinor(acc))
+
+
+def check_hop(dev, gen, dims) -> float:
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
+    from repro_torch.kernels.wilson_dslash.ref import wilson_hop_ref
+    upe, upo, psi, acc = random_packed(gen, dims, 3)
+    worst = 0.0
+    for parity, g5in, g5out, has_acc, twist in itertools.product(
+            (0, 1), (False, True), (False, True), (False, True),
+            (False, True)):
+        u_out, u_nbr = (upe, upo) if parity == 0 else (upo, upe)
+        kw = dict(parity=parity, gamma5_in=g5in, gamma5_out=g5out,
+                  hop_coeff=-0.3 if (has_acc or twist) else 1.0,
+                  hop_twist=0.2 if twist else 0.0,
+                  acc_coeff=1.7 if has_acc else 0.0,
+                  acc_twist=-0.4 if (has_acc and twist) else 0.0)
+        for n in (1, 3):
+            p = psi[0] if n == 1 else psi
+            a = (acc[0] if n == 1 else acc) if has_acc else None
+            out = wilson_hop(u_out, u_nbr, p, psi_acc=a, **kw)
+            ref = wilson_hop_ref(u_out, u_nbr, p, psi_acc=a, **kw)
+            err = max_err(out, ref)
+            check(err <= HOP_TOL * scale(ref),
+                  f"wilson_hop {dims} N={n} {kw} has_acc={has_acc}: "
+                  f"max-abs error {err}")
+            worst = max(worst, err)
+            if n == 3:
+                for i in range(3):
+                    single = wilson_hop(u_out, u_nbr, psi[i],
+                                        psi_acc=acc[i] if has_acc else None,
+                                        **kw)
+                    check(torch.equal(out[i], single),
+                          f"wilson_hop {dims} {kw}: batched RHS {i} differs "
+                          "from its single launch")
+    torch.cuda.synchronize()
+    return worst
+
+
+def check_cg(dev, gen) -> tuple[float, float]:
+    from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
+    from repro_torch.kernels.cg_fused.ref import cg_update_ref, cg_xpay_ref
+    worst_u = worst_x = 0.0
+    for length in (12345, 8 ** 4 * 12, 4 * 6 * 8 * 8 * 24):  # ragged first
+        x, r, p, ap = (torch.randn(3, length, generator=gen, device=dev)
+                       for _ in range(4))
+        alpha = torch.tensor([0.37, 0.0, -1.1], device=dev)
+        xo, ro, rs = cg_update(alpha, x, r, p, ap)
+        xr, rr, rsr = cg_update_ref(alpha, x, r, p, ap)
+        err = max(max_err(xo, xr), max_err(ro, rr))
+        rel = float(((rs - rsr).abs() / rsr).max())
+        check(err <= CG_TOL and rel <= CG_TOL,
+              f"cg_update L={length}: field error {err}, norm error {rel}")
+        check(torch.equal(xo[1], x[1]) and torch.equal(ro[1], r[1]),
+              f"cg_update L={length}: frozen lane changed")
+        for i in range(3):
+            sx, sr, srs = cg_update(alpha[i:i + 1], x[i:i + 1], r[i:i + 1],
+                                    p[i:i + 1], ap[i:i + 1])
+            check(torch.equal(sx[0], xo[i]) and torch.equal(srs[0], rs[i]),
+                  f"cg_update L={length}: batched RHS {i} differs from its "
+                  "single call")
+        worst_u = max(worst_u, err)
+        beta = torch.tensor([0.5, 0.25, 2.0], device=dev)
+        gate = torch.tensor([True, False, True], device=dev)
+        po = cg_xpay(beta, r, p, gate)
+        err = max_err(po, cg_xpay_ref(beta, r, p, gate))
+        check(err <= CG_TOL, f"cg_xpay L={length}: error {err}")
+        check(torch.equal(po[1], p[1]), f"cg_xpay L={length}: closed gate "
+                                        "changed p")
+        po = cg_xpay(beta, r, p)
+        err = max(err, max_err(po, cg_xpay_ref(beta, r, p)))
+        check(err <= CG_TOL, f"cg_xpay (no gate) L={length}: error {err}")
+        worst_x = max(worst_x, err)
+    torch.cuda.synchronize()
+    return worst_u, worst_x
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: solves
+# ---------------------------------------------------------------------------
+
+
+def solve_counted(plan, u, b, dev):
+    """One solve with every count set to 0 just before and read just after;
+    returns (x, stats, counts, wall seconds, peak bytes)."""
+    from repro_torch import kernels
+    from repro_torch.core import plan as plan_mod
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    x, st = plan_mod.solve(plan, u, b, MASS, tol=TOL, maxiter=1000,
+                           device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.counts()
+    return x, st, counts, wall, torch.cuda.max_memory_allocated(dev)
+
+
+def check_launches(name, st, counts):
+    k = st.iterations
+    want = {"wilson_hop": 4 * k + 4, "cg_update": k, "cg_xpay": k}
+    for kern, n in want.items():
+        got = counts[kern]
+        check(got["launches"] == n, f"{name}: {kern} launched "
+                                    f"{got['launches']} times, want {n}")
+        check(got["plain_calls"] == 0, f"{name}: {kern} fell back to its "
+                                       "plain version")
+
+
+def rel_res(st, rhs, batched: bool) -> list[float]:
+    """True relative residuals from the solve's verification matvec."""
+    rows = rhs if batched else rhs[None]
+    bs = torch.stack([(v.abs() ** 2).sum() for v in rows])
+    return (torch.atleast_1d(st.true_residual_norm2) / bs).sqrt().tolist()
+
+
+def check_solve(name, st, rel):
+    from repro_torch.core import solvers
+    verdicts = torch.atleast_1d(st.verdict).tolist()
+    check(all(v == solvers.CONVERGED for v in verdicts),
+          f"{name}: verdicts {[solvers.verdict_name(v) for v in verdicts]}")
+    check(bool(torch.atleast_1d(st.verified).all()), f"{name}: unverified")
+    check(max(rel) < 10 * TOL, f"{name}: true rel_res {rel}")
+
+
+def goldens(dev):
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.lattice import fields_from_numpy
+    import numpy as np
+    path = ROOT / "src" / "repro_torch" / "data" / "golden_4x4x4x4_seed7.npz"
+    with np.load(path) as f:
+        u, b = fields_from_numpy(f["gauge"], f["b"], device=dev)
+        _, batch = fields_from_numpy(f["gauge"], f["b_batch"], device=dev)
+    out = {}
+    for name, plan, rhs, want in (
+            ("eo_smoke", plan_mod.SolverPlan(), b, [14]),
+            ("eo_smoke_tm", plan_mod.SolverPlan(
+                operator_family="twisted-mass", mu=MU), b, [13]),
+            ("batch_sweep_n4", plan_mod.SolverPlan(nrhs=4), batch,
+             [14] * 4)):
+        x, st, counts, _, _ = solve_counted(plan, u, rhs, dev)
+        its = (st.rhs_iterations.tolist() if plan.batched
+               else [st.iterations])
+        check(its == want, f"golden {name}: iterations {its}, want {want}")
+        check_solve(name, st, rel_res(st, rhs, plan.batched))
+        check_launches(name, st, counts)
+        ref_plan = plan_mod.SolverPlan(operator_family=plan.operator_family,
+                                       mu=plan.mu, nrhs=plan.nrhs,
+                                       backend="reference")
+        xr, _ = plan_mod.solve(ref_plan, u, rhs, MASS, tol=TOL, device=dev)
+        err = max_err(x, xr) / float(xr.abs().max())
+        check(err <= 1e-4, f"golden {name}: kernels vs reference backend "
+                           f"x differ by {err} (relative)")
+        out[name] = its
+    return out
+
+
+def main_path(dev):
+    from repro_torch.core import lattice as tl
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.data import lattice_problem
+    lat = tl.LatticeShape(*MAIN_DIMS)
+    u, b = lattice_problem(lat, seed=0, packed=False, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    batch = torch.stack([tl.random_spinor(gen, lat) for _ in range(4)])
+    log(f"main path: lattice {lat} ({lat.volume} sites), mass {MASS}, tol "
+        f"{TOL}; gauge {u.numel() * 8 / 1e6:.0f} MB (complex64 natural "
+        f"and f32 packed alike); RHS {b.numel() * 8 / 1e6:.0f} MB natural, "
+        f"{b.numel() * 4 / 1e6:.0f} MB per packed half field")
+    runs = {}
+    for name, plan, rhs in (
+            ("wilson_n1", plan_mod.SolverPlan(), b),
+            ("wilson_n4", plan_mod.SolverPlan(nrhs=4), batch),
+            ("twisted_mass_n1", plan_mod.SolverPlan(
+                operator_family="twisted-mass", mu=MU), b)):
+        x, st, counts, wall, peak = solve_counted(plan, u, rhs, dev)
+        rel = rel_res(st, rhs, plan.batched)
+        check_solve(name, st, rel)
+        check_launches(name, st, counts)
+        its = st.rhs_iterations.tolist() if plan.batched else [st.iterations]
+        log(f"main path {name}: iterations {its} (loop {st.iterations}), "
+            f"true rel_res {[f'{r:.3e}' for r in rel]}, wall "
+            f"{wall:.4f} s, peak memory {peak / 2**30:.3f} GiB, launches "
+            f"{ {k: v['launches'] for k, v in counts.items()} }")
+        runs[name] = dict(iterations=its, loop=st.iterations, rel=rel,
+                          wall_s=wall, peak_bytes=peak,
+                          launches={k: v["launches"]
+                                    for k, v in counts.items()})
+        del x, st
+    return u, b, batch, runs
+
+
+# ---------------------------------------------------------------------------
+# phase 5: timings at the main path's shapes
+# ---------------------------------------------------------------------------
+
+
+def bound(nbytes: float, flops: float, bw: float) -> dict:
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_ms_measured_bw": nbytes / bw * 1e3,
+            "model_bytes": nbytes, "model_flops": flops}
+
+
+def time_hop(u, b, batch, bw, n):
+    from repro_torch.core import lattice as tl
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
+    from repro_torch.kernels.wilson_dslash.ref import wilson_hop_ref
+    ue, uo = tl.split_eo_gauge(u)
+    upe, upo = tl.pack_gauge(ue), tl.pack_gauge(uo)
+    del ue, uo
+    rhs = b if n == 1 else batch
+    halves = ([tl.split_eo(rhs)] if n == 1 else
+              [tl.split_eo(rhs[i]) for i in range(n)])
+    pe = tl.pack_spinor(torch.stack([h[0] for h in halves]))
+    po = tl.pack_spinor(torch.stack([h[1] for h in halves]))
+    del halves
+    if n == 1:
+        pe, po = pe[0], po[0]
+    # the second Schur launch: D_eo of an odd field, accumulating S psi_e
+    m = MASS + 4.0
+    kw = dict(parity=0, gamma5_out=True, psi_acc=pe, acc_coeff=m,
+              hop_coeff=-1.0 / m)
+    out = wilson_hop(upe, upo, po, **kw)
+    ref = wilson_hop_ref(upe, upo, po, **kw)
+    err = max_err(out, ref)
+    check(err <= HOP_TOL * scale(ref), f"wilson_hop main shape N={n}: "
+                                       f"error {err}")
+    del out, ref
+    ms = time_ms(lambda: wilson_hop(upe, upo, po, **kw), reps=20)
+    plain_ms = time_ms(lambda: wilson_hop_ref(upe, upo, po, **kw), reps=3,
+                       warmup=1)
+    sites = po.shape[-5] * po.shape[-4] * po.shape[-3] * po.shape[-1]
+    nbytes = sites * ((144 + 48 * n) * 4 + 96 * n)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                max_abs_err=err, shape=f"N={n} half field "
+                f"{tuple(po.shape)}, has_acc",
+                **bound(nbytes, HOP_FLOPS_PER_SITE * sites * n, bw))
+
+
+def time_cg(dev, bw, n, length):
+    from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
+    from repro_torch.kernels.cg_fused.ref import cg_update_ref, cg_xpay_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    x, r, p, ap = (torch.randn(n, length, generator=gen, device=dev)
+                   for _ in range(4))
+    alpha = torch.linspace(0.2, 0.8, n, device=dev)
+    beta = torch.linspace(0.1, 0.9, n, device=dev)
+    gate = torch.ones(n, dtype=torch.bool, device=dev)
+    out = {}
+    xo, ro, rs = cg_update(alpha, x, r, p, ap)
+    xr, rr, rsr = cg_update_ref(alpha, x, r, p, ap)
+    err = max(max_err(xo, xr), max_err(ro, rr))
+    rel = float(((rs - rsr).abs() / rsr).max())
+    check(err <= CG_TOL and rel <= CG_TOL,
+          f"cg_update main shape N={n}: errors {err}, {rel}")
+    del xo, ro, xr, rr
+    out["cg_update"] = dict(
+        ms=time_ms(lambda: cg_update(alpha, x, r, p, ap), reps=20),
+        plain_ms=time_ms(lambda: cg_update_ref(alpha, x, r, p, ap), reps=5),
+        library_ms=None, max_abs_err=err, norm_rel_err=rel,
+        shape=f"N={n} L={length}",
+        **bound(24.0 * n * length, 5.0 * n * length, bw))
+    gated = n > 1  # the batched solve passes its gate, the single one none
+    g = gate if gated else None
+    po = cg_xpay(beta, r, p, g)
+    err = max_err(po, cg_xpay_ref(beta, r, p, g))
+    check(err <= CG_TOL, f"cg_xpay main shape N={n}: error {err}")
+    del po
+    lib_ms = None
+    if not gated:
+        lib_ms = time_ms(lambda: torch.addcmul(r, beta.view(n, 1), p),
+                         reps=20)
+    out["cg_xpay"] = dict(
+        ms=time_ms(lambda: cg_xpay(beta, r, p, g), reps=20),
+        plain_ms=time_ms(lambda: cg_xpay_ref(beta, r, p, g), reps=5),
+        library_ms=lib_ms, max_abs_err=err,
+        shape=f"N={n} L={length}{' gated' if gated else ''}",
+        **bound(12.0 * n * length, 2.0 * n * length, bw))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: where the time of one solve goes
+# ---------------------------------------------------------------------------
+
+
+def profile_solve(u, b, dev) -> dict:
+    """One traced Wilson N = 1 solve at full size under ``torch.profiler``:
+    device time by kernel (device-side events only: an operator's row
+    would count its kernels twice) and the card's idle share of the
+    solve's wall time, the profiler's own cost included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import plan as plan_mod
+    plan = plan_mod.SolverPlan()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        plan_mod.solve(plan, u, b, MASS, tol=TOL, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / 1e3, ev.count, ev.key[:80]))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if rows else None,
+            "top": [{"ms": ms, "count": n, "name": name}
+                    for ms, n, name in rows[:12]]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); nothing was run", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # phase 0: build
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    for name in libs:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    # phase 1: banner
+    card = smi()
+    bw = copy_bandwidth(dev)
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"device-to-device copy {bw / 1e9:.1f} GB/s")
+
+    # phase 2: kernel checks
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    errs = {"wilson_hop": max(check_hop(dev, gen, (8, 8, 8, 8)),
+                              check_hop(dev, gen, (4, 6, 8, 16)))}
+    errs["cg_update"], errs["cg_xpay"] = check_cg(dev, gen)
+    log("kernels: " + json.dumps({k: {"max_abs_err": v}
+                                  for k, v in errs.items()}))
+
+    # phase 3: goldens
+    log("goldens: " + json.dumps(goldens(dev)))
+
+    # phase 4: main path
+    u, b, batch, runs = main_path(dev)
+    total = {k: sum(r["launches"][k] for r in runs.values())
+             for k in ("wilson_hop", "cg_update", "cg_xpay")}
+
+    # phase 5: timings at the main path's shapes
+    length = b.numel()  # packed reals of one half field: V/2 sites x 24
+    timings = {}
+    for n in (1, 4):
+        t = {"wilson_hop": time_hop(u, b, batch, bw, n)}
+        t.update(time_cg(dev, bw, n, length))
+        timings[n] = t
+        for k, v in t.items():
+            lib = ("none" if v["library_ms"] is None
+                   else f"{v['library_ms']:.4f} ms")
+            log(f"timing {k} {v['shape']}: {v['ms']:.4f} ms, plain "
+                f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+                f"({v['bound_by']}; {v['bound_ms_measured_bw']:.4f} ms at "
+                f"the measured copy rate), library {lib}, max-abs error "
+                f"{v['max_abs_err']:.3e}")
+
+    # phase 6: one traced solve
+    prof = profile_solve(u, b, dev)
+    if prof["top"]:
+        log(f"profile wilson_n1: wall {prof['wall_ms']:.2f} ms (traced), "
+            f"device busy {prof['device_busy_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.3f}")
+        for row in prof["top"]:
+            log(f"  {row['ms']:9.3f} ms  x{row['count']:<5d} {row['name']}")
+    else:
+        log("profile wilson_n1: the profiler recorded no device time "
+            "(not measured)")
+
+    replaces = {
+        "wilson_hop": "src/repro/kernels/wilson_dslash/kernel.py:684",
+        "cg_update": "src/repro/kernels/cg_fused/kernel.py:114",
+        "cg_xpay": "src/repro/kernels/cg_fused/kernel.py:150"}
+    sources = {"wilson_hop": "src/repro_torch/csrc/wilson_hop.cu",
+               "cg_update": "src/repro_torch/csrc/cg_fused.cu",
+               "cg_xpay": "src/repro_torch/csrc/cg_fused.cu"}
+    kernels_line = []
+    for name in ("wilson_hop", "cg_update", "cg_xpay"):
+        t = timings[1][name]
+        kernels_line.append({
+            "name": name, "route": "cuda", "source": sources[name],
+            "replaces": replaces[name], "launches": total[name],
+            "max_abs_err": max(errs[name], t["max_abs_err"],
+                               timings[4][name]["max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": t["shape"],
+            "batched": {k: timings[4][name][k] for k in
+                        ("ms", "plain_ms", "bound_ms", "library_ms",
+                         "shape")}})
+    log("main path runs: " + json.dumps(runs))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": kernels_line}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,25 @@
+"""Hand-written CUDA kernels of the port and their plain versions.
+
+K1 ``wilson_hop`` (:mod:`.wilson_dslash`), K2 ``cg_update`` and K3
+``cg_xpay`` (:mod:`.cg_fused`); :mod:`.build` compiles ``csrc/*.cu``.
+Nothing is built or imported from ``nvcc`` until a kernel is launched.
+"""
+
+from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
+from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
+
+WRAPPERS = {"wilson_hop": wilson_hop, "cg_update": cg_update,
+            "cg_xpay": cg_xpay}
+
+
+def reset_counts() -> None:
+    """Set every wrapper's launch and plain-call counts to 0."""
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+        fn.plain_calls = 0
+
+
+def counts() -> dict[str, dict[str, int]]:
+    """{kernel: {"launches": n, "plain_calls": m}} since the last reset."""
+    return {name: {"launches": fn.launches, "plain_calls": fn.plain_calls}
+            for name, fn in WRAPPERS.items()}

@@ -1,0 +1,107 @@
+"""K2 ``cg_update`` and K3 ``cg_xpay``: wrappers of the fused CG kernels.
+
+The CUDA source is ``repro_torch/csrc/cg_fused.cu`` (its header note says
+what bounds the kernels and how they are laid out).  K2 replaces the
+Pallas kernels ``cg_update_pallas``/``cg_update_batched_pallas`` and K3
+``cg_xpay_pallas``/``cg_xpay_batched_pallas`` of
+``repro/kernels/cg_fused/kernel.py``.
+
+Fields are (N, ...) batches, contiguous, streamed as (N, L) with the
+ragged end masked in the kernel.  For CPU tensors the wrappers run the
+plain versions in :mod:`.ref`, and only then; for CUDA tensors they
+launch the kernel or raise.  Each wrapper counts ``launches`` (one per
+call that launched its kernels — K2's call is a streaming pass plus a
+fixed-order partial-sum pass) and ``plain_calls``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.cg_fused.ref import cg_update_ref, cg_xpay_ref
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.library("cg_fused")
+    p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.cg_update_blocks.argtypes = [n]
+    lib.cg_update_blocks.restype = i
+    lib.cg_update.argtypes = [p] * 9 + [i, n, p]
+    lib.cg_update.restype = i
+    lib.cg_xpay.argtypes = [p] * 5 + [i, n, p]
+    lib.cg_xpay.restype = i
+    return lib
+
+
+def _check(entry: str, fields, scalars):
+    dev = fields[0].device
+    shape = fields[0].shape
+    for v in fields:
+        if (v.device != dev or v.dtype != torch.float32
+                or not v.is_contiguous() or v.shape != shape):
+            raise ValueError(f"{entry}: fields must be contiguous float32 "
+                             f"tensors of one shape on one device; got "
+                             f"{v.dtype} {tuple(v.shape)} on {v.device}")
+    for v in scalars:
+        if v.device != dev or v.shape != (shape[0],):
+            raise ValueError(f"{entry}: per-RHS scalars must be ({shape[0]},)"
+                             f" on {dev}, got {tuple(v.shape)} on {v.device}")
+
+
+def cg_update(alpha: torch.Tensor, x: torch.Tensor, r: torch.Tensor,
+              p: torch.Tensor, ap: torch.Tensor):
+    """(x + a_n p, r - a_n Ap, ||r'_n||^2) for (N, ...) fields, (N,) alpha."""
+    _check("cg_update", (x, r, p, ap), (alpha,))
+    if x.device.type == "cpu":
+        cg_update.plain_calls += 1
+        return cg_update_ref(alpha, x, r, p, ap)
+    lib = _lib()
+    n = x.shape[0]
+    length = x.numel() // n
+    alpha = alpha.to(torch.float32).contiguous()
+    xo, ro = torch.empty_like(x), torch.empty_like(r)
+    partial = torch.empty((n, lib.cg_update_blocks(length)),
+                          dtype=torch.float32, device=x.device)
+    rs = torch.empty(n, dtype=torch.float32, device=x.device)
+    rc = lib.cg_update(alpha.data_ptr(), x.data_ptr(), r.data_ptr(),
+                       p.data_ptr(), ap.data_ptr(), xo.data_ptr(),
+                       ro.data_ptr(), partial.data_ptr(), rs.data_ptr(), n,
+                       length, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, rc, "cg_update")
+    cg_update.launches += 1
+    return xo, ro, rs
+
+
+def cg_xpay(beta: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
+            gate: torch.Tensor | None = None) -> torch.Tensor:
+    """p' = r + b_n p for (N, ...) fields, only where ``gate`` (N,) is set
+    (everywhere when it is None)."""
+    _check("cg_xpay", (r, p), (beta,) if gate is None else (beta, gate))
+    if p.device.type == "cpu":
+        cg_xpay.plain_calls += 1
+        return cg_xpay_ref(beta, r, p, gate)
+    lib = _lib()
+    n = p.shape[0]
+    beta = beta.to(torch.float32).contiguous()
+    if gate is not None:
+        gate = gate.to(torch.uint8).contiguous()
+    po = torch.empty_like(p)
+    rc = lib.cg_xpay(beta.data_ptr(),
+                     gate.data_ptr() if gate is not None else None,
+                     r.data_ptr(), p.data_ptr(), po.data_ptr(), n,
+                     p.numel() // n,
+                     torch.cuda.current_stream(p.device).cuda_stream)
+    build.check(lib, rc, "cg_xpay")
+    cg_xpay.launches += 1
+    return po
+
+
+cg_update.launches = 0
+cg_update.plain_calls = 0
+cg_xpay.launches = 0
+cg_xpay.plain_calls = 0

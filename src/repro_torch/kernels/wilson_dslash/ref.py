@@ -1,0 +1,91 @@
+"""Plain PyTorch versions of the parity hop kernel.
+
+They round-trip through the natural-layout complex operators of
+:mod:`repro_torch.core.wilson` — slow, but independent of the kernel's
+tables and index arithmetic, which is what an oracle should be.  On CPU
+tensors the kernel wrapper (:func:`repro_torch.kernels.wilson_dslash.
+kernel.wilson_hop`) runs :func:`wilson_hop_ref`; ``chip_smoke.py`` holds
+the CUDA kernel against it on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.lattice import (eo_row_offset, pack_spinor,
+                                      unpack_gauge, unpack_spinor)
+from repro_torch.core.operators import (apply_igamma5_packed,
+                                        schur_dagger_g, schur_normal_op_g,
+                                        schur_op_g)
+from repro_torch.core.wilson import _hop_half, apply_gamma5
+
+
+def _per_rhs(fn, v: torch.Tensor, batched: bool) -> torch.Tensor:
+    """Apply a single-RHS natural-layout op to each slice of a batch."""
+    if not batched:
+        return fn(v)
+    return torch.stack([fn(v[n]) for n in range(v.shape[0])])
+
+
+def wilson_hop_ref(u_out: torch.Tensor, u_nbr: torch.Tensor,
+                   psi: torch.Tensor, *, parity: int,
+                   gamma5_in: bool = False, gamma5_out: bool = False,
+                   psi_acc: torch.Tensor | None = None,
+                   acc_coeff: float = 0.0, hop_coeff: float = 1.0,
+                   acc_twist: float = 0.0,
+                   hop_twist: float = 0.0) -> torch.Tensor:
+    """The hop kernel's function on packed half fields (rank 5, or rank 6
+    with a leading RHS axis):
+
+        out = (acc_coeff + acc_twist i g5) psi_acc
+            + (hop_coeff + hop_twist i g5) g5out Hop(g5in psi)
+
+    ``parity`` is the output parity (0: D_eo, 1: D_oe); ``u_out`` holds
+    the links at the output parity's sites, ``u_nbr`` the others.
+    """
+    t, z, y = psi.shape[-5:-2]
+    s_out = eo_row_offset(t, z, y) ^ (int(parity) & 1)
+    uo = unpack_gauge(u_out.to(torch.float32))
+    un = unpack_gauge(u_nbr.to(torch.float32))
+
+    def one(v):
+        if gamma5_in:
+            v = apply_gamma5(v)
+        h = _hop_half(uo, un, v, s_out, 1.0)
+        return apply_gamma5(h) if gamma5_out else h
+
+    v = unpack_spinor(psi.to(torch.float32))
+    hop = pack_spinor(_per_rhs(one, v, psi.dim() == 6), dtype=psi.dtype)
+    out = hop if hop_coeff == 1.0 else hop_coeff * hop
+    if hop_twist != 0.0:
+        out = out + hop_twist * apply_igamma5_packed(hop)
+    if psi_acc is not None:
+        acc = acc_coeff * psi_acc
+        if acc_twist != 0.0:
+            acc = acc + acc_twist * apply_igamma5_packed(psi_acc)
+        out = acc + out
+    return out.to(psi.dtype)
+
+
+def _via_natural(fn, u_e_p, u_o_p, pp):
+    u_e = unpack_gauge(u_e_p.to(torch.float32))
+    u_o = unpack_gauge(u_o_p.to(torch.float32))
+    v = unpack_spinor(pp.to(torch.float32))
+    out = _per_rhs(lambda w: fn(u_e, u_o, w), v, pp.dim() == 6)
+    return pack_spinor(out, dtype=pp.dtype)
+
+
+def schur_op_ref(u_e_p, u_o_p, pp_e, mass, *, twist: float = 0.0,
+                 dagger: bool = False) -> torch.Tensor:
+    """Schur complement D_hat (or D_hat^dag) on packed even half fields."""
+    fn = schur_dagger_g if dagger else schur_op_g
+    return _via_natural(lambda ue, uo, v: fn(ue, uo, v, mass, twist=twist),
+                        u_e_p, u_o_p, pp_e)
+
+
+def schur_normal_op_ref(u_e_p, u_o_p, pp_e, mass, *,
+                        twist: float = 0.0) -> torch.Tensor:
+    """A_hat = D_hat^dag D_hat on packed even half fields."""
+    return _via_natural(
+        lambda ue, uo, v: schur_normal_op_g(ue, uo, v, mass, twist=twist),
+        u_e_p, u_o_p, pp_e)

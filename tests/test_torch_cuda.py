@@ -1,0 +1,104 @@
+"""The port's CUDA kernels on the card against their plain versions.
+
+Marked ``cuda``: these need an NVIDIA card and ``nvcc`` and skip
+elsewhere.  On the machine with the card:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+This file imports nothing of JAX, so it runs where only PyTorch is
+installed.  Tolerances as in chip_smoke.py: hop output max-abs <= 1e-5
+times max(1, max |plain|); CG fields 1e-5 max-abs, norms 1e-5 relative.
+"""
+
+import itertools
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import lattice as tl
+from repro_torch.core import plan as plan_mod
+
+GOLDEN = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "data"
+          / "golden_4x4x4x4_seed7.npz")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False)")
+    from repro_torch.kernels import build
+    build.build_all()
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("flags", list(itertools.product(
+    (0, 1), (False, True), (False, True), (False, True), (False, True))))
+def test_wilson_hop_matches_plain(dev, flags):
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
+    from repro_torch.kernels.wilson_dslash.ref import wilson_hop_ref
+    parity, g5in, g5out, has_acc, twist = flags
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lat = tl.LatticeShape(4, 6, 8, 16)
+    ue, uo = tl.split_eo_gauge(tl.random_gauge(gen, lat))
+    upe, upo = tl.pack_gauge(ue), tl.pack_gauge(uo)
+    psi = tl.pack_spinor(torch.stack(
+        [tl.split_eo(tl.random_spinor(gen, lat))[0] for _ in range(3)]))
+    u_out, u_nbr = (upe, upo) if parity == 0 else (upo, upe)
+    kw = dict(parity=parity, gamma5_in=g5in, gamma5_out=g5out,
+              psi_acc=-psi if has_acc else None,
+              acc_coeff=1.7 if has_acc else 0.0,
+              hop_coeff=-0.3 if (has_acc or twist) else 1.0,
+              hop_twist=0.2 if twist else 0.0,
+              acc_twist=-0.4 if (has_acc and twist) else 0.0)
+    out = wilson_hop(u_out, u_nbr, psi, **kw)
+    ref = wilson_hop_ref(u_out, u_nbr, psi, **kw)
+    err = float((out - ref).abs().max())
+    assert err <= 1e-5 * max(1.0, float(ref.abs().max())), err
+    for i in range(3):
+        kw["psi_acc"] = -psi[i] if has_acc else None
+        assert torch.equal(out[i], wilson_hop(u_out, u_nbr, psi[i], **kw))
+
+
+def test_cg_kernels_match_plain(dev):
+    from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
+    from repro_torch.kernels.cg_fused.ref import cg_update_ref, cg_xpay_ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x, r, p, ap = (torch.randn(3, 54321, generator=gen, device=dev)
+                   for _ in range(4))
+    alpha = torch.tensor([0.4, 0.0, -0.9], device=dev)
+    xo, ro, rs = cg_update(alpha, x, r, p, ap)
+    xr, rr, rsr = cg_update_ref(alpha, x, r, p, ap)
+    assert float((xo - xr).abs().max()) <= 1e-5
+    assert float((ro - rr).abs().max()) <= 1e-5
+    assert float(((rs - rsr).abs() / rsr).max()) <= 1e-5
+    assert torch.equal(xo[1], x[1]) and torch.equal(ro[1], r[1])
+    gate = torch.tensor([True, False, True], device=dev)
+    po = cg_xpay(alpha, r, p, gate)
+    assert float((po - cg_xpay_ref(alpha, r, p, gate)).abs().max()) <= 1e-5
+    assert torch.equal(po[1], p[1])
+
+
+@pytest.mark.parametrize("family,mu,nrhs,golden", [
+    ("wilson", 0.0, None, [14]), ("twisted-mass", 0.25, None, [13]),
+    ("wilson", 0.0, 4, [14] * 4)])
+def test_golden_solves_through_the_kernels(dev, family, mu, nrhs, golden):
+    with np.load(GOLDEN) as f:
+        u, b = tl.fields_from_numpy(f["gauge"], f["b_batch"] if nrhs
+                                    else f["b"], device=dev)
+    plan = plan_mod.SolverPlan(operator_family=family, mu=mu, nrhs=nrhs)
+    kernels.reset_counts()
+    _, st = plan_mod.solve(plan, u, b, 0.1, tol=1e-6, device=dev)
+    its = st.rhs_iterations.tolist() if nrhs else [st.iterations]
+    assert its == golden
+    assert bool(torch.atleast_1d(st.verified).all())
+    c = kernels.counts()
+    k = st.iterations
+    assert c["wilson_hop"] == {"launches": 4 * k + 4, "plain_calls": 0}
+    assert c["cg_update"] == {"launches": k, "plain_calls": 0}
+    assert c["cg_xpay"] == {"launches": k, "plain_calls": 0}
