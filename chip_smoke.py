@@ -3,30 +3,40 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from ``src/repro_torch/csrc`` and drives the
-paper's solve — CGNR on the even-odd Schur complement of the Wilson
-operator — through ``repro_torch.core.plan.solve`` on the card.  Phases:
+Builds the port's kernels from ``src/repro_torch/csrc`` and drives its
+two solve paths through ``repro_torch.core.plan.solve`` on the card: the
+paper's solve, CGNR on the even-odd Schur complement of the Wilson
+operator (``operator="eo-schur"``), and CGNR on the full-lattice normal
+operator (``operator="full"``).  Phases:
 
 0. build every kernel (one ``nvcc`` per source, all at once);
 1. banner: the card's name and power limit, and the measured
    device-to-device copy bandwidth;
 2. kernel checks at 8^4 and 4x6x8x16: each kernel against its plain
-   PyTorch version; the hop kernel batched (N = 3) against three single
-   launches bitwise; frozen lanes and closed gates bitwise;
+   PyTorch version (the hop kernel for every flag set, the full-lattice
+   kernel for every gamma5 flag pair with and without twist); both
+   Wilson kernels batched (N = 3) against three single launches
+   bitwise; frozen lanes and closed gates bitwise;
 3. goldens: the committed 4^4 seed-7 fixture solved through the kernels
-   (14 iterations Wilson, 13 twisted mass mu = 0.25, 14 for each of 4
-   batched RHS), and against the reference backend on the card;
-4. the main path at full size, 64x32x32x32 (T, Z, Y, X), mass 0.1,
-   tol 1e-6: a single-RHS Wilson solve, a 4-RHS Wilson solve and a
-   single-RHS twisted-mass solve; each must converge and verify with a
-   true relative residual below 10 tol, with hop launches 4I+4, update
-   and xpay launches I, and no plain-version call;
+   (even-odd: 14 iterations Wilson, 13 twisted mass mu = 0.25, 14 for
+   each of 4 batched RHS; full lattice: 27 in each case), and against
+   the reference backend on the card;
+4. both paths at full size, 64x32x32x32 (T, Z, Y, X), mass 0.1,
+   tol 1e-6.  Even-odd: a single-RHS Wilson solve, a 4-RHS Wilson solve
+   and a single-RHS twisted-mass solve, with hop launches 4I+4, update
+   and xpay launches I.  Full lattice: a single-RHS Wilson solve, a
+   4-RHS Wilson solve and a single-RHS Wilson solve on packed fields,
+   with full-lattice launches 2I+1 (2I+2 packed, whose verification
+   runs the kernel).  Each solve has every count set to 0 just before
+   it; it must converge and verify with a true relative residual below
+   10 tol, launch no other kernel and call no plain version;
 5. timings at the main path's shapes: each kernel's median time over
    CUDA events, held once more against its plain version on the same
    inputs, beside the plain version's time, its bound and, for the
    ungated xpay, one library call computing the same function;
-6. one traced single-RHS Wilson solve (``torch.profiler``): device time
-   by kernel and the card's idle share of the solve.
+6. one traced single-RHS Wilson solve of each path
+   (``torch.profiler``): device time by kernel and the card's idle
+   share of the solve.
 
 Any failure raises; no phase's error is caught.  The last line is the
 JSON object ``{"ok": true, "device": {...}}``; the line before it lists
@@ -56,6 +66,7 @@ HOP_FLOPS_PER_SITE = 1320        # per output site and RHS (paper §5)
 MAIN_DIMS = (64, 32, 32, 32)     # T, Z, Y, X: the 32^3 x 64 lattice
 MASS, TOL, MU = 0.1, 1e-6, 0.25
 HOP_TOL = 1e-5                   # max-abs over max(1, max |plain|): f32 order
+EO_GOLDEN, FULL_GOLDEN = 14, 27  # 4^4 seed-7 Wilson iterations (JAX reference)
 CG_TOL = 1e-5                    # max-abs on fields, relative on norms
 
 
@@ -173,6 +184,36 @@ def check_hop(dev, gen, dims) -> float:
     return worst
 
 
+def check_full(dev, gen, dims) -> float:
+    from repro_torch.core import lattice as tl
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_full
+    from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
+    lat = tl.LatticeShape(*dims)
+    up = tl.pack_gauge(tl.random_gauge(gen, lat))
+    psi = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                      for _ in range(3)]))
+    worst = 0.0
+    for g5in, g5out, twist in itertools.product((False, True),
+                                                (False, True), (0.0, MU)):
+        kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
+        for n in (1, 3):
+            p = psi[0] if n == 1 else psi
+            out = wilson_full(up, p, MASS, **kw)
+            ref = wilson_full_ref(up, p, MASS, **kw)
+            err = max_err(out, ref)
+            check(err <= HOP_TOL * scale(ref),
+                  f"wilson_full {dims} N={n} {kw}: max-abs error {err}")
+            worst = max(worst, err)
+            if n == 3:
+                for i in range(3):
+                    check(torch.equal(out[i],
+                                      wilson_full(up, psi[i], MASS, **kw)),
+                          f"wilson_full {dims} {kw}: batched RHS {i} "
+                          "differs from its single launch")
+    torch.cuda.synchronize()
+    return worst
+
+
 def check_cg(dev, gen) -> tuple[float, float]:
     from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
     from repro_torch.kernels.cg_fused.ref import cg_update_ref, cg_xpay_ref
@@ -216,7 +257,7 @@ def check_cg(dev, gen) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 
 
-def solve_counted(plan, u, b, dev):
+def solve_counted(plan, u, b, dev, layout="natural"):
     """One solve with every count set to 0 just before and read just after;
     returns (x, stats, counts, wall seconds, peak bytes)."""
     from repro_torch import kernels
@@ -226,17 +267,24 @@ def solve_counted(plan, u, b, dev):
     kernels.reset_counts()
     t0 = time.perf_counter()
     x, st = plan_mod.solve(plan, u, b, MASS, tol=TOL, maxiter=1000,
-                           device=dev)
+                           layout=layout, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.counts()
     return x, st, counts, wall, torch.cuda.max_memory_allocated(dev)
 
 
-def check_launches(name, st, counts):
-    k = st.iterations
-    want = {"wilson_hop": 4 * k + 4, "cg_update": k, "cg_xpay": k}
-    for kern, n in want.items():
+def want_launches(plan, k: int, layout="natural") -> dict:
+    """Kernel launches of a k-iteration solve; every other kernel runs 0."""
+    if plan.operator == "full":
+        return {"wilson_full": 2 * k + 1 + (layout == "packed")}
+    return {"wilson_hop": 4 * k + 4, "cg_update": k, "cg_xpay": k}
+
+
+def check_launches(name, st, counts, plan, layout="natural"):
+    want = want_launches(plan, st.iterations, layout)
+    for kern in counts:
+        n = want.get(kern, 0)
         got = counts[kern]
         check(got["launches"] == n, f"{name}: {kern} launched "
                                     f"{got['launches']} times, want {n}")
@@ -269,19 +317,26 @@ def goldens(dev):
         u, b = fields_from_numpy(f["gauge"], f["b"], device=dev)
         _, batch = fields_from_numpy(f["gauge"], f["b_batch"], device=dev)
     out = {}
+    SP = plan_mod.SolverPlan
     for name, plan, rhs, want in (
-            ("eo_smoke", plan_mod.SolverPlan(), b, [14]),
-            ("eo_smoke_tm", plan_mod.SolverPlan(
-                operator_family="twisted-mass", mu=MU), b, [13]),
-            ("batch_sweep_n4", plan_mod.SolverPlan(nrhs=4), batch,
-             [14] * 4)):
+            ("eo_smoke", SP(), b, [EO_GOLDEN]),
+            ("eo_smoke_tm", SP(operator_family="twisted-mass", mu=MU), b,
+             [13]),
+            ("batch_sweep_n4", SP(nrhs=4), batch, [EO_GOLDEN] * 4),
+            ("full_smoke", SP(operator="full"), b, [FULL_GOLDEN]),
+            ("full_smoke_tm", SP(operator="full",
+                                 operator_family="twisted-mass", mu=MU), b,
+             [FULL_GOLDEN]),
+            ("full_batch_n4", SP(operator="full", nrhs=4), batch,
+             [FULL_GOLDEN] * 4)):
         x, st, counts, _, _ = solve_counted(plan, u, rhs, dev)
         its = (st.rhs_iterations.tolist() if plan.batched
                else [st.iterations])
         check(its == want, f"golden {name}: iterations {its}, want {want}")
         check_solve(name, st, rel_res(st, rhs, plan.batched))
-        check_launches(name, st, counts)
-        ref_plan = plan_mod.SolverPlan(operator_family=plan.operator_family,
+        check_launches(name, st, counts, plan)
+        ref_plan = plan_mod.SolverPlan(operator=plan.operator,
+                                       operator_family=plan.operator_family,
                                        mu=plan.mu, nrhs=plan.nrhs,
                                        backend="reference")
         xr, _ = plan_mod.solve(ref_plan, u, rhs, MASS, tol=TOL, device=dev)
@@ -306,15 +361,24 @@ def main_path(dev):
         f"and f32 packed alike); RHS {b.numel() * 8 / 1e6:.0f} MB natural, "
         f"{b.numel() * 4 / 1e6:.0f} MB per packed half field")
     runs = {}
-    for name, plan, rhs in (
-            ("wilson_n1", plan_mod.SolverPlan(), b),
-            ("wilson_n4", plan_mod.SolverPlan(nrhs=4), batch),
-            ("twisted_mass_n1", plan_mod.SolverPlan(
-                operator_family="twisted-mass", mu=MU), b)):
-        x, st, counts, wall, peak = solve_counted(plan, u, rhs, dev)
+    SP = plan_mod.SolverPlan
+    for name, plan, rhs, layout in (
+            ("wilson_n1", SP(), b, "natural"),
+            ("wilson_n4", SP(nrhs=4), batch, "natural"),
+            ("twisted_mass_n1", SP(operator_family="twisted-mass", mu=MU), b,
+             "natural"),
+            ("full_wilson_n1", SP(operator="full"), b, "natural"),
+            ("full_wilson_n4", SP(operator="full", nrhs=4), batch,
+             "natural"),
+            ("full_wilson_n1_packed", SP(operator="full"), b, "packed")):
+        gauge = u
+        if layout == "packed":
+            gauge, rhs = tl.pack_gauge(u), tl.pack_spinor(rhs)
+        x, st, counts, wall, peak = solve_counted(plan, gauge, rhs, dev,
+                                                  layout)
         rel = rel_res(st, rhs, plan.batched)
         check_solve(name, st, rel)
-        check_launches(name, st, counts)
+        check_launches(name, st, counts, plan, layout)
         its = st.rhs_iterations.tolist() if plan.batched else [st.iterations]
         log(f"main path {name}: iterations {its} (loop {st.iterations}), "
             f"true rel_res {[f'{r:.3e}' for r in rel]}, wall "
@@ -324,7 +388,7 @@ def main_path(dev):
                           wall_s=wall, peak_bytes=peak,
                           launches={k: v["launches"]
                                     for k, v in counts.items()})
-        del x, st
+        del x, st, gauge
     return u, b, batch, runs
 
 
@@ -378,6 +442,36 @@ def time_hop(u, b, batch, bw, n):
                 **bound(nbytes, HOP_FLOPS_PER_SITE * sites * n, bw))
 
 
+def time_full(u, b, batch, bw, n):
+    from repro_torch.core import lattice as tl
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_full
+    from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
+    up = tl.pack_gauge(u)
+    pp = tl.pack_spinor(b if n == 1 else batch)
+    # the normal operator's second launch: D^dag with both gamma5 flags
+    kw = dict(gamma5_in=True, gamma5_out=True)
+    out = wilson_full(up, pp, MASS, **kw)
+    ref = wilson_full_ref(up, pp, MASS, **kw)
+    err = max_err(out, ref)
+    check(err <= HOP_TOL * scale(ref), f"wilson_full main shape N={n}: "
+                                       f"error {err}")
+    del out, ref
+    ms = time_ms(lambda: wilson_full(up, pp, MASS, **kw), reps=20)
+    plain_ms = time_ms(lambda: wilson_full_ref(up, pp, MASS, **kw), reps=3,
+                       warmup=1)
+    sites = pp.shape[-5] * pp.shape[-4] * pp.shape[-3] * pp.shape[-1]
+    # each input read once: 4 links (72 floats) a site, 24 in and 24 out
+    # per RHS; the JAX package's dslash_intensity model also counts each
+    # link twice (forward and backward hop), (144/N + 48) floats per RHS
+    nbytes = sites * (72 + 48 * n) * 4
+    model_bytes = sites * (144 + 48 * n) * 4
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
+                shape=f"N={n} field {tuple(pp.shape)}, dagger",
+                bound_ms_intensity_model=model_bytes / PEAK_BYTES_PER_S * 1e3,
+                bound_ms_intensity_model_measured_bw=model_bytes / bw * 1e3,
+                **bound(nbytes, HOP_FLOPS_PER_SITE * sites * n, bw))
+
+
 def time_cg(dev, bw, n, length):
     from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
     from repro_torch.kernels.cg_fused.ref import cg_update_ref, cg_xpay_ref
@@ -426,7 +520,7 @@ def time_cg(dev, bw, n, length):
 # ---------------------------------------------------------------------------
 
 
-def profile_solve(u, b, dev) -> dict:
+def profile_solve(plan, u, b, dev) -> dict:
     """One traced Wilson N = 1 solve at full size under ``torch.profiler``:
     device time by kernel (device-side events only: an operator's row
     would count its kernels twice) and the card's idle share of the
@@ -434,7 +528,6 @@ def profile_solve(u, b, dev) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import plan as plan_mod
-    plan = plan_mod.SolverPlan()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -490,6 +583,8 @@ def main() -> int:
     errs = {"wilson_hop": max(check_hop(dev, gen, (8, 8, 8, 8)),
                               check_hop(dev, gen, (4, 6, 8, 16)))}
     errs["cg_update"], errs["cg_xpay"] = check_cg(dev, gen)
+    errs["wilson_full"] = max(check_full(dev, gen, (8, 8, 8, 8)),
+                              check_full(dev, gen, (4, 6, 8, 16)))
     log("kernels: " + json.dumps({k: {"max_abs_err": v}
                                   for k, v in errs.items()}))
 
@@ -498,8 +593,8 @@ def main() -> int:
 
     # phase 4: main path
     u, b, batch, runs = main_path(dev)
-    total = {k: sum(r["launches"][k] for r in runs.values())
-             for k in ("wilson_hop", "cg_update", "cg_xpay")}
+    names = ("wilson_hop", "cg_update", "cg_xpay", "wilson_full")
+    total = {k: sum(r["launches"][k] for r in runs.values()) for k in names}
 
     # phase 5: timings at the main path's shapes
     length = b.numel()  # packed reals of one half field: V/2 sites x 24
@@ -507,6 +602,7 @@ def main() -> int:
     for n in (1, 4):
         t = {"wilson_hop": time_hop(u, b, batch, bw, n)}
         t.update(time_cg(dev, bw, n, length))
+        t["wilson_full"] = time_full(u, b, batch, bw, n)
         timings[n] = t
         for k, v in t.items():
             lib = ("none" if v["library_ms"] is None
@@ -516,28 +612,39 @@ def main() -> int:
                 f"({v['bound_by']}; {v['bound_ms_measured_bw']:.4f} ms at "
                 f"the measured copy rate), library {lib}, max-abs error "
                 f"{v['max_abs_err']:.3e}")
+            if "bound_ms_intensity_model" in v:
+                log(f"  {k} dslash_intensity-model bound "
+                    f"{v['bound_ms_intensity_model']:.4f} ms "
+                    f"({v['bound_ms_intensity_model_measured_bw']:.4f} ms "
+                    "at the measured copy rate)")
 
-    # phase 6: one traced solve
-    prof = profile_solve(u, b, dev)
-    if prof["top"]:
-        log(f"profile wilson_n1: wall {prof['wall_ms']:.2f} ms (traced), "
-            f"device busy {prof['device_busy_ms']:.2f} ms, idle share "
-            f"{prof['idle_share']:.3f}")
-        for row in prof["top"]:
-            log(f"  {row['ms']:9.3f} ms  x{row['count']:<5d} {row['name']}")
-    else:
-        log("profile wilson_n1: the profiler recorded no device time "
-            "(not measured)")
+    # phase 6: one traced solve of each path
+    from repro_torch.core.plan import SolverPlan
+    for name, plan in (("wilson_n1", SolverPlan()),
+                       ("full_wilson_n1", SolverPlan(operator="full"))):
+        prof = profile_solve(plan, u, b, dev)
+        if prof["top"]:
+            log(f"profile {name}: wall {prof['wall_ms']:.2f} ms (traced), "
+                f"device busy {prof['device_busy_ms']:.2f} ms, idle share "
+                f"{prof['idle_share']:.3f}")
+            for row in prof["top"]:
+                log(f"  {row['ms']:9.3f} ms  x{row['count']:<5d} "
+                    f"{row['name']}")
+        else:
+            log(f"profile {name}: the profiler recorded no device time "
+                "(not measured)")
 
     replaces = {
         "wilson_hop": "src/repro/kernels/wilson_dslash/kernel.py:684",
         "cg_update": "src/repro/kernels/cg_fused/kernel.py:114",
-        "cg_xpay": "src/repro/kernels/cg_fused/kernel.py:150"}
+        "cg_xpay": "src/repro/kernels/cg_fused/kernel.py:150",
+        "wilson_full": "src/repro/kernels/wilson_dslash/kernel.py:505"}
     sources = {"wilson_hop": "src/repro_torch/csrc/wilson_hop.cu",
                "cg_update": "src/repro_torch/csrc/cg_fused.cu",
-               "cg_xpay": "src/repro_torch/csrc/cg_fused.cu"}
+               "cg_xpay": "src/repro_torch/csrc/cg_fused.cu",
+               "wilson_full": "src/repro_torch/csrc/wilson_full.cu"}
     kernels_line = []
-    for name in ("wilson_hop", "cg_update", "cg_xpay"):
+    for name in names:
         t = timings[1][name]
         kernels_line.append({
             "name": name, "route": "cuda", "source": sources[name],

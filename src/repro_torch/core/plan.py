@@ -1,23 +1,31 @@
 """SolverPlan — the one declarative entry point of the port's solve stack.
 
 A :class:`SolverPlan` names a solve as data (operator, operator family,
-backend, batch shape, precision, mesh) and :func:`solve` runs it.  This
-slice of the port carries the paper's own solve: CGNR on the even-odd
-Schur complement, single device, single precision, one RHS or a masked
-batch, for every registered operator family.
+backend, batch shape, precision, mesh) and :func:`solve` runs it.  The
+port carries two operators, single device, single precision, one RHS or
+a masked batch, for every registered operator family:
+
+* ``"eo-schur"`` (default) — the paper's solve: CGNR on the even-odd
+  Schur complement (:func:`_solve_eo`);
+* ``"full"`` — CGNR on the full-lattice normal operator D^dag D
+  (:func:`_solve_full`), in the natural layout or, with
+  ``layout="packed"``, on packed real fields in and out.
 
 Backends:
 
-* ``"kernels"`` (default) — packed half fields through the port's CUDA
+* ``"kernels"`` (default) — packed fields through the port's CUDA
   kernels: the parity hop kernel (four launches per Schur normal matvec)
-  and the fused CG vector kernels.  On CPU tensors each kernel's plain
-  PyTorch version runs instead.
-* ``"reference"`` — natural-layout complex tensors and the plain einsum
-  operators: the port's oracle.
+  and the fused CG vector kernels, or the full-lattice kernel (two
+  launches per normal matvec, plain vector algebra as in the JAX
+  package).  On CPU tensors each kernel's plain PyTorch version runs
+  instead.
+* ``"reference"`` — the plain operators: natural-layout complex einsums
+  for ``"eo-schur"``, the packed einsum operator for ``"full"``.
 
-Plan fields outside the slice raise ``NotImplementedError`` naming their
-ROADMAP item.  Every solve ends with one verification matvec of the
-natural-layout operator (:func:`_attach_verification`).
+Plan fields outside the port raise ``NotImplementedError`` naming their
+ROADMAP item.  Every solve ends with one verification matvec
+(:func:`_attach_verification`): the natural-layout operator, or for
+``layout="packed"`` the full-lattice kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ import torch
 from repro_torch.core import solvers
 from repro_torch.core.eo import EOContext, eo_context
 from repro_torch.core.lattice import (field_norm2, field_norm2_batched,
-                                      resolve_device)
+                                      pack_gauge, pack_spinor,
+                                      resolve_device, unpack_spinor)
 from repro_torch.core.operators import (SiteTerm, dslash_g, get_operator,
                                         unknown_name)
 
@@ -42,8 +51,6 @@ _PRECISIONS = ("single", "mixed", "low")
 
 # where each plan field outside this slice is scheduled (ROADMAP.md)
 _NOT_PORTED = {
-    "full": "operator='full' needs the full-lattice hop kernel (B6); "
-            "ROADMAP Queue A item 7",
     "mesh": "mesh plans are multi-device; ROADMAP Queue A item 12",
     "mixed": "precision='mixed' (reliable-update mpcg) is ROADMAP Queue A "
              "item 8",
@@ -63,7 +70,7 @@ class SolverPlan:
 
     Fields:
       operator:  "eo-schur" (CGNR on the half-size Schur complement) or
-        "full" (not ported yet).
+        "full" (CGNR on the full-lattice normal operator).
       operator_family: a registered lattice operator ("wilson",
         "twisted-mass"); ``mu`` is the twisted-mass parameter.
       backend:   "kernels" (packed fields, CUDA kernels) or "reference".
@@ -143,6 +150,10 @@ def _family_site(plan: SolverPlan, mass) -> SiteTerm:
 def resolve(plan: SolverPlan, u: Tensor, mass, *,
             out_dtype=torch.complex64) -> EOContext:
     """Resolve an even-odd plan to its bound blocks, converters and engine."""
+    if plan.operator != "eo-schur":
+        raise ValueError("resolve() returns the even-odd context; "
+                         f"plan.operator={plan.operator!r} resolves inside "
+                         "solve()")
     return eo_context(u, mass, r=plan.r,
                       twist=_family_site(plan, mass).twist,
                       use_kernels=plan.backend == "kernels",
@@ -156,19 +167,28 @@ VERIFY_FACTOR = 10.0
 
 
 def _attach_verification(plan: SolverPlan, u: Tensor, b: Tensor, mass,
-                         x: Tensor, stats: solvers.SolveStats,
-                         tol) -> solvers.SolveStats:
-    """One extra matvec: the true residual of ``D x = b`` through the
-    natural-layout operator of the family, independent of the Schur
-    transform the solver iterated on.  Fills ``true_residual_norm2`` and
+                         x: Tensor, stats: solvers.SolveStats, tol,
+                         layout: str = "natural") -> solvers.SolveStats:
+    """One extra matvec: the true residual of ``D x = b``.
+
+    The oracle is the family's natural-layout ``dslash_g``, independent
+    of the Schur and normal-equation transforms the solver iterated on
+    and of the kernels, so a broken transport cannot vouch for itself.
+    Packed solves verify through the full-lattice kernel, the same
+    operator on the wire format.  Fills ``true_residual_norm2`` and
     ``verified`` and turns the verdict NONFINITE when the true residual
     is not finite."""
     site = _family_site(plan, mass)
-    apply_d = lambda v: dslash_g(u, v, mass, r=plan.r, twist=site.twist)
-    if plan.batched:
-        ax = torch.stack([apply_d(x[n]) for n in range(x.shape[0])])
+    if layout == "packed":
+        from repro_torch.kernels.wilson_dslash import ops as wops
+        ax = wops.dslash(u, x, float(mass), twist=site.twist,
+                         use_kernels=plan.backend == "kernels")
     else:
-        ax = apply_d(x)
+        apply_d = lambda v: dslash_g(u, v, mass, r=plan.r, twist=site.twist)
+        if plan.batched:
+            ax = torch.stack([apply_d(x[n]) for n in range(x.shape[0])])
+        else:
+            ax = apply_d(x)
     r_true = b - ax.to(b.dtype)
     norm2_fn = field_norm2_batched if plan.batched else field_norm2
     rs_true = norm2_fn(r_true).real
@@ -185,11 +205,12 @@ def _attach_verification(plan: SolverPlan, u: Tensor, b: Tensor, mass,
                           verdict=verdict)
 
 
-def _check_batch_shape(plan: SolverPlan, b: Tensor):
-    want = 7 if plan.batched else 6
+def _check_batch_shape(plan: SolverPlan, b: Tensor, layout: str):
+    base = 6 if layout == "natural" else 5
+    want = base + 1 if plan.batched else base
     if b.dim() != want:
         raise ValueError(
-            f"plan.nrhs={plan.nrhs} expects a rank-{want} natural RHS, "
+            f"plan.nrhs={plan.nrhs} expects a rank-{want} {layout} RHS, "
             f"got shape {tuple(b.shape)}")
     if plan.batched and b.shape[0] != plan.nrhs:
         raise ValueError(f"plan.nrhs={plan.nrhs} but RHS batch axis has "
@@ -197,22 +218,30 @@ def _check_batch_shape(plan: SolverPlan, b: Tensor):
 
 
 def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
-          maxiter: int = 1000, checkpoint=None, deflation=None,
-          device="cuda") -> tuple[Tensor, solvers.SolveStats]:
+          maxiter: int = 1000, layout: str = "natural", checkpoint=None,
+          deflation=None, device="cuda") -> tuple[Tensor, solvers.SolveStats]:
     """Execute a :class:`SolverPlan`.
 
     Args:
-      u, b: natural-layout gauge field (4,T,Z,Y,X,3,3) and right-hand
-        side (T,Z,Y,X,4,3), with a leading N axis when ``plan.nrhs`` is
-        set; tensors or arrays, moved to ``device``.
+      u, b: gauge field and right-hand side, tensors or arrays, moved to
+        ``device``.  ``layout="natural"``: complex (4,T,Z,Y,X,3,3) and
+        (T,Z,Y,X,4,3); ``layout="packed"`` (the full operator only):
+        float32 (4,T,Z,Y,18,X) and (T,Z,Y,24,X).  The RHS has a leading
+        N axis when ``plan.nrhs`` is set.
       tol/maxiter: CG stopping rule (relative, per RHS when batched).
       checkpoint/deflation: not ported yet; anything but None raises.
       device: where the solve runs, ``"cuda"`` unless the caller asks for
         ``"cpu"`` (then each kernel's plain version runs).
     Returns:
-      (x, SolveStats): x natural layout like ``b``; per-RHS stats fields
+      (x, SolveStats): x in the layout of ``b``; per-RHS stats fields
       when batched.
     """
+    if layout not in ("natural", "packed"):
+        raise ValueError(f"layout must be 'natural' or 'packed', "
+                         f"got {layout!r}")
+    if layout == "packed" and plan.operator != "full":
+        raise ValueError("layout='packed' is the full-operator contract; "
+                         "the even-odd path takes natural-layout fields")
     for name, value in (("checkpoint", checkpoint),
                         ("deflation", deflation)):
         if value is not None:
@@ -221,9 +250,14 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
     dev = resolve_device(device)
     u = torch.as_tensor(u, device=dev)
     b = torch.as_tensor(b, device=dev)
-    _check_batch_shape(plan, b)
-    x, stats = _solve_eo(plan, u, b, mass, tol=tol, maxiter=maxiter)
-    return x, _attach_verification(plan, u, b, mass, x, stats, tol)
+    _check_batch_shape(plan, b, layout)
+    if plan.operator == "full":
+        x, stats = _solve_full(plan, u, b, mass, tol=tol, maxiter=maxiter,
+                               layout=layout)
+    else:
+        x, stats = _solve_eo(plan, u, b, mass, tol=tol, maxiter=maxiter)
+    return x, _attach_verification(plan, u, b, mass, x, stats, tol,
+                                   layout=layout)
 
 
 def _solve_eo(plan, u, b, mass, *, tol, maxiter):
@@ -237,3 +271,29 @@ def _solve_eo(plan, u, b, mass, *, tol, maxiter):
         ops.dhat, ops.dhat_dag, ops.d_eo, ops.d_oe, ops.m_inv, b_e, b_o,
         tol=tol, maxiter=maxiter, batched=ctx.batched, **engine)
     return ctx.finish(x_e, x_o), stats
+
+
+def _solve_full(plan, u, b, mass, *, tol, maxiter, layout):
+    """CGNR on D^dag D over packed full-lattice fields: the right-hand side
+    D^dag b is one launch of the full-lattice kernel, every iteration two,
+    and the vector algebra is plain tensor code, as in the JAX package."""
+    from repro_torch.kernels.wilson_dslash import ops as wops
+
+    if plan.r != 1.0:
+        raise NotImplementedError(
+            "the full-lattice operator hard-codes r=1 (its spin-projection "
+            f"tables need the rank-2 projectors (1 -+ gamma_mu)); got "
+            f"r={plan.r}")
+    packed_in = layout == "packed"
+    up = u if packed_in else pack_gauge(u)
+    pp = b if packed_in else pack_spinor(b)
+    m = float(mass)
+    kw = dict(twist=_family_site(plan, mass).twist,
+              use_kernels=plan.backend == "kernels")
+    x, stats = solvers.cgnr(lambda v: wops.dslash(up, v, m, **kw),
+                            lambda v: wops.dslash_dagger(up, v, m, **kw),
+                            pp, tol=tol, maxiter=maxiter,
+                            batched=plan.batched)
+    if packed_in:
+        return x, stats
+    return unpack_spinor(x, dtype=b.dtype), stats

@@ -1,5 +1,5 @@
 """Krylov solvers of the main path: CG with an injectable vector engine,
-and even-odd Schur-preconditioned CGNR.
+CGNR on the full lattice and even-odd Schur-preconditioned CGNR.
 
 The JAX package runs its loop in ``lax.while_loop`` with no host syncs.
 Here the loop is Python: ``cond`` reads the stop test (one small
@@ -221,6 +221,23 @@ def cg(op: Op, b: Tensor, x0: Tensor | None = None, *,
     while parts.cond(carry):
         carry = parts.body(carry)
     return parts.finish(carry)
+
+
+# ---------------------------------------------------------------------------
+# CGNR: CG on the normal equations (the paper's solver for Dirac-Wilson)
+# ---------------------------------------------------------------------------
+
+
+def cgnr(d_op: Op, d_dag_op: Op, b: Tensor, **kw
+         ) -> tuple[Tensor, SolveStats]:
+    """Solve D x = b for non-Hermitian D via D^dag D x = D^dag b.
+
+    Keyword arguments forward to :func:`cg`; for a batched solve the
+    operators take the leading RHS axis.  Operator work: one ``d_dag_op``
+    for the right-hand side, one ``d_op`` and one ``d_dag_op`` per
+    iteration.
+    """
+    return cg(lambda v: d_dag_op(d_op(v)), d_dag_op(b), **kw)
 
 
 # ---------------------------------------------------------------------------

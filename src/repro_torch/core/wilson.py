@@ -1,4 +1,5 @@
-"""The Dirac-Wilson operator, natural layout (PyTorch reference).
+"""The Dirac-Wilson operator in the natural and packed layouts (PyTorch
+reference).
 
 Operator convention (r = Wilson parameter, m = bare mass)::
 
@@ -14,7 +15,9 @@ complement follow the JAX package::
 
 These complex einsum forms are the port's correctness oracles: the plain
 versions of the hop kernel run through them, and the solve's verification
-matvec is the full-lattice ``dslash`` below.
+matvec is the full-lattice ``dslash`` below.  The packed real forms
+(``dslash_packed`` and its dagger and normal operator) are the plain
+version of the full-lattice kernel.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.lattice import NCOL, NDIRS, SPINOR_S, eo_row_offset
+from repro_torch.core.lattice import (NCOL, NDIRS, NSPIN, SPINOR_S,
+                                      eo_row_offset)
 
 # ---------------------------------------------------------------------------
 # Gamma matrices, DeGrand-Rossi basis, order (t, z, y, x) = axes (0,1,2,3)
@@ -93,6 +97,18 @@ def apply_gamma5(psi: torch.Tensor) -> torch.Tensor:
     sign = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=psi.dtype,
                         device=psi.device)
     return psi * sign[:, None]
+
+
+def dslash_dagger(u: torch.Tensor, psi: torch.Tensor, mass,
+                  r: float = 1.0) -> torch.Tensor:
+    """D^dag psi = gamma5 D gamma5 psi."""
+    return apply_gamma5(dslash(u, apply_gamma5(psi), mass, r=r))
+
+
+def normal_op(u: torch.Tensor, psi: torch.Tensor, mass,
+              r: float = 1.0) -> torch.Tensor:
+    """A = D^dag D, Hermitian positive definite: the CGNR operator."""
+    return dslash_dagger(u, dslash(u, psi, mass, r=r), mass, r=r)
 
 
 # ---------------------------------------------------------------------------
@@ -170,8 +186,114 @@ def schur_normal_op(u_e, u_o, psi_e, mass, r: float = 1.0) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Packed layout
+# Packed layout (real arithmetic, the kernels' wire format)
 # ---------------------------------------------------------------------------
+
+def _split_packed_spinor(p: torch.Tensor):
+    """(T,Z,Y,24,X) -> re, im each (T,Z,Y,4,3,X)."""
+    t, z, y, s, x = p.shape
+    q = p.reshape(t, z, y, NSPIN, NCOL, 2, x)
+    return q[..., 0, :], q[..., 1, :]
+
+
+def _merge_packed_spinor(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_split_packed_spinor`."""
+    t, z, y, s, c, x = re.shape
+    return torch.stack([re, im], dim=5).reshape(t, z, y, s * c * 2, x)
+
+
+def _split_packed_gauge(up: torch.Tensor):
+    """(4,T,Z,Y,18,X) -> re, im each (4,T,Z,Y,3,3,X)."""
+    d, t, z, y, g, x = up.shape
+    q = up.reshape(d, t, z, y, NCOL, NCOL, 2, x)
+    return q[..., 0, :], q[..., 1, :]
+
+
+# spinor re/im arrays are (T,Z,Y,spin,color,X) and per-mu gauge ones
+# (T,Z,Y,row,col,X): the axis each direction rolls along
+_ROLL_AXIS = {0: 0, 1: 1, 2: 2, 3: 5}
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Narrow storage, f32 sums; f64 stays f64."""
+    return (torch.float32 if dtype in (torch.bfloat16, torch.float16,
+                                       torch.float32) else dtype)
+
+
+def _link_times(ur, ui, pr, pi, dag: bool):
+    """(U or U^dag) psi over colour, complex numbers as (re, im) pairs:
+    links (T,Z,Y,3,3,X), spinors (T,Z,Y,4,3,X)."""
+    sub = "tzybax,tzysbx->tzysax" if dag else "tzyabx,tzysbx->tzysax"
+
+    def e(a, b):
+        return torch.einsum(sub, a, b)
+
+    if dag:
+        return e(ur, pr) + e(ui, pi), e(ur, pi) - e(ui, pr)
+    return e(ur, pr) - e(ui, pi), e(ur, pi) + e(ui, pr)
+
+
+def _spin_times(mat: np.ndarray, hr, hi):
+    """A constant complex 4x4 on the spin axis (3) of (re, im) pairs."""
+    mr = torch.from_numpy(np.ascontiguousarray(np.real(mat))).to(hr)
+    mi = torch.from_numpy(np.ascontiguousarray(np.imag(mat))).to(hr)
+
+    def e(m, h):
+        return torch.einsum("sp,tzypcx->tzyscx", m, h)
+
+    return e(mr, hr) - e(mi, hi), e(mr, hi) + e(mi, hr)
+
+
+def hop_term_packed(u_mu: torch.Tensor, psi_nbr: torch.Tensor, mu: int,
+                    forward: bool, r: float = 1.0) -> torch.Tensor:
+    """One hop's contribution ``-1/2 (r -+ gamma_mu) U psi`` on pre-aligned
+    packed fields (no shifts here: the caller aligns the neighbours).
+
+    ``u_mu`` (T,Z,Y,18,X) is U_mu at the output site (forward hop) or at
+    the neighbour site (backward hop, daggered here); ``psi_nbr``
+    (T,Z,Y,24,X) is psi at the neighbour site.  Sums in f32 for narrow
+    storage; the result has ``psi_nbr``'s dtype.
+    """
+    acc = _acc_dtype(psi_nbr.dtype)
+    pm, pp = _projectors(r)
+    t, z, y, s, x = psi_nbr.shape
+    q = psi_nbr.reshape(t, z, y, NSPIN, NCOL, 2, x).to(acc)
+    g = u_mu.reshape(t, z, y, NCOL, NCOL, 2, x).to(acc)
+    hr, hi = _link_times(g[..., 0, :], g[..., 1, :], q[..., 0, :],
+                         q[..., 1, :], dag=not forward)
+    outr, outi = _spin_times(pm[mu] if forward else pp[mu], hr, hi)
+    out = torch.stack([outr, outi], dim=5).reshape(t, z, y, s, x)
+    return (-0.5 * out).to(psi_nbr.dtype)
+
+
+def dslash_packed(up: torch.Tensor, pp: torch.Tensor, mass,
+                  r: float = 1.0) -> torch.Tensor:
+    """The Dirac-Wilson operator on the packed real layout.
+
+    ``up`` (4,T,Z,Y,18,X), ``pp`` (T,Z,Y,24,X); returns packed D psi with
+    ``pp``'s shape and dtype.  Every contraction sums in f32 (f64 for f64
+    fields) whatever the storage dtype.
+    """
+    acc = _acc_dtype(pp.dtype)
+    pm, pp_c = _projectors(r)
+    pr, pi = (a.to(acc) for a in _split_packed_spinor(pp))
+    ur, ui = (a.to(acc) for a in _split_packed_gauge(up))
+    m = mass + 4.0 * r
+    outr, outi = m * pr, m * pi
+    for mu in range(NDIRS):
+        ax = _ROLL_AXIS[mu]
+        hr, hi = _link_times(ur[mu], ui[mu], torch.roll(pr, -1, ax),
+                             torch.roll(pi, -1, ax), dag=False)
+        hr, hi = _spin_times(pm[mu], hr, hi)
+        outr, outi = outr - 0.5 * hr, outi - 0.5 * hi
+        hr, hi = _link_times(torch.roll(ur[mu], 1, ax),
+                             torch.roll(ui[mu], 1, ax),
+                             torch.roll(pr, 1, ax), torch.roll(pi, 1, ax),
+                             dag=True)
+        hr, hi = _spin_times(pp_c[mu], hr, hi)
+        outr, outi = outr - 0.5 * hr, outi - 0.5 * hi
+    return _merge_packed_spinor(outr.to(pp.dtype), outi.to(pp.dtype))
+
 
 def apply_gamma5_packed(p: torch.Tensor) -> torch.Tensor:
     """gamma5 on a packed field's S axis (-2); leading axes pass through."""
@@ -182,3 +304,25 @@ def apply_gamma5_packed(p: torch.Tensor) -> torch.Tensor:
                         device=p.device).repeat_interleave(NCOL * 2)
     return p * sign[:, None]
 
+
+def dslash_dagger_packed(up: torch.Tensor, pp: torch.Tensor, mass,
+                         r: float = 1.0) -> torch.Tensor:
+    """D^dag = gamma5 D gamma5 on the packed layout."""
+    return apply_gamma5_packed(
+        dslash_packed(up, apply_gamma5_packed(pp), mass, r=r))
+
+
+def normal_op_packed(up: torch.Tensor, pp: torch.Tensor, mass,
+                     r: float = 1.0) -> torch.Tensor:
+    """A = D^dag D on the packed layout."""
+    return dslash_dagger_packed(up, dslash_packed(up, pp, mass, r=r), mass,
+                                r=r)
+
+
+# Flops per lattice site of one dslash: the standard count for the r = 1
+# Wilson dslash with spin projection (the paper's GFLOP/s convention).
+DSLASH_FLOPS_PER_SITE = 1320
+
+
+def dslash_flops(volume: int) -> int:
+    return DSLASH_FLOPS_PER_SITE * volume

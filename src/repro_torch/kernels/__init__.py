@@ -1,15 +1,16 @@
 """Hand-written CUDA kernels of the port and their plain versions.
 
-K1 ``wilson_hop`` (:mod:`.wilson_dslash`), K2 ``cg_update`` and K3
-``cg_xpay`` (:mod:`.cg_fused`); :mod:`.build` compiles ``csrc/*.cu``.
+K1 ``wilson_hop`` and K4 ``wilson_full`` (:mod:`.wilson_dslash`), K2
+``cg_update`` and K3 ``cg_xpay`` (:mod:`.cg_fused`); :mod:`.build`
+compiles ``csrc/*.cu``.
 Nothing is built or imported from ``nvcc`` until a kernel is launched.
 """
 
 from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
-from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
+from repro_torch.kernels.wilson_dslash.kernel import wilson_full, wilson_hop
 
 WRAPPERS = {"wilson_hop": wilson_hop, "cg_update": cg_update,
-            "cg_xpay": cg_xpay}
+            "cg_xpay": cg_xpay, "wilson_full": wilson_full}
 
 
 def reset_counts() -> None:

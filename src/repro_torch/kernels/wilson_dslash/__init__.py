@@ -1,1 +1,2 @@
-"""K1 wilson_hop (the parity hop kernel) and the Schur operators over it."""
+"""K1 wilson_hop (the parity hop kernel), K4 wilson_full (the full-lattice
+operator) and the Schur and normal operators over them."""

@@ -1,15 +1,17 @@
-"""K1 ``wilson_hop``: the parity hop kernel's wrapper and host tables.
+"""K1 ``wilson_hop`` and K4 ``wilson_full``: the Wilson kernels' wrappers
+and their host tables.
 
-The CUDA source is ``repro_torch/csrc/wilson_hop.cu`` (its header note
-says what bounds the kernel and how it is laid out).  It replaces the
-Pallas kernel ``repro/kernels/wilson_dslash/kernel.py::
-_dslash_parity_kernel``.
+The CUDA sources are ``repro_torch/csrc/wilson_hop.cu`` (K1, the parity
+hop) and ``repro_torch/csrc/wilson_full.cu`` (K4, the full-lattice
+operator); their header notes say what bounds each kernel and how it is
+laid out.  They replace the Pallas kernels ``repro/kernels/wilson_dslash/
+kernel.py::_dslash_parity_kernel`` and ``::_dslash_kernel``, and share the
+spin-projection tables of :func:`hop_tables`.
 
-The wrapper runs the plain version (:func:`..ref.wilson_hop_ref`) for
-tensors on the CPU, and only then; for CUDA tensors it launches the
-kernel or raises.  ``wilson_hop.launches`` counts kernel launches and
-``wilson_hop.plain_calls`` plain-version calls, so a run can show which
-path it took.
+Each wrapper runs its plain version (:mod:`..ref`) for tensors on the
+CPU, and only then; for CUDA tensors it launches the kernel or raises.
+``<wrapper>.launches`` counts kernel launches and ``<wrapper>.plain_calls``
+plain-version calls, so a run can show which path it took.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 from repro_torch.core.lattice import GAUGE_G, NDIRS, NSPIN, SPINOR_S
 from repro_torch.core.wilson import _projectors
 from repro_torch.kernels import build
-from repro_torch.kernels.wilson_dslash.ref import wilson_hop_ref
+from repro_torch.kernels.wilson_dslash.ref import (wilson_full_ref,
+                                                   wilson_hop_ref)
 
 
 def _halfspinor_tables():
@@ -155,3 +158,83 @@ def wilson_hop(u_out: torch.Tensor, u_nbr: torch.Tensor, psi: torch.Tensor,
 
 wilson_hop.launches = 0
 wilson_hop.plain_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: the full-lattice operator
+# ---------------------------------------------------------------------------
+
+
+def site_coeffs(mass, twist: float, gamma5_in: bool,
+                gamma5_out: bool) -> tuple[float, float, float, float]:
+    """K4's site term ``g5out ((m+4) + i twist g5) g5in`` as per-spin-block
+    coefficients ``(m_hi, m_lo, tw_hi, tw_lo)``: spins 0,1 take
+    ``(m+4, twist)``; spins 2,3 take ``-(m+4)`` when exactly one flag is
+    set (g5 once) and ``-twist`` when the flags agree (g5 once or three
+    times).  The kernel adds ``m psi + tw (i psi)``.
+    """
+    m4 = float(mass) + 4.0
+    one = bool(gamma5_in) != bool(gamma5_out)
+    tw = float(twist)
+    return m4, -m4 if one else m4, tw, tw if one else -tw
+
+
+@functools.lru_cache(maxsize=None)
+def _full_lib() -> ctypes.CDLL:
+    lib = build.library("wilson_full")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.wilson_full.argtypes = [p, p, p, i, i, i, i, i, p, f, f, f, f, p]
+    lib.wilson_full.restype = ctypes.c_int
+    return lib
+
+
+def _check_full_operands(up, pp):
+    if pp.dim() not in (5, 6):
+        raise ValueError(f"spinor rank must be 5 or 6, got {pp.dim()}")
+    nd, t, z, y, g, x = up.shape
+    if nd != NDIRS or g != GAUGE_G:
+        raise ValueError(f"gauge must be (4,T,Z,Y,18,X), got "
+                         f"{tuple(up.shape)}")
+    if tuple(pp.shape[-5:]) != (t, z, y, SPINOR_S, x):
+        raise ValueError(f"spinor {tuple(pp.shape)} does not match gauge "
+                         f"{tuple(up.shape)}")
+    for name, v in (("up", up), ("pp", pp)):
+        if v.dtype != torch.float32:
+            raise NotImplementedError(
+                f"wilson_full takes float32 fields, got {name} {v.dtype}; "
+                "narrow (bf16) storage comes with mixed precision, ROADMAP "
+                "Queue A item 8")
+
+
+def wilson_full(up: torch.Tensor, pp: torch.Tensor, mass, *,
+                twist: float = 0.0, gamma5_in: bool = False,
+                gamma5_out: bool = False) -> torch.Tensor:
+    """``g5out (D + i twist g5) (g5in psi)`` on the full lattice (see
+    :func:`..ref.wilson_full_ref`).  ``pp`` is a packed field
+    (T,Z,Y,24,X) or an (N,T,Z,Y,24,X) batch, ``up`` the packed gauge
+    field (4,T,Z,Y,18,X), both float32."""
+    _check_full_operands(up, pp)
+    kw = dict(twist=twist, gamma5_in=gamma5_in, gamma5_out=gamma5_out)
+    if pp.device.type == "cpu":
+        wilson_full.plain_calls += 1
+        return wilson_full_ref(up, pp, mass, **kw)
+    for name, v in (("up", up), ("pp", pp)):
+        if v.device != pp.device or not v.is_contiguous():
+            raise ValueError(f"wilson_full: {name} must be a contiguous "
+                             f"tensor on {pp.device}")
+    _, t, z, y, _, x = up.shape
+    n = pp.shape[0] if pp.dim() == 6 else 1
+    out = torch.empty_like(pp)
+    tables = hop_tables(bool(gamma5_in), bool(gamma5_out))
+    lib = _full_lib()
+    rc = lib.wilson_full(
+        up.data_ptr(), pp.data_ptr(), out.data_ptr(), t, z, y, x, n,
+        tables.ctypes.data, *site_coeffs(mass, twist, gamma5_in, gamma5_out),
+        torch.cuda.current_stream(pp.device).cuda_stream)
+    build.check(lib, rc, "wilson_full")
+    wilson_full.launches += 1
+    return out
+
+
+wilson_full.launches = 0
+wilson_full.plain_calls = 0

@@ -1,4 +1,14 @@
-"""Public entry points over the parity hop kernel (K1).
+"""Public entry points over the Wilson kernels (K4 full lattice, K1 parity
+hop).
+
+Full lattice (packed (T, Z, Y, 24, X) fields, through K4):
+
+``dslash``          — D psi, with optional gamma5 folding on either side
+``dslash_dagger``   — D^dag psi = gamma5 D(-twist) gamma5, the flags folded
+``normal_op``       — D^dag D psi: two launches, no standalone gamma5 pass
+
+``use_kernels=False`` runs K4's plain version directly (the plan's
+reference backend), without touching the wrapper's counts.
 
 Even-odd half lattice (parity-compressed X axis, see
 :mod:`repro_torch.core.lattice`):
@@ -11,9 +21,10 @@ Even-odd half lattice (parity-compressed X axis, see
 ``schur_normal_op``         — D_hat^dag D_hat, four launches in all
 
 Every entry point takes a spinor with or without a leading RHS axis
-(N, T, Z, Y, 24, Xh); a batch rides the same launches, so
-``schur_normal_op`` is four launches whatever N is.  Tensors on the CPU go
-through the kernel's plain version, CUDA tensors through the kernel.
+(N, T, Z, Y, 24, X[h]); a batch rides the same launches, so
+``schur_normal_op`` is four launches and ``normal_op`` two whatever N
+is.  Tensors on the CPU go through the kernel's plain version, CUDA
+tensors through the kernel.
 """
 
 from __future__ import annotations
@@ -21,22 +32,32 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.operators import schur_launch_coeffs
-from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
-
-_FULL_LATTICE = (
-    "the full-lattice dslash needs the port of kernel B6 "
-    "(repro/kernels/wilson_dslash/kernel.py::_dslash_kernel); it is "
-    "ROADMAP Queue A item 7, the next slice")
+from repro_torch.kernels.wilson_dslash.kernel import wilson_full, wilson_hop
+from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
 
 
-def dslash(up, pp, mass, **_):
-    """Full-lattice D psi: not ported yet (ROADMAP A7 / B6)."""
-    raise NotImplementedError(_FULL_LATTICE)
+def dslash(up, pp, mass, *, twist: float = 0.0, gamma5_in: bool = False,
+           gamma5_out: bool = False, use_kernels: bool = True
+           ) -> torch.Tensor:
+    """``g5out (D + i twist g5) (g5in psi)`` on packed full-lattice fields;
+    ``twist`` is the operator family's site-term twist (0 for Wilson)."""
+    fn = wilson_full if use_kernels else wilson_full_ref
+    return fn(up, pp, mass, twist=twist, gamma5_in=gamma5_in,
+              gamma5_out=gamma5_out)
 
 
-def normal_op(up, pp, mass, **_):
-    """Full-lattice D^dag D psi: not ported yet (ROADMAP A7 / B6)."""
-    raise NotImplementedError(_FULL_LATTICE)
+def dslash_dagger(up, pp, mass, *, twist: float = 0.0,
+                  use_kernels: bool = True) -> torch.Tensor:
+    """D(twist)^dag = gamma5 D(-twist) gamma5, folded into one launch."""
+    return dslash(up, pp, mass, twist=-twist, gamma5_in=True,
+                  gamma5_out=True, use_kernels=use_kernels)
+
+
+def normal_op(up, pp, mass, *, twist: float = 0.0,
+              use_kernels: bool = True) -> torch.Tensor:
+    """A = D^dag D: two launches for every N and operator family."""
+    dv = dslash(up, pp, mass, twist=twist, use_kernels=use_kernels)
+    return dslash_dagger(up, dv, mass, twist=twist, use_kernels=use_kernels)
 
 
 def dslash_eo(u_e, u_o, pp_o, *, gamma5_in: bool = False,

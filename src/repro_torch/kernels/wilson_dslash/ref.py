@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the parity hop kernel.
+"""Plain PyTorch versions of the parity hop kernel (K1) and the
+full-lattice kernel (K4).
 
-They round-trip through the natural-layout complex operators of
-:mod:`repro_torch.core.wilson` — slow, but independent of the kernel's
-tables and index arithmetic, which is what an oracle should be.  On CPU
-tensors the kernel wrapper (:func:`repro_torch.kernels.wilson_dslash.
-kernel.wilson_hop`) runs :func:`wilson_hop_ref`; ``chip_smoke.py`` holds
-the CUDA kernel against it on the card.
+The hop versions round-trip through the natural-layout complex operators
+of :mod:`repro_torch.core.wilson`; the full-lattice version runs the
+packed einsum operator ``dslash_packed``.  Both are slow, but independent
+of the kernels' tables and index arithmetic, which is what an oracle
+should be.  On CPU tensors the kernel wrappers (:mod:`repro_torch.kernels.
+wilson_dslash.kernel`) run these; ``chip_smoke.py`` holds the CUDA
+kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from repro_torch.core.lattice import (eo_row_offset, pack_spinor,
 from repro_torch.core.operators import (apply_igamma5_packed,
                                         schur_dagger_g, schur_normal_op_g,
                                         schur_op_g)
-from repro_torch.core.wilson import _hop_half, apply_gamma5
+from repro_torch.core.wilson import (_hop_half, apply_gamma5,
+                                     apply_gamma5_packed, dslash_packed)
 
 
 def _per_rhs(fn, v: torch.Tensor, batched: bool) -> torch.Tensor:
@@ -65,6 +68,28 @@ def wilson_hop_ref(u_out: torch.Tensor, u_nbr: torch.Tensor,
             acc = acc + acc_twist * apply_igamma5_packed(psi_acc)
         out = acc + out
     return out.to(psi.dtype)
+
+
+def wilson_full_ref(up: torch.Tensor, pp: torch.Tensor, mass, *,
+                    twist: float = 0.0, gamma5_in: bool = False,
+                    gamma5_out: bool = False) -> torch.Tensor:
+    """The full-lattice kernel's function on packed fields (rank 5, or
+    rank 6 with a leading RHS axis)::
+
+        out = g5out (D_wilson + i twist g5) (g5in psi)
+
+    A batch goes through one RHS at a time, so batched equals looped
+    bitwise.
+    """
+    def one(q):
+        if gamma5_in:
+            q = apply_gamma5_packed(q)
+        out = dslash_packed(up, q, mass)
+        if twist != 0.0:
+            out = (out + twist * apply_igamma5_packed(q)).to(q.dtype)
+        return apply_gamma5_packed(out) if gamma5_out else out
+
+    return _per_rhs(one, pp, pp.dim() == 6)
 
 
 def _via_natural(fn, u_e_p, u_o_p, pp):

@@ -3,10 +3,12 @@
     python -m repro_torch.launch.solve --lattice 8x8x8x16
     python -m repro_torch.launch.solve --nrhs 4
     python -m repro_torch.launch.solve --operator twisted-mass --mu 0.25
+    python -m repro_torch.launch.solve --parity full
     python -m repro_torch.launch.solve --backend reference --device cpu
 
 Builds a random SU(3) gauge configuration and source(s) from ``--seed``,
-solves D x = b by CGNR on the even-odd Schur complement through one
+solves D x = b by CGNR on the even-odd Schur complement (``--parity eo``,
+the default) or on the full lattice (``--parity full``) through one
 :class:`repro_torch.core.plan.SolverPlan`, and reports iterations,
 matvecs, the true relative residual and the verdict — per right-hand side
 for a batch.  Runs on the card (``--device cuda``, the default) and
@@ -31,7 +33,8 @@ from repro_torch.data import lattice_problem
 
 def build_plan(args) -> plan_mod.SolverPlan:
     """Resolve the CLI axes to a SolverPlan."""
-    return plan_mod.SolverPlan(operator="eo-schur",
+    return plan_mod.SolverPlan(operator="eo-schur" if args.parity == "eo"
+                               else "full",
                                operator_family=args.operator, mu=args.mu,
                                backend=args.backend, nrhs=args.nrhs)
 
@@ -40,6 +43,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--lattice", default="4x4x4x8", help="TxZxYxX extents")
     p.add_argument("--mass", type=float, default=0.2)
+    p.add_argument("--parity", choices=["full", "eo"], default="eo",
+                   help="operator shape: even-odd Schur complement or the "
+                        "full lattice")
     p.add_argument("--operator", default="wilson",
                    choices=sorted(operator_names()),
                    help="operator family from the registry: "

@@ -6,8 +6,9 @@ elsewhere.  On the machine with the card:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 This file imports nothing of JAX, so it runs where only PyTorch is
-installed.  Tolerances as in chip_smoke.py: hop output max-abs <= 1e-5
-times max(1, max |plain|); CG fields 1e-5 max-abs, norms 1e-5 relative.
+installed.  Tolerances as in chip_smoke.py: hop and full-lattice
+outputs max-abs <= 1e-5 times max(1, max |plain|); CG fields 1e-5
+max-abs, norms 1e-5 relative.
 """
 
 import itertools
@@ -102,3 +103,45 @@ def test_golden_solves_through_the_kernels(dev, family, mu, nrhs, golden):
     assert c["wilson_hop"] == {"launches": 4 * k + 4, "plain_calls": 0}
     assert c["cg_update"] == {"launches": k, "plain_calls": 0}
     assert c["cg_xpay"] == {"launches": k, "plain_calls": 0}
+    assert c["wilson_full"] == {"launches": 0, "plain_calls": 0}
+
+
+@pytest.mark.parametrize("flags", list(itertools.product(
+    (False, True), (False, True), (0.0, 0.25))))
+def test_wilson_full_matches_plain(dev, flags):
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_full
+    from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
+    g5in, g5out, twist = flags
+    gen = torch.Generator(device=dev).manual_seed(6)
+    lat = tl.LatticeShape(4, 6, 8, 16)
+    up = tl.pack_gauge(tl.random_gauge(gen, lat))
+    pp = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                     for _ in range(3)]))
+    kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
+    out = wilson_full(up, pp, 0.1, **kw)
+    ref = wilson_full_ref(up, pp, 0.1, **kw)
+    err = float((out - ref).abs().max())
+    assert err <= 1e-5 * max(1.0, float(ref.abs().max())), err
+    for i in range(3):
+        assert torch.equal(out[i], wilson_full(up, pp[i], 0.1, **kw))
+
+
+@pytest.mark.parametrize("family,mu,nrhs", [
+    ("wilson", 0.0, None), ("twisted-mass", 0.25, None),
+    ("wilson", 0.0, 4)])
+def test_full_golden_solves_through_the_kernel(dev, family, mu, nrhs):
+    with np.load(GOLDEN) as f:
+        u, b = tl.fields_from_numpy(f["gauge"], f["b_batch"] if nrhs
+                                    else f["b"], device=dev)
+    plan = plan_mod.SolverPlan(operator="full", operator_family=family,
+                               mu=mu, nrhs=nrhs)
+    kernels.reset_counts()
+    _, st = plan_mod.solve(plan, u, b, 0.1, tol=1e-6, device=dev)
+    its = st.rhs_iterations.tolist() if nrhs else [st.iterations]
+    assert its == [27] * (nrhs or 1)
+    assert bool(torch.atleast_1d(st.verified).all())
+    c = kernels.counts()
+    assert c["wilson_full"] == {"launches": 2 * st.iterations + 1,
+                                "plain_calls": 0}
+    assert all(c[k] == {"launches": 0, "plain_calls": 0}
+               for k in ("wilson_hop", "cg_update", "cg_xpay"))

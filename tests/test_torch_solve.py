@@ -138,7 +138,7 @@ def test_maxiter_verdict(problem):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("operator", "full", "item 7"), ("precision", "mixed", "item 8"),
+    ("precision", "mixed", "item 8"),
     ("precision", "low", "item 8"), ("solver", "pipecg", "item 9"),
     ("solver", "blockcg", "item 9"), ("mesh", object(), "item 12")])
 def test_plan_fields_outside_the_slice_raise(field, value, item):
