@@ -12,11 +12,14 @@ operator (``operator="full"``).  Phases:
 0. build every kernel (one ``nvcc`` per source, all at once);
 1. banner: the card's name and power limit, and the measured
    device-to-device copy bandwidth;
-2. kernel checks at 8^4 and 4x6x8x16: each kernel against its plain
+2. kernel checks at 8^4, 4x6x8x16, 4x4x6x6 (odd Xh) and 4x4x22x8 (Y
+   not a multiple of the hop kernel's tile; the hop kernel also at
+   2x2x2x348, rows read in place): each kernel against its plain
    PyTorch version (the hop kernel for every flag set, the full-lattice
    kernel for every gamma5 flag pair with and without twist); both
    Wilson kernels batched (N = 3) against three single launches
-   bitwise; frozen lanes and closed gates bitwise;
+   bitwise; frozen lanes and closed gates bitwise; the xpay kernel on
+   views 1-3 floats off 16-byte alignment and on single-RHS slices;
 3. goldens: the committed 4^4 seed-7 fixture solved through the kernels
    (even-odd: 14 iterations Wilson, 13 twisted mass mu = 0.25, 14 for
    each of 4 batched RHS; full lattice: 27 in each case), and against
@@ -31,9 +34,13 @@ operator (``operator="full"``).  Phases:
    it; it must converge and verify with a true relative residual below
    10 tol, launch no other kernel and call no plain version;
 5. timings at the main path's shapes: each kernel's median time over
-   CUDA events, held once more against its plain version on the same
-   inputs, beside the plain version's time, its bound and, for the
-   ungated xpay, one library call computing the same function;
+   CUDA events, one call per event pair (``ms``, which includes the
+   wrapper's host latency before the launch) and per call over ten
+   back-to-back calls (``ms_back_to_back``, where that latency hides
+   behind the card's work), held once more against its plain version
+   on the same inputs, beside the plain version's time, its bound and,
+   for the ungated xpay, one library call computing the same function,
+   timed both ways;
 6. one traced single-RHS Wilson solve of each path
    (``torch.profiler``): device time by kernel and the card's idle
    share of the solve.
@@ -91,8 +98,11 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup``."""
+def time_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings of ``inner`` calls of ``fn`` in
+    a row, per call, after ``warmup``.  With inner > 1 the host's cost of a
+    call overlaps the card's work on the one before, so a sub-millisecond
+    kernel is not charged its wrapper's host latency."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -101,11 +111,19 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def kernel_ms(fn, prefix: str = "ms") -> dict:
+    """``fn`` timed both ways: one call per event pair (``<prefix>``) and
+    ten back-to-back calls per pair (``<prefix>_back_to_back``)."""
+    return {prefix: time_ms(fn, reps=20),
+            f"{prefix}_back_to_back": time_ms(fn, reps=10, inner=10)}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -244,12 +262,46 @@ def check_cg(dev, gen) -> tuple[float, float]:
         check(err <= CG_TOL, f"cg_xpay L={length}: error {err}")
         check(torch.equal(po[1], p[1]), f"cg_xpay L={length}: closed gate "
                                         "changed p")
+        for i in range(3):  # x[i:i+1] starts off 16-byte alignment at 12345
+            single = cg_xpay(beta[i:i + 1], r[i:i + 1], p[i:i + 1],
+                             gate[i:i + 1])
+            check(torch.equal(single[0], po[i]),
+                  f"cg_xpay L={length}: batched RHS {i} differs from its "
+                  "single call")
         po = cg_xpay(beta, r, p)
         err = max(err, max_err(po, cg_xpay_ref(beta, r, p)))
         check(err <= CG_TOL, f"cg_xpay (no gate) L={length}: error {err}")
         worst_x = max(worst_x, err)
+    worst_x = max(worst_x, check_xpay_misaligned(dev, gen))
     torch.cuda.synchronize()
     return worst_u, worst_x
+
+
+def check_xpay_misaligned(dev, gen) -> float:
+    """K3 on views whose data starts 1, 2 or 3 floats off 16-byte
+    alignment (r and p alike, and against each other), gate open and
+    closed: it must give what the plain version gives, and a closed gate
+    p bitwise."""
+    from repro_torch.kernels.cg_fused.kernel import cg_xpay
+    from repro_torch.kernels.cg_fused.ref import cg_xpay_ref
+    worst = 0.0
+    length = 12345
+    buf_r = torch.randn(2 * length + 8, generator=gen, device=dev)
+    buf_p = torch.randn(2 * length + 8, generator=gen, device=dev)
+    beta = torch.tensor([0.75, -1.5], device=dev)
+    for off_r, off_p in ((1, 1), (2, 2), (3, 3), (1, 3), (0, 2)):
+        r = buf_r[off_r:off_r + 2 * length].view(2, length)
+        p = buf_p[off_p:off_p + 2 * length].view(2, length)
+        for gate in (None, torch.tensor([True, False], device=dev)):
+            po = cg_xpay(beta, r, p, gate)
+            err = max_err(po, cg_xpay_ref(beta, r, p, gate))
+            check(err <= CG_TOL, f"cg_xpay offsets {(off_r, off_p)} gate "
+                                 f"{gate is not None}: error {err}")
+            if gate is not None:
+                check(torch.equal(po[1], p[1]), f"cg_xpay offsets "
+                      f"{(off_r, off_p)}: closed gate changed p")
+            worst = max(worst, err)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -431,12 +483,12 @@ def time_hop(u, b, batch, bw, n):
     check(err <= HOP_TOL * scale(ref), f"wilson_hop main shape N={n}: "
                                        f"error {err}")
     del out, ref
-    ms = time_ms(lambda: wilson_hop(upe, upo, po, **kw), reps=20)
+    ms = kernel_ms(lambda: wilson_hop(upe, upo, po, **kw))
     plain_ms = time_ms(lambda: wilson_hop_ref(upe, upo, po, **kw), reps=3,
                        warmup=1)
     sites = po.shape[-5] * po.shape[-4] * po.shape[-3] * po.shape[-1]
     nbytes = sites * ((144 + 48 * n) * 4 + 96 * n)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+    return dict(**ms, plain_ms=plain_ms, library_ms=None,
                 max_abs_err=err, shape=f"N={n} half field "
                 f"{tuple(po.shape)}, has_acc",
                 **bound(nbytes, HOP_FLOPS_PER_SITE * sites * n, bw))
@@ -456,7 +508,7 @@ def time_full(u, b, batch, bw, n):
     check(err <= HOP_TOL * scale(ref), f"wilson_full main shape N={n}: "
                                        f"error {err}")
     del out, ref
-    ms = time_ms(lambda: wilson_full(up, pp, MASS, **kw), reps=20)
+    ms = kernel_ms(lambda: wilson_full(up, pp, MASS, **kw))
     plain_ms = time_ms(lambda: wilson_full_ref(up, pp, MASS, **kw), reps=3,
                        warmup=1)
     sites = pp.shape[-5] * pp.shape[-4] * pp.shape[-3] * pp.shape[-1]
@@ -465,7 +517,7 @@ def time_full(u, b, batch, bw, n):
     # link twice (forward and backward hop), (144/N + 48) floats per RHS
     nbytes = sites * (72 + 48 * n) * 4
     model_bytes = sites * (144 + 48 * n) * 4
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
+    return dict(**ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
                 shape=f"N={n} field {tuple(pp.shape)}, dagger",
                 bound_ms_intensity_model=model_bytes / PEAK_BYTES_PER_S * 1e3,
                 bound_ms_intensity_model_measured_bw=model_bytes / bw * 1e3,
@@ -491,7 +543,7 @@ def time_cg(dev, bw, n, length):
           f"cg_update main shape N={n}: errors {err}, {rel}")
     del xo, ro, xr, rr
     out["cg_update"] = dict(
-        ms=time_ms(lambda: cg_update(alpha, x, r, p, ap), reps=20),
+        **kernel_ms(lambda: cg_update(alpha, x, r, p, ap)),
         plain_ms=time_ms(lambda: cg_update_ref(alpha, x, r, p, ap), reps=5),
         library_ms=None, max_abs_err=err, norm_rel_err=rel,
         shape=f"N={n} L={length}",
@@ -502,14 +554,14 @@ def time_cg(dev, bw, n, length):
     err = max_err(po, cg_xpay_ref(beta, r, p, g))
     check(err <= CG_TOL, f"cg_xpay main shape N={n}: error {err}")
     del po
-    lib_ms = None
+    lib_ms = {"library_ms": None}
     if not gated:
-        lib_ms = time_ms(lambda: torch.addcmul(r, beta.view(n, 1), p),
-                         reps=20)
+        lib_ms = kernel_ms(lambda: torch.addcmul(r, beta.view(n, 1), p),
+                           "library_ms")
     out["cg_xpay"] = dict(
-        ms=time_ms(lambda: cg_xpay(beta, r, p, g), reps=20),
+        **kernel_ms(lambda: cg_xpay(beta, r, p, g)),
         plain_ms=time_ms(lambda: cg_xpay_ref(beta, r, p, g), reps=5),
-        library_ms=lib_ms, max_abs_err=err,
+        **lib_ms, max_abs_err=err,
         shape=f"N={n} L={length}{' gated' if gated else ''}",
         **bound(12.0 * n * length, 2.0 * n * length, bw))
     return out
@@ -567,7 +619,8 @@ def main() -> int:
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name in libs:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Function properties" in line):
                 log(f"  ptxas {name}: {line.strip()}")
 
     # phase 1: banner
@@ -580,11 +633,14 @@ def main() -> int:
     # phase 2: kernel checks
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    errs = {"wilson_hop": max(check_hop(dev, gen, (8, 8, 8, 8)),
-                              check_hop(dev, gen, (4, 6, 8, 16)))}
+    # 4x4x6x6: odd Xh = 3 (links staged by plain loads); 4x4x22x8: Y = 22
+    # against an 8-row tile; 2x2x2x348: rows too wide to stage (in place)
+    errs = {"wilson_hop": max(check_hop(dev, gen, dims) for dims in (
+        (8, 8, 8, 8), (4, 6, 8, 16), (4, 4, 6, 6), (4, 4, 22, 8),
+        (2, 2, 2, 348)))}
     errs["cg_update"], errs["cg_xpay"] = check_cg(dev, gen)
-    errs["wilson_full"] = max(check_full(dev, gen, (8, 8, 8, 8)),
-                              check_full(dev, gen, (4, 6, 8, 16)))
+    errs["wilson_full"] = max(check_full(dev, gen, dims) for dims in (
+        (8, 8, 8, 8), (4, 6, 8, 16), (4, 4, 6, 6), (4, 4, 22, 8)))
     log("kernels: " + json.dumps({k: {"max_abs_err": v}
                                   for k, v in errs.items()}))
 
@@ -606,8 +662,10 @@ def main() -> int:
         timings[n] = t
         for k, v in t.items():
             lib = ("none" if v["library_ms"] is None
-                   else f"{v['library_ms']:.4f} ms")
-            log(f"timing {k} {v['shape']}: {v['ms']:.4f} ms, plain "
+                   else f"{v['library_ms']:.4f} ms (back to back "
+                        f"{v['library_ms_back_to_back']:.4f} ms)")
+            log(f"timing {k} {v['shape']}: {v['ms']:.4f} ms (back to back "
+                f"{v['ms_back_to_back']:.4f} ms), plain "
                 f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
                 f"({v['bound_by']}; {v['bound_ms_measured_bw']:.4f} ms at "
                 f"the measured copy rate), library {lib}, max-abs error "
@@ -653,10 +711,13 @@ def main() -> int:
                                timings[4][name]["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "shape": t["shape"],
+            "library_ms": t["library_ms"],
+            "ms_back_to_back": t["ms_back_to_back"],
+            "library_ms_back_to_back": t.get("library_ms_back_to_back"),
+            "shape": t["shape"],
             "batched": {k: timings[4][name][k] for k in
-                        ("ms", "plain_ms", "bound_ms", "library_ms",
-                         "shape")}})
+                        ("ms", "ms_back_to_back", "plain_ms", "bound_ms",
+                         "library_ms", "shape")}})
     log("main path runs: " + json.dumps(runs))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

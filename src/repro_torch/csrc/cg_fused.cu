@@ -22,9 +22,24 @@
 //    of a batch reduces exactly as a single-RHS call does, bit for bit;
 //  * a frozen RHS (a_n == 0) copies x and r through without reading p
 //    and Ap, so it comes back bitwise unchanged; a closed gate copies p.
-//  Wider (16-byte) loads are later work.
+//
+// K3 moves 16 bytes per access: with one 4-byte load of r and of p per
+// thread and trip, too few bytes are in flight per thread to reach the
+// memory rate.  So:
+//  * float4 loads and stores, XPAY_VEC vectors per thread and trip, all
+//    loads issued before any store (2 x 64 bytes in flight), on K2's
+//    grid of (blocks_for(L), N);
+//  * RHS n starts at r + n L, which a ragged L or a caller's view
+//    (x[i:i+1]) may leave off 16-byte alignment: a scalar head runs up
+//    to the first aligned element, the float4 body follows and a scalar
+//    tail ends it.  Where r, p and p' are misaligned against each other
+//    the head is the whole RHS.  Every element is one fmaf(b, p, r), so
+//    the split changes no bit and a batched call equals N single calls
+//    bitwise; a closed gate copies p through the same paths.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -85,6 +100,60 @@ sum_partials_kernel(const float* __restrict__ partial, int nblk,
   if (threadIdx.x == 0) rs[n] = s;
 }
 
+constexpr int XPAY_VEC = 4;  // float4 vectors per thread and loop trip
+
+template <bool UPDATE>
+__device__ __forceinline__ float xpay1(float b, float r, float p) {
+  return UPDATE ? fmaf(b, p, r) : p;
+}
+
+// One RHS: p' over [0, L) of r, p, po, by the blocks sharing blockIdx.y.
+template <bool UPDATE>
+__device__ __forceinline__ void xpay_rhs(float b, const float* __restrict__ r,
+                                         const float* __restrict__ p,
+                                         float* __restrict__ po, long L) {
+  const long tid = (long)blockIdx.x * THREADS + threadIdx.x;
+  const long nthr = (long)gridDim.x * THREADS;
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(p) & 15u;
+  const long lead = (long)((16u - mis) & 15u) / 4;  // floats to alignment
+  long head = L;  // floats before the body: all, unless r, p and po share
+  if ((reinterpret_cast<uintptr_t>(r) & 15u) == mis &&  // their alignment
+      (reinterpret_cast<uintptr_t>(po) & 15u) == mis)
+    head = lead < L ? lead : L;
+  const long nvec = (L - head) / 4;
+  const long tail0 = head + 4 * nvec;
+  for (long i = tid; i < head; i += nthr)
+    po[i] = xpay1<UPDATE>(b, r[i], p[i]);
+  for (long i = tail0 + tid; i < L; i += nthr)
+    po[i] = xpay1<UPDATE>(b, r[i], p[i]);
+  const float4* __restrict__ r4 = reinterpret_cast<const float4*>(r + head);
+  const float4* __restrict__ p4 = reinterpret_cast<const float4*>(p + head);
+  float4* __restrict__ o4 = reinterpret_cast<float4*>(po + head);
+  for (long v0 = (long)blockIdx.x * THREADS * XPAY_VEC + threadIdx.x;
+       v0 < nvec; v0 += nthr * XPAY_VEC) {
+    float4 rv[XPAY_VEC], pv[XPAY_VEC];
+#pragma unroll
+    for (int u = 0; u < XPAY_VEC; ++u) {
+      const long v = v0 + (long)u * THREADS;
+      if (v < nvec) {
+        if (UPDATE) rv[u] = r4[v];
+        pv[u] = p4[v];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < XPAY_VEC; ++u) {
+      const long v = v0 + (long)u * THREADS;
+      if (v < nvec) {
+        float4 o = pv[u];
+        if (UPDATE)
+          o = make_float4(fmaf(b, o.x, rv[u].x), fmaf(b, o.y, rv[u].y),
+                          fmaf(b, o.z, rv[u].z), fmaf(b, o.w, rv[u].w));
+        o4[v] = o;
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 cg_xpay_kernel(const float* __restrict__ beta,
                const unsigned char* __restrict__ gate,
@@ -92,15 +161,10 @@ cg_xpay_kernel(const float* __restrict__ beta,
                float* __restrict__ po, long L) {
   const int n = blockIdx.y;
   const long base = (long)n * L;
-  const long stride = (long)gridDim.x * THREADS;
-  const long i0 = (long)blockIdx.x * THREADS + threadIdx.x;
-  if (gate == nullptr || gate[n] != 0) {
-    const float b = beta[n];
-    for (long i = i0; i < L; i += stride)
-      po[base + i] = r[base + i] + b * p[base + i];
-  } else {
-    for (long i = i0; i < L; i += stride) po[base + i] = p[base + i];
-  }
+  if (gate == nullptr || gate[n] != 0)
+    xpay_rhs<true>(beta[n], r + base, p + base, po + base, L);
+  else
+    xpay_rhs<false>(0.f, r + base, p + base, po + base, L);
 }
 
 int blocks_for(long L) {

@@ -1,12 +1,33 @@
 // Shared by K1 (wilson_hop.cu) and K4 (wilson_full.cu): the packed layout's
-// component counts, the host-folded spin tables, and one hop of the
-// spin-projection trick.
+// component counts and one hop of the spin-projection trick, with the
+// spin structure of every hop fixed at compile time.
 //
 // A hop adds -1/2 (1 -+ g_mu) U psi_nbr to the output spinor o.  It projects
 // the neighbour's 4-spinor to two half spinors, multiplies each by the link
 // (U for a forward hop, U^dag for a backward one), and rebuilds spins 2 and 3
 // from the two products with a phase.  For r = 1 each projector has rank 2,
 // so this halves the link work.
+//
+// What bounded the first version: the projection and reconstruction were
+// generic complex 2x4 and 2x2 products with coefficients passed as kernel
+// parameters, so the compiler could not drop the zeros of (1 -+ g_mu) nor
+// use that its other entries are +-1 and +-i: 24 complex multiply-adds per
+// projection where 12 complex adds do.  Here each hop is a template on its
+// direction, its sign and the gamma5 flags.  In the DeGrand-Rossi basis
+// (core/wilson.py) every g_mu has one nonzero per row, a unit i^k, and
+// g5 = diag(+,+,-,-), so
+//
+//   half spinor a = 0, 1:  h_a = psi_a + i^q_a psi_{col_a}
+//   output spin 2 + i:     o_{2+i} += i^ph_i (U h)_{src_i}
+//
+// with q, ph and the columns computed below by constexpr functions from
+// the gamma table alone; gamma5 on the input negates psi_2,3 (q + 2), on
+// the output spins 2,3 (ph + 2).  A unit i^k times (re, im) is a swap and
+// sign changes, which the compiler folds into the adds.  The -1/2 of each
+// hop is left to the caller's epilogue (a power of two: scaling the sum
+// once rounds exactly as scaling every term).
+// The same tables, written in Python, drive the CPU tests' emulations
+// (kernels/wilson_dslash/kernel.py::hop_spec).
 
 #pragma once
 
@@ -15,83 +36,138 @@ namespace wilson {
 constexpr int S = 24;  // packed spinor components per site
 constexpr int G = 18;  // packed link components
 
-// Per hop h = 2*mu + (0 forward, 1 backward):
-//   proj[h][a][b]  : coefficient of source spin b in half-spinor row a
-//   recon[h][i][k] : phase taking half-spinor row k to output spin 2+i
-// (re, im) pairs; gamma5 folding is already applied by the host.
-struct HopTables {
-  float proj[8][2][4][2];
-  float recon[8][2][2][2];
-};
+// gamma_mu[row] has one nonzero, i^gamma_k at column gamma_col; mu in
+// (t, z, y, x).  Columns: row ^ 2 for t, z and 3 - row for y, x; the
+// powers of i, 2 bits each at 4 mu + row: t 0 0 0 0, z 1 3 3 1, y 2 0 0 2,
+// x 1 1 3 3 (the same tables as kernel.py::GAMMA_COL / GAMMA_K).
+__host__ __device__ constexpr int gamma_col(int mu, int row) {
+  return mu < 2 ? (row ^ 2) : (3 - row);
+}
+__host__ __device__ constexpr int gamma_k(int mu, int row) {
+  return (int)((0xF5827D00u >> (2 * (4 * mu + row))) & 3u);
+}
 
-// psi and u point at the neighbour spinor's and the link's first component;
-// consecutive components are xs floats apart.
-template <int H, bool DAG>
-__device__ __forceinline__ void hop(float (&o_r)[4][3], float (&o_i)[4][3],
-                                    const float* __restrict__ psi,
-                                    const float* __restrict__ u, long xs,
-                                    const HopTables& tab) {
-  // stage 1: project to two half spinors h[a][c]
-  float h_r[2][3], h_i[2][3];
+// (1 + sigma g_mu), sigma = -1 forward (i^2), +1 backward (i^0)
+__host__ __device__ constexpr int sigma_k(bool fwd) { return fwd ? 2 : 0; }
+__host__ __device__ constexpr int proj_col(int mu, int a) {
+  return gamma_col(mu, a);
+}
+__host__ __device__ constexpr int proj_k(int mu, bool fwd, bool g5in, int a) {
+  return (sigma_k(fwd) + gamma_k(mu, a) + (g5in ? 2 : 0)) & 3;
+}
+__host__ __device__ constexpr int recon_src(int mu, int i) {
+  return gamma_col(mu, 2 + i);
+}
+__host__ __device__ constexpr int recon_k(int mu, bool fwd, bool g5out,
+                                          int i) {
+  return (sigma_k(fwd) + gamma_k(mu, 2 + i) + (g5out ? 2 : 0)) & 3;
+}
+
+// (re, im) times i^K, the result added to (ar, ai)
+template <int K>
+__device__ __forceinline__ void add_unit(float& ar, float& ai, float re,
+                                         float im) {
+  if (K == 0) { ar += re; ai += im; }
+  if (K == 1) { ar -= im; ai += re; }
+  if (K == 2) { ar -= re; ai -= im; }
+  if (K == 3) { ar += im; ai -= re; }
+}
+
+// The half spinor of colour c: h[a] = psi_a + i^q_a psi_col_a, psi read
+// through `at(component)`.
+template <int MU, bool FWD, bool G5IN, class At>
+__device__ __forceinline__ void project(float (&h_r)[2], float (&h_i)[2],
+                                        int c, const At& at) {
+  constexpr int b0 = proj_col(MU, 0), b1 = proj_col(MU, 1);
+  h_r[0] = at((0 * 3 + c) * 2 + 0);
+  h_i[0] = at((0 * 3 + c) * 2 + 1);
+  h_r[1] = at((1 * 3 + c) * 2 + 0);
+  h_i[1] = at((1 * 3 + c) * 2 + 1);
+  add_unit<proj_k(MU, FWD, G5IN, 0)>(h_r[0], h_i[0], at((b0 * 3 + c) * 2),
+                                     at((b0 * 3 + c) * 2 + 1));
+  add_unit<proj_k(MU, FWD, G5IN, 1)>(h_r[1], h_i[1], at((b1 * 3 + c) * 2),
+                                     at((b1 * 3 + c) * 2 + 1));
+}
+
+// o[spin] (for one output colour) += the hop's contribution rebuilt from
+// g[a] = (U h_a) of that colour.
+template <int MU, bool FWD, bool G5OUT>
+__device__ __forceinline__ void reconstruct(float (&o_r)[4], float (&o_i)[4],
+                                            const float (&g_r)[2],
+                                            const float (&g_i)[2]) {
+  o_r[0] += g_r[0];
+  o_i[0] += g_i[0];
+  o_r[1] += g_r[1];
+  o_i[1] += g_i[1];
+  constexpr int s0 = recon_src(MU, 0), s1 = recon_src(MU, 1);
+  add_unit<recon_k(MU, FWD, G5OUT, 0)>(o_r[2], o_i[2], g_r[s0], g_i[s0]);
+  add_unit<recon_k(MU, FWD, G5OUT, 1)>(o_r[3], o_i[3], g_r[s1], g_i[s1]);
+}
+
+// (U h)[row] for a forward hop, (U^dag h)[row] for a backward one, both
+// half spinors at once; the link read through `u(component)`.  Explicit
+// fmaf keeps the rounding the same in every instance.
+template <bool FWD, class Ul>
+__device__ __forceinline__ void link_row(float (&g_r)[2], float (&g_i)[2],
+                                         int row, const float (&h_r)[2][3],
+                                         const float (&h_i)[2][3],
+                                         const Ul& u) {
+  g_r[0] = g_i[0] = g_r[1] = g_i[1] = 0.f;
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) h_r[a][c] = h_i[a][c] = 0.f;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float pr = __ldg(psi + ((b * 3 + c) * 2 + 0) * xs);
-      const float pi = __ldg(psi + ((b * 3 + c) * 2 + 1) * xs);
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const float cr = tab.proj[H][a][b][0], ci = tab.proj[H][a][b][1];
-        h_r[a][c] += cr * pr - ci * pi;
-        h_i[a][c] += cr * pi + ci * pr;
-      }
-    }
-  }
-  // stage 2: g[a] = U h[a] (forward) or U^dag h[a] (backward)
-  float g_r[2][3], g_i[2][3];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) g_r[a][c] = g_i[a][c] = 0.f;
-#pragma unroll
-  for (int row = 0; row < 3; ++row) {
-#pragma unroll
-    for (int col = 0; col < 3; ++col) {
-      const int e = DAG ? (col * 3 + row) : (row * 3 + col);
-      const float ur = __ldg(u + (e * 2 + 0) * xs);
-      const float ui = DAG ? -__ldg(u + (e * 2 + 1) * xs)
-                           : __ldg(u + (e * 2 + 1) * xs);
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        g_r[a][row] += ur * h_r[a][col] - ui * h_i[a][col];
-        g_i[a][row] += ur * h_i[a][col] + ui * h_r[a][col];
-      }
-    }
-  }
-  // stage 3: rebuild the 4-spinor and accumulate with -1/2
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
+  for (int col = 0; col < 3; ++col) {
+    const int e = FWD ? (row * 3 + col) : (col * 3 + row);
+    const float ur = u(e * 2 + 0);
+    const float ui = FWD ? u(e * 2 + 1) : -u(e * 2 + 1);
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
-      o_r[a][c] -= 0.5f * g_r[a][c];
-      o_i[a][c] -= 0.5f * g_i[a][c];
+      g_r[a] = fmaf(ur, h_r[a][col], fmaf(-ui, h_i[a][col], g_r[a]));
+      g_i[a] = fmaf(ur, h_i[a][col], fmaf(ui, h_r[a][col], g_i[a]));
     }
+  }
+}
+
+// One hop for one output colour `row`: project every colour of the
+// neighbour, multiply by the link's row (column for U^dag), rebuild.
+template <int MU, bool FWD, bool G5IN, bool G5OUT, class At, class Ul>
+__device__ __forceinline__ void hop_colour(float (&o_r)[4], float (&o_i)[4],
+                                           int row, const At& psi,
+                                           const Ul& u) {
+  float h_r[2][3], h_i[2][3];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float rr = 0.f, ri = 0.f;
+  for (int c = 0; c < 3; ++c) {
+    float pr[2], pi[2];
+    project<MU, FWD, G5IN>(pr, pi, c, psi);
+    h_r[0][c] = pr[0];
+    h_i[0][c] = pi[0];
+    h_r[1][c] = pr[1];
+    h_i[1][c] = pi[1];
+  }
+  float g_r[2], g_i[2];
+  link_row<FWD>(g_r, g_i, row, h_r, h_i, u);
+  reconstruct<MU, FWD, G5OUT>(o_r, o_i, g_r, g_i);
+}
+
+// One hop for all three output colours of a site (K4's one thread per
+// site): the projection once, then the three link rows.
+template <int MU, bool FWD, bool G5IN, bool G5OUT, class At, class Ul>
+__device__ __forceinline__ void hop_site(float (&o_r)[3][4],
+                                         float (&o_i)[3][4], const At& psi,
+                                         const Ul& u) {
+  float h_r[2][3], h_i[2][3];
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const float pr = tab.recon[H][i][k][0], pi = tab.recon[H][i][k][1];
-        rr += pr * g_r[k][c] - pi * g_i[k][c];
-        ri += pr * g_i[k][c] + pi * g_r[k][c];
-      }
-      o_r[2 + i][c] -= 0.5f * rr;
-      o_i[2 + i][c] -= 0.5f * ri;
-    }
+  for (int c = 0; c < 3; ++c) {
+    float pr[2], pi[2];
+    project<MU, FWD, G5IN>(pr, pi, c, psi);
+    h_r[0][c] = pr[0];
+    h_i[0][c] = pi[0];
+    h_r[1][c] = pr[1];
+    h_i[1][c] = pi[1];
+  }
+#pragma unroll
+  for (int row = 0; row < 3; ++row) {
+    float g_r[2], g_i[2];
+    link_row<FWD>(g_r, g_i, row, h_r, h_i, u);
+    reconstruct<MU, FWD, G5OUT>(o_r[row], o_i[row], g_r, g_i);
   }
 }
 

@@ -25,8 +25,10 @@
 //  * one thread per site, threads along X, so each of the 24 (18) component
 //    planes is read with neighbouring threads on neighbouring addresses; the
 //    X shift moves a whole row together and stays coalesced but for the wrap;
-//  * the spin-projection trick and K1's 192-float tables (wilson_common.cuh),
-//    with g5in/g5out folded in on the host;
+//  * the spin-projection trick with its spin structure fixed at compile
+//    time (wilson_common.cuh, shared with K1): the kernel is a template on
+//    g5in and g5out, each hop on its direction and sign, so a projection
+//    is 12 complex adds;
 //  * the site term as four floats per launch: (m + 4) on spins 0,1 and
 //    +-(m + 4) on spins 2,3 (negated when exactly one flag is set), and the
 //    twist on spins 0,1 and +-twist on spins 2,3 (negated when the flags
@@ -34,34 +36,33 @@
 //    its accumulator (seeding the sum with it spilled more);
 //  * the thread loops over the N right-hand sides with the same per-site
 //    instruction sequence for every n, so a batched launch equals N single
-//    launches bitwise; links are re-read for each n from L1/L2.  Holding
-//    them in registers across the batch, and TMA/cp.async staging of the
-//    planes (the TPU kernel's double-buffered gauge stream), are later work.
+//    launches bitwise; links are re-read for each n from L1/L2.  K1's
+//    staged tiles (links held across the batch, TMA bulk copies into
+//    shared memory) are not carried over yet: K4's own redesign (launch
+//    geometry, batch reuse, registers) is queued.
 // Offsets are 64-bit throughout: an N = 4 field at 32^3 x 64 holds 201 M
 // floats.
 
 #include <cuda_runtime.h>
-
-#include <cstring>
 
 #include "wilson_common.cuh"
 
 namespace {
 
 using wilson::G;
-using wilson::HopTables;
 using wilson::S;
-using wilson::hop;
+using wilson::hop_site;
 
 // The site term's coefficients on spins 0,1 (hi) and 2,3 (lo).
 struct SiteTerm {
   float m_hi, m_lo, tw_hi, tw_lo;
 };
 
+template <bool G5IN, bool G5OUT>
 __global__ void __launch_bounds__(128)
 wilson_full_kernel(const float* __restrict__ u, const float* __restrict__ psi,
                    float* __restrict__ out, int T, int Z, int Y, int X, int N,
-                   const HopTables tab, const SiteTerm st) {
+                   const SiteTerm st) {
   const long sites = (long)T * Z * Y * X;
   const long site = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (site >= sites) return;
@@ -84,29 +85,33 @@ wilson_full_kernel(const float* __restrict__ u, const float* __restrict__ psi,
   auto gl = [&](int mu, int tt, int zz, int yy, int xx) -> long {
     return ((((long)mu * T + tt) * Z + zz) * Y + yy) * G * xs + xx;
   };
+  auto at = [xs](const float* p) {
+    return [p, xs](int k) { return __ldg(p + k * xs); };
+  };
   const long field = (long)T * Z * Y * S * xs;
   const long here = sp(t, z, y, x);
   const bool twisted = st.tw_hi != 0.f;
 
   for (int n = 0; n < N; ++n) {
     const float* p = psi + n * field;
-    float o_r[4][3], o_i[4][3];
+    float o_r[3][4], o_i[3][4];
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
+    for (int c = 0; c < 3; ++c)
 #pragma unroll
-      for (int c = 0; c < 3; ++c) o_r[s][c] = o_i[s][c] = 0.f;
+      for (int s = 0; s < 4; ++s) o_r[c][s] = o_i[c][s] = 0.f;
 
-    hop<0, false>(o_r, o_i, p + sp(tp, z, y, x), u + gl(0, t, z, y, x), xs, tab);
-    hop<1, true>(o_r, o_i, p + sp(tm, z, y, x), u + gl(0, tm, z, y, x), xs, tab);
-    hop<2, false>(o_r, o_i, p + sp(t, zp, y, x), u + gl(1, t, z, y, x), xs, tab);
-    hop<3, true>(o_r, o_i, p + sp(t, zm, y, x), u + gl(1, t, zm, y, x), xs, tab);
-    hop<4, false>(o_r, o_i, p + sp(t, z, yp, x), u + gl(2, t, z, y, x), xs, tab);
-    hop<5, true>(o_r, o_i, p + sp(t, z, ym, x), u + gl(2, t, z, ym, x), xs, tab);
-    hop<6, false>(o_r, o_i, p + sp(t, z, y, xp), u + gl(3, t, z, y, x), xs, tab);
-    hop<7, true>(o_r, o_i, p + sp(t, z, y, xm), u + gl(3, t, z, y, xm), xs, tab);
+    hop_site<0, true, G5IN, G5OUT>(o_r, o_i, at(p + sp(tp, z, y, x)), at(u + gl(0, t, z, y, x)));
+    hop_site<0, false, G5IN, G5OUT>(o_r, o_i, at(p + sp(tm, z, y, x)), at(u + gl(0, tm, z, y, x)));
+    hop_site<1, true, G5IN, G5OUT>(o_r, o_i, at(p + sp(t, zp, y, x)), at(u + gl(1, t, z, y, x)));
+    hop_site<1, false, G5IN, G5OUT>(o_r, o_i, at(p + sp(t, zm, y, x)), at(u + gl(1, t, zm, y, x)));
+    hop_site<2, true, G5IN, G5OUT>(o_r, o_i, at(p + sp(t, z, yp, x)), at(u + gl(2, t, z, y, x)));
+    hop_site<2, false, G5IN, G5OUT>(o_r, o_i, at(p + sp(t, z, ym, x)), at(u + gl(2, t, z, ym, x)));
+    hop_site<3, true, G5IN, G5OUT>(o_r, o_i, at(p + sp(t, z, y, xp)), at(u + gl(3, t, z, y, x)));
+    hop_site<3, false, G5IN, G5OUT>(o_r, o_i, at(p + sp(t, z, y, xm)), at(u + gl(3, t, z, y, xm)));
 
     // epilogue: the site term m (g5out g5in) psi + i tw (g5out g5 g5in) psi
-    // per spin block, multiplying by i as (re, im) -> (-im, re)
+    // per spin block, multiplying by i as (re, im) -> (-im, re), plus the
+    // hops' sum with its -1/2
     const float* c0 = p + here;
     float* o = out + n * field + here;
 #pragma unroll
@@ -122,8 +127,8 @@ wilson_full_kernel(const float* __restrict__ u, const float* __restrict__ psi,
           nr -= tw * pi;
           ni += tw * pr;
         }
-        o[((s * 3 + c) * 2 + 0) * xs] = nr + o_r[s][c];
-        o[((s * 3 + c) * 2 + 1) * xs] = ni + o_i[s][c];
+        o[((s * 3 + c) * 2 + 0) * xs] = nr + -0.5f * o_r[c][s];
+        o[((s * 3 + c) * 2 + 1) * xs] = ni + -0.5f * o_i[c][s];
       }
     }
   }
@@ -137,22 +142,22 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// tables: host pointer to 192 floats laid out as HopTables (copied into
-// the launch's parameters); (m_hi, m_lo, tw_hi, tw_lo) is the folded site
-// term.  Returns cudaGetLastError().
+// g5in, g5out: the gamma5 flags (each instance has them compiled in);
+// (m_hi, m_lo, tw_hi, tw_lo) is the folded site term.  Returns
+// cudaGetLastError().
 int wilson_full(const float* u, const float* psi, float* out, int T, int Z,
-                int Y, int X, int N, const float* tables, float m_hi,
+                int Y, int X, int N, int g5in, int g5out, float m_hi,
                 float m_lo, float tw_hi, float tw_lo, void* stream) {
-  static_assert(sizeof(HopTables) == 192 * sizeof(float), "table layout");
-  HopTables tab;
-  std::memcpy(&tab, tables, sizeof(tab));
   const SiteTerm st{m_hi, m_lo, tw_hi, tw_lo};
   const long sites = (long)T * Z * Y * X;
   const int threads = 128;
   const unsigned blocks = (unsigned)((sites + threads - 1) / threads);
-  wilson_full_kernel<<<blocks, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      u, psi, out, T, Z, Y, X, N, tab, st);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kern = g5in ? (g5out ? wilson_full_kernel<true, true>
+                            : wilson_full_kernel<true, false>)
+                   : (g5out ? wilson_full_kernel<false, true>
+                            : wilson_full_kernel<false, false>);
+  kern<<<blocks, threads, 0, s>>>(u, psi, out, T, Z, Y, X, N, st);
   return static_cast<int>(cudaGetLastError());
 }
 

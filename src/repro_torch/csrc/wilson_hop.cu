@@ -14,135 +14,349 @@
 // [4][T][Z][Y][18][Xh], component index (spin*3+color)*2+reim resp.
 // (row*3+col)*2+reim, X innermost.  u_out holds the links at the output
 // parity's sites (forward hops), u_nbr those at the neighbour parity
-// (backward hops take U_mu(x-mu)^dag there).
+// (backward hops take U_mu(x-mu)^dag there).  A "row" below is one
+// (t, z, y) line of a field: 24 (spinor) or 18 (link) planes of Xh floats.
 //
 // What bounds it: memory.  Per output site and RHS the kernel must read
-// 8 links (144 floats), 24 floats of neighbour spinor data (each spinor is
-// read by 8 neighbours, so once from DRAM when the caches hold the
-// planes) and write 24, plus 24 read for the accumulator: (144/N + 48)*4
-// bytes against 1320 flops, about 1.7 flop/byte at N = 1, far below the
-// card's fp32 ridge.  The design:
-//  * one thread per output site, threads along X, so each of the 24 (18)
-//    component planes is read with neighbouring threads on neighbouring
-//    addresses; the X-neighbour shift (j + s_out, j - (1 - s_out)) moves
-//    a whole row together and stays coalesced;
-//  * the spin-projection trick: each hop projects the 4-spinor to two
-//    half spinors before the SU(3) product, then rebuilds rows 2 and 3
-//    from rows 0 and 1 with a phase, halving the link work;
-//  * g5in/g5out and the hop direction's projector arrive as small
-//    constant tables (kernel parameters, folded on the host), so the
-//    dagger costs no extra pass;
-//  * the Schur axpy and the twisted-mass site term are folded into the
-//    epilogue, so the Schur normal operator is four launches of this
-//    kernel and nothing else;
-//  * the thread loops over the N right-hand sides in one launch with the
-//    same per-site instruction sequence for every n, so a batched launch
-//    equals N single launches bitwise; the links are re-read for each n
-//    from L1/L2 rather than DRAM.  Holding them in registers across the
-//    batch, and staging planes through shared memory with TMA, is later
-//    work.
+// 8 links (144 floats; no link is read by two sites), the neighbours'
+// spinors (each read by 8 sites, once from DRAM at best) and the
+// accumulator, and write 24 floats: about 1.7 flop/byte at N = 1, far
+// below the card's fp32 ridge.  Its first version, one thread per site
+// with every operand a 4-byte load into registers, needed 168 registers,
+// held few bytes in flight per SM and reached 42 % of the bytes bound; a
+// batch re-read the links for every RHS.  The design:
+//  * a block owns a tile (t, z, y0 .. y0+b-1, all Xh) and stages every
+//    row the tile reads in shared memory with TMA bulk copies
+//    (cp.async.bulk, completion counted on one mbarrier): the centre rows
+//    y0-1 .. y0+b (the Y and X neighbours, the Y wrap a row of its own),
+//    the t+-1 and z+-1 rows, the accumulator rows and the 8 link rows per
+//    y.  Bytes in flight cost no registers, and each neighbour spinor is
+//    fetched from L2 (5b+2)/b times per site instead of 8;
+//  * three threads per site, one per output colour: each projects all
+//    three colours of the neighbour (12 complex adds) and multiplies one
+//    link row, so a thread holds 8 accumulators and few operands;
+//  * the spin structure is compile time (wilson_common.cuh): the kernel
+//    is a template on g5in and g5out, and every hop on its direction and
+//    sign;
+//  * links are staged once per tile and serve all N right-hand sides;
+//    the spinor rows of RHS n are staged after RHS n-1 is done, and other
+//    resident blocks cover the wait.  Every RHS runs the same instruction
+//    sequence on the same staged layout, so a batched launch equals N
+//    single launches bitwise;
+//  * a tile whose rows a bulk copy cannot take (odd Xh makes a link row
+//    72 Xh bytes, not a multiple of 16; a base pointer off 16 bytes) is
+//    staged by all threads with plain loads instead; a row too wide for
+//    shared memory (Xh above about 170) is read from global memory in
+//    place (STAGED = false).  Same compute code, every shape;
+//  * the Schur axpy and the twisted-mass site term stay in the epilogue,
+//    so the Schur normal operator is four launches of this kernel.
+//  The host (kernels/wilson_dslash/kernel.py::hop_tile_plan) picks b and
+//  the shared-memory strides; the same plan drives the CPU tests'
+//  emulation.  Offsets are 64-bit: an N = 4 half field at 32^3 x 64 holds
+//  100 M floats.
 
 #include <cuda_runtime.h>
 
-#include <cstring>
+#include <cstdint>
 
 #include "wilson_common.cuh"
 
 namespace {
 
 using wilson::G;
-using wilson::HopTables;
 using wilson::S;
-using wilson::hop;
+using wilson::hop_colour;
 
-struct Epilogue {
-  float hop_coeff, hop_twist, acc_coeff, acc_twist;
+constexpr int HOP_THREADS = 256;  // most threads a block; <= 128 registers
+
+struct HopArgs {
+  const float* u_out;
+  const float* u_nbr;
+  const float* psi;
+  const float* acc;  // null: no accumulator
+  float* out;
+  int T, Z, Y, Xh, N, parity;
+  int rows;            // b, the tile's y extent
+  int ls, ss;          // shared-memory row strides (floats) of links, spinors
+  int bulk;            // stage with TMA bulk copies (else plain loads)
+  float hc, ht;        // -1/2 hop_coeff, -1/2 hop_twist (the hop's -1/2)
+  float ac, at;        // acc_coeff, acc_twist
 };
 
-__global__ void __launch_bounds__(128)
-wilson_hop_kernel(const float* __restrict__ u_out,
-                  const float* __restrict__ u_nbr,
-                  const float* __restrict__ psi,
-                  const float* __restrict__ acc, float* __restrict__ out,
-                  int T, int Z, int Y, int Xh, int N, int parity,
-                  const HopTables tab, const Epilogue ep) {
-  const long sites = (long)T * Z * Y * Xh;
-  const long site = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (site >= sites) return;
-  const int j = (int)(site % Xh);
-  long rest = site / Xh;
-  const int y = (int)(rest % Y);
-  rest /= Y;
-  const int z = (int)(rest % Z);
-  const int t = (int)(rest / Z);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // output sites of this row sit at x = 2j + s_out
-  const int s_out = (t + z + y + parity) & 1;
-  const int tp = (t + 1 == T) ? 0 : t + 1, tm = (t == 0) ? T - 1 : t - 1;
-  const int zp = (z + 1 == Z) ? 0 : z + 1, zm = (z == 0) ? Z - 1 : z - 1;
-  const int yp = (y + 1 == Y) ? 0 : y + 1, ym = (y == 0) ? Y - 1 : y - 1;
-  const int jf = (j + s_out == Xh) ? 0 : j + s_out;
-  const int jb = (j - (1 - s_out) < 0) ? Xh - 1 : j - (1 - s_out);
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
 
-  const long xs = Xh;
-  auto sp = [&](int tt, int zz, int yy, int jj) -> long {
-    return (((long)tt * Z + zz) * Y + yy) * S * xs + jj;
-  };
-  auto gl = [&](int mu, int tt, int zz, int yy, int jj) -> long {
-    return ((((long)mu * T + tt) * Z + zz) * Y + yy) * G * xs + jj;
-  };
-  const long field = (long)T * Z * Y * S * xs;
-  const long here = sp(t, z, y, j);
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
 
-  for (int n = 0; n < N; ++n) {
-    const float* p = psi + n * field;
-    float o_r[4][3], o_i[4][3];
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The tile's geometry and where each row it reads lives.
+struct Tile {
+  int t, z, y0, nb, tp, tm, zp, zm;
+  __device__ int wrap_y(int y, int Y) const {
+    return y < 0 ? y + Y : (y >= Y ? y - Y : y);
+  }
+};
+
+__device__ __forceinline__ long srow(const HopArgs& a, int t, int z, int y) {
+  return (((long)t * a.Z + z) * a.Y + y) * S * a.Xh;
+}
+__device__ __forceinline__ long grow(const HopArgs& a, int mu, int t, int z,
+                                     int y) {
+  return ((((long)mu * a.T + t) * a.Z + z) * a.Y + y) * G * a.Xh;
+}
+
+// Link row k of the tile (8 groups of nb): group g = hop 2 mu + (0 fwd,
+// 1 bwd), row i = y0 + i, the backward Y link from row y - 1.
+__device__ __forceinline__ const float* link_src(const HopArgs& a,
+                                                 const Tile& tl, int g,
+                                                 int i) {
+  const int y = tl.y0 + i, mu = g >> 1;
+  if (!(g & 1)) return a.u_out + grow(a, mu, tl.t, tl.z, y);
+  switch (mu) {
+    case 0: return a.u_nbr + grow(a, 0, tl.tm, tl.z, y);
+    case 1: return a.u_nbr + grow(a, 1, tl.t, tl.zm, y);
+    case 2: return a.u_nbr + grow(a, 2, tl.t, tl.z, tl.wrap_y(y - 1, a.Y));
+    default: return a.u_nbr + grow(a, 3, tl.t, tl.z, y);
+  }
+}
+
+// Spinor row k of the tile for RHS n: groups t+1, t-1, z+1, z-1 (nb rows
+// each, staged at g*b + i), the centre rows y0-1 .. y0+nb (at 4b + i), the
+// accumulator rows (at 5b + 2 + i).
+__device__ __forceinline__ const float* spin_src(const HopArgs& a,
+                                                 const Tile& tl, long nf,
+                                                 int k, int* slot) {
+  const int nb = tl.nb;
+  if (k < 4 * nb) {
+    const int g = k / nb, i = k - g * nb, y = tl.y0 + i;
+    *slot = g * a.rows + i;
+    const int t = g == 0 ? tl.tp : (g == 1 ? tl.tm : tl.t);
+    const int z = g == 2 ? tl.zp : (g == 3 ? tl.zm : tl.z);
+    return a.psi + nf + srow(a, t, z, y);
+  }
+  k -= 4 * nb;
+  if (k < nb + 2) {
+    *slot = 4 * a.rows + k;
+    return a.psi + nf + srow(a, tl.t, tl.z, tl.wrap_y(tl.y0 - 1 + k, a.Y));
+  }
+  k -= nb + 2;
+  *slot = 5 * a.rows + 2 + k;
+  return a.acc + nf + srow(a, tl.t, tl.z, tl.y0 + k);
+}
+
+// Stage the tile's rows for RHS n (and the links when `links`) into
+// shared memory; returns once the rows are issued (bulk) or written
+// (plain, after a barrier).
+__device__ __forceinline__ void stage(const HopArgs& a, const Tile& tl,
+                                      float* sl, float* ss, uint64_t* bar,
+                                      int n, bool links) {
+  const long nf = (long)n * a.T * a.Z * a.Y * S * a.Xh;
+  const int nl = links ? 8 * tl.nb : 0;
+  const int ns = 5 * tl.nb + 2 + (a.acc ? tl.nb : 0);
+  const int llen = G * a.Xh, slen = S * a.Xh;
+  if (a.bulk) {
+    if (threadIdx.x >= 32) return;
+    if (threadIdx.x == 0)
+      mbar_expect(bar, (uint32_t)(nl * llen + ns * slen) * 4u);
+    __syncwarp();
+    for (int k = threadIdx.x; k < nl + ns; k += 32) {
+      if (k < nl) {
+        const int g = k / tl.nb, i = k - g * tl.nb;
+        bulk_copy(sl + (g * a.rows + i) * a.ls, link_src(a, tl, g, i),
+                  llen * 4u, bar);
+      } else {
+        int slot;
+        const float* src = spin_src(a, tl, nf, k - nl, &slot);
+        bulk_copy(ss + slot * a.ss, src, slen * 4u, bar);
+      }
+    }
+    return;
+  }
+  for (int k = 0; k < nl + ns; ++k) {
+    const float* src;
+    float* dst;
+    int len;
+    if (k < nl) {
+      const int g = k / tl.nb, i = k - g * tl.nb;
+      src = link_src(a, tl, g, i);
+      dst = sl + (g * a.rows + i) * a.ls;
+      len = llen;
+    } else {
+      int slot;
+      src = spin_src(a, tl, nf, k - nl, &slot);
+      dst = ss + slot * a.ss;
+      len = slen;
+    }
+    for (int e = threadIdx.x; e < len; e += blockDim.x) dst[e] = __ldg(src + e);
+  }
+  __syncthreads();
+}
+
+template <bool G5IN, bool G5OUT, bool STAGED>
+__global__ void __launch_bounds__(HOP_THREADS, 2)
+wilson_hop_kernel(const HopArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int nyb = (a.Y + a.rows - 1) / a.rows;
+  Tile tl;
+  {
+    const int yb = blockIdx.x % nyb;
+    const int tz = blockIdx.x / nyb;
+    tl.z = tz % a.Z;
+    tl.t = tz / a.Z;
+    tl.y0 = yb * a.rows;
+    tl.nb = min(a.rows, a.Y - tl.y0);
+    tl.tp = tl.t + 1 == a.T ? 0 : tl.t + 1;
+    tl.tm = tl.t == 0 ? a.T - 1 : tl.t - 1;
+    tl.zp = tl.z + 1 == a.Z ? 0 : tl.z + 1;
+    tl.zm = tl.z == 0 ? a.Z - 1 : tl.z - 1;
+  }
+  const int b = a.rows, xh = a.Xh;
+  float* sl = smem;                            // 8 b link rows
+  float* ss = smem + 8 * b * a.ls;             // 6 b + 2 spinor rows
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      ss + (6 * b + 2) * a.ss + 2);            // 8-byte aligned (see host)
+  if (STAGED && a.bulk) {
+    if (threadIdx.x == 0) mbar_init(bar);
+    __syncthreads();
+  }
+  const long field = (long)a.T * a.Z * a.Y * S * xh;
+  const int work = 3 * tl.nb * xh;  // (colour, row, j) items of the tile
+
+  for (int n = 0; n < a.N; ++n) {
+    if (STAGED) {
+      stage(a, tl, sl, ss, bar, n, n == 0);
+      if (a.bulk) mbar_wait(bar, n & 1);
+    }
+    for (int w = threadIdx.x; w < work; w += blockDim.x) {
+      const int c = w / (tl.nb * xh);
+      const int rj = w - c * tl.nb * xh;
+      const int r = rj / xh, j = rj - r * xh;
+      const int y = tl.y0 + r;
+      const int s_out = (tl.t + tl.z + y + a.parity) & 1;
+      const int jf = j + s_out == xh ? 0 : j + s_out;
+      const int jb = j - (1 - s_out) < 0 ? xh - 1 : j - (1 - s_out);
+      // row pointers, made where each hop reads them: the staged copies,
+      // or the fields in place
+      const long nf = (long)n * field;
+      auto spin = [&](int g) -> const float* {  // t+1, t-1, z+1, z-1, acc
+        if (STAGED) return ss + (g < 4 ? g * b + r : 5 * b + 2 + r) * a.ss;
+        if (g == 4) return a.acc + nf + srow(a, tl.t, tl.z, y);
+        return a.psi + nf +
+               srow(a, g == 0 ? tl.tp : (g == 1 ? tl.tm : tl.t),
+                    g == 2 ? tl.zp : (g == 3 ? tl.zm : tl.z), y);
+      };
+      auto centre = [&](int d) -> const float* {  // rows y - 1, y, y + 1
+        if (STAGED) return ss + (4 * b + r + d) * a.ss;
+        return a.psi + nf + srow(a, tl.t, tl.z, tl.wrap_y(y - 1 + d, a.Y));
+      };
+      auto link = [&](int g) -> const float* {
+        if (STAGED) return sl + (g * b + r) * a.ls;
+        return link_src(a, tl, g, r);
+      };
+      float o_r[4] = {0.f, 0.f, 0.f, 0.f}, o_i[4] = {0.f, 0.f, 0.f, 0.f};
+      auto at = [xh](const float* row, int jj) {
+        return [row, jj, xh](int k) { return row[k * xh + jj]; };
+      };
+      hop_colour<0, true, G5IN, G5OUT>(o_r, o_i, c, at(spin(0), j), at(link(0), j));
+      hop_colour<0, false, G5IN, G5OUT>(o_r, o_i, c, at(spin(1), j), at(link(1), j));
+      hop_colour<1, true, G5IN, G5OUT>(o_r, o_i, c, at(spin(2), j), at(link(2), j));
+      hop_colour<1, false, G5IN, G5OUT>(o_r, o_i, c, at(spin(3), j), at(link(3), j));
+      hop_colour<2, true, G5IN, G5OUT>(o_r, o_i, c, at(centre(2), j), at(link(4), j));
+      hop_colour<2, false, G5IN, G5OUT>(o_r, o_i, c, at(centre(0), j), at(link(5), j));
+      hop_colour<3, true, G5IN, G5OUT>(o_r, o_i, c, at(centre(1), jf), at(link(6), j));
+      hop_colour<3, false, G5IN, G5OUT>(o_r, o_i, c, at(centre(1), jb), at(link(7), jb));
+
+      // epilogue: site-term maps on the hop (with its -1/2) and the
+      // accumulator; i g5 mixes each component's re/im planes with the
+      // spin block's g5 sign
+      float* o = a.out + nf + srow(a, tl.t, tl.z, y) + j;
+      const float* acc_row = a.acc ? spin(4) : nullptr;
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
-#pragma unroll
-      for (int c = 0; c < 3; ++c) o_r[s][c] = o_i[s][c] = 0.f;
-
-    hop<0, false>(o_r, o_i, p + sp(tp, z, y, j), u_out + gl(0, t, z, y, j), xs, tab);
-    hop<1, true>(o_r, o_i, p + sp(tm, z, y, j), u_nbr + gl(0, tm, z, y, j), xs, tab);
-    hop<2, false>(o_r, o_i, p + sp(t, zp, y, j), u_out + gl(1, t, z, y, j), xs, tab);
-    hop<3, true>(o_r, o_i, p + sp(t, zm, y, j), u_nbr + gl(1, t, zm, y, j), xs, tab);
-    hop<4, false>(o_r, o_i, p + sp(t, z, yp, j), u_out + gl(2, t, z, y, j), xs, tab);
-    hop<5, true>(o_r, o_i, p + sp(t, z, ym, j), u_nbr + gl(2, t, z, ym, j), xs, tab);
-    hop<6, false>(o_r, o_i, p + sp(t, z, y, jf), u_out + gl(3, t, z, y, j), xs, tab);
-    hop<7, true>(o_r, o_i, p + sp(t, z, y, jb), u_nbr + gl(3, t, z, y, jb), xs, tab);
-
-    // epilogue: site-term maps on the hop and the accumulator; i g5 mixes
-    // each component's re/im planes with the spin block's g5 sign
-    float* o = out + n * field + here;
-    const float* a = acc ? acc + n * field + here : nullptr;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const float g5 = s < 2 ? 1.f : -1.f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float hr = o_r[s][c], hi = o_i[s][c];
-        float nr = ep.hop_coeff * hr, ni = ep.hop_coeff * hi;
-        if (ep.hop_twist != 0.f) {
-          const float hg = ep.hop_twist * g5;
+      for (int s = 0; s < 4; ++s) {
+        const float g5 = s < 2 ? 1.f : -1.f;
+        const float hr = o_r[s], hi = o_i[s];
+        float nr = a.hc * hr, ni = a.hc * hi;
+        if (a.ht != 0.f) {
+          const float hg = a.ht * g5;
           nr -= hg * hi;
           ni += hg * hr;
         }
-        if (a) {
-          const float ar = __ldg(a + ((s * 3 + c) * 2 + 0) * xs);
-          const float ai = __ldg(a + ((s * 3 + c) * 2 + 1) * xs);
-          nr += ep.acc_coeff * ar;
-          ni += ep.acc_coeff * ai;
-          if (ep.acc_twist != 0.f) {
-            const float ag = ep.acc_twist * g5;
+        const int k = (s * 3 + c) * 2;
+        if (a.acc) {
+          const float ar = acc_row[k * xh + j];
+          const float ai = acc_row[(k + 1) * xh + j];
+          nr += a.ac * ar;
+          ni += a.ac * ai;
+          if (a.at != 0.f) {
+            const float ag = a.at * g5;
             nr -= ag * ai;
             ni += ag * ar;
           }
         }
-        o[((s * 3 + c) * 2 + 0) * xs] = nr;
-        o[((s * 3 + c) * 2 + 1) * xs] = ni;
+        o[k * xh] = nr;
+        o[(k + 1) * xh] = ni;
       }
     }
+    if (STAGED) __syncthreads();  // the staged rows are reused for n + 1
   }
+}
+
+template <bool G5IN, bool G5OUT, bool STAGED>
+cudaError_t launch(const HopArgs& a, int blocks, int threads, size_t smem,
+                   cudaStream_t s) {
+  auto kern = wilson_hop_kernel<G5IN, G5OUT, STAGED>;
+  // bytes this instance may use on each device, once raised (the opt-in
+  // is a per-device attribute); devices past the table opt in every time
+  constexpr int MAX_DEVICES = 64;
+  static int opted_in[MAX_DEVICES] = {};
+  int dev = 0, unkept = 0;
+  cudaGetDevice(&dev);
+  int& raised = dev < MAX_DEVICES ? opted_in[dev] : unkept;
+  if ((int)smem > raised && smem > 48 * 1024) {
+    int most = 0;
+    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+    raised = most;
+  }
+  kern<<<blocks, threads, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -153,23 +367,46 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// tables: host pointer to 192 floats laid out as HopTables (copied into
-// the launch's parameters); acc may be null.  Returns cudaGetLastError().
+// rows, ls, ss: the tile plan of kernel.py::hop_tile_rows (rows == 0: the
+// rows are read in place, nothing is staged); acc may be null.  hop_coeff
+// and hop_twist are the caller's, the hop's -1/2 is applied here.
+// Returns a cudaError_t code.
 int wilson_hop(const float* u_out, const float* u_nbr, const float* psi,
                const float* acc, float* out, int T, int Z, int Y, int Xh,
-               int N, int parity, const float* tables, float hop_coeff,
-               float hop_twist, float acc_coeff, float acc_twist,
-               void* stream) {
-  static_assert(sizeof(HopTables) == 192 * sizeof(float), "table layout");
-  HopTables tab;
-  std::memcpy(&tab, tables, sizeof(tab));
-  const Epilogue ep{hop_coeff, hop_twist, acc_coeff, acc_twist};
-  const long sites = (long)T * Z * Y * Xh;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((sites + threads - 1) / threads);
-  wilson_hop_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      u_out, u_nbr, psi, acc, out, T, Z, Y, Xh, N, parity, tab, ep);
-  return static_cast<int>(cudaGetLastError());
+               int N, int parity, int g5in, int g5out, int rows, int ls,
+               int ss, float hop_coeff, float hop_twist, float acc_coeff,
+               float acc_twist, void* stream) {
+  const bool staged = rows > 0;
+  const int b = staged ? rows : 1;
+  auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+  };
+  const bool bulk = staged && Xh % 2 == 0 && aligned(u_out) &&
+                    aligned(u_nbr) && aligned(psi) &&
+                    (acc == nullptr || aligned(acc));
+  const HopArgs a{u_out, u_nbr, psi, acc, out, T, Z, Y, Xh, N, parity & 1,
+                  b, ls, ss, bulk ? 1 : 0, -0.5f * hop_coeff,
+                  -0.5f * hop_twist, acc_coeff, acc_twist};
+  const int blocks = T * Z * ((Y + b - 1) / b);
+  int threads = 3 * b * Xh;
+  threads = threads < HOP_THREADS ? ((threads + 31) / 32) * 32 : HOP_THREADS;
+  // links, spinor rows, 2 floats of slack, the 8-byte mbarrier
+  const size_t smem =
+      staged ? ((size_t)8 * b * ls + (size_t)(6 * b + 2) * ss + 4) * 4 : 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  const int key = (g5in ? 1 : 0) | (g5out ? 2 : 0) | (staged ? 4 : 0);
+  switch (key) {
+    case 0: err = launch<false, false, false>(a, blocks, threads, smem, s); break;
+    case 1: err = launch<true, false, false>(a, blocks, threads, smem, s); break;
+    case 2: err = launch<false, true, false>(a, blocks, threads, smem, s); break;
+    case 3: err = launch<true, true, false>(a, blocks, threads, smem, s); break;
+    case 4: err = launch<false, false, true>(a, blocks, threads, smem, s); break;
+    case 5: err = launch<true, false, true>(a, blocks, threads, smem, s); break;
+    case 6: err = launch<false, true, true>(a, blocks, threads, smem, s); break;
+    default: err = launch<true, true, true>(a, blocks, threads, smem, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -1,12 +1,13 @@
 """K1 ``wilson_hop`` and K4 ``wilson_full``: the Wilson kernels' wrappers
-and their host tables.
+and their host-side plans.
 
 The CUDA sources are ``repro_torch/csrc/wilson_hop.cu`` (K1, the parity
 hop) and ``repro_torch/csrc/wilson_full.cu`` (K4, the full-lattice
 operator); their header notes say what bounds each kernel and how it is
 laid out.  They replace the Pallas kernels ``repro/kernels/wilson_dslash/
 kernel.py::_dslash_parity_kernel`` and ``::_dslash_kernel``, and share the
-spin-projection tables of :func:`hop_tables`.
+compile-time spin structure of ``csrc/wilson_common.cuh``, mirrored here
+by :func:`hop_spec`; :func:`hop_tile_plan` sizes K1's shared-memory tiles.
 
 Each wrapper runs its plain version (:mod:`..ref`) for tensors on the
 CPU, and only then; for CUDA tensors it launches the kernel or raises.
@@ -19,79 +20,86 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
-from repro_torch.core.lattice import GAUGE_G, NDIRS, NSPIN, SPINOR_S
-from repro_torch.core.wilson import _projectors
+from repro_torch.core.lattice import GAUGE_G, NDIRS, SPINOR_S
 from repro_torch.kernels import build
 from repro_torch.kernels.wilson_dslash.ref import (wilson_full_ref,
                                                    wilson_hop_ref)
 
 
-def _halfspinor_tables():
-    """Per (mu, sign): the rows 0,1 of the rank-2 projector (1 -+ g_mu) as
-    the half-spinor projection, and rows 2,3 as (source row, phase).
+# gamma_mu[row] has one nonzero, i^k at column col (DeGrand-Rossi basis,
+# mu in (t, z, y, x)); csrc/wilson_common.cuh holds the same two tables
+GAMMA_COL = ((2, 3, 0, 1), (2, 3, 0, 1), (3, 2, 1, 0), (3, 2, 1, 0))
+GAMMA_K = ((0, 0, 0, 0), (1, 3, 3, 1), (2, 0, 0, 2), (1, 1, 3, 3))
 
-    For r = 1 each projector has rank 2: rows 2 and 3 are a phase times
-    row 0 or 1, which is what lets a hop multiply only two half spinors
-    by its link.
+
+def hop_spec(mu: int, forward: bool, gamma5_in: bool, gamma5_out: bool):
+    """The compile-time spin structure of one hop, as the kernels'
+    templates compute it (``csrc/wilson_common.cuh``): the projection
+    ``h_a = psi_a + i^q_a psi_col_a`` for a = 0, 1 and the reconstruction
+    ``o_{2+i} += i^ph_i g_src_i``.  Returns ``((col_0, q_0), (col_1,
+    q_1)), ((src_0, ph_0), (src_1, ph_1))`` with the units as powers of i.
+
+    The hop's projector is (1 + sigma g_mu), sigma = -1 forward (i^2);
+    gamma5 = diag(+,+,-,-) on the input negates psi_2,3 (q + 2), on the
+    output spins 2,3 (ph + 2).  For r = 1 only.
     """
-    pm, pp = _projectors(1.0)
-    tables = {}
-    for mu in range(NDIRS):
-        for sign, proj in (("fwd", pm[mu]), ("bwd", pp[mu])):
-            recon = []
-            for a in (2, 3):
-                row = proj[a]
-                hit = None
-                for src in range(2):
-                    ref = proj[src]
-                    nz = np.nonzero(np.abs(ref) > 1e-12)[0]
-                    if np.all((np.abs(row) > 1e-12) == (np.abs(ref) > 1e-12)):
-                        phase = row[nz[0]] / ref[nz[0]]
-                        if np.allclose(row, phase * ref, atol=1e-12):
-                            hit = (src, complex(phase))
-                            break
-                if hit is None:
-                    raise ValueError("projector is not rank-2; need r=1")
-                recon.append(hit)
-            tables[(mu, sign)] = (proj[:2], recon)
-    return tables
+    sig = 2 if forward else 0
+    proj = tuple((GAMMA_COL[mu][a],
+                  (sig + GAMMA_K[mu][a] + 2 * bool(gamma5_in)) % 4)
+                 for a in range(2))
+    recon = tuple((GAMMA_COL[mu][2 + i],
+                   (sig + GAMMA_K[mu][2 + i] + 2 * bool(gamma5_out)) % 4)
+                  for i in range(2))
+    return proj, recon
 
 
-@functools.lru_cache(maxsize=4)
-def hop_tables(gamma5_in: bool, gamma5_out: bool) -> np.ndarray:
-    """The kernel's 192-float table: ``proj[8][2][4][re,im]`` then
-    ``recon[8][2][2][re,im]``, hop h = 2*mu + (0 fwd, 1 bwd).
+# K1's tiles: a block stages the rows of (t, z, y0 .. y0+b-1) in shared
+# memory.  HOP_TILE_SITES sets b: 32 sites (96 threads) is b = 2 at
+# 32^3 x 64, the fastest of b = 1, 2, 3, 4, 5, 8 that
+# scripts/compare_kernels.py timed on the H100 (PERF.md)
+HOP_TILE_SITES = 32
+HOP_SMEM_LIMIT = 227 * 1024      # bytes a block may use on the H100
+HOP_SMEM_TARGET = HOP_SMEM_LIMIT // 2   # two blocks per SM where it fits
 
-    gamma5 = diag(+,+,-,-) folds in as signs: ``gamma5_in`` negates the
-    projection coefficients of source spins 2,3 (P -> P g5),
-    ``gamma5_out`` the reconstruction phases of output spins 2,3
-    (P -> g5 P).
+
+def hop_smem_bytes(rows: int, ls: int, ss: int) -> int:
+    """Shared memory of a K1 tile: 8 b link rows, 6 b + 2 spinor rows (t+-1,
+    z+-1, the centre with its Y halo, the accumulator) and the mbarrier."""
+    return (8 * rows * ls + (6 * rows + 2) * ss + 4) * 4
+
+
+def hop_tile_plan(y: int, xh: int) -> tuple[int, int, int]:
+    """K1's tile ``(b, ls, ss)``: b rows of Y per block, and the shared
+    memory row strides (floats) of links and spinors.
+
+    b covers about ``HOP_TILE_SITES`` sites (three threads each), prefers a
+    divisor of Y, and shrinks until the tile fits twice in an SM's shared
+    memory (once at b = 1).  A stride is padded to Xh mod 32 when Xh < 32
+    and Xh % 4 == 0, so the rows a warp spans fall in distinct banks.
+    b == 0: a row does not fit in shared memory, and the kernel reads the
+    fields in place.
     """
-    proj = np.zeros((8, 2, NSPIN, 2), np.float32)
-    recon = np.zeros((8, 2, 2, 2), np.float32)
-    for (mu, sign), (rows, rec) in _halfspinor_tables().items():
-        h = 2 * mu + (sign == "bwd")
-        for a in range(2):
-            for b in range(NSPIN):
-                c = complex(rows[a, b]) * (-1 if gamma5_in and b >= 2 else 1)
-                proj[h, a, b] = (c.real, c.imag)
-        for i, (src, phase) in enumerate(rec):
-            phase = -phase if gamma5_out else phase
-            recon[h, i, src] = (phase.real, phase.imag)
-    out = np.concatenate([proj.ravel(), recon.ravel()])
-    out.setflags(write=False)
-    return out
+    def pad(width):
+        return width if xh % 4 or xh >= 32 else width + (xh - width) % 32
+
+    ls, ss = pad(18 * xh), pad(24 * xh)
+    bmax = max(1, min(y, HOP_TILE_SITES // xh))
+    b = next((d for d in range(bmax, 0, -1)
+              if y % d == 0 and 2 * d >= bmax), bmax)
+    while b > 1 and hop_smem_bytes(b, ls, ss) > HOP_SMEM_TARGET:
+        b -= 1
+    if hop_smem_bytes(b, ls, ss) > HOP_SMEM_LIMIT:
+        b = 0
+    return b, ls, ss
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.library("wilson_hop")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.wilson_hop.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p,
-                               f, f, f, f, p]
+    lib.wilson_hop.argtypes = [p, p, p, p, p] + [i] * 11 + [f] * 4 + [p]
     lib.wilson_hop.restype = ctypes.c_int
     return lib
 
@@ -142,14 +150,13 @@ def wilson_hop(u_out: torch.Tensor, u_nbr: torch.Tensor, psi: torch.Tensor,
     _, t, z, y, _, xh = u_out.shape
     n = psi.shape[0] if psi.dim() == 6 else 1
     out = torch.empty_like(psi)
-    tables = hop_tables(bool(gamma5_in), bool(gamma5_out))
     lib = _lib()
     rc = lib.wilson_hop(
         u_out.data_ptr(), u_nbr.data_ptr(), psi.data_ptr(),
         psi_acc.data_ptr() if psi_acc is not None else None,
-        out.data_ptr(), t, z, y, xh, n, int(parity) & 1,
-        tables.ctypes.data, float(hop_coeff), float(hop_twist),
-        float(acc_coeff), float(acc_twist),
+        out.data_ptr(), t, z, y, xh, n, int(parity) & 1, int(bool(gamma5_in)),
+        int(bool(gamma5_out)), *hop_tile_plan(y, xh), float(hop_coeff),
+        float(hop_twist), float(acc_coeff), float(acc_twist),
         torch.cuda.current_stream(psi.device).cuda_stream)
     build.check(lib, rc, "wilson_hop")
     wilson_hop.launches += 1
@@ -183,7 +190,7 @@ def site_coeffs(mass, twist: float, gamma5_in: bool,
 def _full_lib() -> ctypes.CDLL:
     lib = build.library("wilson_full")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.wilson_full.argtypes = [p, p, p, i, i, i, i, i, p, f, f, f, f, p]
+    lib.wilson_full.argtypes = [p, p, p] + [i] * 7 + [f] * 4 + [p]
     lib.wilson_full.restype = ctypes.c_int
     return lib
 
@@ -225,11 +232,11 @@ def wilson_full(up: torch.Tensor, pp: torch.Tensor, mass, *,
     _, t, z, y, _, x = up.shape
     n = pp.shape[0] if pp.dim() == 6 else 1
     out = torch.empty_like(pp)
-    tables = hop_tables(bool(gamma5_in), bool(gamma5_out))
     lib = _full_lib()
     rc = lib.wilson_full(
         up.data_ptr(), pp.data_ptr(), out.data_ptr(), t, z, y, x, n,
-        tables.ctypes.data, *site_coeffs(mass, twist, gamma5_in, gamma5_out),
+        int(bool(gamma5_in)), int(bool(gamma5_out)),
+        *site_coeffs(mass, twist, gamma5_in, gamma5_out),
         torch.cuda.current_stream(pp.device).cuda_stream)
     build.check(lib, rc, "wilson_full")
     wilson_full.launches += 1

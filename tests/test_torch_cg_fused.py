@@ -6,7 +6,12 @@ to 4.  Updated fields agree to <= 1e-5 max-abs; the residual norms, sums
 of thousands of squares taken in another order, to 1e-5 relative.  Frozen
 lanes (alpha_n = 0) and closed gates must pass their fields through
 bitwise, and a batched call must equal its single-RHS calls bitwise.
+K3's split of each RHS into a scalar head, a float4 body and a scalar
+tail is emulated and must write every element exactly once.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -102,3 +107,59 @@ def test_wrappers_reject_bad_operands():
         tk.cg_update(torch.ones(2), x, r, p, ap[:, :1])
     with pytest.raises(ValueError, match="per-RHS"):
         tk.cg_xpay(torch.ones(3), r, p)
+
+
+# ---------------------------------------------------------------------------
+# K3's split of each RHS into a scalar head, a float4 body and a scalar tail
+# ---------------------------------------------------------------------------
+
+def _cu_constant(name):
+    src = (Path(tk.__file__).resolve().parents[2] / "csrc" /
+           "cg_fused.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def xpay_writes(offsets, length, blocks):
+    """csrc/cg_fused.cu ``xpay_rhs`` step by step for one RHS whose r, p
+    and p' start ``offsets`` floats past a 16-byte boundary, run by
+    ``blocks`` blocks: how often each element is written, and whether every
+    float4 the body touches is 16-byte aligned."""
+    threads, vec = _cu_constant("THREADS"), _cu_constant("XPAY_VEC")
+    writes = np.zeros(length, np.int64)
+    nthr = blocks * threads
+    mis = {(4 * o) % 16 for o in offsets}
+    head = length           # misaligned against each other: all scalar
+    if len(mis) == 1:
+        head = min(((16 - mis.pop()) & 15) // 4, length)
+    nvec = (length - head) // 4
+    tail0 = head + 4 * nvec
+    for tid in range(nthr):              # the scalar head and tail loops
+        writes[tid:head:nthr] += 1
+        writes[tail0 + tid:length:nthr] += 1
+    aligned = all((4 * (o + head)) % 16 == 0 for o in offsets) or nvec == 0
+    for blk in range(blocks):            # the float4 body
+        for tid in range(threads):
+            v0 = blk * threads * vec + tid
+            while v0 < nvec:
+                for u in range(vec):
+                    v = v0 + u * threads
+                    if v < nvec:
+                        writes[head + 4 * v:head + 4 * v + 4] += 1
+                v0 += nthr * vec
+    return writes, aligned
+
+
+@pytest.mark.parametrize("length", [1, 3, 4, 5, 12345, 8 ** 4 * 12])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_xpay_split_writes_every_element_once(offset, length):
+    """Every element of every RHS is written exactly once, whatever its
+    base's alignment (a batch puts RHS n at n L floats, a caller's view
+    anywhere), with r, p, p' aligned alike or against each other, and the
+    float4 body only touches aligned vectors."""
+    for n in range(3):
+        base = offset + n * length
+        for offsets in ((base, base, base), (base, base, 0)):
+            for blocks in (1, 3):
+                writes, aligned = xpay_writes(offsets, length, blocks)
+                assert (writes == 1).all(), (offsets, blocks)
+                assert aligned

@@ -145,3 +145,83 @@ def test_full_golden_solves_through_the_kernel(dev, family, mu, nrhs):
                                 "plain_calls": 0}
     assert all(c[k] == {"launches": 0, "plain_calls": 0}
                for k in ("wilson_hop", "cg_update", "cg_xpay"))
+
+
+# odd Xh = 3 (links staged by plain loads), Y = 22 against an 8-row tile,
+# and rows too wide for shared memory (read in place)
+SHAPES = [(4, 4, 6, 6), (4, 4, 22, 8), (2, 2, 2, 348)]
+
+
+@pytest.mark.parametrize("dims", SHAPES, ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("flags", [(0, False, True, True, False),
+                                   (1, True, False, False, True),
+                                   (0, True, True, True, True)])
+def test_wilson_hop_odd_and_ragged_shapes(dev, dims, flags):
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
+    from repro_torch.kernels.wilson_dslash.ref import wilson_hop_ref
+    parity, g5in, g5out, has_acc, twist = flags
+    gen = torch.Generator(device=dev).manual_seed(7)
+    lat = tl.LatticeShape(*dims)
+    ue, uo = tl.split_eo_gauge(tl.random_gauge(gen, lat))
+    upe, upo = tl.pack_gauge(ue), tl.pack_gauge(uo)
+    psi = tl.pack_spinor(torch.stack(
+        [tl.split_eo(tl.random_spinor(gen, lat))[0] for _ in range(2)]))
+    u_out, u_nbr = (upe, upo) if parity == 0 else (upo, upe)
+    kw = dict(parity=parity, gamma5_in=g5in, gamma5_out=g5out,
+              psi_acc=0.5 * psi if has_acc else None,
+              acc_coeff=1.3 if has_acc else 0.0,
+              hop_coeff=-0.7, hop_twist=0.3 if twist else 0.0,
+              acc_twist=0.2 if (has_acc and twist) else 0.0)
+    out = wilson_hop(u_out, u_nbr, psi, **kw)
+    ref = wilson_hop_ref(u_out, u_nbr, psi, **kw)
+    err = float((out - ref).abs().max())
+    assert err <= 1e-5 * max(1.0, float(ref.abs().max())), err
+    for i in range(2):
+        kw["psi_acc"] = 0.5 * psi[i] if has_acc else None
+        assert torch.equal(out[i], wilson_hop(u_out, u_nbr, psi[i], **kw))
+
+
+@pytest.mark.parametrize("dims", SHAPES[:2], ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("flags", [(False, True, 0.0), (True, True, 0.25)])
+def test_wilson_full_odd_and_ragged_shapes(dev, dims, flags):
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_full
+    from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
+    g5in, g5out, twist = flags
+    gen = torch.Generator(device=dev).manual_seed(8)
+    lat = tl.LatticeShape(*dims)
+    up = tl.pack_gauge(tl.random_gauge(gen, lat))
+    pp = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                     for _ in range(2)]))
+    kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
+    out = wilson_full(up, pp, 0.1, **kw)
+    ref = wilson_full_ref(up, pp, 0.1, **kw)
+    err = float((out - ref).abs().max())
+    assert err <= 1e-5 * max(1.0, float(ref.abs().max())), err
+    for i in range(2):
+        assert torch.equal(out[i], wilson_full(up, pp[i], 0.1, **kw))
+
+
+@pytest.mark.parametrize("offsets", [(1, 1), (2, 2), (3, 3), (1, 3), (0, 2)])
+@pytest.mark.parametrize("gated", [False, True])
+def test_cg_xpay_misaligned_views(dev, offsets, gated):
+    """Views 1-3 floats off 16-byte alignment (alike, and against each
+    other): within 1e-5 of the plain version, a closed gate keeps p
+    bitwise, and each single-RHS slice equals its row of the batch."""
+    from repro_torch.kernels.cg_fused.kernel import cg_xpay
+    from repro_torch.kernels.cg_fused.ref import cg_xpay_ref
+    length = 12345
+    gen = torch.Generator(device=dev).manual_seed(9)
+    buf_r = torch.randn(2 * length + 8, generator=gen, device=dev)
+    buf_p = torch.randn(2 * length + 8, generator=gen, device=dev)
+    r = buf_r[offsets[0]:offsets[0] + 2 * length].view(2, length)
+    p = buf_p[offsets[1]:offsets[1] + 2 * length].view(2, length)
+    beta = torch.tensor([0.75, -1.5], device=dev)
+    gate = torch.tensor([True, False], device=dev) if gated else None
+    po = cg_xpay(beta, r, p, gate)
+    assert float((po - cg_xpay_ref(beta, r, p, gate)).abs().max()) <= 1e-5
+    if gated:
+        assert torch.equal(po[1], p[1])
+    for i in range(2):
+        single = cg_xpay(beta[i:i + 1], r[i:i + 1], p[i:i + 1],
+                         None if gate is None else gate[i:i + 1])
+        assert torch.equal(single[0], po[i])

@@ -10,9 +10,10 @@
   twist) at N = 1 and N = 3, and against the JAX Pallas kernel
   interpreted in three launches that together set each flag on and off
   and cover N = 3 (an interpreted launch costs seconds here).
-* K4's arithmetic, emulated here with its host tables, its site
-  coefficients and its neighbour index arithmetic (this machine cannot
-  run it), against its plain version for every flag combination.
+* K4's arithmetic, emulated here with its compile-time spin structure
+  (``hop_spec``), its site coefficients and its neighbour index
+  arithmetic (this machine cannot run it), against its plain version for
+  every flag combination.
 * ``normal_op`` is two kernel calls for any N.
 * ``plan.solve(SolverPlan(operator="full"))`` on the 4^4, seed-7,
   mass-0.1, tol-1e-6 problem of the JAX solver goldens: 27 iterations
@@ -166,13 +167,10 @@ def test_dslash_matches_pallas_interpret(case):
 def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out):
     """csrc/wilson_full.cu step by step: the site term from
     ``site_coeffs``, the neighbour indices with periodic wrap (x +- 1 on
-    the full X axis), the projection/reconstruction tables of
-    ``hop_tables`` and the SU(3) product (daggered for backward hops)."""
-    tab = tk.hop_tables(gamma5_in, gamma5_out)
-    proj = torch.from_numpy(tab[:128].reshape(8, 2, 4, 2).copy())
-    recon = torch.from_numpy(tab[128:].reshape(8, 2, 2, 2).copy())
-    proj = torch.complex(proj[..., 0], proj[..., 1])
-    recon = torch.complex(recon[..., 0], recon[..., 1])
+    the full X axis), the compile-time projection/reconstruction of
+    ``hop_spec``, the SU(3) product (daggered for backward hops) and the
+    hops' sum scaled by -1/2 in the epilogue."""
+    unit = (1, 1j, -1, -1j)
     m_hi, m_lo, tw_hi, tw_lo = tk.site_coeffs(mass, twist, gamma5_in,
                                               gamma5_out)
     batched = pp.dim() == 6
@@ -197,26 +195,30 @@ def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out):
 
     m = torch.tensor([m_hi, m_hi, m_lo, m_lo])[:, None]
     tw_s = torch.tensor([tw_hi, tw_hi, tw_lo, tw_lo])[:, None]
-    out = (m + 1j * tw_s) * ps
-    hops = [  # (H, dagger, spinor index, mu, link index)
-        (0, False, (tp, z, y, x), 0, (t, z, y, x)),
-        (1, True, (tm, z, y, x), 0, (tm, z, y, x)),
-        (2, False, (t, zp, y, x), 1, (t, z, y, x)),
-        (3, True, (t, zm, y, x), 1, (t, zm, y, x)),
-        (4, False, (t, z, yp, x), 2, (t, z, y, x)),
-        (5, True, (t, z, ym, x), 2, (t, z, ym, x)),
-        (6, False, (t, z, y, xp), 3, (t, z, y, x)),
-        (7, True, (t, z, y, xm), 3, (t, z, y, xm)),
+    hops = [  # (mu, forward, spinor index, link index)
+        (0, True, (tp, z, y, x), (t, z, y, x)),
+        (0, False, (tm, z, y, x), (tm, z, y, x)),
+        (1, True, (t, zp, y, x), (t, z, y, x)),
+        (1, False, (t, zm, y, x), (t, zm, y, x)),
+        (2, True, (t, z, yp, x), (t, z, y, x)),
+        (2, False, (t, z, ym, x), (t, z, ym, x)),
+        (3, True, (t, z, y, xp), (t, z, y, x)),
+        (3, False, (t, z, y, xm), (t, z, y, xm)),
     ]
-    for h, dag, sidx, mu, uidx in hops:
+    acc = torch.zeros_like(ps)
+    for mu, fwd, sidx, uidx in hops:
         p = ps[(slice(None),) + sidx]                   # (N, ..., 4, 3)
-        half = torch.einsum("ab,...bc->...ac", proj[h], p)
+        proj, recon = tk.hop_spec(mu, fwd, gamma5_in, gamma5_out)
+        half = torch.stack([p[..., a, :] + unit[q] * p[..., col, :]
+                            for a, (col, q) in enumerate(proj)], dim=-2)
         link = links(mu, uidx)
-        if dag:
+        if not fwd:
             link = link.conj().transpose(-1, -2)
         g = torch.einsum("...rc,n...ac->n...ar", link, half)
-        out[..., :2, :] -= 0.5 * g
-        out[..., 2:, :] -= 0.5 * torch.einsum("ik,...kc->...ic", recon[h], g)
+        acc[..., :2, :] += g
+        for i, (src, ph) in enumerate(recon):
+            acc[..., 2 + i, :] += unit[ph] * g[..., src, :]
+    out = (m + 1j * tw_s) * ps - 0.5 * acc
     packed = torch.view_as_real(out).reshape(out.shape[:5] + (24,))
     packed = packed.permute(0, 1, 2, 3, 5, 4).contiguous()
     return packed if batched else packed[0]

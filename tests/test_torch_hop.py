@@ -5,9 +5,11 @@
   oracle (the JAX Pallas kernel itself, in interpret mode, is held
   against the port in test_torch_hop_pallas.py).  Tolerance: <= 1e-5
   max-abs (f32 sums in another order).
-* The CUDA kernel's arithmetic, emulated here with its host tables and
-  its neighbour index arithmetic (this machine cannot run it), against
-  the plain version for every flag combination.
+* The CUDA kernel's algorithm, emulated here with its tile plan, the rows
+  each tile stages, its compile-time spin structure and its neighbour
+  index arithmetic (this machine cannot run it), against the plain
+  version for every flag combination; the staged rows cover every
+  neighbour; the spin structure is the projector.
 * Launch accounting: the Schur normal operator is 4 hop calls for any N.
 """
 
@@ -82,72 +84,122 @@ def test_hop_block_every_flag_matches_jax_oracle(packed, flags):
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel's algorithm, emulated with its tables and index arithmetic
+# The CUDA kernel's algorithm, emulated with its tile plan and spin structure
 # ---------------------------------------------------------------------------
+
+UNIT = (1, 1j, -1, -1j)   # i^k
+
+
+def tile_rows(dims, b, t, z, yb):
+    """csrc/wilson_hop.cu ``link_src``/``spin_src``: the rows a tile stages,
+    as {slot: row}.  Links: slot g*b + i holds hop g's link row (field,
+    mu, t, z, y); spinors: slots g*b + i the t+-1, z+-1 rows, 4b + k the
+    centre rows y0-1 .. y0+nb (Y wrapped), 5b + 2 + i the accumulator."""
+    T, Z, Y = dims
+    y0 = yb * b
+    nb = min(b, Y - y0)
+    tp, tm, zp, zm = (t + 1) % T, (t - 1) % T, (z + 1) % Z, (z - 1) % Z
+    links, spins, accs = {}, {}, {}
+    for i in range(nb):
+        y = y0 + i
+        for mu in range(4):
+            links[2 * mu * b + i] = ("out", mu, t, z, y)
+        links[1 * b + i] = ("nbr", 0, tm, z, y)
+        links[3 * b + i] = ("nbr", 1, t, zm, y)
+        links[5 * b + i] = ("nbr", 2, t, z, (y - 1) % Y)
+        links[7 * b + i] = ("nbr", 3, t, z, y)
+        for g, (tt, zz) in enumerate(((tp, z), (tm, z), (t, zp), (t, zm))):
+            spins[g * b + i] = (tt, zz, y)
+        accs[5 * b + 2 + i] = (t, z, y)
+    for k in range(nb + 2):
+        spins[4 * b + k] = (t, z, (y0 - 1 + k) % Y)
+    return links, spins, accs
+
+
+def hop_reads(b, r, j, s_out, xh):
+    """The kernel's compute loop: per hop (mu, forward) the spinor slot and
+    X index, the link slot and X index that site (r, j) of a tile reads
+    (r, j, s_out may be index arrays)."""
+    jf, jb = (j + s_out) % xh, (j - (1 - s_out)) % xh
+    return [((0, True), 0 * b + r, j, 0 * b + r, j),
+            ((0, False), 1 * b + r, j, 1 * b + r, j),
+            ((1, True), 2 * b + r, j, 2 * b + r, j),
+            ((1, False), 3 * b + r, j, 3 * b + r, j),
+            ((2, True), 4 * b + r + 2, j, 4 * b + r, j),
+            ((2, False), 4 * b + r, j, 5 * b + r, j),
+            ((3, True), 4 * b + r + 1, jf, 6 * b + r, j),
+            ((3, False), 4 * b + r + 1, jb, 7 * b + r, jb)]
+
+
+def _cplx(rows, shape):
+    """Packed components on the last axis -> complex (..., *shape)."""
+    q = rows.reshape(rows.shape[:-1] + shape + (2,))
+    return torch.complex(q[..., 0], q[..., 1])
 
 
 def emulate_wilson_hop(u_out, u_nbr, psi, *, parity, gamma5_in, gamma5_out,
                        psi_acc, acc_coeff, hop_coeff, acc_twist, hop_twist):
-    """csrc/wilson_hop.cu step by step: neighbour indices (tp, tm, ...,
-    jf, jb), the projection/reconstruction tables of ``hop_tables``, the
-    SU(3) product (daggered for backward hops) and the epilogue."""
-    tab = tk.hop_tables(gamma5_in, gamma5_out)
-    proj = torch.from_numpy(tab[:128].reshape(8, 2, 4, 2).copy())
-    recon = torch.from_numpy(tab[128:].reshape(8, 2, 2, 2).copy())
-    proj = torch.complex(proj[..., 0], proj[..., 1])
-    recon = torch.complex(recon[..., 0], recon[..., 1])
+    """csrc/wilson_hop.cu step by step: the host's tile plan, the rows each
+    tile stages (Y wrap included) in their slots, the compute loop's slots
+    and X indices (all (r, j) of a tile at once, as the tile's threads
+    run them), the compile-time projection/reconstruction of ``hop_spec``,
+    the SU(3) row (daggered for backward hops) and the epilogue with the
+    hop's -1/2 folded into the coefficients."""
     batched = psi.dim() == 6
     psi = psi if batched else psi[None]
-    _, t_, z_, y_, _, xh = psi.shape
-    t, z, y, j = torch.meshgrid(torch.arange(t_), torch.arange(z_),
-                                torch.arange(y_), torch.arange(xh),
-                                indexing="ij")
-    s_out = (t + z + y + parity) & 1
-    tp, tm = (t + 1) % t_, (t - 1) % t_
-    zp, zm = (z + 1) % z_, (z - 1) % z_
-    yp, ym = (y + 1) % y_, (y - 1) % y_
-    jf = (j + s_out) % xh
-    jb = (j - (1 - s_out)) % xh
-
-    ps = psi.permute(0, 1, 2, 3, 5, 4)          # (N, T, Z, Y, Xh, 24)
-    ps = torch.complex(ps[..., 0::2], ps[..., 1::2]).reshape(
-        ps.shape[:5] + (4, 3))
-
-    def links(u, mu, idx):
-        g = u.permute(0, 1, 2, 3, 5, 4)[mu][idx]  # (T, Z, Y, Xh, 18)
-        return torch.complex(g[..., 0::2], g[..., 1::2]).reshape(
-            g.shape[:4] + (3, 3))
-
-    hops = [  # (H, dagger, spinor index, link field, link index)
-        (0, False, (tp, z, y, j), u_out, 0, (t, z, y, j)),
-        (1, True, (tm, z, y, j), u_nbr, 0, (tm, z, y, j)),
-        (2, False, (t, zp, y, j), u_out, 1, (t, z, y, j)),
-        (3, True, (t, zm, y, j), u_nbr, 1, (t, zm, y, j)),
-        (4, False, (t, z, yp, j), u_out, 2, (t, z, y, j)),
-        (5, True, (t, z, ym, j), u_nbr, 2, (t, z, ym, j)),
-        (6, False, (t, z, y, jf), u_out, 3, (t, z, y, j)),
-        (7, True, (t, z, y, jb), u_nbr, 3, (t, z, y, jb)),
-    ]
-    out = torch.zeros_like(ps)
-    for h, dag, sidx, u, mu, uidx in hops:
-        p = ps[(slice(None),) + sidx]                   # (N, ..., 4, 3)
-        half = torch.einsum("ab,...bc->...ac", proj[h], p)
-        link = links(u, mu, uidx)
-        if dag:
-            link = link.conj().transpose(-1, -2)
-        g = torch.einsum("...rc,n...ac->n...ar", link, half)
-        out[..., :2, :] -= 0.5 * g
-        out[..., 2:, :] -= 0.5 * torch.einsum("ik,...kc->...ic", recon[h], g)
+    acc = None if psi_acc is None else (psi_acc if batched else psi_acc[None])
+    n_rhs, t_, z_, y_, _, xh = psi.shape
+    b, _, _ = tk.hop_tile_plan(y_, xh)
+    assert b > 0
+    fields = {"out": u_out, "nbr": u_nbr}
+    hc = float(np.float32(-0.5) * np.float32(hop_coeff))
+    ht = float(np.float32(-0.5) * np.float32(hop_twist))
     g5 = torch.tensor([1.0, 1.0, -1.0, -1.0])[:, None]
-    res = hop_coeff * out + 1j * hop_twist * g5 * out
-    if psi_acc is not None:
-        pa = psi_acc if batched else psi_acc[None]
-        pa = pa.permute(0, 1, 2, 3, 5, 4)
-        pa = torch.complex(pa[..., 0::2], pa[..., 1::2]).reshape(out.shape)
-        res = res + acc_coeff * pa + 1j * acc_twist * g5 * pa
-    packed = torch.view_as_real(res).reshape(res.shape[:5] + (24,))
-    packed = packed.permute(0, 1, 2, 3, 5, 4).contiguous()
-    return packed if batched else packed[0]
+    out = torch.empty_like(psi)
+    for t in range(t_):
+        for z in range(z_):
+            for yb in range(-(-y_ // b)):
+                links, spins, accs = tile_rows((t_, z_, y_), b, t, z, yb)
+                lk = torch.zeros(8 * b, 18, xh)
+                for k, (f, mu, tt, zz, yy) in links.items():
+                    lk[k] = fields[f][mu, tt, zz, yy]
+                nb = min(b, y_ - yb * b)
+                r = torch.arange(nb)[:, None]
+                j = torch.arange(xh)[None, :]
+                s_out = (t + z + yb * b + r + parity) & 1
+                for n in range(n_rhs):
+                    sp = torch.zeros(6 * b + 2, 24, xh)
+                    for k, (tt, zz, yy) in spins.items():
+                        sp[k] = psi[n, tt, zz, yy]
+                    if acc is not None:
+                        for k, (tt, zz, yy) in accs.items():
+                            sp[k] = acc[n, tt, zz, yy]
+                    o = torch.zeros(nb, xh, 4, 3, dtype=torch.complex64)
+                    for (mu, fwd), ss, js, ls, jl in hop_reads(b, r, j, s_out,
+                                                               xh):
+                        ss, js, ls, jl = torch.broadcast_tensors(ss, js, ls,
+                                                                 jl)
+                        v = _cplx(sp.transpose(1, 2)[ss, js], (4, 3))
+                        u = _cplx(lk.transpose(1, 2)[ls, jl], (3, 3))
+                        proj, recon = tk.hop_spec(mu, fwd, gamma5_in,
+                                                  gamma5_out)
+                        h = torch.stack([v[..., a, :] + UNIT[q] * v[..., col, :]
+                                         for a, (col, q) in enumerate(proj)],
+                                        dim=-2)
+                        g = (torch.einsum("...rc,...ac->...ar", u, h) if fwd
+                             else torch.einsum("...cr,...ac->...ar", u.conj(),
+                                               h))
+                        o[..., :2, :] += g
+                        for i, (src, ph) in enumerate(recon):
+                            o[..., 2 + i, :] += UNIT[ph] * g[..., src, :]
+                    res = hc * o + 1j * ht * g5 * o
+                    if acc is not None:
+                        a = _cplx(sp[5 * b + 2:5 * b + 2 + nb].transpose(1, 2),
+                                  (4, 3))
+                        res = res + acc_coeff * a + 1j * acc_twist * g5 * a
+                    rows = torch.view_as_real(res).reshape(nb, xh, 24)
+                    out[n, t, z, yb * b:yb * b + nb] = rows.transpose(1, 2)
+    return out if batched else out[0]
 
 
 @pytest.mark.parametrize("n", [1, 3])
@@ -165,6 +217,84 @@ def test_kernel_algorithm_matches_plain_version(packed, flags, n):
     np.testing.assert_allclose(
         emulate_wilson_hop(u_out, u_nbr, pb, **kw).numpy(),
         wilson_hop_ref(u_out, u_nbr, pb, **kw).numpy(), rtol=0, atol=1e-5)
+
+
+def _true_reads(dims, t, z, y):
+    """Per hop, the neighbour's spinor row and the link row a site at
+    (t, z, y) needs, from the operator's definition (X offsets aside)."""
+    T, Z, Y = dims
+    return {(0, True): ((t + 1) % T, z, y, ("out", 0, t, z, y)),
+            (0, False): ((t - 1) % T, z, y, ("nbr", 0, (t - 1) % T, z, y)),
+            (1, True): (t, (z + 1) % Z, y, ("out", 1, t, z, y)),
+            (1, False): (t, (z - 1) % Z, y, ("nbr", 1, t, (z - 1) % Z, y)),
+            (2, True): (t, z, (y + 1) % Y, ("out", 2, t, z, y)),
+            (2, False): (t, z, (y - 1) % Y, ("nbr", 2, t, z, (y - 1) % Y)),
+            (3, True): (t, z, y, ("out", 3, t, z, y)),
+            (3, False): (t, z, y, ("nbr", 3, t, z, y))}
+
+
+@pytest.mark.parametrize("dims", [(4, 4, 4, 4), (4, 4, 4, 6), (4, 6, 8, 16),
+                                  (8, 8, 8, 8), (4, 4, 22, 8)],
+                         ids=lambda d: "x".join(map(str, d)))
+def test_staged_rows_cover_every_neighbour(dims):
+    """Every block stages, in the slot the compute loop reads, the row of
+    every neighbour and link that each of its sites needs; no slot lies
+    outside the shared memory the plan sizes; every site is in one tile."""
+    t_, z_, y_, x_ = dims
+    xh = x_ // 2
+    b, ls, ss = tk.hop_tile_plan(y_, xh)
+    assert 0 < b <= y_ and b * xh <= max(tk.HOP_TILE_SITES, xh)
+    assert tk.hop_smem_bytes(b, ls, ss) <= tk.HOP_SMEM_LIMIT
+    assert ls >= 18 * xh and ss >= 24 * xh
+    covered = set()
+    for t in range(t_):
+        for z in range(z_):
+            for yb in range(-(-y_ // b)):
+                links, spins, accs = tile_rows((t_, z_, y_), b, t, z, yb)
+                assert max(links) < 8 * b
+                assert max(spins) < 5 * b + 2 and min(accs) >= 5 * b + 2
+                assert max(accs) < 6 * b + 2
+                for r in range(min(b, y_ - yb * b)):
+                    y = yb * b + r
+                    assert accs[5 * b + 2 + r] == (t, z, y)
+                    want = _true_reads((t_, z_, y_), t, z, y)
+                    for j in range(xh):
+                        covered.add((t, z, y, j))
+                        s_out = (t + z + y) & 1
+                        for hop, sslot, js, lslot, jl in hop_reads(
+                                b, r, j, s_out, xh):
+                            *prow, link = want[hop]
+                            assert spins[sslot] == tuple(prow), (hop, r)
+                            assert links[lslot] == link, (hop, r)
+                            if hop[0] == 3:  # x +- 1 in full coordinates
+                                x = 2 * j + s_out
+                                x_nbr = (x + (1 if hop[1] else -1)) % x_
+                                assert 2 * js + (1 - s_out) == x_nbr
+                                assert jl == (j if hop[1] else js)
+                            else:
+                                assert js == jl == j
+    assert len(covered) == t_ * z_ * y_ * xh
+
+
+@pytest.mark.parametrize("mu", range(4))
+@pytest.mark.parametrize("forward", [True, False])
+def test_hop_spec_is_the_projector(mu, forward):
+    """The compile-time projection and reconstruction, with both gamma5
+    flags folded in, rebuild g5out (1 -+ g_mu) g5in row by row."""
+    from repro_torch.core.wilson import GAMMA5, _projectors
+    pm, pp = _projectors(1.0)
+    proj_m = (pm if forward else pp)[mu]
+    for g5in, g5out in itertools.product((False, True), (False, True)):
+        want = ((GAMMA5 if g5out else np.eye(4)) @ proj_m
+                @ (GAMMA5 if g5in else np.eye(4)))
+        proj, recon = tk.hop_spec(mu, forward, g5in, g5out)
+        got = np.zeros((4, 4), complex)
+        for a, (col, q) in enumerate(proj):
+            got[a, a] = 1
+            got[a, col] += UNIT[q]
+        for i, (src, ph) in enumerate(recon):
+            got[2 + i] = UNIT[ph] * got[src]
+        np.testing.assert_allclose(got, want, atol=0)
 
 
 def test_batched_hop_equals_looped(packed):
