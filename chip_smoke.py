@@ -12,14 +12,18 @@ operator (``operator="full"``).  Phases:
 0. build every kernel (one ``nvcc`` per source, all at once);
 1. banner: the card's name and power limit, and the measured
    device-to-device copy bandwidth;
-2. kernel checks at 8^4, 4x6x8x16, 4x4x6x6 (odd Xh) and 4x4x22x8 (Y
-   not a multiple of the hop kernel's tile; the hop kernel also at
-   2x2x2x348, rows read in place): each kernel against its plain
-   PyTorch version (the hop kernel for every flag set, the full-lattice
-   kernel for every gamma5 flag pair with and without twist); both
-   Wilson kernels batched (N = 3) against three single launches
-   bitwise; frozen lanes and closed gates bitwise; the xpay kernel on
-   views 1-3 floats off 16-byte alignment and on single-RHS slices;
+2. kernel checks at 8^4, 4x6x8x16, 4x4x6x6 (odd Xh), 4x4x22x8 (Y not
+   a multiple of the hop kernel's tile) and 2x2x2x348 (the hop kernel's
+   rows read in place); the full-lattice kernel also at 4x4x22x16 (Y
+   against its 8-row tile), 4x4x6x5 (odd X: links staged by plain
+   loads), 2x2x2x464 (links read in place) and with the spinor's or the
+   gauge field's base 4 bytes off alignment: each kernel against its
+   plain PyTorch version (the hop kernel for every flag set, the
+   full-lattice kernel for every gamma5 flag pair with and without
+   twist); both Wilson kernels batched (N = 3) against three single
+   launches bitwise; frozen lanes and closed gates bitwise; the xpay
+   kernel on views 1-3 floats off 16-byte alignment and on single-RHS
+   slices;
 3. goldens: the committed 4^4 seed-7 fixture solved through the kernels
    (even-odd: 14 iterations Wilson, 13 twisted mass mu = 0.25, 14 for
    each of 4 batched RHS; full lattice: 27 in each case), and against
@@ -41,9 +45,9 @@ operator (``operator="full"``).  Phases:
    on the same inputs, beside the plain version's time, its bound and,
    for the ungated xpay, one library call computing the same function,
    timed both ways;
-6. one traced single-RHS Wilson solve of each path
-   (``torch.profiler``): device time by kernel and the card's idle
-   share of the solve.
+6. one traced single-RHS Wilson solve of each path, and the 4-RHS
+   full-lattice solve (``torch.profiler``): device time by kernel and
+   the card's idle share of the solve.
 
 Any failure raises; no phase's error is caught.  The last line is the
 JSON object ``{"ok": true, "device": {...}}``; the line before it lists
@@ -202,7 +206,22 @@ def check_hop(dev, gen, dims) -> float:
     return worst
 
 
-def check_full(dev, gen, dims) -> float:
+def off_by_one_float(v: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``v`` whose data starts 4 bytes past a 16-byte
+    boundary (a view into a larger buffer)."""
+    buf = torch.empty(v.numel() + 4, dtype=v.dtype, device=v.device)
+    out = buf[1:1 + v.numel()].view(v.shape)
+    out.copy_(v)
+    check(out.is_contiguous() and out.data_ptr() % 16 == 4,
+          "off_by_one_float: view not 4 bytes off alignment")
+    return out
+
+
+def check_full(dev, gen, dims, misaligned: str = "") -> float:
+    """K4 for every gamma5 flag pair with and without twist, N = 1 and 3,
+    against its plain version; each batched RHS bitwise against its single
+    launch.  ``misaligned`` ("psi" or "gauge"): that field's base pointer
+    lies 4 bytes off 16-byte alignment."""
     from repro_torch.core import lattice as tl
     from repro_torch.kernels.wilson_dslash.kernel import wilson_full
     from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
@@ -210,6 +229,11 @@ def check_full(dev, gen, dims) -> float:
     up = tl.pack_gauge(tl.random_gauge(gen, lat))
     psi = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
                                       for _ in range(3)]))
+    if misaligned == "psi":
+        psi = off_by_one_float(psi)
+    elif misaligned == "gauge":
+        up = off_by_one_float(up)
+    where = f"{dims}{' ' + misaligned + ' misaligned' if misaligned else ''}"
     worst = 0.0
     for g5in, g5out, twist in itertools.product((False, True),
                                                 (False, True), (0.0, MU)):
@@ -220,13 +244,13 @@ def check_full(dev, gen, dims) -> float:
             ref = wilson_full_ref(up, p, MASS, **kw)
             err = max_err(out, ref)
             check(err <= HOP_TOL * scale(ref),
-                  f"wilson_full {dims} N={n} {kw}: max-abs error {err}")
+                  f"wilson_full {where} N={n} {kw}: max-abs error {err}")
             worst = max(worst, err)
             if n == 3:
                 for i in range(3):
                     check(torch.equal(out[i],
                                       wilson_full(up, psi[i], MASS, **kw)),
-                          f"wilson_full {dims} {kw}: batched RHS {i} "
+                          f"wilson_full {where} {kw}: batched RHS {i} "
                           "differs from its single launch")
     torch.cuda.synchronize()
     return worst
@@ -573,7 +597,7 @@ def time_cg(dev, bw, n, length):
 
 
 def profile_solve(plan, u, b, dev) -> dict:
-    """One traced Wilson N = 1 solve at full size under ``torch.profiler``:
+    """One traced Wilson solve at full size under ``torch.profiler``:
     device time by kernel (device-side events only: an operator's row
     would count its kernels twice) and the card's idle share of the
     solve's wall time, the profiler's own cost included."""
@@ -639,8 +663,17 @@ def main() -> int:
         (8, 8, 8, 8), (4, 6, 8, 16), (4, 4, 6, 6), (4, 4, 22, 8),
         (2, 2, 2, 348)))}
     errs["cg_update"], errs["cg_xpay"] = check_cg(dev, gen)
-    errs["wilson_full"] = max(check_full(dev, gen, dims) for dims in (
-        (8, 8, 8, 8), (4, 6, 8, 16), (4, 4, 6, 6), (4, 4, 22, 8)))
+    # K4's link staging modes: bulk copies (8^4, 4x6x8x16, 4x4x6x6,
+    # 4x4x22x8, and 4x4x22x16, Y = 22 against an 8-row tile); plain loads at
+    # odd X (4x4x6x5) and with the gauge field's base 4 bytes off alignment
+    # (the spinor's too, read through L1); one-row tiles looping over X
+    # (2x2x2x348); links read in place (2x2x2x464)
+    errs["wilson_full"] = max(
+        [check_full(dev, gen, dims) for dims in (
+            (8, 8, 8, 8), (4, 6, 8, 16), (4, 4, 6, 6), (4, 4, 22, 8),
+            (4, 4, 22, 16), (4, 4, 6, 5), (2, 2, 2, 348), (2, 2, 2, 464))]
+        + [check_full(dev, gen, (4, 4, 6, 8), which)
+           for which in ("psi", "gauge")])
     log("kernels: " + json.dumps({k: {"max_abs_err": v}
                                   for k, v in errs.items()}))
 
@@ -678,9 +711,11 @@ def main() -> int:
 
     # phase 6: one traced solve of each path
     from repro_torch.core.plan import SolverPlan
-    for name, plan in (("wilson_n1", SolverPlan()),
-                       ("full_wilson_n1", SolverPlan(operator="full"))):
-        prof = profile_solve(plan, u, b, dev)
+    for name, plan, rhs in (
+            ("wilson_n1", SolverPlan(), b),
+            ("full_wilson_n1", SolverPlan(operator="full"), b),
+            ("full_wilson_n4", SolverPlan(operator="full", nrhs=4), batch)):
+        prof = profile_solve(plan, u, rhs, dev)
         if prof["top"]:
             log(f"profile {name}: wall {prof['wall_ms']:.2f} ms (traced), "
                 f"device busy {prof['device_busy_ms']:.2f} ms, idle share "

@@ -21,8 +21,8 @@ The old result is held against the new one (and K3 against its plain
 version) before anything is timed.  Each of ``--turns`` turns times
 old, new, new, old, each both ways ``chip_smoke.py`` times a kernel
 (``ms``: one call per CUDA event pair; ``ms_back_to_back``: ten calls
-per pair).  With ``--rows`` the current K1 is also timed at other tile
-heights.  Prints the card's name and power limit, then one JSON object
+per pair).  With ``--rows`` the current K1, with ``--full-rows`` the
+current K4, is also timed at other tile heights.  Prints the card's name and power limit, then one JSON object
 as its last line.
 """
 
@@ -120,6 +120,8 @@ def main() -> int:
                     help="comma-separated subset of " + ",".join(WRAPPERS))
     ap.add_argument("--rows", default="",
                     help="comma-separated K1 tile heights to time as well")
+    ap.add_argument("--full-rows", default="",
+                    help="comma-separated K4 tile heights to time as well")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
@@ -218,7 +220,21 @@ def main() -> int:
             check(diff <= cs.HOP_TOL * cs.scale(k_new()),
                   f"K4 N={n}: old and new differ by {diff}")
             r = turns(k_old, k_new, args.turns)
-            r["max_abs_diff"] = diff
+            r.update(max_abs_diff=diff, plan=list(
+                wk.full_tile_plan(pp.shape[-3], pp.shape[-1])))
+            if args.full_rows:
+                plan, want = wk.full_tile_plan, k_new()
+                r["rows_ms"] = {}
+                for rows in map(int, args.full_rows.split(",")):
+                    wk.full_tile_plan = (
+                        lambda y, x, rows=rows: (rows, *plan(y, x)[1:]))
+                    try:
+                        # every tile height computes each site alike
+                        check(torch.equal(k_new(), want),
+                              f"K4 N={n} b={rows} differs from the plan's")
+                        r["rows_ms"][rows] = cs.kernel_ms(k_new)
+                    finally:
+                        wk.full_tile_plan = plan
             res[f"wilson_full_n{n}"] = r
             del pp
     print(card)

@@ -10,128 +10,279 @@
 // normal operator D^dag D is two launches with no gamma5 pass between them.
 //
 // Replaces the Pallas kernel repro/kernels/wilson_dslash/kernel.py
-// `_dslash_kernel` (launched by `dslash_pallas`).
+// `_dslash_kernel` (launched by `dslash_pallas`), with its double-buffered
+// gauge streaming mode (`_db_gauge_plane`, `_db_scratch`).
 //
 // Layouts (f32): psi, out [N][T][Z][Y][24][X]; u [4][T][Z][Y][18][X],
 // component index (spin*3+color)*2+reim resp. (row*3+col)*2+reim, X
 // innermost.  Every direction wraps periodically; the X neighbours are
-// x +- 1 on the full axis (K1's parity-compressed j + s_out does not apply).
+// x +- 1 on the full axis.  A "row" is one (t, z, y) line of a field: 24
+// (spinor) or 18 (link) planes of X floats.
 //
-// What bounds it: memory.  Each site's 4 links (72 floats) are read once,
-// and per RHS 24 floats of spinor in (each spinor is a neighbour of 8 sites,
-// so once from DRAM when the caches hold the planes) and 24 out:
-// (72/N + 48)*4 bytes per site and RHS against 1320 flops, under 3 flop/byte
-// at N = 1, far below the card's fp32 ridge of 20.  The design, K1's:
-//  * one thread per site, threads along X, so each of the 24 (18) component
-//    planes is read with neighbouring threads on neighbouring addresses; the
-//    X shift moves a whole row together and stays coalesced but for the wrap;
-//  * the spin-projection trick with its spin structure fixed at compile
-//    time (wilson_common.cuh, shared with K1): the kernel is a template on
-//    g5in and g5out, each hop on its direction and sign, so a projection
-//    is 12 complex adds;
-//  * the site term as four floats per launch: (m + 4) on spins 0,1 and
-//    +-(m + 4) on spins 2,3 (negated when exactly one flag is set), and the
-//    twist on spins 0,1 and +-twist on spins 2,3 (negated when the flags
-//    agree), computed on the host; it is added in the epilogue, as K1 adds
-//    its accumulator (seeding the sum with it spilled more);
-//  * the thread loops over the N right-hand sides with the same per-site
-//    instruction sequence for every n, so a batched launch equals N single
-//    launches bitwise; links are re-read for each n from L1/L2.  K1's
-//    staged tiles (links held across the batch, TMA bulk copies into
-//    shared memory) are not carried over yet: K4's own redesign (launch
-//    geometry, batch reuse, registers) is queued.
-// Offsets are 64-bit throughout: an N = 4 field at 32^3 x 64 holds 201 M
-// floats.
+// What bounds it: memory.  Each site's 4 links (72 floats) are needed once
+// for all N right-hand sides, and per RHS 24 floats of spinor in (each
+// spinor is a neighbour of 8 sites, once from DRAM at best) and 24 out:
+// (72/N + 48)*4 bytes per site and RHS against 1320 flops, under 3
+// flop/byte at N = 1, far below the card's fp32 ridge of 20, so tensor
+// cores would buy nothing (and TF32 would break the 1e-5 tolerance).  On
+// the card (PERF.md) its time followed the bytes that reach the
+// SMs from L2 and DRAM, not its instruction count: staging the spinor rows
+// in shared memory as K1 does (5b+2 rows per RHS, three threads per site,
+// a two-stage ring) was built and measured slower than reading them
+// through L1, since at X = 32 a staged row is 3 KB and a tile that fits
+// shared memory re-fetches each neighbour row about 7 times, where a
+// 128-thread block's L1 serves the x and y neighbours of its 4 rows.  The
+// design:
+//  * one thread per site computes all three colours (wilson::hop_site):
+//    one spin projection per hop, the compile-time spin structure of
+//    wilson_common.cuh; at X = 32 168 registers and three 128-thread
+//    blocks an SM, at other widths two (more registers, no spill);
+//  * a block owns a tile (t, z, y0 .. y0+b-1, all X) of about 128 sites
+//    (b = 4 at X = 32), blocks ordered y-tile fastest, then z, then t, so
+//    resident blocks share their t+-1 and z+-1 rows in L2; with N > 1 the
+//    order takes t in chunks of 4 planes before z, which keeps a plane's
+//    N-fold larger rows in L2 between their three uses;
+//  * the tile's 6b + 1 link rows are staged in shared memory once, with
+//    TMA bulk copies completing on an mbarrier (stage.cuh), and serve all
+//    N right-hand sides (the tile's own u_t, u_z, u_x rows, u_t at t-1, u_z
+//    at z-1, and u_y at y0-1 .. y0+b-1, so the backward Y link of row i is
+//    the u_y row before it; the backward X link is the u_x row at x-1);
+//  * the spinors are read through L1 (ld.global.nc): the block's rows share
+//    their x and y neighbours there;
+//  * each thread loops over the N right-hand sides with the same
+//    instruction sequence and explicit fmaf, so a batched launch equals N
+//    single launches bitwise;
+//  * a tile whose link rows a bulk copy cannot take (odd X makes a row 72 X
+//    bytes, not a multiple of 16; a base pointer off 16 bytes) is staged by
+//    all threads with plain loads instead; rows too wide for shared memory
+//    (X above about 460) are read in place (STAGED = false).  Same compute
+//    code, every shape.
+//  The host (kernels/wilson_dslash/kernel.py::full_tile_plan) picks b and
+//  the shared-memory row stride; the same plan drives the CPU tests'
+//  emulation.  Offsets are 64-bit: an N = 4 field at 32^3 x 64 holds
+//  201 M floats.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "stage.cuh"
 #include "wilson_common.cuh"
 
 namespace {
 
+using stage::bulk_copy;
+using stage::mbar_expect;
+using stage::mbar_init;
+using stage::mbar_wait;
 using wilson::G;
 using wilson::S;
 using wilson::hop_site;
 
-// The site term's coefficients on spins 0,1 (hi) and 2,3 (lo).
-struct SiteTerm {
-  float m_hi, m_lo, tw_hi, tw_lo;
+constexpr int FULL_THREADS = 128;  // a block's threads
+
+struct FullArgs {
+  const float* u;
+  const float* psi;
+  float* out;
+  int T, Z, Y, X, N;
+  int rows;                    // b, the tile's y extent
+  int tchunk;                  // t planes a chunk of the block order
+  int ls;                      // shared-memory link row stride (floats)
+  int bulk;                    // stage with TMA bulk copies (else plain loads)
+  float m_hi, m_lo, tw_hi, tw_lo;  // the site term on spins 0,1 and 2,3
 };
 
-template <bool G5IN, bool G5OUT>
-__global__ void __launch_bounds__(128)
-wilson_full_kernel(const float* __restrict__ u, const float* __restrict__ psi,
-                   float* __restrict__ out, int T, int Z, int Y, int X, int N,
-                   const SiteTerm st) {
-  const long sites = (long)T * Z * Y * X;
-  const long site = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (site >= sites) return;
-  const int x = (int)(site % X);
-  long rest = site / X;
-  const int y = (int)(rest % Y);
-  rest /= Y;
-  const int z = (int)(rest % Z);
-  const int t = (int)(rest / Z);
+// The tile's geometry.
+struct Tile {
+  int t, z, y0, nb, tp, tm, zp, zm;
+};
 
-  const int tp = (t + 1 == T) ? 0 : t + 1, tm = (t == 0) ? T - 1 : t - 1;
-  const int zp = (z + 1 == Z) ? 0 : z + 1, zm = (z == 0) ? Z - 1 : z - 1;
-  const int yp = (y + 1 == Y) ? 0 : y + 1, ym = (y == 0) ? Y - 1 : y - 1;
-  const int xp = (x + 1 == X) ? 0 : x + 1, xm = (x == 0) ? X - 1 : x - 1;
+__device__ __forceinline__ int wrap(int v, int n) {
+  return v < 0 ? v + n : (v >= n ? v - n : v);
+}
 
-  const long xs = X;
-  auto sp = [&](int tt, int zz, int yy, int xx) -> long {
-    return (((long)tt * Z + zz) * Y + yy) * S * xs + xx;
+__device__ __forceinline__ long srow(const FullArgs& a, int t, int z, int y) {
+  return (((long)t * a.Z + z) * a.Y + y) * S * a.X;
+}
+__device__ __forceinline__ long grow(const FullArgs& a, int mu, int t, int z,
+                                     int y) {
+  return ((((long)mu * a.T + t) * a.Z + z) * a.Y + y) * G * a.X;
+}
+
+// The tile of index i: y-tile fastest, then t within a chunk of tchunk
+// planes, then z, then the chunk.
+__device__ __forceinline__ Tile make_tile(const FullArgs& a, int i) {
+  const int nyb = (a.Y + a.rows - 1) / a.rows;
+  Tile tl;
+  const int yb = i % nyb, rest = i / nyb;
+  const int zc = rest / a.tchunk;
+  tl.z = zc % a.Z;
+  tl.t = (zc / a.Z) * a.tchunk + rest % a.tchunk;
+  tl.y0 = yb * a.rows;
+  tl.nb = min(a.rows, a.Y - tl.y0);
+  tl.tp = tl.t + 1 == a.T ? 0 : tl.t + 1;
+  tl.tm = tl.t == 0 ? a.T - 1 : tl.t - 1;
+  tl.zp = tl.z + 1 == a.Z ? 0 : tl.z + 1;
+  tl.zm = tl.z == 0 ? a.Z - 1 : tl.z - 1;
+  return tl;
+}
+
+// Link row k of the tile, in staging order, and its slot: groups u_t,
+// u_t(t-1), u_z, u_z(z-1), u_x (nb rows each, at g*b + i), then u_y at
+// rows y0-1 .. y0+nb-1 (at 5b + i).
+__device__ __forceinline__ const float* link_src(const FullArgs& a,
+                                                 const Tile& tl, int k,
+                                                 int* slot) {
+  const int nb = tl.nb;
+  if (k < 5 * nb) {
+    const int g = k / nb, i = k - g * nb, y = tl.y0 + i;
+    *slot = g * a.rows + i;
+    switch (g) {
+      case 0: return a.u + grow(a, 0, tl.t, tl.z, y);
+      case 1: return a.u + grow(a, 0, tl.tm, tl.z, y);
+      case 2: return a.u + grow(a, 1, tl.t, tl.z, y);
+      case 3: return a.u + grow(a, 1, tl.t, tl.zm, y);
+      default: return a.u + grow(a, 3, tl.t, tl.z, y);
+    }
+  }
+  k -= 5 * nb;
+  *slot = 5 * a.rows + k;
+  return a.u + grow(a, 2, tl.t, tl.z, wrap(tl.y0 - 1 + k, a.Y));
+}
+
+// Stage the tile's 6 nb + 1 link rows at sl.  Bulk: the first warp issues
+// the copies, completing on `bar`; plain: every thread loads its share.
+// The caller waits on `bar` or syncs.
+__device__ __forceinline__ void stage_links(const FullArgs& a, const Tile& tl,
+                                            float* sl, uint64_t* bar) {
+  const int nl = 6 * tl.nb + 1, llen = G * a.X;
+  if (a.bulk) {
+    if (threadIdx.x >= 32) return;
+    if (threadIdx.x == 0) mbar_expect(bar, (uint32_t)(nl * llen) * 4u);
+    __syncwarp();
+    for (int k = threadIdx.x; k < nl; k += 32) {
+      int slot;
+      const float* src = link_src(a, tl, k, &slot);
+      bulk_copy(sl + slot * a.ls, src, llen * 4u, bar);
+    }
+    return;
+  }
+  for (int k = 0; k < nl; ++k) {
+    int slot;
+    const float* src = link_src(a, tl, k, &slot);
+    float* dst = sl + slot * a.ls;
+    for (int e = threadIdx.x; e < llen; e += blockDim.x) dst[e] = __ldg(src + e);
+  }
+}
+
+// One thread per site of the tile, all N right-hand sides.  Links: the
+// staged rows (STAGED) or the field in place; spinors: through L1.  XC > 0
+// makes X and the unpadded link stride compile time, so every component of
+// a row is an immediate offset.
+template <bool G5IN, bool G5OUT, bool STAGED, int XC>
+__global__ void __launch_bounds__(FULL_THREADS, STAGED && XC > 0 ? 3 : 2)
+wilson_full_kernel(const FullArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = a.rows, X = XC > 0 ? XC : a.X;
+  const int ls = XC > 0 ? G * XC : a.ls;
+  const Tile tl = make_tile(a, blockIdx.x);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* sl = smem + 4;  // 6 b + 1 link rows
+  if (STAGED) {
+    if (a.bulk) {
+      if (threadIdx.x == 0) mbar_init(bar);
+      __syncthreads();
+    }
+    stage_links(a, tl, sl, bar);
+    if (a.bulk)
+      mbar_wait(bar, 0);
+    else
+      __syncthreads();
+  }
+  const long field = (long)a.T * a.Z * a.Y * S * X;
+  const bool twisted = a.tw_hi != 0.f;
+  // a row's component k at site xx: spinors through L1, links from shared
+  // memory or, in place, through L1
+  auto at = [X](const float* row, int xx) {
+    return [row, xx, X](int k) { return __ldg(row + xx + k * X); };
   };
-  auto gl = [&](int mu, int tt, int zz, int yy, int xx) -> long {
-    return ((((long)mu * T + tt) * Z + zz) * Y + yy) * G * xs + xx;
+  auto lk = [X](const float* row, int xx) {
+    return [row, xx, X](int k) {
+      return STAGED ? row[xx + k * X] : __ldg(row + xx + k * X);
+    };
   };
-  auto at = [xs](const float* p) {
-    return [p, xs](int k) { return __ldg(p + k * xs); };
-  };
-  const long field = (long)T * Z * Y * S * xs;
-  const long here = sp(t, z, y, x);
-  const bool twisted = st.tw_hi != 0.f;
+  for (int site = threadIdx.x; site < tl.nb * X; site += blockDim.x) {
+    const int r = site / X, x = site - r * X;
+    const int y = tl.y0 + r;
+    const int yp = wrap(y + 1, a.Y), ym = wrap(y - 1, a.Y);
+    const int xp = x + 1 == X ? 0 : x + 1, xm = x == 0 ? X - 1 : x - 1;
+    // link rows: u_t, u_t(t-1), u_z, u_z(z-1), u_x (g = 0..4), u_y at y - 1
+    // and y (g = 5, 6)
+    auto link = [&](int g) -> const float* {
+      if (STAGED) return sl + (g < 5 ? g * b + r : 5 * b + r + g - 5) * ls;
+      switch (g) {
+        case 0: return a.u + grow(a, 0, tl.t, tl.z, y);
+        case 1: return a.u + grow(a, 0, tl.tm, tl.z, y);
+        case 2: return a.u + grow(a, 1, tl.t, tl.z, y);
+        case 3: return a.u + grow(a, 1, tl.t, tl.zm, y);
+        case 4: return a.u + grow(a, 3, tl.t, tl.z, y);
+        case 5: return a.u + grow(a, 2, tl.t, tl.z, ym);
+        default: return a.u + grow(a, 2, tl.t, tl.z, y);
+      }
+    };
+    const long here = srow(a, tl.t, tl.z, y);
+    for (int n = 0; n < a.N; ++n) {
+      const float* p = a.psi + n * field;
+      float o_r[3][4], o_i[3][4];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) o_r[c][s] = o_i[c][s] = 0.f;
+      hop_site<0, true, G5IN, G5OUT>(o_r, o_i, at(p + srow(a, tl.tp, tl.z, y), x), lk(link(0), x));
+      hop_site<0, false, G5IN, G5OUT>(o_r, o_i, at(p + srow(a, tl.tm, tl.z, y), x), lk(link(1), x));
+      hop_site<1, true, G5IN, G5OUT>(o_r, o_i, at(p + srow(a, tl.t, tl.zp, y), x), lk(link(2), x));
+      hop_site<1, false, G5IN, G5OUT>(o_r, o_i, at(p + srow(a, tl.t, tl.zm, y), x), lk(link(3), x));
+      hop_site<2, true, G5IN, G5OUT>(o_r, o_i, at(p + srow(a, tl.t, tl.z, yp), x), lk(link(6), x));
+      hop_site<2, false, G5IN, G5OUT>(o_r, o_i, at(p + srow(a, tl.t, tl.z, ym), x), lk(link(5), x));
+      hop_site<3, true, G5IN, G5OUT>(o_r, o_i, at(p + here, xp), lk(link(4), x));
+      hop_site<3, false, G5IN, G5OUT>(o_r, o_i, at(p + here, xm), lk(link(4), xm));
 
-  for (int n = 0; n < N; ++n) {
-    const float* p = psi + n * field;
-    float o_r[3][4], o_i[3][4];
+      // epilogue: the site term m (g5out g5in) psi + i tw (g5out g5 g5in)
+      // psi per spin block, multiplying by i as (re, im) -> (-im, re), plus
+      // the hops' sum with its -1/2
+      const auto c0 = at(p + here, x);
+      float* o = a.out + n * field + here + x;
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
+      for (int s = 0; s < 4; ++s) {
+        const float m = s < 2 ? a.m_hi : a.m_lo;
+        const float tw = s < 2 ? a.tw_hi : a.tw_lo;
 #pragma unroll
-      for (int s = 0; s < 4; ++s) o_r[c][s] = o_i[c][s] = 0.f;
-
-    hop_site<0, true, G5IN, G5OUT>(o_r, o_i, at(p + sp(tp, z, y, x)), at(u + gl(0, t, z, y, x)));
-    hop_site<0, false, G5IN, G5OUT>(o_r, o_i, at(p + sp(tm, z, y, x)), at(u + gl(0, tm, z, y, x)));
-    hop_site<1, true, G5IN, G5OUT>(o_r, o_i, at(p + sp(t, zp, y, x)), at(u + gl(1, t, z, y, x)));
-    hop_site<1, false, G5IN, G5OUT>(o_r, o_i, at(p + sp(t, zm, y, x)), at(u + gl(1, t, zm, y, x)));
-    hop_site<2, true, G5IN, G5OUT>(o_r, o_i, at(p + sp(t, z, yp, x)), at(u + gl(2, t, z, y, x)));
-    hop_site<2, false, G5IN, G5OUT>(o_r, o_i, at(p + sp(t, z, ym, x)), at(u + gl(2, t, z, ym, x)));
-    hop_site<3, true, G5IN, G5OUT>(o_r, o_i, at(p + sp(t, z, y, xp)), at(u + gl(3, t, z, y, x)));
-    hop_site<3, false, G5IN, G5OUT>(o_r, o_i, at(p + sp(t, z, y, xm)), at(u + gl(3, t, z, y, xm)));
-
-    // epilogue: the site term m (g5out g5in) psi + i tw (g5out g5 g5in) psi
-    // per spin block, multiplying by i as (re, im) -> (-im, re), plus the
-    // hops' sum with its -1/2
-    const float* c0 = p + here;
-    float* o = out + n * field + here;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const float m = s < 2 ? st.m_hi : st.m_lo;
-      const float tw = s < 2 ? st.tw_hi : st.tw_lo;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float pr = __ldg(c0 + ((s * 3 + c) * 2 + 0) * xs);
-        const float pi = __ldg(c0 + ((s * 3 + c) * 2 + 1) * xs);
-        float nr = m * pr, ni = m * pi;
-        if (twisted) {
-          nr -= tw * pi;
-          ni += tw * pr;
+        for (int c = 0; c < 3; ++c) {
+          const int k = (s * 3 + c) * 2;
+          const float pr = c0(k), pi = c0(k + 1);
+          float nr = m * pr, ni = m * pi;
+          if (twisted) {
+            nr -= tw * pi;
+            ni += tw * pr;
+          }
+          o[k * X] = nr + -0.5f * o_r[c][s];
+          o[(k + 1) * X] = ni + -0.5f * o_i[c][s];
         }
-        o[((s * 3 + c) * 2 + 0) * xs] = nr + -0.5f * o_r[c][s];
-        o[((s * 3 + c) * 2 + 1) * xs] = ni + -0.5f * o_i[c][s];
       }
     }
   }
+}
+
+template <bool G5IN, bool G5OUT, bool STAGED, int XC = 0>
+cudaError_t launch(const FullArgs& a, int blocks, int threads, size_t smem,
+                   cudaStream_t s) {
+  auto kern = wilson_full_kernel<G5IN, G5OUT, STAGED, XC>;
+  static stage::SmemOptIn opt_in;
+  const cudaError_t err = opt_in.allow((const void*)kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<blocks, threads, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -143,22 +294,51 @@ const char* error_string(int code) {
 }
 
 // g5in, g5out: the gamma5 flags (each instance has them compiled in);
-// (m_hi, m_lo, tw_hi, tw_lo) is the folded site term.  Returns
-// cudaGetLastError().
+// rows, ls: the tile plan of kernel.py::full_tile_plan (rows == 0: the
+// links are read in place, nothing is staged); (m_hi, m_lo, tw_hi, tw_lo):
+// the folded site term.  Returns a cudaError_t code.
 int wilson_full(const float* u, const float* psi, float* out, int T, int Z,
-                int Y, int X, int N, int g5in, int g5out, float m_hi,
-                float m_lo, float tw_hi, float tw_lo, void* stream) {
-  const SiteTerm st{m_hi, m_lo, tw_hi, tw_lo};
-  const long sites = (long)T * Z * Y * X;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((sites + threads - 1) / threads);
+                int Y, int X, int N, int g5in, int g5out, int rows, int ls,
+                float m_hi, float m_lo, float tw_hi, float tw_lo,
+                void* stream) {
+  const bool staged = rows > 0;
+  const int b = staged ? rows : 1;
+  const bool bulk = staged && X % 2 == 0 &&
+                    (reinterpret_cast<uintptr_t>(u) & 15u) == 0;
+  // the block order's t chunks: with N > 1 right-hand sides a plane's rows
+  // are reused (as t+1, centre, t-1) by blocks up to 2 chunks apart in the
+  // order, 4 planes a chunk keeps them in L2; one plane a chunk keeps the z
+  // neighbours closer, which N = 1 needs more (PERF.md)
+  const int tchunk = N > 1 && T % 4 == 0 ? 4 : 1;
+  const FullArgs a{u, psi, out, T, Z, Y, X, N, b, tchunk, ls, bulk ? 1 : 0,
+                   m_hi, m_lo, tw_hi, tw_lo};
+  const int blocks = T * Z * ((Y + b - 1) / b);
+  int threads = b * X;
+  threads = threads < FULL_THREADS ? ((threads + 31) / 32) * 32 : FULL_THREADS;
+  // the mbarrier (with slack to 16 bytes) and the 6 b + 1 link rows
+  const size_t smem = staged ? ((size_t)4 + (size_t)(6 * b + 1) * ls) * 4 : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kern = g5in ? (g5out ? wilson_full_kernel<true, true>
-                            : wilson_full_kernel<true, false>)
-                   : (g5out ? wilson_full_kernel<false, true>
-                            : wilson_full_kernel<false, false>);
-  kern<<<blocks, threads, 0, s>>>(u, psi, out, T, Z, Y, X, N, st);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  // X = 32 (the 32^3 x 64 lattice's rows, unpadded) has instances of its
+  // own with X compile time
+  const bool x32 = staged && X == 32 && ls == G * 32;
+  const int key = (g5in ? 1 : 0) | (g5out ? 2 : 0) | (staged ? 4 : 0) |
+                  (x32 ? 8 : 0);
+  switch (key) {
+    case 0: err = launch<false, false, false>(a, blocks, threads, smem, s); break;
+    case 1: err = launch<true, false, false>(a, blocks, threads, smem, s); break;
+    case 2: err = launch<false, true, false>(a, blocks, threads, smem, s); break;
+    case 3: err = launch<true, true, false>(a, blocks, threads, smem, s); break;
+    case 4: err = launch<false, false, true>(a, blocks, threads, smem, s); break;
+    case 5: err = launch<true, false, true>(a, blocks, threads, smem, s); break;
+    case 6: err = launch<false, true, true>(a, blocks, threads, smem, s); break;
+    case 7: err = launch<true, true, true>(a, blocks, threads, smem, s); break;
+    case 12: err = launch<false, false, true, 32>(a, blocks, threads, smem, s); break;
+    case 13: err = launch<true, false, true, 32>(a, blocks, threads, smem, s); break;
+    case 14: err = launch<false, true, true, 32>(a, blocks, threads, smem, s); break;
+    default: err = launch<true, true, true, 32>(a, blocks, threads, smem, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -27,7 +27,8 @@
 // batch re-read the links for every RHS.  The design:
 //  * a block owns a tile (t, z, y0 .. y0+b-1, all Xh) and stages every
 //    row the tile reads in shared memory with TMA bulk copies
-//    (cp.async.bulk, completion counted on one mbarrier): the centre rows
+//    (cp.async.bulk, completion counted on one mbarrier; the helpers are
+//    stage.cuh's, shared with K4): the centre rows
 //    y0-1 .. y0+b (the Y and X neighbours, the Y wrap a row of its own),
 //    the t+-1 and z+-1 rows, the accumulator rows and the 8 link rows per
 //    y.  Bytes in flight cost no registers, and each neighbour spinor is
@@ -59,6 +60,7 @@
 
 #include <cstdint>
 
+#include "stage.cuh"
 #include "wilson_common.cuh"
 
 namespace {
@@ -66,6 +68,10 @@ namespace {
 using wilson::G;
 using wilson::S;
 using wilson::hop_colour;
+using stage::bulk_copy;
+using stage::mbar_expect;
+using stage::mbar_init;
+using stage::mbar_wait;
 
 constexpr int HOP_THREADS = 256;  // most threads a block; <= 128 registers
 
@@ -82,46 +88,6 @@ struct HopArgs {
   float hc, ht;        // -1/2 hop_coeff, -1/2 hop_twist (the hop's -1/2)
   float ac, at;        // acc_coeff, acc_twist
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // The tile's geometry and where each row it reads lives.
 struct Tile {
@@ -339,22 +305,9 @@ template <bool G5IN, bool G5OUT, bool STAGED>
 cudaError_t launch(const HopArgs& a, int blocks, int threads, size_t smem,
                    cudaStream_t s) {
   auto kern = wilson_hop_kernel<G5IN, G5OUT, STAGED>;
-  // bytes this instance may use on each device, once raised (the opt-in
-  // is a per-device attribute); devices past the table opt in every time
-  constexpr int MAX_DEVICES = 64;
-  static int opted_in[MAX_DEVICES] = {};
-  int dev = 0, unkept = 0;
-  cudaGetDevice(&dev);
-  int& raised = dev < MAX_DEVICES ? opted_in[dev] : unkept;
-  if ((int)smem > raised && smem > 48 * 1024) {
-    int most = 0;
-    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (err != cudaSuccess) return err;
-    raised = most;
-  }
+  static stage::SmemOptIn opt_in;
+  const cudaError_t err = opt_in.allow((const void*)kern, smem);
+  if (err != cudaSuccess) return err;
   kern<<<blocks, threads, smem, s>>>(a);
   return cudaGetLastError();
 }

@@ -7,8 +7,9 @@ takes seconds, not minutes)::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
 
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds and a stale library is never loaded.  Libraries go under
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+a stale library is never loaded.  Libraries go under
 ``build/repro_torch/`` at the repository root (``build/`` is ignored by
 git); the compiler's report (registers, spills) sits beside each library
 as ``<name>-<hash>.log``.  :func:`build_all` starts one ``nvcc`` per

@@ -7,7 +7,9 @@ operator); their header notes say what bounds each kernel and how it is
 laid out.  They replace the Pallas kernels ``repro/kernels/wilson_dslash/
 kernel.py::_dslash_parity_kernel`` and ``::_dslash_kernel``, and share the
 compile-time spin structure of ``csrc/wilson_common.cuh``, mirrored here
-by :func:`hop_spec`; :func:`hop_tile_plan` sizes K1's shared-memory tiles.
+by :func:`hop_spec`, and the staging helpers of ``csrc/stage.cuh``;
+:func:`hop_tile_plan` and :func:`full_tile_plan` size their shared-memory
+tiles.
 
 Each wrapper runs its plain version (:mod:`..ref`) for tensors on the
 CPU, and only then; for CUDA tensors it launches the kernel or raises.
@@ -55,11 +57,14 @@ def hop_spec(mu: int, forward: bool, gamma5_in: bool, gamma5_out: bool):
     return proj, recon
 
 
-# K1's tiles: a block stages the rows of (t, z, y0 .. y0+b-1) in shared
-# memory.  HOP_TILE_SITES sets b: 32 sites (96 threads) is b = 2 at
-# 32^3 x 64, the fastest of b = 1, 2, 3, 4, 5, 8 that
-# scripts/compare_kernels.py timed on the H100 (PERF.md)
+# The Wilson kernels' tiles: a block owns the rows (t, z, y0 .. y0+b-1) and
+# stages rows of them in shared memory.  HOP_TILE_SITES sets K1's b: 32
+# sites (96 threads) is b = 2 at 32^3 x 64, the fastest of b = 1, 2, 3, 4,
+# 5, 8 that scripts/compare_kernels.py timed on the H100 (PERF.md).
+# FULL_TILE_SITES sets K4's: 128 sites (one thread each) is b = 4 at
+# 32^3 x 64.
 HOP_TILE_SITES = 32
+FULL_TILE_SITES = 128
 HOP_SMEM_LIMIT = 227 * 1024      # bytes a block may use on the H100
 HOP_SMEM_TARGET = HOP_SMEM_LIMIT // 2   # two blocks per SM where it fits
 
@@ -70,29 +75,51 @@ def hop_smem_bytes(rows: int, ls: int, ss: int) -> int:
     return (8 * rows * ls + (6 * rows + 2) * ss + 4) * 4
 
 
-def hop_tile_plan(y: int, xh: int) -> tuple[int, int, int]:
-    """K1's tile ``(b, ls, ss)``: b rows of Y per block, and the shared
-    memory row strides (floats) of links and spinors.
+def full_smem_bytes(rows: int, ls: int) -> int:
+    """Shared memory of a K4 tile: the mbarrier (16 bytes with its slack)
+    and the 6 b + 1 link rows it stages (the spinors are read through
+    L1)."""
+    return (4 + (6 * rows + 1) * ls) * 4
 
-    b covers about ``HOP_TILE_SITES`` sites (three threads each), prefers a
-    divisor of Y, and shrinks until the tile fits twice in an SM's shared
-    memory (once at b = 1).  A stride is padded to Xh mod 32 when Xh < 32
-    and Xh % 4 == 0, so the rows a warp spans fall in distinct banks.
-    b == 0: a row does not fit in shared memory, and the kernel reads the
-    fields in place.
+
+def _tile_plan(y: int, width: int, sites: int,
+               smem_bytes) -> tuple[int, int, int]:
+    """``(b, ls, ss)`` for rows of ``width`` floats per component plane.
+
+    b covers about ``sites`` sites, prefers a divisor of Y, and shrinks
+    until the tile fits twice in an SM's shared memory (once at b = 1).  A
+    stride is padded to width mod 32 when width < 32 and width % 4 == 0, so
+    the rows a warp spans fall in distinct banks.  b == 0: a row does not
+    fit in shared memory, and the kernel reads the fields in place.
     """
-    def pad(width):
-        return width if xh % 4 or xh >= 32 else width + (xh - width) % 32
+    def pad(w):
+        return w if width % 4 or width >= 32 else w + (width - w) % 32
 
-    ls, ss = pad(18 * xh), pad(24 * xh)
-    bmax = max(1, min(y, HOP_TILE_SITES // xh))
+    ls, ss = pad(18 * width), pad(24 * width)
+    bmax = max(1, min(y, sites // width))
     b = next((d for d in range(bmax, 0, -1)
               if y % d == 0 and 2 * d >= bmax), bmax)
-    while b > 1 and hop_smem_bytes(b, ls, ss) > HOP_SMEM_TARGET:
+    while b > 1 and smem_bytes(b, ls, ss) > HOP_SMEM_TARGET:
         b -= 1
-    if hop_smem_bytes(b, ls, ss) > HOP_SMEM_LIMIT:
+    if smem_bytes(b, ls, ss) > HOP_SMEM_LIMIT:
         b = 0
     return b, ls, ss
+
+
+def hop_tile_plan(y: int, xh: int) -> tuple[int, int, int]:
+    """K1's tile ``(b, ls, ss)``: b rows of Y per block, and the shared
+    memory row strides (floats) of links and spinors (see
+    :func:`_tile_plan`; b == 0: rows read in place)."""
+    return _tile_plan(y, xh, HOP_TILE_SITES, hop_smem_bytes)
+
+
+def full_tile_plan(y: int, x: int) -> tuple[int, int]:
+    """K4's tile ``(b, ls)`` on the full X axis: b rows of Y per block and
+    the shared-memory stride (floats) of its staged link rows (see
+    :func:`_tile_plan`; b == 0: links read in place)."""
+    b, ls, _ = _tile_plan(y, x, FULL_TILE_SITES,
+                          lambda rows, ls, ss: full_smem_bytes(rows, ls))
+    return b, ls
 
 
 @functools.lru_cache(maxsize=None)
@@ -190,7 +217,7 @@ def site_coeffs(mass, twist: float, gamma5_in: bool,
 def _full_lib() -> ctypes.CDLL:
     lib = build.library("wilson_full")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.wilson_full.argtypes = [p, p, p] + [i] * 7 + [f] * 4 + [p]
+    lib.wilson_full.argtypes = [p, p, p] + [i] * 9 + [f] * 4 + [p]
     lib.wilson_full.restype = ctypes.c_int
     return lib
 
@@ -235,7 +262,7 @@ def wilson_full(up: torch.Tensor, pp: torch.Tensor, mass, *,
     lib = _full_lib()
     rc = lib.wilson_full(
         up.data_ptr(), pp.data_ptr(), out.data_ptr(), t, z, y, x, n,
-        int(bool(gamma5_in)), int(bool(gamma5_out)),
+        int(bool(gamma5_in)), int(bool(gamma5_out)), *full_tile_plan(y, x),
         *site_coeffs(mass, twist, gamma5_in, gamma5_out),
         torch.cuda.current_stream(pp.device).cuda_stream)
     build.check(lib, rc, "wilson_full")

@@ -181,24 +181,68 @@ def test_wilson_hop_odd_and_ragged_shapes(dev, dims, flags):
         assert torch.equal(out[i], wilson_hop(u_out, u_nbr, psi[i], **kw))
 
 
-@pytest.mark.parametrize("dims", SHAPES[:2], ids=lambda d: "x".join(map(str, d)))
-@pytest.mark.parametrize("flags", [(False, True, 0.0), (True, True, 0.25)])
-def test_wilson_full_odd_and_ragged_shapes(dev, dims, flags):
+# K4's link staging modes: bulk copies (4x4x6x6, 4x4x22x8, 8^4, and
+# 4x4x22x16, Y = 22 against an 8-row tile), plain loads at odd X (4x4x6x5),
+# one-row tiles looping over X (2x2x2x348), link rows too wide for shared
+# memory read in place (2x2x2x464)
+FULL_SHAPES = [(4, 4, 6, 6), (4, 4, 22, 8), (8, 8, 8, 8), (4, 4, 22, 16),
+               (4, 4, 6, 5), (2, 2, 2, 348), (2, 2, 2, 464)]
+FULL_FLAGS = list(itertools.product((False, True), (False, True),
+                                    (0.0, 0.25)))
+
+
+def _check_full(up, pp, flags):
+    """Every RHS of a batched K4 launch against the plain version and,
+    bitwise, against its own single launch."""
     from repro_torch.kernels.wilson_dslash.kernel import wilson_full
     from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
     g5in, g5out, twist = flags
-    gen = torch.Generator(device=dev).manual_seed(8)
-    lat = tl.LatticeShape(*dims)
-    up = tl.pack_gauge(tl.random_gauge(gen, lat))
-    pp = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
-                                     for _ in range(2)]))
     kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
     out = wilson_full(up, pp, 0.1, **kw)
     ref = wilson_full_ref(up, pp, 0.1, **kw)
     err = float((out - ref).abs().max())
     assert err <= 1e-5 * max(1.0, float(ref.abs().max())), err
-    for i in range(2):
+    for i in range(pp.shape[0]):
         assert torch.equal(out[i], wilson_full(up, pp[i], 0.1, **kw))
+
+
+@pytest.mark.parametrize("dims", FULL_SHAPES,
+                         ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("flags", FULL_FLAGS)
+def test_wilson_full_odd_and_ragged_shapes(dev, dims, flags):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    lat = tl.LatticeShape(*dims)
+    up = tl.pack_gauge(tl.random_gauge(gen, lat))
+    pp = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                     for _ in range(3)]))
+    _check_full(up, pp, flags)
+
+
+def _off_by_one_float(v):
+    """A contiguous copy of ``v`` whose data starts 4 bytes past a 16-byte
+    boundary (a view into a larger buffer)."""
+    buf = torch.empty(v.numel() + 4, dtype=v.dtype, device=v.device)
+    out = buf[1:1 + v.numel()].view(v.shape)
+    out.copy_(v)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("which", ["psi", "gauge"])
+@pytest.mark.parametrize("flags", FULL_FLAGS)
+def test_wilson_full_misaligned_base(dev, which, flags):
+    """A base pointer off 16-byte alignment: the gauge field's links are
+    staged by plain loads, the spinor is read through L1 as ever."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    lat = tl.LatticeShape(4, 4, 6, 8)
+    up = tl.pack_gauge(tl.random_gauge(gen, lat))
+    pp = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                     for _ in range(3)]))
+    if which == "psi":
+        pp = _off_by_one_float(pp)
+    else:
+        up = _off_by_one_float(up)
+    _check_full(up, pp, flags)
 
 
 @pytest.mark.parametrize("offsets", [(1, 1), (2, 2), (3, 3), (1, 3), (0, 2)])

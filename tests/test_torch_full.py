@@ -10,10 +10,13 @@
   twist) at N = 1 and N = 3, and against the JAX Pallas kernel
   interpreted in three launches that together set each flag on and off
   and cover N = 3 (an interpreted launch costs seconds here).
-* K4's arithmetic, emulated here with its compile-time spin structure
-  (``hop_spec``), its site coefficients and its neighbour index
-  arithmetic (this machine cannot run it), against its plain version for
-  every flag combination.
+* K4's algorithm, emulated here (this machine cannot run it) with its
+  tile plan (``full_tile_plan``), the rows each tile stages in their
+  slots, the slots and X indices its compute loop reads, one pass per
+  output colour, its compile-time spin structure (``hop_spec``) and its
+  site coefficients, against its plain version for every flag
+  combination, also at odd and ragged shapes; the plan's sizes; the
+  staged rows cover every neighbour.
 * ``normal_op`` is two kernel calls for any N.
 * ``plan.solve(SolverPlan(operator="full"))`` on the 4^4, seed-7,
   mass-0.1, tol-1e-6 problem of the JAX solver goldens: 27 iterations
@@ -40,6 +43,7 @@ from repro.core import lattice as jl
 from repro.core import solve_plan as jax_solve
 from repro.core import wilson as jw
 from repro.kernels.wilson_dslash import ops as jops
+from repro_torch.core import lattice as tl
 from repro_torch.core import plan as tplan
 from repro_torch.core import solvers
 from repro_torch.core import wilson as tw
@@ -164,61 +168,123 @@ def test_dslash_matches_pallas_interpret(case):
     close(tops.dslash(T(up), T(pp), MASS, **kw), ref)
 
 
+UNIT = (1, 1j, -1, -1j)   # i^k
+
+
+def full_block_tile(i, dims, b, n):
+    """csrc/wilson_full.cu ``make_tile``: block i's tile (t, z, y-tile):
+    y-tile fastest, then t within a chunk of 4 planes when n > 1 (and
+    4 | T; else 1), then z, then the chunk."""
+    T, Z, Y = dims
+    tchunk = 4 if n > 1 and T % 4 == 0 else 1
+    nyb = -(-Y // b)
+    rest = i // nyb
+    zc = rest // tchunk
+    return (zc // Z) * tchunk + rest % tchunk, zc % Z, i % nyb
+
+
+def full_tile_links(dims, b, t, z, yb):
+    """csrc/wilson_full.cu ``link_src``: the link rows a tile stages, as
+    {slot: (mu, t, z, y)}.  Slot g*b + i holds group g of u_t, u_t(t-1),
+    u_z, u_z(z-1), u_x at y0 + i; slot 5b + k the u_y row y0-1+k (Y
+    wrapped)."""
+    T, Z, Y = dims
+    y0 = yb * b
+    nb = min(b, Y - y0)
+    tm, zm = (t - 1) % T, (z - 1) % Z
+    links = {}
+    for i in range(nb):
+        y = y0 + i
+        for g, row in enumerate(((0, t, z, y), (0, tm, z, y), (1, t, z, y),
+                                 (1, t, zm, y), (3, t, z, y))):
+            links[g * b + i] = row
+    for k in range(nb + 1):
+        links[5 * b + k] = (2, t, z, (y0 - 1 + k) % Y)
+    return links
+
+
+def full_site_reads(dims, b, t, z, y0, r, x):
+    """The kernel's loop body for site (r, x) of the tile at (t, z, y0): per
+    hop (mu, forward) the neighbour spinor it reads from the field (t, z,
+    y, x) and the staged link slot and X index (r, x may be index
+    arrays)."""
+    T, Z, Y, X = dims
+    y = y0 + r
+    tp, tm, zp, zm = (t + 1) % T, (t - 1) % T, (z + 1) % Z, (z - 1) % Z
+    yp, ym, xp, xm = (y + 1) % Y, (y - 1) % Y, (x + 1) % X, (x - 1) % X
+    return [((0, True), (tp, z, y, x), 0 * b + r, x),
+            ((0, False), (tm, z, y, x), 1 * b + r, x),
+            ((1, True), (t, zp, y, x), 2 * b + r, x),
+            ((1, False), (t, zm, y, x), 3 * b + r, x),
+            ((2, True), (t, z, yp, x), 5 * b + r + 1, x),
+            ((2, False), (t, z, ym, x), 5 * b + r, x),
+            ((3, True), (t, z, y, xp), 4 * b + r, x),
+            ((3, False), (t, z, y, xm), 4 * b + r, xm)]
+
+
+def _cplx(rows, shape):
+    """Packed components on the last axis -> complex (..., *shape)."""
+    q = rows.reshape(rows.shape[:-1] + shape + (2,))
+    return torch.complex(q[..., 0], q[..., 1])
+
+
 def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out):
-    """csrc/wilson_full.cu step by step: the site term from
-    ``site_coeffs``, the neighbour indices with periodic wrap (x +- 1 on
-    the full X axis), the compile-time projection/reconstruction of
-    ``hop_spec``, the SU(3) product (daggered for backward hops) and the
-    hops' sum scaled by -1/2 in the epilogue."""
-    unit = (1, 1j, -1, -1j)
+    """csrc/wilson_full.cu step by step: the host's tile plan, the link rows
+    each tile stages (once for all N; the Y wrap included) in their slots,
+    the loop body's spinor reads (from the field, X and Y wrapped) and link
+    slots and X indices for every site of every tile at once, the
+    compile-time projection/reconstruction of ``hop_spec`` (one projection
+    per hop for all three colours), the SU(3) product (daggered for
+    backward hops) and the epilogue: the site term of ``site_coeffs`` and
+    the hops' sum scaled by -1/2."""
     m_hi, m_lo, tw_hi, tw_lo = tk.site_coeffs(mass, twist, gamma5_in,
                                               gamma5_out)
     batched = pp.dim() == 6
     ps = pp if batched else pp[None]
-    _, t_, z_, y_, _, x_ = ps.shape
-    t, z, y, x = torch.meshgrid(torch.arange(t_), torch.arange(z_),
-                                torch.arange(y_), torch.arange(x_),
-                                indexing="ij")
-    tp, tm = (t + 1) % t_, (t - 1) % t_
-    zp, zm = (z + 1) % z_, (z - 1) % z_
-    yp, ym = (y + 1) % y_, (y - 1) % y_
-    xp, xm = (x + 1) % x_, (x - 1) % x_
-
-    ps = ps.permute(0, 1, 2, 3, 5, 4)            # (N, T, Z, Y, X, 24)
-    ps = torch.complex(ps[..., 0::2], ps[..., 1::2]).reshape(
-        ps.shape[:5] + (4, 3))
-
-    def links(mu, idx):
-        g = up.permute(0, 1, 2, 3, 5, 4)[mu][idx]  # (T, Z, Y, X, 18)
-        return torch.complex(g[..., 0::2], g[..., 1::2]).reshape(
-            g.shape[:4] + (3, 3))
-
-    m = torch.tensor([m_hi, m_hi, m_lo, m_lo])[:, None]
-    tw_s = torch.tensor([tw_hi, tw_hi, tw_lo, tw_lo])[:, None]
-    hops = [  # (mu, forward, spinor index, link index)
-        (0, True, (tp, z, y, x), (t, z, y, x)),
-        (0, False, (tm, z, y, x), (tm, z, y, x)),
-        (1, True, (t, zp, y, x), (t, z, y, x)),
-        (1, False, (t, zm, y, x), (t, zm, y, x)),
-        (2, True, (t, z, yp, x), (t, z, y, x)),
-        (2, False, (t, z, ym, x), (t, z, ym, x)),
-        (3, True, (t, z, y, xp), (t, z, y, x)),
-        (3, False, (t, z, y, xm), (t, z, y, xm)),
-    ]
-    acc = torch.zeros_like(ps)
-    for mu, fwd, sidx, uidx in hops:
-        p = ps[(slice(None),) + sidx]                   # (N, ..., 4, 3)
-        proj, recon = tk.hop_spec(mu, fwd, gamma5_in, gamma5_out)
-        half = torch.stack([p[..., a, :] + unit[q] * p[..., col, :]
-                            for a, (col, q) in enumerate(proj)], dim=-2)
-        link = links(mu, uidx)
+    n_rhs, t_, z_, y_, _, x_ = ps.shape
+    dims = (t_, z_, y_, x_)
+    b, _ = tk.full_tile_plan(y_, x_)
+    assert b > 0
+    tiles = [full_block_tile(i, dims[:3], b, n_rhs)      # the block order
+             for i in range(t_ * z_ * -(-y_ // b))]
+    lk = torch.zeros(len(tiles), 6 * b + 1, 18, x_)
+    for i, (t, z, yb) in enumerate(tiles):
+        for k, (mu, tt, zz, yy) in full_tile_links(dims[:3], b, t, z,
+                                                   yb).items():
+            lk[i, k] = up[mu, tt, zz, yy]
+    lk = _cplx(lk.transpose(-1, -2), (3, 3))    # (tile, slot, X, 3, 3)
+    ps = _cplx(ps.transpose(-1, -2), (4, 3))    # (N, T, Z, Y, X, 4, 3)
+    tix = torch.arange(len(tiles))[:, None, None]
+    tt, zz, y0 = (torch.tensor([tile[k] * (b if k == 2 else 1)
+                                for tile in tiles])[:, None, None]
+                  for k in range(3))
+    r = torch.arange(b)[None, :, None]
+    x = torch.arange(x_)[None, None, :]
+    # rows past a ragged tile's end read wrapped rows and are dropped below
+    acc = torch.zeros(n_rhs, len(tiles), b, x_, 4, 3, dtype=torch.complex64)
+    for (mu, fwd), (st, sz, sy, sx), slot, xl in full_site_reads(
+            dims, b, tt, zz, y0, r, x):
+        st, sz, sy, sx = torch.broadcast_tensors(st, sz, sy % y_, sx)
+        v = ps[:, st, sz, sy, sx]                   # (N, tile, b, X, 4, 3)
+        ti, slot, xl = torch.broadcast_tensors(tix, slot, xl)
+        link = lk[ti, slot, xl]                     # (tile, b, X, 3, 3)
         if not fwd:
             link = link.conj().transpose(-1, -2)
-        g = torch.einsum("...rc,n...ac->n...ar", link, half)
+        proj, recon = tk.hop_spec(mu, fwd, gamma5_in, gamma5_out)
+        h = torch.stack([v[..., a, :] + UNIT[q] * v[..., col, :]
+                         for a, (col, q) in enumerate(proj)], dim=-2)
+        g = torch.einsum("...rc,n...ac->n...ar", link, h)
         acc[..., :2, :] += g
         for i, (src, ph) in enumerate(recon):
-            acc[..., 2 + i, :] += unit[ph] * g[..., src, :]
-    out = (m + 1j * tw_s) * ps - 0.5 * acc
+            acc[..., 2 + i, :] += UNIT[ph] * g[..., src, :]
+    m = torch.tensor([m_hi, m_hi, m_lo, m_lo])[:, None]
+    tw_s = torch.tensor([tw_hi, tw_hi, tw_lo, tw_lo])[:, None]
+    st, sz, sy, sx = torch.broadcast_tensors(tt, zz, (y0 + r) % y_, x)
+    res = (m + 1j * tw_s) * ps[:, st, sz, sy, sx] - 0.5 * acc
+    out = torch.empty(n_rhs, t_, z_, y_, x_, 4, 3, dtype=torch.complex64)
+    for i, (t, z, yb) in enumerate(tiles):
+        nb = min(b, y_ - yb * b)
+        out[:, t, z, yb * b:yb * b + nb] = res[:, i, :nb]
     packed = torch.view_as_real(out).reshape(out.shape[:5] + (24,))
     packed = packed.permute(0, 1, 2, 3, 5, 4).contiguous()
     return packed if batched else packed[0]
@@ -233,6 +299,124 @@ def test_kernel_algorithm_matches_plain_version(fields, flags, n):
     kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
     close(emulate_wilson_full(up, pp, MASS, **kw),
           wilson_full_ref(up, pp, MASS, **kw))
+
+
+# (Y, X) -> K4's tile plan (b, ls): 32^3 x 64, the card checks' shapes
+# (bulk staged 8^4 and 4x4x22x8; Y = 22 against an 8-row tile at X = 16;
+# odd X, staged by plain loads; one-row tiles at X = 348; rows too wide,
+# read in place) and 4x6x8x16
+FULL_PLANS = {(32, 32): (4, 576), (8, 8): (8, 168), (22, 8): (11, 168),
+              (22, 16): (8, 304), (6, 5): (6, 90), (8, 16): (8, 304),
+              (2, 348): (1, 6264), (2, 464): (0, 8352)}
+
+
+@pytest.mark.parametrize("yx", list(FULL_PLANS), ids=lambda k: "%dx%d" % k)
+def test_full_tile_plan(yx):
+    y, x = yx
+    b, ls = tk.full_tile_plan(y, x)
+    assert (b, ls) == FULL_PLANS[yx]
+    if x % 4 == 0 and x < 32:    # padded: a warp's rows in distinct banks
+        assert ls >= 18 * x and ls % 32 == x % 32
+    else:
+        assert ls == 18 * x
+    if b == 0:                   # one row at b = 1 is past the card's limit
+        assert tk.full_smem_bytes(1, ls) > tk.HOP_SMEM_LIMIT
+        return
+    assert b * x <= max(tk.FULL_TILE_SITES, x)
+    # a divisor of Y where one of at least half the sites exists
+    bmax = max(1, min(y, tk.FULL_TILE_SITES // x))
+    if any(y % d == 0 for d in range(-(-bmax // 2), bmax + 1)):
+        assert y % b == 0
+    smem = tk.full_smem_bytes(b, ls)
+    assert smem == (4 + (6 * b + 1) * ls) * 4 <= tk.HOP_SMEM_LIMIT
+    if b > 1:                    # two tiles fit in an SM's shared memory
+        assert 2 * smem <= tk.HOP_SMEM_LIMIT
+    if yx == (32, 32):           # three 128-thread blocks per SM
+        assert smem == 57616 and 3 * smem <= tk.HOP_SMEM_LIMIT
+
+
+def _full_true_reads(dims, t, z, y, x):
+    """Per hop, the neighbour's spinor site and the link (mu, site) a site
+    needs, from the operator's definition."""
+    T, Z, Y, X = dims
+    return {(0, True): ((t + 1) % T, z, y, x, (0, t, z, y, x)),
+            (0, False): ((t - 1) % T, z, y, x, (0, (t - 1) % T, z, y, x)),
+            (1, True): (t, (z + 1) % Z, y, x, (1, t, z, y, x)),
+            (1, False): (t, (z - 1) % Z, y, x, (1, t, (z - 1) % Z, y, x)),
+            (2, True): (t, z, (y + 1) % Y, x, (2, t, z, y, x)),
+            (2, False): (t, z, (y - 1) % Y, x, (2, t, z, (y - 1) % Y, x)),
+            (3, True): (t, z, y, (x + 1) % X, (3, t, z, y, x)),
+            (3, False): (t, z, y, (x - 1) % X, (3, t, z, y, (x - 1) % X))}
+
+
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("dims", [(64, 32, 32), (4, 4, 22), (3, 5, 7),
+                                  (8, 2, 6)], ids=lambda d: "x".join(
+                                      map(str, d)))
+def test_full_block_order_visits_every_tile_once(dims, n):
+    t_, z_, y_ = dims
+    b, _ = tk.full_tile_plan(y_, 32)
+    nyb = -(-y_ // b)
+    order = [full_block_tile(i, dims, b, n) for i in range(t_ * z_ * nyb)]
+    assert sorted(order) == [(t, z, yb) for t in range(t_)
+                             for z in range(z_) for yb in range(nyb)]
+    if n > 1 and t_ % 4 == 0:   # the first 4 planes of one z line come first
+        assert [tl[0] for tl in order[:4 * nyb:nyb]] == [0, 1, 2, 3]
+
+
+@pytest.mark.parametrize("dims", [(4, 4, 4, 4), (8, 8, 8, 8), (4, 4, 22, 16),
+                                  (4, 4, 6, 5), (3, 5, 7, 32)],
+                         ids=lambda d: "x".join(map(str, d)))
+def test_full_staged_rows_cover_every_neighbour(dims):
+    """Every K4 block stages, in the slot its loop body reads, the link row
+    of every hop of each of its sites (the backward Y link and its wrap,
+    the backward X link and its wrap included): 6 nb + 1 rows, once for
+    all N; the loop body reads every neighbour spinor where the operator
+    needs it; no slot lies outside the shared memory the plan sizes; every
+    site is in one tile."""
+    t_, z_, y_, x_ = dims
+    b, ls = tk.full_tile_plan(y_, x_)
+    assert b > 0 and tk.full_smem_bytes(b, ls) <= tk.HOP_SMEM_LIMIT
+    covered = []
+    for t in range(t_):
+        for z in range(z_):
+            for yb in range(-(-y_ // b)):
+                links = full_tile_links((t_, z_, y_), b, t, z, yb)
+                nb = min(b, y_ - yb * b)
+                assert len(links) == 6 * nb + 1 and max(links) < 6 * b + 1
+                for r in range(nb):
+                    y = yb * b + r
+                    for x in range(x_):
+                        covered.append((t, z, y, x))
+                        want = _full_true_reads(dims, t, z, y, x)
+                        for hop, site, slot, xl in full_site_reads(
+                                dims, b, t, z, yb * b, r, x):
+                            *nbr, (mu, *lsite) = want[hop]
+                            assert site == tuple(nbr), hop
+                            assert links[slot] + (xl,) == (mu, *lsite), hop
+    assert sorted(covered) == sorted(set(covered))
+    assert len(covered) == t_ * z_ * y_ * x_
+
+
+@pytest.mark.parametrize("dims", [(4, 4, 6, 5), (4, 4, 22, 16),
+                                  (3, 5, 7, 32)],
+                         ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("flags", FLAGS, ids=lambda f: "-".join(map(str, f)))
+def test_kernel_algorithm_at_odd_and_ragged_shapes(dims, flags):
+    """The algorithm where the plan is least regular: odd X (plain-load
+    staging on the card), Y = 22 against an 8-row tile, odd T, Z and Y with
+    a ragged last tile; batched against single RHS bitwise."""
+    g5in, g5out, twist = flags
+    gen = torch.Generator().manual_seed(61)
+    lat = tl.LatticeShape(*dims)
+    up = pack_gauge(tl.random_gauge(gen, lat))
+    pp = pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                  for _ in range(2)]))
+    kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
+    out = emulate_wilson_full(up, pp, MASS, **kw)
+    close(out, wilson_full_ref(up, pp, MASS, **kw))
+    for i in range(2):
+        assert torch.equal(out[i], emulate_wilson_full(up, pp[i], MASS, **kw))
 
 
 @pytest.mark.parametrize("twist", [0.0, 0.25])
