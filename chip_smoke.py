@@ -7,7 +7,10 @@ Builds the port's kernels from ``src/repro_torch/csrc`` and drives its
 two solve paths through ``repro_torch.core.plan.solve`` on the card: the
 paper's solve, CGNR on the even-odd Schur complement of the Wilson
 operator (``operator="eo-schur"``), and CGNR on the full-lattice normal
-operator (``operator="full"``).  Phases:
+operator (``operator="full"``), each in f32 and in mixed precision
+(``precision="mixed"``: a bf16 inner CG through the kernels' bf16
+instances, f32 reliable updates), and the full lattice's all-bf16 cg16
+(``precision="low"``).  Phases:
 
 0. build every kernel (one ``nvcc`` per source, all at once);
 1. banner: the card's name and power limit, and the measured
@@ -23,20 +26,37 @@ operator (``operator="full"``).  Phases:
    twist); both Wilson kernels batched (N = 3) against three single
    launches bitwise; frozen lanes and closed gates bitwise; the xpay
    kernel on views 1-3 floats off 16-byte alignment and on single-RHS
-   slices;
+   slices.  Then each bf16 instance against its plain version on the same
+   bf16 inputs, at most 1 bf16 ulp per entry (an entry that cancels below
+   2^-16 of the field's largest entry is held to the ulp at that floor):
+   the hop kernel for every flag set at 8^4, 4x6x8x16, 4^4 (staged by
+   plain loads), 4x4x6x6, 4x4x22x8, 2x2x2x348 and 2x2x2x700 (read in
+   place), the full-lattice kernel at 8^4, 4x4x8x32 (the X = 32
+   instances), 4x4x22x16, 4x4x6x5, 2x2x2x348, 2x2x2x464, 2x2x2x928 (in
+   place) and misaligned bases, K2 at N = 1 and 3 with a frozen RHS, K3
+   gated and ungated on misaligned views; batched equal to single
+   launches bitwise;
 3. goldens: the committed 4^4 seed-7 fixture solved through the kernels
    (even-odd: 14 iterations Wilson, 13 twisted mass mu = 0.25, 14 for
    each of 4 batched RHS; full lattice: 27 in each case), and against
-   the reference backend on the card;
+   the reference backend on the card; then the mixed goldens (inner
+   iterations within 2 of JAX's pallas backend's count, outer equal):
+   even-odd Wilson and twisted mass 15 / 4, full N = 1 35 / 5 and N = 4
+   33, 33, 35, 33 / 5, cg16 27 (unverified by design), each with its
+   launch counts and no plain-version call;
 4. both paths at full size, 64x32x32x32 (T, Z, Y, X), mass 0.1,
    tol 1e-6.  Even-odd: a single-RHS Wilson solve, a 4-RHS Wilson solve
    and a single-RHS twisted-mass solve, with hop launches 4I+4, update
    and xpay launches I.  Full lattice: a single-RHS Wilson solve, a
    4-RHS Wilson solve and a single-RHS Wilson solve on packed fields,
    with full-lattice launches 2I+1 (2I+2 packed, whose verification
-   runs the kernel).  Each solve has every count set to 0 just before
-   it; it must converge and verify with a true relative residual below
-   10 tol, launch no other kernel and call no plain version;
+   runs the kernel).  Then mixed precision: even-odd N = 1, full N = 1
+   and N = 4, and full cg16 N = 1 (which must converge in bf16 and is
+   unverified by design; its true residual is printed), with the time to
+   a verified solution beside the f32 solve's of the same path.  Each
+   solve has every count set to 0 just before it; it must converge and
+   verify with a true relative residual below 10 tol, launch no other
+   kernel and call no plain version;
 5. timings at the main path's shapes: each kernel's median time over
    CUDA events, one call per event pair (``ms``, which includes the
    wrapper's host latency before the launch) and per call over ten
@@ -44,14 +64,16 @@ operator (``operator="full"``).  Phases:
    behind the card's work), held once more against its plain version
    on the same inputs, beside the plain version's time, its bound and,
    for the ungated xpay, one library call computing the same function,
-   timed both ways;
-6. one traced single-RHS Wilson solve of each path, and the 4-RHS
-   full-lattice solve (``torch.profiler``): device time by kernel and
-   the card's idle share of the solve.
+   timed both ways; the bf16 instances likewise, against their bounds at
+   2 bytes a real (K3 against ``torch.addcmul`` on bf16);
+6. one traced single-RHS Wilson solve of each path, the 4-RHS
+   full-lattice solve and the mixed single-RHS solve of each path
+   (``torch.profiler``): device time by kernel and the card's idle share
+   of the solve.
 
 Any failure raises; no phase's error is caught.  The last line is the
 JSON object ``{"ok": true, "device": {...}}``; the line before it lists
-the kernels.  Exits non-zero without printing a result when there is no
+the kernels, the bf16 instances as ``<kernel>_bf16``.  Exits non-zero without printing a result when there is no
 CUDA device or the port's sources are missing.
 """
 
@@ -79,6 +101,19 @@ MASS, TOL, MU = 0.1, 1e-6, 0.25
 HOP_TOL = 1e-5                   # max-abs over max(1, max |plain|): f32 order
 EO_GOLDEN, FULL_GOLDEN = 14, 27  # 4^4 seed-7 Wilson iterations (JAX reference)
 CG_TOL = 1e-5                    # max-abs on fields, relative on norms
+BF16 = torch.bfloat16
+ULP_FLOOR = 2.0 ** -16           # bf16 checks: see bf16_check
+# 4^4 seed-7 mixed goldens: (name, plan fields, batched, inner per RHS,
+# outer), the inner counts of JAX's pallas backend (its CPU lowering; the
+# reference backend's are 33 / 33 x 4 on the full lattice), held to +-2
+MIXED_GOLDENS = (
+    ("eo_mixed", dict(precision="mixed"), False, [15], 4),
+    ("eo_mixed_tm", dict(precision="mixed", operator_family="twisted-mass",
+                         mu=0.25), False, [15], 4),
+    ("full_mixed", dict(operator="full", precision="mixed"), False, [35], 5),
+    ("full_mixed_n4", dict(operator="full", precision="mixed", nrhs=4), True,
+     [33, 33, 35, 33], 5),
+    ("full_cg16", dict(operator="full", precision="low"), False, [27], 1))
 
 
 def log(*args):
@@ -131,7 +166,39 @@ def kernel_ms(fn, prefix: str = "ms") -> dict:
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    if a.dtype == BF16:
+        a, b = a.float(), b.float()
     return float((a - b).abs().max())
+
+
+def bf16_check(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    """A bf16 instance against its plain version: at most 1 bf16 ulp per
+    entry.  An entry that cancels below ULP_FLOOR of the field's largest
+    entry, where two f32 evaluations of the same sums in another order
+    differ by more than its own ulp, is held to the ulp at that floor.
+    Returns the max-abs error."""
+    check(out.dtype == ref.dtype == BF16, f"{what}: not bf16 ({out.dtype})")
+    bits = [v.contiguous().view(torch.int16).int() for v in (out, ref)]
+    ords = [torch.where(v < 0, -(v & 0x7FFF), v) for v in bits]
+    a, b = out.double(), ref.double()
+    _, e = torch.frexp(ULP_FLOOR * b.abs().max())
+    floor = torch.ldexp(torch.ones((), dtype=torch.float64, device=b.device),
+                        e - 8)
+    ulps = (ords[0] - ords[1]).abs()
+    ok = (ulps <= 1) | ((a - b).abs() <= floor)
+    check(bool(ok.all()), f"{what}: {int((~ok).sum())} entries beyond 1 "
+                          f"bf16 ulp (max {int(ulps.max())} ulps)")
+    return float((a - b).abs().max())
+
+
+def agree(out, ref, what: str) -> float:
+    """The kernel-against-plain check of the output's dtype: f32 max-abs
+    <= HOP_TOL * max(1, max |plain|), bf16 by :func:`bf16_check`."""
+    if out.dtype == BF16:
+        return bf16_check(out, ref, what)
+    err = max_err(out, ref)
+    check(err <= HOP_TOL * scale(ref), f"{what}: max-abs error {err}")
+    return err
 
 
 def scale(t: torch.Tensor) -> float:
@@ -158,7 +225,7 @@ def copy_bandwidth(dev) -> float:
 # ---------------------------------------------------------------------------
 
 
-def random_packed(gen, dims, n):
+def random_packed(gen, dims, n, dtype=torch.float32):
     from repro_torch.core import lattice as tl
     lat = tl.LatticeShape(*dims)
     ue, uo = tl.split_eo_gauge(tl.random_gauge(gen, lat))
@@ -166,14 +233,16 @@ def random_packed(gen, dims, n):
                        for _ in range(n)])
     acc = torch.stack([tl.split_eo(tl.random_spinor(gen, lat))[1]
                        for _ in range(n)])
-    return (tl.pack_gauge(ue), tl.pack_gauge(uo), tl.pack_spinor(psi),
-            tl.pack_spinor(acc))
+    return (tl.pack_gauge(ue, dtype), tl.pack_gauge(uo, dtype),
+            tl.pack_spinor(psi, dtype), tl.pack_spinor(acc, dtype))
 
 
-def check_hop(dev, gen, dims) -> float:
+def check_hop(dev, gen, dims, dtype=torch.float32) -> float:
+    """K1 for every flag set, N = 1 and 3, against its plain version (f32
+    or bf16 storage); each batched RHS bitwise against its single launch."""
     from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
     from repro_torch.kernels.wilson_dslash.ref import wilson_hop_ref
-    upe, upo, psi, acc = random_packed(gen, dims, 3)
+    upe, upo, psi, acc = random_packed(gen, dims, 3, dtype)
     worst = 0.0
     for parity, g5in, g5out, has_acc, twist in itertools.product(
             (0, 1), (False, True), (False, True), (False, True),
@@ -189,10 +258,8 @@ def check_hop(dev, gen, dims) -> float:
             a = (acc[0] if n == 1 else acc) if has_acc else None
             out = wilson_hop(u_out, u_nbr, p, psi_acc=a, **kw)
             ref = wilson_hop_ref(u_out, u_nbr, p, psi_acc=a, **kw)
-            err = max_err(out, ref)
-            check(err <= HOP_TOL * scale(ref),
-                  f"wilson_hop {dims} N={n} {kw} has_acc={has_acc}: "
-                  f"max-abs error {err}")
+            err = agree(out, ref, f"wilson_hop {dtype} {dims} N={n} {kw} "
+                                  f"has_acc={has_acc}")
             worst = max(worst, err)
             if n == 3:
                 for i in range(3):
@@ -207,28 +274,31 @@ def check_hop(dev, gen, dims) -> float:
 
 
 def off_by_one_float(v: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``v`` whose data starts 4 bytes past a 16-byte
-    boundary (a view into a larger buffer)."""
-    buf = torch.empty(v.numel() + 4, dtype=v.dtype, device=v.device)
-    out = buf[1:1 + v.numel()].view(v.shape)
+    """A contiguous copy of ``v`` whose data starts 4 bytes (one float, two
+    bf16) past a 16-byte boundary (a view into a larger buffer)."""
+    k = 4 // v.element_size()
+    buf = torch.empty(v.numel() + 16, dtype=v.dtype, device=v.device)
+    out = buf[k:k + v.numel()].view(v.shape)
     out.copy_(v)
     check(out.is_contiguous() and out.data_ptr() % 16 == 4,
           "off_by_one_float: view not 4 bytes off alignment")
     return out
 
 
-def check_full(dev, gen, dims, misaligned: str = "") -> float:
+def check_full(dev, gen, dims, misaligned: str = "",
+               dtype=torch.float32) -> float:
     """K4 for every gamma5 flag pair with and without twist, N = 1 and 3,
-    against its plain version; each batched RHS bitwise against its single
-    launch.  ``misaligned`` ("psi" or "gauge"): that field's base pointer
-    lies 4 bytes off 16-byte alignment."""
+    against its plain version (f32 or bf16 storage); each batched RHS
+    bitwise against its single launch.  ``misaligned`` ("psi" or
+    "gauge"): that field's base pointer lies 4 bytes off 16-byte
+    alignment."""
     from repro_torch.core import lattice as tl
     from repro_torch.kernels.wilson_dslash.kernel import wilson_full
     from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
     lat = tl.LatticeShape(*dims)
-    up = tl.pack_gauge(tl.random_gauge(gen, lat))
+    up = tl.pack_gauge(tl.random_gauge(gen, lat), dtype)
     psi = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
-                                      for _ in range(3)]))
+                                      for _ in range(3)]), dtype)
     if misaligned == "psi":
         psi = off_by_one_float(psi)
     elif misaligned == "gauge":
@@ -242,10 +312,8 @@ def check_full(dev, gen, dims, misaligned: str = "") -> float:
             p = psi[0] if n == 1 else psi
             out = wilson_full(up, p, MASS, **kw)
             ref = wilson_full_ref(up, p, MASS, **kw)
-            err = max_err(out, ref)
-            check(err <= HOP_TOL * scale(ref),
-                  f"wilson_full {where} N={n} {kw}: max-abs error {err}")
-            worst = max(worst, err)
+            worst = max(worst, agree(out, ref, f"wilson_full {dtype} "
+                                               f"{where} N={n} {kw}"))
             if n == 3:
                 for i in range(3):
                     check(torch.equal(out[i],
@@ -328,6 +396,66 @@ def check_xpay_misaligned(dev, gen) -> float:
     return worst
 
 
+def check_cg_bf16(dev, gen) -> tuple[float, float]:
+    """The bf16 instances of K2 and K3: N = 1 and 4 with a frozen RHS, K3
+    gated and ungated, on views 0, 1, 3 and 7 elements off 16-byte
+    alignment (alike, and the fields against each other) at a ragged
+    length and at a half field's; within 1 bf16 ulp of the plain version,
+    the norms (f32, of r' before rounding) 1e-5 relative, frozen lanes and
+    closed gates bitwise, each RHS bitwise equal to its single call."""
+    from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
+    from repro_torch.kernels.cg_fused.ref import cg_update_ref, cg_xpay_ref
+    worst_u = worst_x = 0.0
+    for length, n, offsets in ((12345, 4, (0, 0)), (12345, 4, (1, 1)),
+                               (12345, 1, (3, 3)), (12345, 4, (7, 2)),
+                               (8 ** 4 * 12, 4, (0, 0)),
+                               (8 ** 4 * 12, 1, (1, 5))):
+        bufs = [torch.randn(n * length + 16, generator=gen,
+                            device=dev).to(BF16) for _ in range(4)]
+        x, r, p, ap = (buf[o:o + n * length].view(n, length)
+                       for buf, o in zip(bufs, offsets + offsets))
+        where = f"L={length} N={n} offsets {offsets}"
+        alpha = torch.linspace(0.3, -0.9, n, device=dev)
+        if n > 1:
+            alpha[1] = 0.0
+        xo, ro, rs = cg_update(alpha, x, r, p, ap)
+        xr, rr, rsr = cg_update_ref(alpha, x, r, p, ap)
+        worst_u = max(worst_u, bf16_check(xo, xr, f"cg_update bf16 {where}"),
+                      bf16_check(ro, rr, f"cg_update bf16 {where}"))
+        rel = float(((rs - rsr).abs() / rsr).max())
+        check(rs.dtype == torch.float32 and rel <= CG_TOL,
+              f"cg_update bf16 {where}: norm error {rel}")
+        if n > 1:
+            check(torch.equal(xo[1], x[1]) and torch.equal(ro[1], r[1]),
+                  f"cg_update bf16 {where}: frozen lane changed")
+        beta = torch.linspace(0.1, 0.9, n, device=dev)
+        gate = torch.arange(n, device=dev) % 2 == 0
+        outs = {}
+        for g in (None, gate):
+            po = cg_xpay(beta, r, p, g)
+            worst_x = max(worst_x, bf16_check(po, cg_xpay_ref(beta, r, p, g),
+                                              f"cg_xpay bf16 {where}"))
+            if g is not None and n > 1:
+                check(torch.equal(po[1], p[1]),
+                      f"cg_xpay bf16 {where}: closed gate changed p")
+            outs[g is None] = po
+        for i in range(n):
+            sx, sr, srs = cg_update(alpha[i:i + 1], x[i:i + 1], r[i:i + 1],
+                                    p[i:i + 1], ap[i:i + 1])
+            check(torch.equal(sx[0], xo[i]) and torch.equal(sr[0], ro[i])
+                  and torch.equal(srs[0], rs[i]),
+                  f"cg_update bf16 {where}: RHS {i} differs from its single "
+                  "call")
+            for ungated, po in outs.items():
+                single = cg_xpay(beta[i:i + 1], r[i:i + 1], p[i:i + 1],
+                                 None if ungated else gate[i:i + 1])
+                check(torch.equal(single[0], po[i]),
+                      f"cg_xpay bf16 {where}: RHS {i} differs from its "
+                      "single call")
+    torch.cuda.synchronize()
+    return worst_u, worst_x
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: solves
 # ---------------------------------------------------------------------------
@@ -350,15 +478,25 @@ def solve_counted(plan, u, b, dev, layout="natural"):
     return x, st, counts, wall, torch.cuda.max_memory_allocated(dev)
 
 
-def want_launches(plan, k: int, layout="natural") -> dict:
-    """Kernel launches of a k-iteration solve; every other kernel runs 0."""
+def want_launches(plan, st, layout="natural") -> dict:
+    """Kernel launches of a solve of k (inner) iterations and o reliable
+    updates; every other kernel runs 0."""
+    k, o = st.iterations, st.outer_iterations
+    packed = int(layout == "packed")
     if plan.operator == "full":
-        return {"wilson_full": 2 * k + 1 + (layout == "packed")}
+        if plan.precision == "mixed":
+            return {"wilson_full_bf16": 2 * k, "wilson_full": 2 * o + 1 + packed}
+        if plan.precision == "low":
+            return {"wilson_full_bf16": 2 * k, "wilson_full": 1 + packed}
+        return {"wilson_full": 2 * k + 1 + packed}
+    if plan.precision == "mixed":
+        return {"wilson_hop_bf16": 4 * k, "wilson_hop": 4 * o + 4,
+                "cg_update_bf16": k, "cg_xpay_bf16": k}
     return {"wilson_hop": 4 * k + 4, "cg_update": k, "cg_xpay": k}
 
 
 def check_launches(name, st, counts, plan, layout="natural"):
-    want = want_launches(plan, st.iterations, layout)
+    want = want_launches(plan, st, layout)
     for kern in counts:
         n = want.get(kern, 0)
         got = counts[kern]
@@ -375,13 +513,19 @@ def rel_res(st, rhs, batched: bool) -> list[float]:
     return (torch.atleast_1d(st.true_residual_norm2) / bs).sqrt().tolist()
 
 
-def check_solve(name, st, rel):
+def check_solve(name, st, rel, verified=True):
+    """Converged; verified with a true relative residual below 10 tol,
+    or (cg16, ``verified=False``) unverified, as bf16 cannot reach tol."""
     from repro_torch.core import solvers
     verdicts = torch.atleast_1d(st.verdict).tolist()
     check(all(v == solvers.CONVERGED for v in verdicts),
           f"{name}: verdicts {[solvers.verdict_name(v) for v in verdicts]}")
-    check(bool(torch.atleast_1d(st.verified).all()), f"{name}: unverified")
-    check(max(rel) < 10 * TOL, f"{name}: true rel_res {rel}")
+    ver = torch.atleast_1d(st.verified)
+    if verified:
+        check(bool(ver.all()), f"{name}: unverified")
+        check(max(rel) < 10 * TOL, f"{name}: true rel_res {rel}")
+    else:
+        check(not bool(ver.any()), f"{name}: cg16 verified")
 
 
 def goldens(dev):
@@ -420,6 +564,20 @@ def goldens(dev):
         check(err <= 1e-4, f"golden {name}: kernels vs reference backend "
                            f"x differ by {err} (relative)")
         out[name] = its
+    for name, kw, batched, want, outer in MIXED_GOLDENS:
+        plan = SP(**kw)
+        x, st, counts, _, _ = solve_counted(plan, u, batch if batched else b,
+                                            dev)
+        its = st.rhs_iterations.tolist() if batched else [st.iterations]
+        check(len(its) == len(want)
+              and all(abs(i - w) <= 2 for i, w in zip(its, want))
+              and st.outer_iterations == outer,
+              f"golden {name}: iterations {its} / {st.outer_iterations} "
+              f"outer, want {want} (+-2) / {outer}")
+        check_solve(name, st, rel_res(st, batch if batched else b, batched),
+                    verified=plan.precision == "mixed")
+        check_launches(name, st, counts, plan)
+        out[name] = dict(inner=its, outer=st.outer_iterations)
     return out
 
 
@@ -446,25 +604,47 @@ def main_path(dev):
             ("full_wilson_n1", SP(operator="full"), b, "natural"),
             ("full_wilson_n4", SP(operator="full", nrhs=4), batch,
              "natural"),
-            ("full_wilson_n1_packed", SP(operator="full"), b, "packed")):
+            ("full_wilson_n1_packed", SP(operator="full"), b, "packed"),
+            # mixed precision: a bf16 inner CG through the bf16 instances
+            ("eo_mixed_n1", SP(precision="mixed"), b, "natural"),
+            ("full_mixed_n1", SP(operator="full", precision="mixed"), b,
+             "natural"),
+            ("full_mixed_n4", SP(operator="full", precision="mixed", nrhs=4),
+             batch, "natural"),
+            ("full_cg16_n1", SP(operator="full", precision="low"), b,
+             "natural")):
         gauge = u
         if layout == "packed":
             gauge, rhs = tl.pack_gauge(u), tl.pack_spinor(rhs)
         x, st, counts, wall, peak = solve_counted(plan, gauge, rhs, dev,
                                                   layout)
         rel = rel_res(st, rhs, plan.batched)
-        check_solve(name, st, rel)
+        check_solve(name, st, rel, verified=plan.precision != "low")
         check_launches(name, st, counts, plan, layout)
         its = st.rhs_iterations.tolist() if plan.batched else [st.iterations]
-        log(f"main path {name}: iterations {its} (loop {st.iterations}), "
-            f"true rel_res {[f'{r:.3e}' for r in rel]}, wall "
-            f"{wall:.4f} s, peak memory {peak / 2**30:.3f} GiB, launches "
-            f"{ {k: v['launches'] for k, v in counts.items()} }")
-        runs[name] = dict(iterations=its, loop=st.iterations, rel=rel,
-                          wall_s=wall, peak_bytes=peak,
+        log(f"main path {name}: iterations {its} (loop {st.iterations}, "
+            f"outer {st.outer_iterations}), true rel_res "
+            f"{[f'{r:.3e}' for r in rel]}, wall {wall:.4f} s, peak memory "
+            f"{peak / 2**30:.3f} GiB, launches "
+            f"{ {k: v['launches'] for k, v in counts.items() if v['launches']} }")
+        runs[name] = dict(iterations=its, loop=st.iterations,
+                          outer=st.outer_iterations, rel=rel, wall_s=wall,
+                          peak_bytes=peak,
                           launches={k: v["launches"]
                                     for k, v in counts.items()})
         del x, st, gauge
+    # time to a solution, mixed against f32 on the same path and RHS
+    for mixed, single in (("eo_mixed_n1", "wilson_n1"),
+                          ("full_mixed_n1", "full_wilson_n1"),
+                          ("full_mixed_n4", "full_wilson_n4"),
+                          ("full_cg16_n1", "full_wilson_n1")):
+        m, f = runs[mixed], runs[single]
+        log(f"time to solution {mixed}: {m['wall_s']:.4f} s "
+            f"({'verified' if mixed != 'full_cg16_n1' else 'unverified'}), "
+            f"{single} (cgnr, f32) {f['wall_s']:.4f} s, ratio "
+            f"{m['wall_s'] / f['wall_s']:.3f}; peak memory "
+            f"{m['peak_bytes'] / 2**30:.3f} against "
+            f"{f['peak_bytes'] / 2**30:.3f} GiB")
     return u, b, batch, runs
 
 
@@ -482,18 +662,18 @@ def bound(nbytes: float, flops: float, bw: float) -> dict:
             "model_bytes": nbytes, "model_flops": flops}
 
 
-def time_hop(u, b, batch, bw, n):
+def time_hop(u, b, batch, bw, n, dtype=torch.float32):
     from repro_torch.core import lattice as tl
     from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
     from repro_torch.kernels.wilson_dslash.ref import wilson_hop_ref
     ue, uo = tl.split_eo_gauge(u)
-    upe, upo = tl.pack_gauge(ue), tl.pack_gauge(uo)
+    upe, upo = tl.pack_gauge(ue, dtype), tl.pack_gauge(uo, dtype)
     del ue, uo
     rhs = b if n == 1 else batch
     halves = ([tl.split_eo(rhs)] if n == 1 else
               [tl.split_eo(rhs[i]) for i in range(n)])
-    pe = tl.pack_spinor(torch.stack([h[0] for h in halves]))
-    po = tl.pack_spinor(torch.stack([h[1] for h in halves]))
+    pe = tl.pack_spinor(torch.stack([h[0] for h in halves]), dtype)
+    po = tl.pack_spinor(torch.stack([h[1] for h in halves]), dtype)
     del halves
     if n == 1:
         pe, po = pe[0], po[0]
@@ -503,91 +683,102 @@ def time_hop(u, b, batch, bw, n):
               hop_coeff=-1.0 / m)
     out = wilson_hop(upe, upo, po, **kw)
     ref = wilson_hop_ref(upe, upo, po, **kw)
-    err = max_err(out, ref)
-    check(err <= HOP_TOL * scale(ref), f"wilson_hop main shape N={n}: "
-                                       f"error {err}")
+    err = agree(out, ref, f"wilson_hop {dtype} main shape N={n}")
     del out, ref
     ms = kernel_ms(lambda: wilson_hop(upe, upo, po, **kw))
     plain_ms = time_ms(lambda: wilson_hop_ref(upe, upo, po, **kw), reps=3,
                        warmup=1)
     sites = po.shape[-5] * po.shape[-4] * po.shape[-3] * po.shape[-1]
-    nbytes = sites * ((144 + 48 * n) * 4 + 96 * n)
+    es = po.element_size()
+    # per site and RHS: (144/N + 48) reals (links, spinors in and out) and
+    # the accumulator's 24
+    nbytes = sites * ((144 + 48 * n) * es + 24 * es * n)
     return dict(**ms, plain_ms=plain_ms, library_ms=None,
                 max_abs_err=err, shape=f"N={n} half field "
-                f"{tuple(po.shape)}, has_acc",
+                f"{tuple(po.shape)} {dtype}, has_acc",
                 **bound(nbytes, HOP_FLOPS_PER_SITE * sites * n, bw))
 
 
-def time_full(u, b, batch, bw, n):
+def time_full(u, b, batch, bw, n, dtype=torch.float32):
     from repro_torch.core import lattice as tl
     from repro_torch.kernels.wilson_dslash.kernel import wilson_full
     from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
-    up = tl.pack_gauge(u)
-    pp = tl.pack_spinor(b if n == 1 else batch)
+    up = tl.pack_gauge(u, dtype)
+    pp = tl.pack_spinor(b if n == 1 else batch, dtype)
     # the normal operator's second launch: D^dag with both gamma5 flags
     kw = dict(gamma5_in=True, gamma5_out=True)
     out = wilson_full(up, pp, MASS, **kw)
     ref = wilson_full_ref(up, pp, MASS, **kw)
-    err = max_err(out, ref)
-    check(err <= HOP_TOL * scale(ref), f"wilson_full main shape N={n}: "
-                                       f"error {err}")
+    err = agree(out, ref, f"wilson_full {dtype} main shape N={n}")
     del out, ref
     ms = kernel_ms(lambda: wilson_full(up, pp, MASS, **kw))
     plain_ms = time_ms(lambda: wilson_full_ref(up, pp, MASS, **kw), reps=3,
                        warmup=1)
     sites = pp.shape[-5] * pp.shape[-4] * pp.shape[-3] * pp.shape[-1]
-    # each input read once: 4 links (72 floats) a site, 24 in and 24 out
+    # each input read once: 4 links (72 reals) a site, 24 in and 24 out
     # per RHS; the JAX package's dslash_intensity model also counts each
-    # link twice (forward and backward hop), (144/N + 48) floats per RHS
-    nbytes = sites * (72 + 48 * n) * 4
-    model_bytes = sites * (144 + 48 * n) * 4
+    # link twice (forward and backward hop), (144/N + 48) reals per RHS
+    es = pp.element_size()
+    nbytes = sites * (72 + 48 * n) * es
+    model_bytes = sites * (144 + 48 * n) * es
     return dict(**ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
-                shape=f"N={n} field {tuple(pp.shape)}, dagger",
+                shape=f"N={n} field {tuple(pp.shape)} {dtype}, dagger",
                 bound_ms_intensity_model=model_bytes / PEAK_BYTES_PER_S * 1e3,
                 bound_ms_intensity_model_measured_bw=model_bytes / bw * 1e3,
                 **bound(nbytes, HOP_FLOPS_PER_SITE * sites * n, bw))
 
 
-def time_cg(dev, bw, n, length):
+def time_cg(dev, bw, n, length, dtype=torch.float32):
     from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
     from repro_torch.kernels.cg_fused.ref import cg_update_ref, cg_xpay_ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    x, r, p, ap = (torch.randn(n, length, generator=gen, device=dev)
-                   for _ in range(4))
+    x, r, p, ap = (torch.randn(n, length, generator=gen,
+                               device=dev).to(dtype) for _ in range(4))
     alpha = torch.linspace(0.2, 0.8, n, device=dev)
     beta = torch.linspace(0.1, 0.9, n, device=dev)
     gate = torch.ones(n, dtype=torch.bool, device=dev)
+    es = x.element_size()
     out = {}
     xo, ro, rs = cg_update(alpha, x, r, p, ap)
     xr, rr, rsr = cg_update_ref(alpha, x, r, p, ap)
-    err = max(max_err(xo, xr), max_err(ro, rr))
     rel = float(((rs - rsr).abs() / rsr).max())
-    check(err <= CG_TOL and rel <= CG_TOL,
-          f"cg_update main shape N={n}: errors {err}, {rel}")
+    if dtype == BF16:
+        err = max(bf16_check(xo, xr, f"cg_update bf16 main shape N={n}"),
+                  bf16_check(ro, rr, f"cg_update bf16 main shape N={n}"))
+        check(rel <= CG_TOL, f"cg_update bf16 main shape N={n}: norm "
+                             f"error {rel}")
+    else:
+        err = max(max_err(xo, xr), max_err(ro, rr))
+        check(err <= CG_TOL and rel <= CG_TOL,
+              f"cg_update main shape N={n}: errors {err}, {rel}")
     del xo, ro, xr, rr
     out["cg_update"] = dict(
         **kernel_ms(lambda: cg_update(alpha, x, r, p, ap)),
         plain_ms=time_ms(lambda: cg_update_ref(alpha, x, r, p, ap), reps=5),
         library_ms=None, max_abs_err=err, norm_rel_err=rel,
-        shape=f"N={n} L={length}",
-        **bound(24.0 * n * length, 5.0 * n * length, bw))
+        shape=f"N={n} L={length} {dtype}",
+        **bound(6.0 * es * n * length, 5.0 * n * length, bw))
     gated = n > 1  # the batched solve passes its gate, the single one none
     g = gate if gated else None
     po = cg_xpay(beta, r, p, g)
-    err = max_err(po, cg_xpay_ref(beta, r, p, g))
-    check(err <= CG_TOL, f"cg_xpay main shape N={n}: error {err}")
+    if dtype == BF16:
+        err = bf16_check(po, cg_xpay_ref(beta, r, p, g),
+                         f"cg_xpay bf16 main shape N={n}")
+    else:
+        err = max_err(po, cg_xpay_ref(beta, r, p, g))
+        check(err <= CG_TOL, f"cg_xpay main shape N={n}: error {err}")
     del po
     lib_ms = {"library_ms": None}
     if not gated:
-        lib_ms = kernel_ms(lambda: torch.addcmul(r, beta.view(n, 1), p),
-                           "library_ms")
+        bv = beta.view(n, 1).to(dtype)
+        lib_ms = kernel_ms(lambda: torch.addcmul(r, bv, p), "library_ms")
     out["cg_xpay"] = dict(
         **kernel_ms(lambda: cg_xpay(beta, r, p, g)),
         plain_ms=time_ms(lambda: cg_xpay_ref(beta, r, p, g), reps=5),
         **lib_ms, max_abs_err=err,
-        shape=f"N={n} L={length}{' gated' if gated else ''}",
-        **bound(12.0 * n * length, 2.0 * n * length, bw))
+        shape=f"N={n} L={length} {dtype}{' gated' if gated else ''}",
+        **bound(3.0 * es * n * length, 2.0 * n * length, bw))
     return out
 
 
@@ -674,16 +865,39 @@ def main() -> int:
             (4, 4, 22, 16), (4, 4, 6, 5), (2, 2, 2, 348), (2, 2, 2, 464))]
         + [check_full(dev, gen, (4, 4, 6, 8), which)
            for which in ("psi", "gauge")])
+    # the bf16 instances; 4^4 (Xh = 2, 4-byte planes) stages K1's rows by
+    # plain loads, 2x2x2x348 stages in bf16 where f32 reads in place,
+    # 2x2x2x700 reads in place; K4 at 4x4x8x32 runs its X = 32 instances,
+    # at 2x2x2x928 reads its links in place
+    from repro_torch.kernels.wilson_dslash import kernel as wk
+    check(not wk.hop_bulk(2, *wk.hop_tile_plan(4, 2, 2)[1:], 2)
+          and wk.hop_bulk(16, *wk.hop_tile_plan(32, 16, 2)[1:], 2),
+          "bf16 K1 staging: plain loads at Xh = 2, TMA at Xh = 16")
+    errs["wilson_hop_bf16"] = max(check_hop(dev, gen, dims, BF16) for dims in (
+        (8, 8, 8, 8), (4, 6, 8, 16), (4, 4, 4, 4), (4, 4, 6, 6),
+        (4, 4, 22, 8), (2, 2, 2, 348), (2, 2, 2, 700)))
+    errs["cg_update_bf16"], errs["cg_xpay_bf16"] = check_cg_bf16(dev, gen)
+    errs["wilson_full_bf16"] = max(
+        [check_full(dev, gen, dims, dtype=BF16) for dims in (
+            (8, 8, 8, 8), (4, 4, 8, 32), (4, 4, 22, 16), (4, 4, 6, 5),
+            (2, 2, 2, 348), (2, 2, 2, 464), (2, 2, 2, 928))]
+        + [check_full(dev, gen, (4, 4, 6, 8), which, BF16)
+           for which in ("psi", "gauge")])
     log("kernels: " + json.dumps({k: {"max_abs_err": v}
                                   for k, v in errs.items()}))
+    log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 3: goldens
     log("goldens: " + json.dumps(goldens(dev)))
 
+    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
+
     # phase 4: main path
     u, b, batch, runs = main_path(dev)
-    names = ("wilson_hop", "cg_update", "cg_xpay", "wilson_full")
+    base = ("wilson_hop", "cg_update", "cg_xpay", "wilson_full")
+    names = base + tuple(f"{k}_bf16" for k in base)
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in names}
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 5: timings at the main path's shapes
     length = b.numel()  # packed reals of one half field: V/2 sites x 24
@@ -692,6 +906,10 @@ def main() -> int:
         t = {"wilson_hop": time_hop(u, b, batch, bw, n)}
         t.update(time_cg(dev, bw, n, length))
         t["wilson_full"] = time_full(u, b, batch, bw, n)
+        t["wilson_hop_bf16"] = time_hop(u, b, batch, bw, n, BF16)
+        t.update({f"{k}_bf16": v for k, v in
+                  time_cg(dev, bw, n, length, BF16).items()})
+        t["wilson_full_bf16"] = time_full(u, b, batch, bw, n, BF16)
         timings[n] = t
         for k, v in t.items():
             lib = ("none" if v["library_ms"] is None
@@ -709,12 +927,17 @@ def main() -> int:
                     f"({v['bound_ms_intensity_model_measured_bw']:.4f} ms "
                     "at the measured copy rate)")
 
+    log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+
     # phase 6: one traced solve of each path
     from repro_torch.core.plan import SolverPlan
     for name, plan, rhs in (
             ("wilson_n1", SolverPlan(), b),
             ("full_wilson_n1", SolverPlan(operator="full"), b),
-            ("full_wilson_n4", SolverPlan(operator="full", nrhs=4), batch)):
+            ("full_wilson_n4", SolverPlan(operator="full", nrhs=4), batch),
+            ("eo_mixed_n1", SolverPlan(precision="mixed"), b),
+            ("full_mixed_n1", SolverPlan(operator="full",
+                                         precision="mixed"), b)):
         prof = profile_solve(plan, u, rhs, dev)
         if prof["top"]:
             log(f"profile {name}: wall {prof['wall_ms']:.2f} ms (traced), "
@@ -739,9 +962,10 @@ def main() -> int:
     kernels_line = []
     for name in names:
         t = timings[1][name]
+        kernel = name.removesuffix("_bf16")
         kernels_line.append({
-            "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": total[name],
+            "name": name, "route": "cuda", "source": sources[kernel],
+            "replaces": replaces[kernel], "launches": total[name],
             "max_abs_err": max(errs[name], t["max_abs_err"],
                                timings[4][name]["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

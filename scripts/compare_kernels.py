@@ -12,18 +12,22 @@ its own ``kernels/build.py`` and is called through its own public wrappers
 ``wilson_hop``, ``cg_xpay`` and ``wilson_full``; their C interfaces may
 differ between the versions.
 
-Cases, on the 32^3 x 64 lattice with f32 fields: K1 ``wilson_hop`` at
-N = 1 and 4 (the Schur operator's second launch: parity 0, gamma5_out,
-the accumulator), K3 ``cg_xpay`` at N = 1 (no gate, with
+Cases, on the 32^3 x 64 lattice, for each storage type of ``--dtype``
+(float32, bfloat16): K1 ``wilson_hop`` at N = 1 and 4 (the Schur
+operator's second launch: parity 0, gamma5_out, the accumulator), K2
+``cg_update`` at N = 1 and 4, K3 ``cg_xpay`` at N = 1 (no gate, with
 ``torch.addcmul`` timed in each turn) and N = 4 (gated), K4
 ``wilson_full`` at N = 1 and 4 (the normal operator's dagger launch).
-The old result is held against the new one (and K3 against its plain
-version) before anything is timed.  Each of ``--turns`` turns times
-old, new, new, old, each both ways ``chip_smoke.py`` times a kernel
+float32: the old result is held against the new one (and K2/K3 against
+the plain version) before anything is timed, and each of ``--turns``
+turns times old, new, new, old.  bfloat16, which an earlier version may
+not have: the new kernel is held against its plain version (at most 1
+bf16 ulp, as ``chip_smoke.py`` holds it) and each turn times it twice.
+Every timing is taken both ways ``chip_smoke.py`` times a kernel
 (``ms``: one call per CUDA event pair; ``ms_back_to_back``: ten calls
 per pair).  With ``--rows`` the current K1, with ``--full-rows`` the
-current K4, is also timed at other tile heights.  Prints the card's name and power limit, then one JSON object
-as its last line.
+current K4, is also timed at other tile heights (float32).  Prints the
+card's name and power limit, then one JSON object as its last line.
 """
 
 from __future__ import annotations
@@ -43,8 +47,10 @@ import torch  # noqa: E402
 
 PACKAGE = "repro_torch"
 WRAPPERS = {"wilson_hop": "wilson_dslash.kernel",
+            "cg_update": "cg_fused.kernel",
             "cg_xpay": "cg_fused.kernel",
             "wilson_full": "wilson_dslash.kernel"}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _ours() -> list[str]:
@@ -79,13 +85,15 @@ def ptxas(build) -> dict:
 
 
 def turns(old, new, n_turns: int, extra=None) -> dict:
-    """``n_turns`` x (old, new, new, old), each timed both ways; ``extra``
-    (a library call) once per turn after them."""
+    """``n_turns`` x (old, new, new, old), each timed both ways, or
+    (new, new) when ``old`` is None; ``extra`` (a library call) once per
+    turn after them."""
     res = {f"{who}_{m}": [] for who in ("old", "new", "library")
            for m in ("ms", "ms_back_to_back")}
+    order = ((("new", new),) * 2 if old is None else
+             (("old", old), ("new", new), ("new", new), ("old", old)))
     for _ in range(n_turns):
-        for who, fn in (("old", old), ("new", new), ("new", new),
-                        ("old", old)):
+        for who, fn in order:
             for m, v in cs.kernel_ms(fn).items():
                 res[f"{who}_{m}"].append(v)
         if extra is not None:
@@ -93,16 +101,26 @@ def turns(old, new, n_turns: int, extra=None) -> dict:
                 res[f"library_{m}"].append(v)
     for m in ("ms", "ms_back_to_back"):
         old_t, new_t = res[f"old_{m}"], res[f"new_{m}"]
-        res[f"old_{m}_median"] = statistics.median(old_t)
         res[f"new_{m}_median"] = statistics.median(new_t)
-        # pairs within a turn: (old 1st, new 2nd) and (old 4th, new 3rd)
-        res[f"new_faster_pairs_{m}"] = sum(
-            n < o for o, n in zip(old_t, new_t))
+        res[f"new_{m}_quartiles"] = quartiles(new_t)
         if res[f"library_{m}"]:
             res[f"library_{m}_median"] = statistics.median(
                 res[f"library_{m}"])
+        if old is None:
+            continue
+        res[f"old_{m}_median"] = statistics.median(old_t)
+        res[f"old_{m}_quartiles"] = quartiles(old_t)
+        # pairs within a turn: (old 1st, new 2nd) and (old 4th, new 3rd)
+        res[f"new_faster_pairs_{m}"] = sum(
+            n < o for o, n in zip(old_t, new_t))
     res["pairs"] = 2 * n_turns
     return {k: v for k, v in res.items() if v != []}
+
+
+def quartiles(v) -> list[float]:
+    """The first and third quartiles of ``v`` (the spread reported)."""
+    q = statistics.quantiles(v, n=4)
+    return [q[0], q[2]]
 
 
 def check(cond, msg):
@@ -122,18 +140,24 @@ def main() -> int:
                     help="comma-separated K1 tile heights to time as well")
     ap.add_argument("--full-rows", default="",
                     help="comma-separated K4 tile heights to time as well")
+    ap.add_argument("--dtype", default="float32",
+                    help="comma-separated storage types: float32, bfloat16")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
         return 2
     kernels = args.kernels.split(",")
     check(set(kernels) <= set(WRAPPERS), f"unknown kernels {kernels}")
+    dtypes = args.dtype.split(",")
+    check(set(dtypes) <= set(DTYPES), f"unknown dtypes {dtypes}")
     from repro_torch.core import lattice as tl
     from repro_torch.data import lattice_problem
     from repro_torch.kernels import build
     from repro_torch.kernels.cg_fused import kernel as ck
-    from repro_torch.kernels.cg_fused.ref import cg_xpay_ref
+    from repro_torch.kernels.cg_fused.ref import cg_update_ref, cg_xpay_ref
     from repro_torch.kernels.wilson_dslash import kernel as wk
+    from repro_torch.kernels.wilson_dslash.ref import (wilson_full_ref,
+                                                       wilson_hop_ref)
     old = import_old(args.old.resolve())
     check(old["build"].CSRC != build.CSRC, "--old is the current tree")
     dev = torch.device("cuda", 0)
@@ -149,94 +173,144 @@ def main() -> int:
     gen.manual_seed(1)
     batch = torch.stack([tl.random_spinor(gen, lat) for _ in range(4)])
 
-    if "wilson_hop" in kernels:
-        ue, uo = tl.split_eo_gauge(u)
-        upe, upo = tl.pack_gauge(ue), tl.pack_gauge(uo)
-        del ue, uo
-        m = cs.MASS + 4.0
-        for n in (1, 4):
-            rhs = b[None] if n == 1 else batch
-            halves = [tl.split_eo(rhs[i]) for i in range(n)]
-            pe = tl.pack_spinor(torch.stack([h[0] for h in halves]))
-            po = tl.pack_spinor(torch.stack([h[1] for h in halves]))
-            del halves
-            if n == 1:
-                pe, po = pe[0], po[0]
-            kw = dict(parity=0, gamma5_out=True, psi_acc=pe, acc_coeff=m,
-                      hop_coeff=-1.0 / m)
-            k_old = lambda: old["wilson_hop"](upe, upo, po, **kw)
-            k_new = lambda: wk.wilson_hop(upe, upo, po, **kw)
-            diff = cs.max_err(k_old(), k_new())
-            check(diff <= cs.HOP_TOL * cs.scale(k_new()),
-                  f"K1 N={n}: old and new differ by {diff}")
-            r = turns(k_old, k_new, args.turns)
-            r.update(max_abs_diff=diff, plan=list(
-                wk.hop_tile_plan(po.shape[-3], po.shape[-1])))
-            if args.rows:
-                plan = wk.hop_tile_plan
-                r["rows_ms"] = {}
-                for rows in map(int, args.rows.split(",")):
-                    wk.hop_tile_plan = (
-                        lambda y, xh, rows=rows: (rows, *plan(y, xh)[1:]))
-                    try:
-                        r["rows_ms"][rows] = cs.kernel_ms(k_new)
-                    finally:
-                        wk.hop_tile_plan = plan
-            res[f"wilson_hop_n{n}"] = r
-            del pe, po
-        del upe, upo
+    def versus(what, k_old, k_new, ref, exact=False):
+        """The old version (f32) or the plain version (bf16) against the
+        new one, before timing; returns the case's record to fill."""
+        new = k_new()
+        if k_old is None:
+            return dict(max_abs_err=cs.bf16_check(new, ref(), what))
+        theirs = k_old()
+        diff = cs.max_err(theirs, new)
+        check(diff <= (0.0 if exact else cs.HOP_TOL * cs.scale(new)),
+              f"{what}: old and new differ by {diff}")
+        return dict(max_abs_diff=diff,
+                    bitwise_equal_old=torch.equal(theirs, new))
 
-    if "cg_xpay" in kernels:
+    for dname in dtypes:
+        dtype = DTYPES[dname]
+        f32 = dtype == torch.float32
+        sfx = "" if f32 else "_bf16"
+        if "wilson_hop" in kernels:
+            ue, uo = tl.split_eo_gauge(u)
+            upe, upo = tl.pack_gauge(ue, dtype), tl.pack_gauge(uo, dtype)
+            del ue, uo
+            m = cs.MASS + 4.0
+            es = 4 if f32 else 2
+            for n in (1, 4):
+                rhs = b[None] if n == 1 else batch
+                halves = [tl.split_eo(rhs[i]) for i in range(n)]
+                pe = tl.pack_spinor(torch.stack([h[0] for h in halves]),
+                                    dtype)
+                po = tl.pack_spinor(torch.stack([h[1] for h in halves]),
+                                    dtype)
+                del halves
+                if n == 1:
+                    pe, po = pe[0], po[0]
+                kw = dict(parity=0, gamma5_out=True, psi_acc=pe,
+                          acc_coeff=m, hop_coeff=-1.0 / m)
+                k_old = ((lambda: old["wilson_hop"](upe, upo, po, **kw))
+                         if f32 else None)
+                k_new = lambda: wk.wilson_hop(upe, upo, po, **kw)
+                r = versus(f"K1 {dname} N={n}", k_old, k_new,
+                           lambda: wilson_hop_ref(upe, upo, po, **kw))
+                r.update(turns(k_old, k_new, args.turns))
+                r["plan"] = list(wk.hop_tile_plan(po.shape[-3], po.shape[-1],
+                                                  es))
+                if args.rows and f32:
+                    plan = wk.hop_tile_plan
+                    r["rows_ms"] = {}
+                    for rows in map(int, args.rows.split(",")):
+                        wk.hop_tile_plan = (
+                            lambda y, xh, es=4, rows=rows:
+                            (rows, *plan(y, xh, es)[1:]))
+                        try:
+                            r["rows_ms"][rows] = cs.kernel_ms(k_new)
+                        finally:
+                            wk.hop_tile_plan = plan
+                res[f"wilson_hop{sfx}_n{n}"] = r
+                del pe, po
+            del upe, upo
+
         length = b.numel()
-        for n in (1, 4):
-            g = torch.Generator(device=dev)
-            g.manual_seed(5)
-            rr, pp = (torch.randn(n, length, generator=g, device=dev)
-                      for _ in range(2))
-            beta = torch.linspace(0.1, 0.9, n, device=dev)
-            gate = (torch.ones(n, dtype=torch.bool, device=dev) if n > 1
-                    else None)
-            k_old = lambda: old["cg_xpay"](beta, rr, pp, gate)
-            k_new = lambda: ck.cg_xpay(beta, rr, pp, gate)
-            new = k_new()
-            err = cs.max_err(new, cg_xpay_ref(beta, rr, pp, gate))
-            check(err <= cs.CG_TOL, f"K3 N={n}: error {err}")
-            lib = (None if n > 1 else
-                   lambda: torch.addcmul(rr, beta.view(n, 1), pp))
-            r = turns(k_old, k_new, args.turns, lib)
-            r.update(max_abs_err=err,
-                     bitwise_equal_old=torch.equal(new, k_old()))
-            res[f"cg_xpay_n{n}"] = r
-            del rr, pp, new
+        if "cg_update" in kernels:
+            for n in (1, 4):
+                g = torch.Generator(device=dev)
+                g.manual_seed(5)
+                x, rr, pp, ap = (torch.randn(n, length, generator=g,
+                                             device=dev).to(dtype)
+                                 for _ in range(4))
+                alpha = torch.linspace(0.2, 0.8, n, device=dev)
+                k_old = ((lambda: old["cg_update"](alpha, x, rr, pp, ap)[1])
+                         if f32 else None)
+                k_new = lambda: ck.cg_update(alpha, x, rr, pp, ap)[1]
+                new_rs = ck.cg_update(alpha, x, rr, pp, ap)[2]
+                ref_rs = cg_update_ref(alpha, x, rr, pp, ap)[2]
+                rel = float(((new_rs - ref_rs).abs() / ref_rs).max())
+                check(rel <= cs.CG_TOL, f"K2 {dname} N={n}: norm error {rel}")
+                r = versus(f"K2 {dname} N={n}", k_old, k_new,
+                           lambda: cg_update_ref(alpha, x, rr, pp, ap)[1],
+                           exact=True)
+                r.update(turns(k_old, k_new, args.turns), norm_rel_err=rel)
+                res[f"cg_update{sfx}_n{n}"] = r
+                del x, rr, pp, ap
 
-    if "wilson_full" in kernels:
-        up = tl.pack_gauge(u)
-        for n in (1, 4):
-            pp = tl.pack_spinor(b if n == 1 else batch)
-            kw = dict(gamma5_in=True, gamma5_out=True)
-            k_old = lambda: old["wilson_full"](up, pp, cs.MASS, **kw)
-            k_new = lambda: wk.wilson_full(up, pp, cs.MASS, **kw)
-            diff = cs.max_err(k_old(), k_new())
-            check(diff <= cs.HOP_TOL * cs.scale(k_new()),
-                  f"K4 N={n}: old and new differ by {diff}")
-            r = turns(k_old, k_new, args.turns)
-            r.update(max_abs_diff=diff, plan=list(
-                wk.full_tile_plan(pp.shape[-3], pp.shape[-1])))
-            if args.full_rows:
-                plan, want = wk.full_tile_plan, k_new()
-                r["rows_ms"] = {}
-                for rows in map(int, args.full_rows.split(",")):
-                    wk.full_tile_plan = (
-                        lambda y, x, rows=rows: (rows, *plan(y, x)[1:]))
-                    try:
-                        # every tile height computes each site alike
-                        check(torch.equal(k_new(), want),
-                              f"K4 N={n} b={rows} differs from the plan's")
-                        r["rows_ms"][rows] = cs.kernel_ms(k_new)
-                    finally:
-                        wk.full_tile_plan = plan
-            res[f"wilson_full_n{n}"] = r
-            del pp
+        if "cg_xpay" in kernels:
+            for n in (1, 4):
+                g = torch.Generator(device=dev)
+                g.manual_seed(5)
+                rr, pp = (torch.randn(n, length, generator=g,
+                                      device=dev).to(dtype)
+                          for _ in range(2))
+                beta = torch.linspace(0.1, 0.9, n, device=dev)
+                gate = (torch.ones(n, dtype=torch.bool, device=dev)
+                        if n > 1 else None)
+                k_old = ((lambda: old["cg_xpay"](beta, rr, pp, gate))
+                         if f32 else None)
+                k_new = lambda: ck.cg_xpay(beta, rr, pp, gate)
+                if f32:
+                    err = cs.max_err(k_new(), cg_xpay_ref(beta, rr, pp, gate))
+                    check(err <= cs.CG_TOL, f"K3 N={n}: error {err}")
+                r = versus(f"K3 {dname} N={n}", k_old, k_new,
+                           lambda: cg_xpay_ref(beta, rr, pp, gate),
+                           exact=True)
+                bv = beta.view(n, 1).to(dtype)
+                lib = None if n > 1 else lambda: torch.addcmul(rr, bv, pp)
+                r.update(turns(k_old, k_new, args.turns, lib))
+                res[f"cg_xpay{sfx}_n{n}"] = r
+                del rr, pp
+
+        if "wilson_full" in kernels:
+            up = tl.pack_gauge(u, dtype)
+            es = 4 if f32 else 2
+            for n in (1, 4):
+                pp = tl.pack_spinor(b if n == 1 else batch, dtype)
+                kw = dict(gamma5_in=True, gamma5_out=True)
+                k_old = ((lambda: old["wilson_full"](up, pp, cs.MASS, **kw))
+                         if f32 else None)
+                k_new = lambda: wk.wilson_full(up, pp, cs.MASS, **kw)
+                r = versus(f"K4 {dname} N={n}", k_old, k_new,
+                           lambda: wilson_full_ref(up, pp, cs.MASS, **kw))
+                r.update(turns(k_old, k_new, args.turns))
+                r["plan"] = list(wk.full_tile_plan(pp.shape[-3],
+                                                   pp.shape[-1], es))
+                if args.full_rows and f32:
+                    plan, want = wk.full_tile_plan, k_new()
+                    r["rows_ms"] = {}
+                    for rows in map(int, args.full_rows.split(",")):
+                        wk.full_tile_plan = (
+                            lambda y, x, es=4, rows=rows:
+                            (rows, *plan(y, x, es)[1:]))
+                        try:
+                            # every tile height computes each site alike
+                            check(torch.equal(k_new(), want),
+                                  f"K4 N={n} b={rows} differs from the "
+                                  "plan's")
+                            r["rows_ms"][rows] = cs.kernel_ms(k_new)
+                        finally:
+                            wk.full_tile_plan = plan
+                res[f"wilson_full{sfx}_n{n}"] = r
+                del pp
+            del up
     print(card)
     print(json.dumps(res))
     return 0

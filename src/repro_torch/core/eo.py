@@ -5,8 +5,9 @@
   fields through the port's kernels;
 * :func:`eo_context` — blocks + RHS/solution layout converters + the
   fused vector engine, derived once per (backend, batch shape);
-* :func:`solve_wilson_eo` / :func:`solve_wilson_eo_batched` — forwarders
-  to :func:`repro_torch.core.plan.solve`.
+* :func:`solve_wilson_eo` / :func:`solve_wilson_eo_batched` /
+  :func:`solve_wilson_eo_mp` — forwarders to
+  :func:`repro_torch.core.plan.solve`.
 """
 
 from __future__ import annotations
@@ -186,4 +187,27 @@ def solve_wilson_eo_batched(u: Tensor, b: Tensor, mass, *, r: float = 1.0,
     p = plan_mod.SolverPlan(operator="eo-schur", backend=backend,
                             nrhs=b.shape[0], r=r)
     return plan_mod.solve(p, u, b, mass, tol=tol, maxiter=maxiter,
+                          device=device)
+
+
+def solve_wilson_eo_mp(u: Tensor, b: Tensor, mass, *, r: float = 1.0,
+                       tol: float = 1e-6, inner_tol: float = 5e-2,
+                       inner_maxiter: int = 200, max_outer: int = 50,
+                       low_dtype=torch.bfloat16, backend: str = "kernels",
+                       device="cuda") -> tuple[Tensor, solvers.SolveStats]:
+    """Even-odd + mixed precision: a bf16 inner CG on the half-size Schur
+    normal system, f32 reliable updates and back-substitution.
+
+    ``backend="kernels"``: the low representation is the packed half
+    field in ``low_dtype`` storage, through the bf16 instances of the hop
+    kernel and the fused CG kernels; links rounded to ``low_dtype`` once.
+    ``backend="reference"``: the bf16 real-pair view of the complex half
+    field.  Forwards to :func:`repro_torch.core.plan.solve` with
+    ``SolverPlan(operator="eo-schur", precision="mixed", low=low_dtype)``.
+    """
+    from repro_torch.core import plan as plan_mod
+    p = plan_mod.SolverPlan(operator="eo-schur", backend=backend,
+                            precision="mixed", low=low_dtype, r=r)
+    return plan_mod.solve(p, u, b, mass, tol=tol, inner_tol=inner_tol,
+                          inner_maxiter=inner_maxiter, max_outer=max_outer,
                           device=device)

@@ -219,6 +219,24 @@ def split_eo_gauge(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
+# Complex <-> real-pair views (for low-precision storage of complex fields)
+# ---------------------------------------------------------------------------
+
+def complex_to_real_pair(v: torch.Tensor,
+                         dtype=torch.float32) -> torch.Tensor:
+    """(...) complex -> (..., 2) real in ``dtype`` (bf16 for narrow
+    storage: complex bf16 does not exist)."""
+    return _re_im(v, dtype)
+
+
+def real_pair_to_complex(w: torch.Tensor,
+                         dtype=torch.complex64) -> torch.Tensor:
+    """Inverse of :func:`complex_to_real_pair`; widens before recombining."""
+    wf = w.to(torch.float64 if dtype == torch.complex128 else torch.float32)
+    return torch.complex(wf[..., 0], wf[..., 1]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
 # Inner products on fields (any layout)
 # ---------------------------------------------------------------------------
 

@@ -2,14 +2,21 @@
 
 A :class:`SolverPlan` names a solve as data (operator, operator family,
 backend, batch shape, precision, mesh) and :func:`solve` runs it.  The
-port carries two operators, single device, single precision, one RHS or
-a masked batch, for every registered operator family:
+port carries two operators, single device, one RHS or a masked batch,
+for every registered operator family:
 
 * ``"eo-schur"`` (default) — the paper's solve: CGNR on the even-odd
-  Schur complement (:func:`_solve_eo`);
+  Schur complement (:func:`_solve_eo`), or with ``precision="mixed"``
+  the reliable-update mpcg with a bf16 inner CG (:func:`_solve_eo_mp`,
+  one RHS);
 * ``"full"`` — CGNR on the full-lattice normal operator D^dag D
   (:func:`_solve_full`), in the natural layout or, with
-  ``layout="packed"``, on packed real fields in and out.
+  ``layout="packed"``, on packed real fields in and out; with
+  ``precision="mixed"`` mpcg, with ``"low"`` an all-bf16 CG (cg16, not
+  accurate to ``tol``: a measurement rig, verified False by design).
+
+Precisions: ``"single"`` (f32), ``"mixed"`` (bulk iterations in ``low``
+storage, true residuals and the solution in f32) and ``"low"``.
 
 Backends:
 
@@ -17,8 +24,8 @@ Backends:
   kernels: the parity hop kernel (four launches per Schur normal matvec)
   and the fused CG vector kernels, or the full-lattice kernel (two
   launches per normal matvec, plain vector algebra as in the JAX
-  package).  On CPU tensors each kernel's plain PyTorch version runs
-  instead.
+  package).  ``low`` storage goes through the kernels' bf16 instances.
+  On CPU tensors each kernel's plain PyTorch version runs instead.
 * ``"reference"`` — the plain operators: natural-layout complex einsums
   for ``"eo-schur"``, the packed einsum operator for ``"full"``.
 
@@ -36,11 +43,13 @@ import torch
 
 from repro_torch.core import solvers
 from repro_torch.core.eo import EOContext, eo_context
-from repro_torch.core.lattice import (field_norm2, field_norm2_batched,
-                                      pack_gauge, pack_spinor,
+from repro_torch.core.lattice import (complex_to_real_pair, field_norm2,
+                                      field_norm2_batched, pack_gauge,
+                                      pack_spinor, real_pair_to_complex,
                                       resolve_device, unpack_spinor)
 from repro_torch.core.operators import (SiteTerm, dslash_g, get_operator,
-                                        unknown_name)
+                                        schur_normal_op_g, unknown_name)
+from repro_torch.core.precision import parse_dtype
 
 Tensor = torch.Tensor
 
@@ -52,9 +61,6 @@ _PRECISIONS = ("single", "mixed", "low")
 # where each plan field outside this slice is scheduled (ROADMAP.md)
 _NOT_PORTED = {
     "mesh": "mesh plans are multi-device; ROADMAP Queue A item 12",
-    "mixed": "precision='mixed' (reliable-update mpcg) is ROADMAP Queue A "
-             "item 8",
-    "low": "precision='low' (all-low cg16) is ROADMAP Queue A item 8",
     "pipecg": "solver='pipecg' is ROADMAP Queue A item 9",
     "blockcg": "solver='blockcg' is ROADMAP Queue A item 9",
     "checkpoint": "checkpointed (segmented, durable) solves are ROADMAP "
@@ -62,6 +68,9 @@ _NOT_PORTED = {
     "deflation": "deflated solves (EigCG basis, deflate_x0) are ROADMAP "
                  "Queue A item 9",
 }
+
+# the low storage the kernels have instances for
+_KERNEL_LOW = (torch.bfloat16, torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +84,11 @@ class SolverPlan:
         "twisted-mass"); ``mu`` is the twisted-mass parameter.
       backend:   "kernels" (packed fields, CUDA kernels) or "reference".
       solver:    "cgnr" ("pipecg"/"blockcg" are not ported yet).
-      precision: "single" ("mixed"/"low" are not ported yet).
+      precision: "single", "mixed" (reliable-update mpcg: bulk iterations
+        in ``low``, true residuals wide) or "low" (all-low cg16, the full
+        operator only).
+      low:       the narrow dtype (name or torch dtype) for mixed/low;
+        the kernels backend stores bfloat16 or float32.
       nrhs:      None for one RHS, or N for a masked batch of N.
       mesh:      None (multi-device plans are not ported yet).
       r:         Wilson parameter (the kernels need r = 1).
@@ -87,6 +100,7 @@ class SolverPlan:
     backend: str = "kernels"
     solver: str = "cgnr"
     precision: str = "single"
+    low: object = "bfloat16"
     nrhs: int | None = None
     mesh: object | None = None
     r: float = 1.0
@@ -106,8 +120,29 @@ class SolverPlan:
                 f"SolverPlan: operator family {spec.name!r} has no site "
                 f"parameter 'mu' (got mu={self.mu}); pick a family that "
                 "declares it, e.g. operator_family='twisted-mass'")
+        if self.precision in ("mixed", "low") and self.solver in ("pipecg",
+                                                                  "blockcg"):
+            raise ValueError(
+                "SolverPlan: the mixed/low precision paths use the "
+                f"reliable-update CG loop; solver={self.solver!r} composes "
+                "with precision='single' only")
+        if self.precision == "low" and self.operator != "full":
+            raise ValueError(
+                "SolverPlan: precision='low' (all-low cg16) exists for the "
+                "full operator only")
         if self.nrhs is not None and self.nrhs < 1:
             raise ValueError(f"SolverPlan.nrhs must be >= 1, got {self.nrhs}")
+        if self.precision != "single":
+            try:
+                low = self.low_dtype
+            except KeyError:
+                raise ValueError(f"SolverPlan.low: unknown dtype "
+                                 f"{self.low!r}") from None
+            if self.backend == "kernels" and low not in _KERNEL_LOW:
+                raise NotImplementedError(
+                    f"SolverPlan.low={self.low!r}: the kernels store "
+                    "bfloat16 or float32; other narrow storage (float16) "
+                    "is ROADMAP Queue B item 9")
         for field, value in (("operator", self.operator),
                              ("precision", self.precision),
                              ("solver", self.solver)):
@@ -121,6 +156,10 @@ class SolverPlan:
     @property
     def batched(self) -> bool:
         return self.nrhs is not None
+
+    @property
+    def low_dtype(self):
+        return parse_dtype(self.low)
 
     @property
     def twist(self) -> float:
@@ -218,8 +257,10 @@ def _check_batch_shape(plan: SolverPlan, b: Tensor, layout: str):
 
 
 def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
-          maxiter: int = 1000, layout: str = "natural", checkpoint=None,
-          deflation=None, device="cuda") -> tuple[Tensor, solvers.SolveStats]:
+          maxiter: int = 1000, inner_tol: float = 5e-2,
+          inner_maxiter: int = 200, max_outer: int = 50,
+          layout: str = "natural", checkpoint=None, deflation=None,
+          device="cuda") -> tuple[Tensor, solvers.SolveStats]:
     """Execute a :class:`SolverPlan`.
 
     Args:
@@ -229,6 +270,8 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
         float32 (4,T,Z,Y,18,X) and (T,Z,Y,24,X).  The RHS has a leading
         N axis when ``plan.nrhs`` is set.
       tol/maxiter: CG stopping rule (relative, per RHS when batched).
+      inner_tol/inner_maxiter/max_outer: the mixed precision's inner CG
+        stopping rule and its number of reliable updates.
       checkpoint/deflation: not ported yet; anything but None raises.
       device: where the solve runs, ``"cuda"`` unless the caller asks for
         ``"cpu"`` (then each kernel's plain version runs).
@@ -251,9 +294,17 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
     u = torch.as_tensor(u, device=dev)
     b = torch.as_tensor(b, device=dev)
     _check_batch_shape(plan, b, layout)
+    mp = dict(inner_tol=inner_tol, inner_maxiter=inner_maxiter,
+              max_outer=max_outer)
     if plan.operator == "full":
         x, stats = _solve_full(plan, u, b, mass, tol=tol, maxiter=maxiter,
-                               layout=layout)
+                               layout=layout, **mp)
+    elif plan.precision == "mixed":
+        if plan.batched:
+            raise NotImplementedError(
+                "batched mixed-precision eo-schur is not wired yet (as in "
+                "the JAX package); drop nrhs or precision")
+        x, stats = _solve_eo_mp(plan, u, b, mass, tol=tol, **mp)
     else:
         x, stats = _solve_eo(plan, u, b, mass, tol=tol, maxiter=maxiter)
     return x, _attach_verification(plan, u, b, mass, x, stats, tol,
@@ -273,10 +324,80 @@ def _solve_eo(plan, u, b, mass, *, tol, maxiter):
     return ctx.finish(x_e, x_o), stats
 
 
-def _solve_full(plan, u, b, mass, *, tol, maxiter, layout):
+def _solve_eo_mp(plan, u, b, mass, *, tol, inner_tol, inner_maxiter,
+                 max_outer):
+    """Even-odd + mixed precision: a low-storage inner CG, wide reliable
+    updates and back-substitution.
+
+    Kernels backend: the low representation is the packed half field in
+    ``low`` storage (the kernels read it narrow and compute in f32), the
+    links rounded once; casts only at the reliable-update boundary; the
+    inner CG runs on the bf16 hop kernel and the fused CG kernels.
+    Reference backend: the bf16 real-pair view of the complex half field,
+    the links rounded once up front.
+    """
+    low_dtype = plan.low_dtype
+    twist = _family_site(plan, mass).twist
+    ctx = resolve(plan, u, mass, out_dtype=b.dtype)
+    b_e, b_o = ctx.prepare(b)
+    ops = ctx.ops
+    if plan.backend == "kernels":
+        from repro_torch.kernels.wilson_dslash import ops as wops
+
+        u_e_lo, u_o_lo = ops.u_e.to(low_dtype), ops.u_o.to(low_dtype)
+
+        def a_low(w):  # low storage in and out, f32 inside the kernels
+            return wops.schur_normal_op(u_e_lo, u_o_lo, w, mass, twist=twist)
+
+        def a_high(v):
+            return wops.schur_normal_op(ops.u_e, ops.u_o, v, mass,
+                                        twist=twist)
+
+        to_low = to_high = None   # mpcg's storage casts
+    else:
+        high = b.dtype
+
+        def round_links(w):
+            return real_pair_to_complex(complex_to_real_pair(w, low_dtype),
+                                        w.dtype)
+
+        u_e_lo, u_o_lo = round_links(ops.u_e), round_links(ops.u_o)
+
+        def a_low(w):  # bf16 real pairs in and out, wide inside
+            v = real_pair_to_complex(w, high)
+            av = schur_normal_op_g(u_e_lo, u_o_lo, v, mass, r=plan.r,
+                                   twist=twist)
+            return complex_to_real_pair(av, low_dtype)
+
+        def a_high(v):
+            return schur_normal_op_g(ops.u_e, ops.u_o, v, mass, r=plan.r,
+                                     twist=twist)
+
+        def to_low(v):
+            return complex_to_real_pair(v, low_dtype)
+
+        def to_high(w):
+            return real_pair_to_complex(w, high)
+
+    engine = {}
+    if ctx.engine is not None:
+        engine = dict(update=ctx.engine[0], xpay=ctx.engine[1])
+    (x_e, x_o), stats = solvers.mpcg_eo(
+        a_low, a_high, ops.dhat_dag, ops.d_eo, ops.d_oe, ops.m_inv, b_e, b_o,
+        tol=tol, inner_tol=inner_tol, inner_maxiter=inner_maxiter,
+        max_outer=max_outer, low_dtype=low_dtype, to_low=to_low,
+        to_high=to_high, **engine)
+    return ctx.finish(x_e, x_o), stats
+
+
+def _solve_full(plan, u, b, mass, *, tol, maxiter, layout, inner_tol,
+                inner_maxiter, max_outer):
     """CGNR on D^dag D over packed full-lattice fields: the right-hand side
     D^dag b is one launch of the full-lattice kernel, every iteration two,
-    and the vector algebra is plain tensor code, as in the JAX package."""
+    and the vector algebra is plain tensor code, as in the JAX package.
+    ``precision="mixed"``: mpcg, its inner CG on ``low`` fields and links
+    (rounded once), each reliable update two f32 launches; ``"low"``:
+    cg16, the whole CG on ``low`` storage."""
     from repro_torch.kernels.wilson_dslash import ops as wops
 
     if plan.r != 1.0:
@@ -290,10 +411,26 @@ def _solve_full(plan, u, b, mass, *, tol, maxiter, layout):
     m = float(mass)
     kw = dict(twist=_family_site(plan, mass).twist,
               use_kernels=plan.backend == "kernels")
-    x, stats = solvers.cgnr(lambda v: wops.dslash(up, v, m, **kw),
-                            lambda v: wops.dslash_dagger(up, v, m, **kw),
-                            pp, tol=tol, maxiter=maxiter,
-                            batched=plan.batched)
+    if plan.precision == "single":
+        x, stats = solvers.cgnr(lambda v: wops.dslash(up, v, m, **kw),
+                                lambda v: wops.dslash_dagger(up, v, m, **kw),
+                                pp, tol=tol, maxiter=maxiter,
+                                batched=plan.batched)
+    else:
+        low_dtype = plan.low_dtype
+        up_lo = up.to(low_dtype)
+        rhs = wops.dslash_dagger(up, pp, m, **kw)
+        op_lo = lambda v: wops.normal_op(up_lo, v, m, **kw)  # noqa: E731
+        if plan.precision == "mixed":
+            x, stats = solvers.mpcg(
+                op_lo, lambda v: wops.normal_op(up, v, m, **kw), rhs,
+                tol=tol, inner_tol=inner_tol, inner_maxiter=inner_maxiter,
+                max_outer=max_outer, low_dtype=low_dtype,
+                batched=plan.batched)
+        else:  # "low": all-low cg16, NOT accurate to tol (a measurement rig)
+            x, stats = solvers.cg(op_lo, rhs.to(low_dtype), tol=tol,
+                                  maxiter=maxiter, batched=plan.batched)
+            x = x.to(pp.dtype)
     if packed_in:
         return x, stats
     return unpack_spinor(x, dtype=b.dtype), stats

@@ -1,5 +1,6 @@
 """Krylov solvers of the main path: CG with an injectable vector engine,
-CGNR on the full lattice and even-odd Schur-preconditioned CGNR.
+CGNR on the full lattice, even-odd Schur-preconditioned CGNR, and the
+mixed-precision reliable-update CG (``mpcg``, ``mpcg_eo``).
 
 The JAX package runs its loop in ``lax.while_loop`` with no host syncs.
 Here the loop is Python: ``cond`` reads the stop test (one small
@@ -267,3 +268,128 @@ def cgnr_eo(dhat: Op, dhat_dag: Op, d_eo: Op, d_oe: Op, m_inv: Op,
                     batched=batched)
     x_o = m_inv(b_o - d_oe(x_e))
     return (x_e, x_o), stats
+
+
+def mpcg_eo(a_low: Op, a_high: Op, dhat_dag: Op, d_eo: Op, d_oe: Op,
+            m_inv: Op, b_e: Tensor, b_o: Tensor, *, tol: float = 1e-6,
+            inner_tol: float = 5e-2, inner_maxiter: int = 200,
+            max_outer: int = 50, low_dtype=torch.bfloat16, to_low=None,
+            to_high=None, update=None, xpay=None, batched: bool = False,
+            ) -> tuple[tuple[Tensor, Tensor], SolveStats]:
+    """Even-odd reduction composed with mixed-precision reliable-update CG:
+    the Schur normal system by :func:`mpcg` (bulk iterations through
+    ``a_low``, true residuals through ``a_high``), then the odd sites
+    back-substituted in high precision."""
+    b_hat = b_e - d_eo(m_inv(b_o))
+    x_e, stats = mpcg(a_low, a_high, dhat_dag(b_hat), tol=tol,
+                      inner_tol=inner_tol, inner_maxiter=inner_maxiter,
+                      max_outer=max_outer, low_dtype=low_dtype,
+                      to_low=to_low, to_high=to_high, update=update,
+                      xpay=xpay, batched=batched)
+    x_o = m_inv(b_o - d_oe(x_e))
+    return (x_e, x_o), stats
+
+
+# ---------------------------------------------------------------------------
+# Mixed-precision reliable-update CG (the paper's Ref. [10] variant)
+# ---------------------------------------------------------------------------
+
+
+def mpcg_parts(op_low: Op, op_high: Op, b: Tensor, *, tol: float = 1e-6,
+               inner_tol: float = 5e-2, inner_maxiter: int = 200,
+               max_outer: int = 50, low_dtype=torch.bfloat16, to_low=None,
+               to_high=None, update=None, xpay=None,
+               batched: bool = False) -> LoopParts:
+    """:func:`mpcg` decomposed into :class:`LoopParts` (same arguments).
+
+    Each outer cycle solves ``A d = r`` approximately in low precision
+    (relative tolerance ``inner_tol``, at most ``inner_maxiter``
+    iterations), then updates ``x += d`` and recomputes the TRUE residual
+    ``r = b - A x`` in high precision (the reliable update).
+
+    ``to_low``/``to_high`` convert a vector between the high- and
+    low-precision representations and default to dtype casts; inject them
+    when the representations differ (complex fields stored as bf16 real
+    pairs), and ``op_low`` then works on the low representation.
+
+    ``batched=True``: per-RHS outer residuals.  A converged system enters
+    the next inner solve with a zeroed residual, so the inner mask
+    freezes it at iteration 0 and its solution stops moving.
+    """
+    norm2 = field_norm2_batched if batched else field_norm2
+    high = b.dtype
+    if to_low is None:
+        to_low = lambda v: v.to(low_dtype)  # noqa: E731
+    if to_high is None:
+        to_high = lambda v: v.to(high)  # noqa: E731
+    bs = _real(norm2(b))
+    limit = _stop_limit(tol, bs, batched)
+
+    def cond(c: dict) -> bool:
+        if c["outer"] >= max_outer:
+            return False
+        # a non-finite true residual compares False and goes inactive
+        alive = (c["rs"] > limit) & ~c["broken"]
+        return bool(alive.any())
+
+    def body(c: dict) -> dict:
+        r, rs = c["r"], c["rs"]
+        rhs = r
+        if batched:  # freeze converged systems: zero RHS, inactive inner CG
+            rhs = torch.where(_bcast(rs > limit, r), r, torch.zeros_like(r))
+        d, st = cg(op_low, to_low(rhs), tol=inner_tol,
+                   maxiter=inner_maxiter, update=update, xpay=xpay,
+                   batched=batched)
+        x = c["x"] + to_high(d)
+        r = b - op_high(x)                     # the reliable update
+        out = dict(outer=c["outer"] + 1, inner=c["inner"] + st.iterations,
+                   x=x, r=r, rs=_real(norm2(r)),
+                   broken=c["broken"] | (st.verdict == BREAKDOWN),
+                   rs_mark=rs)
+        if batched:  # per-RHS inner-iteration totals across outer cycles
+            out["it"] = c["it"] + st.rhs_iterations
+        return out
+
+    init = dict(outer=0, inner=0, x=torch.zeros_like(b), r=b, rs=bs,
+                broken=torch.zeros(bs.shape, dtype=torch.bool,
+                                   device=bs.device),
+                rs_mark=bs)
+    if batched:
+        init["it"] = torch.zeros(bs.shape, dtype=torch.int32,
+                                 device=bs.device)
+
+    def finish(c: dict):
+        outer, inner, rs = c["outer"], c["inner"], c["rs"]
+        # outer-cycle stagnation: a reliable update that failed to contract
+        # the true residual by STAGNATION_FACTOR over the last cycle
+        stalled = (outer >= 2) & (rs > STAGNATION_FACTOR * c["rs_mark"])
+        # each cycle: the inner CG's op_low applications plus one op_high
+        stats = SolveStats(
+            iterations=inner, outer_iterations=outer, residual_norm2=rs,
+            converged=rs <= limit,
+            rhs_iterations=c["it"] if batched else None,
+            verdict=classify(rs, limit, c["broken"], stalled),
+            matvecs=torch.full(rs.shape, inner + outer, dtype=torch.int32,
+                               device=rs.device))
+        return c["x"], stats
+
+    return LoopParts(init=init, cond=cond, body=body, finish=finish)
+
+
+def mpcg(op_low: Op, op_high: Op, b: Tensor, *, tol: float = 1e-6,
+         inner_tol: float = 5e-2, inner_maxiter: int = 200,
+         max_outer: int = 50, low_dtype=torch.bfloat16, to_low=None,
+         to_high=None, update=None, xpay=None,
+         batched: bool = False) -> tuple[Tensor, SolveStats]:
+    """Two-precision CG: bulk iterations in ``low_dtype``, corrected by
+    high-precision true-residual reliable updates (see
+    :func:`mpcg_parts`).  ``iterations`` counts the inner iterations,
+    ``outer_iterations`` the reliable updates, ``matvecs`` both."""
+    parts = mpcg_parts(op_low, op_high, b, tol=tol, inner_tol=inner_tol,
+                       inner_maxiter=inner_maxiter, max_outer=max_outer,
+                       low_dtype=low_dtype, to_low=to_low, to_high=to_high,
+                       update=update, xpay=xpay, batched=batched)
+    carry = parts.init
+    while parts.cond(carry):
+        carry = parts.body(carry)
+    return parts.finish(carry)

@@ -36,7 +36,19 @@
 //    the head is the whole RHS.  Every element is one fmaf(b, p, r), so
 //    the split changes no bit and a batched call equals N single calls
 //    bitwise; a closed gate copies p through the same paths.
+//
+// Storage: float32 or bf16 (the mixed-precision solve's inner CG), one
+// type for every field of a call; the scalars, the arithmetic and the
+// reductions are f32 in both.  A bf16 instance widens each element to f32
+// on load, computes as the f32 instance does and rounds once to nearest
+// even on the store; K2 reduces ||r'||^2 from the f32 r' before it is
+// rounded (as the JAX kernels do), with the same two-stage order.  bf16
+// halves the bytes, so both kernels move 16 bytes per access there: 8
+// bf16 in one vector, with the alignment head and tail counted in bf16
+// elements, the scalar path where the fields' alignments differ.  The f32
+// instances are the code above, unchanged.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -45,6 +57,56 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr long MAX_BLOCKS = 2048;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float wide(float v) { return v; }
+__device__ __forceinline__ float wide(bf16 v) { return __bfloat162float(v); }
+
+template <class T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// 16 bytes of T: E elements, unpacked to and packed from f32.
+template <class T>
+struct Vec;
+template <>
+struct Vec<float> {
+  using V = float4;
+  static constexpr int E = 4;
+  __device__ static void unpack(const V& v, float (&f)[E]) {
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  }
+  __device__ static V pack(const float (&f)[E]) {
+    return make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+template <>
+struct Vec<bf16> {
+  using V = uint4;
+  static constexpr int E = 8;
+  __device__ static void unpack(const V& v, float (&f)[E]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+  __device__ static V pack(const float (&f)[E]) {
+    V v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    return v;
+  }
+};
 
 __device__ __forceinline__ float block_sum(float v, float* sh) {
   sh[threadIdx.x] = v;
@@ -57,18 +119,104 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
   return sh[0];
 }
 
+// Elements before the 16-byte body when every pointer shares p's
+// alignment, else all L (the scalar path).
+template <class T>
+__device__ __forceinline__ long head_len(const T* p,
+                                         const uintptr_t (&others)[5],
+                                         int nothers, long L) {
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(p) & 15u;
+  for (int i = 0; i < nothers; ++i)
+    if ((others[i] & 15u) != mis) return L;
+  const long lead = (long)((16u - mis) & 15u) / (long)sizeof(T);
+  return lead < L ? lead : L;
+}
+
+// K2 on one bf16 RHS: the scalar head and tail, then 8 elements a trip;
+// returns the thread's share of ||r'||^2 (f32, before rounding).
+template <bool ACTIVE>
+__device__ __forceinline__ float update_rhs_bf16(
+    float a, const bf16* __restrict__ x, const bf16* __restrict__ r,
+    const bf16* __restrict__ p, const bf16* __restrict__ ap,
+    bf16* __restrict__ xo, bf16* __restrict__ ro, long L) {
+  using VT = Vec<bf16>;
+  constexpr int E = VT::E;
+  const long tid = (long)blockIdx.x * THREADS + threadIdx.x;
+  const long nthr = (long)gridDim.x * THREADS;
+  const uintptr_t others[5] = {
+      reinterpret_cast<uintptr_t>(r), reinterpret_cast<uintptr_t>(p),
+      reinterpret_cast<uintptr_t>(ap), reinterpret_cast<uintptr_t>(xo),
+      reinterpret_cast<uintptr_t>(ro)};
+  const long head = head_len(x, others, 5, L);
+  const long nvec = (L - head) / E;
+  const long tail0 = head + E * nvec;
+  float acc = 0.f;
+  auto one = [&](long i) {
+    if (ACTIVE) {
+      const float rv = fmaf(-a, wide(ap[i]), wide(r[i]));
+      xo[i] = narrow<bf16>(fmaf(a, wide(p[i]), wide(x[i])));
+      ro[i] = narrow<bf16>(rv);
+      acc = fmaf(rv, rv, acc);
+    } else {
+      const float rv = wide(r[i]);
+      xo[i] = x[i];
+      ro[i] = r[i];
+      acc = fmaf(rv, rv, acc);
+    }
+  };
+  for (long i = tid; i < head; i += nthr) one(i);
+  for (long i = tail0 + tid; i < L; i += nthr) one(i);
+  const VT::V* __restrict__ x4 = reinterpret_cast<const VT::V*>(x + head);
+  const VT::V* __restrict__ r4 = reinterpret_cast<const VT::V*>(r + head);
+  const VT::V* __restrict__ p4 = reinterpret_cast<const VT::V*>(p + head);
+  const VT::V* __restrict__ a4 = reinterpret_cast<const VT::V*>(ap + head);
+  VT::V* __restrict__ xo4 = reinterpret_cast<VT::V*>(xo + head);
+  VT::V* __restrict__ ro4 = reinterpret_cast<VT::V*>(ro + head);
+  for (long v = tid; v < nvec; v += nthr) {
+    const VT::V xv = x4[v], rv = r4[v];
+    float rf[E];
+    VT::unpack(rv, rf);
+    if (ACTIVE) {
+      float xf[E], pf[E], af[E];
+      VT::unpack(xv, xf);
+      VT::unpack(p4[v], pf);
+      VT::unpack(a4[v], af);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        xf[e] = fmaf(a, pf[e], xf[e]);
+        rf[e] = fmaf(-a, af[e], rf[e]);
+      }
+      xo4[v] = VT::pack(xf);
+      ro4[v] = VT::pack(rf);
+    } else {
+      xo4[v] = xv;
+      ro4[v] = rv;
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc = fmaf(rf[e], rf[e], acc);
+  }
+  return acc;
+}
+
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-cg_update_kernel(const float* __restrict__ alpha, const float* __restrict__ x,
-                 const float* __restrict__ r, const float* __restrict__ p,
-                 const float* __restrict__ ap, float* __restrict__ xo,
-                 float* __restrict__ ro, float* __restrict__ partial, long L) {
+cg_update_kernel(const float* __restrict__ alpha, const T* __restrict__ x,
+                 const T* __restrict__ r, const T* __restrict__ p,
+                 const T* __restrict__ ap, T* __restrict__ xo,
+                 T* __restrict__ ro, float* __restrict__ partial, long L) {
   __shared__ float sh[THREADS];
   const int n = blockIdx.y;
   const float a = alpha[n];
   const long base = (long)n * L;
   const long stride = (long)gridDim.x * THREADS;
   float acc = 0.f;
-  if (a != 0.f) {
+  if constexpr (sizeof(T) != 4) {
+    acc = a != 0.f ? update_rhs_bf16<true>(a, x + base, r + base, p + base,
+                                           ap + base, xo + base, ro + base, L)
+                   : update_rhs_bf16<false>(a, x + base, r + base, p + base,
+                                            ap + base, xo + base, ro + base,
+                                            L);
+  } else if (a != 0.f) {
     for (long i = (long)blockIdx.x * THREADS + threadIdx.x; i < L; i += stride) {
       const float xv = x[base + i] + a * p[base + i];
       const float rv = r[base + i] - a * ap[base + i];
@@ -100,38 +248,40 @@ sum_partials_kernel(const float* __restrict__ partial, int nblk,
   if (threadIdx.x == 0) rs[n] = s;
 }
 
-constexpr int XPAY_VEC = 4;  // float4 vectors per thread and loop trip
+constexpr int XPAY_VEC = 4;  // 16-byte vectors per thread and loop trip
 
-template <bool UPDATE>
-__device__ __forceinline__ float xpay1(float b, float r, float p) {
-  return UPDATE ? fmaf(b, p, r) : p;
+template <bool UPDATE, class T>
+__device__ __forceinline__ T xpay1(float b, T r, T p) {
+  return UPDATE ? narrow<T>(fmaf(b, wide(p), wide(r))) : p;
 }
 
 // One RHS: p' over [0, L) of r, p, po, by the blocks sharing blockIdx.y.
-template <bool UPDATE>
-__device__ __forceinline__ void xpay_rhs(float b, const float* __restrict__ r,
-                                         const float* __restrict__ p,
-                                         float* __restrict__ po, long L) {
+template <bool UPDATE, class T>
+__device__ __forceinline__ void xpay_rhs(float b, const T* __restrict__ r,
+                                         const T* __restrict__ p,
+                                         T* __restrict__ po, long L) {
+  using VT = Vec<T>;
+  constexpr int E = VT::E;
   const long tid = (long)blockIdx.x * THREADS + threadIdx.x;
   const long nthr = (long)gridDim.x * THREADS;
-  const uintptr_t mis = reinterpret_cast<uintptr_t>(p) & 15u;
-  const long lead = (long)((16u - mis) & 15u) / 4;  // floats to alignment
-  long head = L;  // floats before the body: all, unless r, p and po share
-  if ((reinterpret_cast<uintptr_t>(r) & 15u) == mis &&  // their alignment
-      (reinterpret_cast<uintptr_t>(po) & 15u) == mis)
-    head = lead < L ? lead : L;
-  const long nvec = (L - head) / 4;
-  const long tail0 = head + 4 * nvec;
+  const uintptr_t others[5] = {reinterpret_cast<uintptr_t>(r),
+                               reinterpret_cast<uintptr_t>(po), 0, 0, 0};
+  // elements before the body: all, unless r, p and po share their alignment
+  const long head = head_len(p, others, 2, L);
+  const long nvec = (L - head) / E;
+  const long tail0 = head + E * nvec;
   for (long i = tid; i < head; i += nthr)
     po[i] = xpay1<UPDATE>(b, r[i], p[i]);
   for (long i = tail0 + tid; i < L; i += nthr)
     po[i] = xpay1<UPDATE>(b, r[i], p[i]);
-  const float4* __restrict__ r4 = reinterpret_cast<const float4*>(r + head);
-  const float4* __restrict__ p4 = reinterpret_cast<const float4*>(p + head);
-  float4* __restrict__ o4 = reinterpret_cast<float4*>(po + head);
+  const typename VT::V* __restrict__ r4 =
+      reinterpret_cast<const typename VT::V*>(r + head);
+  const typename VT::V* __restrict__ p4 =
+      reinterpret_cast<const typename VT::V*>(p + head);
+  typename VT::V* __restrict__ o4 = reinterpret_cast<typename VT::V*>(po + head);
   for (long v0 = (long)blockIdx.x * THREADS * XPAY_VEC + threadIdx.x;
        v0 < nvec; v0 += nthr * XPAY_VEC) {
-    float4 rv[XPAY_VEC], pv[XPAY_VEC];
+    typename VT::V rv[XPAY_VEC], pv[XPAY_VEC];
 #pragma unroll
     for (int u = 0; u < XPAY_VEC; ++u) {
       const long v = v0 + (long)u * THREADS;
@@ -144,21 +294,27 @@ __device__ __forceinline__ void xpay_rhs(float b, const float* __restrict__ r,
     for (int u = 0; u < XPAY_VEC; ++u) {
       const long v = v0 + (long)u * THREADS;
       if (v < nvec) {
-        float4 o = pv[u];
-        if (UPDATE)
-          o = make_float4(fmaf(b, o.x, rv[u].x), fmaf(b, o.y, rv[u].y),
-                          fmaf(b, o.z, rv[u].z), fmaf(b, o.w, rv[u].w));
+        typename VT::V o = pv[u];
+        if (UPDATE) {
+          float rf[E], pf[E];
+          VT::unpack(rv[u], rf);
+          VT::unpack(pv[u], pf);
+#pragma unroll
+          for (int e = 0; e < E; ++e) pf[e] = fmaf(b, pf[e], rf[e]);
+          o = VT::pack(pf);
+        }
         o4[v] = o;
       }
     }
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(THREADS)
 cg_xpay_kernel(const float* __restrict__ beta,
                const unsigned char* __restrict__ gate,
-               const float* __restrict__ r, const float* __restrict__ p,
-               float* __restrict__ po, long L) {
+               const T* __restrict__ r, const T* __restrict__ p,
+               T* __restrict__ po, long L) {
   const int n = blockIdx.y;
   const long base = (long)n * L;
   if (gate == nullptr || gate[n] != 0)
@@ -170,6 +326,30 @@ cg_xpay_kernel(const float* __restrict__ beta,
 int blocks_for(long L) {
   const long b = (L + THREADS - 1) / THREADS;
   return (int)(b < MAX_BLOCKS ? (b > 0 ? b : 1) : MAX_BLOCKS);
+}
+
+template <class T>
+int update(const float* alpha, const void* x, const void* r, const void* p,
+           const void* ap, void* xo, void* ro, float* partial, float* rs,
+           int N, long L, cudaStream_t s) {
+  const int nblk = blocks_for(L);
+  cg_update_kernel<T><<<dim3(nblk, N), THREADS, 0, s>>>(
+      alpha, static_cast<const T*>(x), static_cast<const T*>(r),
+      static_cast<const T*>(p), static_cast<const T*>(ap),
+      static_cast<T*>(xo), static_cast<T*>(ro), partial, L);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_partials_kernel<<<N, THREADS, 0, s>>>(partial, nblk, rs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int xpay(const float* beta, const unsigned char* gate, const void* r,
+         const void* p, void* po, int N, long L, cudaStream_t s) {
+  cg_xpay_kernel<T><<<dim3(blocks_for(L), N), THREADS, 0, s>>>(
+      beta, gate, static_cast<const T*>(r), static_cast<const T*>(p),
+      static_cast<T*>(po), L);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -184,26 +364,26 @@ const char* error_string(int code) {
 // the caller allocates an (N, cg_update_blocks(L)) float scratch.
 int cg_update_blocks(long L) { return blocks_for(L); }
 
-int cg_update(const float* alpha, const float* x, const float* r,
-              const float* p, const float* ap, float* xo, float* ro,
-              float* partial, float* rs, int N, long L, void* stream) {
+// storage: 0 float32, 1 bf16 (every field of the call); alpha, partial and
+// rs are float32.
+int cg_update(const float* alpha, const void* x, const void* r,
+              const void* p, const void* ap, void* xo, void* ro,
+              float* partial, float* rs, int N, long L, int storage,
+              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nblk = blocks_for(L);
-  cg_update_kernel<<<dim3(nblk, N), THREADS, 0, s>>>(alpha, x, r, p, ap, xo,
-                                                     ro, partial, L);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials_kernel<<<N, THREADS, 0, s>>>(partial, nblk, rs);
-  return static_cast<int>(cudaGetLastError());
+  return storage == 1
+             ? update<bf16>(alpha, x, r, p, ap, xo, ro, partial, rs, N, L, s)
+             : update<float>(alpha, x, r, p, ap, xo, ro, partial, rs, N, L, s);
 }
 
-// gate: null (every RHS updates) or N bytes, nonzero where it updates.
-int cg_xpay(const float* beta, const unsigned char* gate, const float* r,
-            const float* p, float* po, int N, long L, void* stream) {
-  cg_xpay_kernel<<<dim3(blocks_for(L), N), THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(beta, gate, r, p, po,
-                                                        L);
-  return static_cast<int>(cudaGetLastError());
+// gate: null (every RHS updates) or N bytes, nonzero where it updates;
+// storage as for cg_update.
+int cg_xpay(const float* beta, const unsigned char* gate, const void* r,
+            const void* p, void* po, int N, long L, int storage,
+            void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return storage == 1 ? xpay<bf16>(beta, gate, r, p, po, N, L, s)
+                      : xpay<float>(beta, gate, r, p, po, N, L, s);
 }
 
 }  // extern "C"

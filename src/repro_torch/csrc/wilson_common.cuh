@@ -28,13 +28,41 @@
 // once rounds exactly as scaling every term).
 // The same tables, written in Python, drive the CPU tests' emulations
 // (kernels/wilson_dslash/kernel.py::hop_spec).
+//
+// Storage: the fields and links are float32 or bf16 (the mixed-precision
+// solve's low operator), one type T per launch.  Every value is widened to
+// f32 where it is read into a register (`wide`), all arithmetic is f32, and
+// an output is rounded once, to nearest even, where it is stored
+// (`narrow`); staged rows stay in T in shared memory.
 
 #pragma once
+
+#include <cuda_bf16.h>
 
 namespace wilson {
 
 constexpr int S = 24;  // packed spinor components per site
 constexpr int G = 18;  // packed link components
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float wide(float v) { return v; }
+__device__ __forceinline__ float wide(bf16 v) { return __bfloat162float(v); }
+
+template <class T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// One element through the read-only (L1) path, as stored.
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ bf16 ldg(const bf16* p) {
+  return __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
 
 // gamma_mu[row] has one nonzero, i^gamma_k at column gamma_col; mu in
 // (t, z, y, x).  Columns: row ^ 2 for t, z and 3 - row for y, x; the

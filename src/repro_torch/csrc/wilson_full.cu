@@ -13,11 +13,12 @@
 // `_dslash_kernel` (launched by `dslash_pallas`), with its double-buffered
 // gauge streaming mode (`_db_gauge_plane`, `_db_scratch`).
 //
-// Layouts (f32): psi, out [N][T][Z][Y][24][X]; u [4][T][Z][Y][18][X],
+// Layouts (float32 or bf16, one type per launch): psi, out
+// [N][T][Z][Y][24][X]; u [4][T][Z][Y][18][X],
 // component index (spin*3+color)*2+reim resp. (row*3+col)*2+reim, X
 // innermost.  Every direction wraps periodically; the X neighbours are
 // x +- 1 on the full axis.  A "row" is one (t, z, y) line of a field: 24
-// (spinor) or 18 (link) planes of X floats.
+// (spinor) or 18 (link) planes of X elements.
 //
 // What bounds it: memory.  Each site's 4 links (72 floats) are needed once
 // for all N right-hand sides, and per RHS 24 floats of spinor in (each
@@ -52,11 +53,17 @@
 //  * each thread loops over the N right-hand sides with the same
 //    instruction sequence and explicit fmaf, so a batched launch equals N
 //    single launches bitwise;
-//  * a tile whose link rows a bulk copy cannot take (odd X makes a row 72 X
-//    bytes, not a multiple of 16; a base pointer off 16 bytes) is staged by
-//    all threads with plain loads instead; rows too wide for shared memory
-//    (X above about 460) are read in place (STAGED = false).  Same compute
-//    code, every shape.
+//  * a tile whose link rows a bulk copy cannot take (a row is 18 X
+//    elements, a multiple of 16 bytes only for even X in f32 and X a
+//    multiple of 4 in bf16; a base pointer off 16 bytes) is staged by all
+//    threads with plain loads instead; rows too wide for shared memory (X
+//    above about 460 in f32) are read in place (STAGED = false).  Same
+//    compute code, every shape;
+//  * bf16 storage (the mixed-precision solve's inner operator): links and
+//    spinors are read as stored, half the bytes, and widened to f32 where a
+//    thread reads them (wilson_common.cuh); the sums and the site term are
+//    f32 and each output is rounded once on its store.  The f32 instances
+//    are the same code with ST = float.
 //  The host (kernels/wilson_dslash/kernel.py::full_tile_plan) picks b and
 //  the shared-memory row stride; the same plan drives the CPU tests'
 //  emulation.  Offsets are 64-bit: an N = 4 field at 32^3 x 64 holds
@@ -78,17 +85,20 @@ using stage::mbar_wait;
 using wilson::G;
 using wilson::S;
 using wilson::hop_site;
+using wilson::narrow;
+using wilson::wide;
 
 constexpr int FULL_THREADS = 128;  // a block's threads
 
+template <class ST>
 struct FullArgs {
-  const float* u;
-  const float* psi;
-  float* out;
+  const ST* u;
+  const ST* psi;
+  ST* out;
   int T, Z, Y, X, N;
   int rows;                    // b, the tile's y extent
   int tchunk;                  // t planes a chunk of the block order
-  int ls;                      // shared-memory link row stride (floats)
+  int ls;                      // shared-memory link row stride (elements)
   int bulk;                    // stage with TMA bulk copies (else plain loads)
   float m_hi, m_lo, tw_hi, tw_lo;  // the site term on spins 0,1 and 2,3
 };
@@ -102,17 +112,21 @@ __device__ __forceinline__ int wrap(int v, int n) {
   return v < 0 ? v + n : (v >= n ? v - n : v);
 }
 
-__device__ __forceinline__ long srow(const FullArgs& a, int t, int z, int y) {
+template <class ST>
+__device__ __forceinline__ long srow(const FullArgs<ST>& a, int t, int z,
+                                     int y) {
   return (((long)t * a.Z + z) * a.Y + y) * S * a.X;
 }
-__device__ __forceinline__ long grow(const FullArgs& a, int mu, int t, int z,
-                                     int y) {
+template <class ST>
+__device__ __forceinline__ long grow(const FullArgs<ST>& a, int mu, int t,
+                                     int z, int y) {
   return ((((long)mu * a.T + t) * a.Z + z) * a.Y + y) * G * a.X;
 }
 
 // The tile of index i: y-tile fastest, then t within a chunk of tchunk
 // planes, then z, then the chunk.
-__device__ __forceinline__ Tile make_tile(const FullArgs& a, int i) {
+template <class ST>
+__device__ __forceinline__ Tile make_tile(const FullArgs<ST>& a, int i) {
   const int nyb = (a.Y + a.rows - 1) / a.rows;
   Tile tl;
   const int yb = i % nyb, rest = i / nyb;
@@ -131,9 +145,10 @@ __device__ __forceinline__ Tile make_tile(const FullArgs& a, int i) {
 // Link row k of the tile, in staging order, and its slot: groups u_t,
 // u_t(t-1), u_z, u_z(z-1), u_x (nb rows each, at g*b + i), then u_y at
 // rows y0-1 .. y0+nb-1 (at 5b + i).
-__device__ __forceinline__ const float* link_src(const FullArgs& a,
-                                                 const Tile& tl, int k,
-                                                 int* slot) {
+template <class ST>
+__device__ __forceinline__ const ST* link_src(const FullArgs<ST>& a,
+                                              const Tile& tl, int k,
+                                              int* slot) {
   const int nb = tl.nb;
   if (k < 5 * nb) {
     const int g = k / nb, i = k - g * nb, y = tl.y0 + i;
@@ -154,25 +169,29 @@ __device__ __forceinline__ const float* link_src(const FullArgs& a,
 // Stage the tile's 6 nb + 1 link rows at sl.  Bulk: the first warp issues
 // the copies, completing on `bar`; plain: every thread loads its share.
 // The caller waits on `bar` or syncs.
-__device__ __forceinline__ void stage_links(const FullArgs& a, const Tile& tl,
-                                            float* sl, uint64_t* bar) {
+template <class ST>
+__device__ __forceinline__ void stage_links(const FullArgs<ST>& a,
+                                            const Tile& tl, ST* sl,
+                                            uint64_t* bar) {
   const int nl = 6 * tl.nb + 1, llen = G * a.X;
   if (a.bulk) {
     if (threadIdx.x >= 32) return;
-    if (threadIdx.x == 0) mbar_expect(bar, (uint32_t)(nl * llen) * 4u);
+    if (threadIdx.x == 0)
+      mbar_expect(bar, (uint32_t)(nl * llen * sizeof(ST)));
     __syncwarp();
     for (int k = threadIdx.x; k < nl; k += 32) {
       int slot;
-      const float* src = link_src(a, tl, k, &slot);
-      bulk_copy(sl + slot * a.ls, src, llen * 4u, bar);
+      const ST* src = link_src(a, tl, k, &slot);
+      bulk_copy(sl + slot * a.ls, src, (uint32_t)(llen * sizeof(ST)), bar);
     }
     return;
   }
   for (int k = 0; k < nl; ++k) {
     int slot;
-    const float* src = link_src(a, tl, k, &slot);
-    float* dst = sl + slot * a.ls;
-    for (int e = threadIdx.x; e < llen; e += blockDim.x) dst[e] = __ldg(src + e);
+    const ST* src = link_src(a, tl, k, &slot);
+    ST* dst = sl + slot * a.ls;
+    for (int e = threadIdx.x; e < llen; e += blockDim.x)
+      dst[e] = wilson::ldg(src + e);
   }
 }
 
@@ -180,15 +199,15 @@ __device__ __forceinline__ void stage_links(const FullArgs& a, const Tile& tl,
 // staged rows (STAGED) or the field in place; spinors: through L1.  XC > 0
 // makes X and the unpadded link stride compile time, so every component of
 // a row is an immediate offset.
-template <bool G5IN, bool G5OUT, bool STAGED, int XC>
+template <class ST, bool G5IN, bool G5OUT, bool STAGED, int XC>
 __global__ void __launch_bounds__(FULL_THREADS, STAGED && XC > 0 ? 3 : 2)
-wilson_full_kernel(const FullArgs a) {
-  extern __shared__ __align__(16) float smem[];
+wilson_full_kernel(const FullArgs<ST> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = a.rows, X = XC > 0 ? XC : a.X;
   const int ls = XC > 0 ? G * XC : a.ls;
   const Tile tl = make_tile(a, blockIdx.x);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  float* sl = smem + 4;  // 6 b + 1 link rows
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  ST* sl = reinterpret_cast<ST*>(smem_raw + 16);  // 6 b + 1 link rows
   if (STAGED) {
     if (a.bulk) {
       if (threadIdx.x == 0) mbar_init(bar);
@@ -204,12 +223,12 @@ wilson_full_kernel(const FullArgs a) {
   const bool twisted = a.tw_hi != 0.f;
   // a row's component k at site xx: spinors through L1, links from shared
   // memory or, in place, through L1
-  auto at = [X](const float* row, int xx) {
-    return [row, xx, X](int k) { return __ldg(row + xx + k * X); };
+  auto at = [X](const ST* row, int xx) {
+    return [row, xx, X](int k) { return wide(wilson::ldg(row + xx + k * X)); };
   };
-  auto lk = [X](const float* row, int xx) {
+  auto lk = [X](const ST* row, int xx) {
     return [row, xx, X](int k) {
-      return STAGED ? row[xx + k * X] : __ldg(row + xx + k * X);
+      return wide(STAGED ? row[xx + k * X] : wilson::ldg(row + xx + k * X));
     };
   };
   for (int site = threadIdx.x; site < tl.nb * X; site += blockDim.x) {
@@ -219,7 +238,7 @@ wilson_full_kernel(const FullArgs a) {
     const int xp = x + 1 == X ? 0 : x + 1, xm = x == 0 ? X - 1 : x - 1;
     // link rows: u_t, u_t(t-1), u_z, u_z(z-1), u_x (g = 0..4), u_y at y - 1
     // and y (g = 5, 6)
-    auto link = [&](int g) -> const float* {
+    auto link = [&](int g) -> const ST* {
       if (STAGED) return sl + (g < 5 ? g * b + r : 5 * b + r + g - 5) * ls;
       switch (g) {
         case 0: return a.u + grow(a, 0, tl.t, tl.z, y);
@@ -233,7 +252,7 @@ wilson_full_kernel(const FullArgs a) {
     };
     const long here = srow(a, tl.t, tl.z, y);
     for (int n = 0; n < a.N; ++n) {
-      const float* p = a.psi + n * field;
+      const ST* p = a.psi + n * field;
       float o_r[3][4], o_i[3][4];
 #pragma unroll
       for (int c = 0; c < 3; ++c)
@@ -252,7 +271,7 @@ wilson_full_kernel(const FullArgs a) {
       // psi per spin block, multiplying by i as (re, im) -> (-im, re), plus
       // the hops' sum with its -1/2
       const auto c0 = at(p + here, x);
-      float* o = a.out + n * field + here + x;
+      ST* o = a.out + n * field + here + x;
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
         const float m = s < 2 ? a.m_hi : a.m_lo;
@@ -266,23 +285,70 @@ wilson_full_kernel(const FullArgs a) {
             nr -= tw * pi;
             ni += tw * pr;
           }
-          o[k * X] = nr + -0.5f * o_r[c][s];
-          o[(k + 1) * X] = ni + -0.5f * o_i[c][s];
+          o[k * X] = narrow<ST>(nr + -0.5f * o_r[c][s]);
+          o[(k + 1) * X] = narrow<ST>(ni + -0.5f * o_i[c][s]);
         }
       }
     }
   }
 }
 
-template <bool G5IN, bool G5OUT, bool STAGED, int XC = 0>
-cudaError_t launch(const FullArgs& a, int blocks, int threads, size_t smem,
-                   cudaStream_t s) {
-  auto kern = wilson_full_kernel<G5IN, G5OUT, STAGED, XC>;
+template <class ST, bool G5IN, bool G5OUT, bool STAGED, int XC = 0>
+cudaError_t launch(const FullArgs<ST>& a, int blocks, int threads,
+                   size_t smem, cudaStream_t s) {
+  auto kern = wilson_full_kernel<ST, G5IN, G5OUT, STAGED, XC>;
   static stage::SmemOptIn opt_in;
   const cudaError_t err = opt_in.allow((const void*)kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<blocks, threads, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <class ST>
+int full(const void* u, const void* psi, void* out, int T, int Z, int Y,
+         int X, int N, int g5in, int g5out, int rows, int ls, float m_hi,
+         float m_lo, float tw_hi, float tw_lo, cudaStream_t s) {
+  const bool staged = rows > 0;
+  const int b = staged ? rows : 1;
+  // bulk copies need 16-byte rows, strides and base (kernel.py::full_bulk)
+  const bool bulk = staged && ((size_t)G * X * sizeof(ST)) % 16 == 0 &&
+                    ((size_t)ls * sizeof(ST)) % 16 == 0 &&
+                    (reinterpret_cast<uintptr_t>(u) & 15u) == 0;
+  // the block order's t chunks: with N > 1 right-hand sides a plane's rows
+  // are reused (as t+1, centre, t-1) by blocks up to 2 chunks apart in the
+  // order, 4 planes a chunk keeps them in L2; one plane a chunk keeps the z
+  // neighbours closer, which N = 1 needs more (PERF.md)
+  const int tchunk = N > 1 && T % 4 == 0 ? 4 : 1;
+  const FullArgs<ST> a{static_cast<const ST*>(u), static_cast<const ST*>(psi),
+                       static_cast<ST*>(out), T, Z, Y, X, N, b, tchunk, ls,
+                       bulk ? 1 : 0, m_hi, m_lo, tw_hi, tw_lo};
+  const int blocks = T * Z * ((Y + b - 1) / b);
+  int threads = b * X;
+  threads = threads < FULL_THREADS ? ((threads + 31) / 32) * 32 : FULL_THREADS;
+  // the mbarrier (with slack to 16 bytes) and the 6 b + 1 link rows
+  const size_t smem =
+      staged ? 16 + (size_t)(6 * b + 1) * ls * sizeof(ST) : 0;
+  cudaError_t err;
+  // X = 32 (the 32^3 x 64 lattice's rows, unpadded) has instances of its
+  // own with X compile time
+  const bool x32 = staged && X == 32 && ls == G * 32;
+  const int key = (g5in ? 1 : 0) | (g5out ? 2 : 0) | (staged ? 4 : 0) |
+                  (x32 ? 8 : 0);
+  switch (key) {
+    case 0: err = launch<ST, false, false, false>(a, blocks, threads, smem, s); break;
+    case 1: err = launch<ST, true, false, false>(a, blocks, threads, smem, s); break;
+    case 2: err = launch<ST, false, true, false>(a, blocks, threads, smem, s); break;
+    case 3: err = launch<ST, true, true, false>(a, blocks, threads, smem, s); break;
+    case 4: err = launch<ST, false, false, true>(a, blocks, threads, smem, s); break;
+    case 5: err = launch<ST, true, false, true>(a, blocks, threads, smem, s); break;
+    case 6: err = launch<ST, false, true, true>(a, blocks, threads, smem, s); break;
+    case 7: err = launch<ST, true, true, true>(a, blocks, threads, smem, s); break;
+    case 12: err = launch<ST, false, false, true, 32>(a, blocks, threads, smem, s); break;
+    case 13: err = launch<ST, true, false, true, 32>(a, blocks, threads, smem, s); break;
+    case 14: err = launch<ST, false, true, true, 32>(a, blocks, threads, smem, s); break;
+    default: err = launch<ST, true, true, true, 32>(a, blocks, threads, smem, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -295,50 +361,19 @@ const char* error_string(int code) {
 
 // g5in, g5out: the gamma5 flags (each instance has them compiled in);
 // rows, ls: the tile plan of kernel.py::full_tile_plan (rows == 0: the
-// links are read in place, nothing is staged); (m_hi, m_lo, tw_hi, tw_lo):
-// the folded site term.  Returns a cudaError_t code.
-int wilson_full(const float* u, const float* psi, float* out, int T, int Z,
+// links are read in place, nothing is staged; ls in elements); (m_hi,
+// m_lo, tw_hi, tw_lo): the folded site term; storage: 0 float32, 1 bf16,
+// for the field and the links.  Returns a cudaError_t code.
+int wilson_full(const void* u, const void* psi, void* out, int T, int Z,
                 int Y, int X, int N, int g5in, int g5out, int rows, int ls,
-                float m_hi, float m_lo, float tw_hi, float tw_lo,
+                float m_hi, float m_lo, float tw_hi, float tw_lo, int storage,
                 void* stream) {
-  const bool staged = rows > 0;
-  const int b = staged ? rows : 1;
-  const bool bulk = staged && X % 2 == 0 &&
-                    (reinterpret_cast<uintptr_t>(u) & 15u) == 0;
-  // the block order's t chunks: with N > 1 right-hand sides a plane's rows
-  // are reused (as t+1, centre, t-1) by blocks up to 2 chunks apart in the
-  // order, 4 planes a chunk keeps them in L2; one plane a chunk keeps the z
-  // neighbours closer, which N = 1 needs more (PERF.md)
-  const int tchunk = N > 1 && T % 4 == 0 ? 4 : 1;
-  const FullArgs a{u, psi, out, T, Z, Y, X, N, b, tchunk, ls, bulk ? 1 : 0,
-                   m_hi, m_lo, tw_hi, tw_lo};
-  const int blocks = T * Z * ((Y + b - 1) / b);
-  int threads = b * X;
-  threads = threads < FULL_THREADS ? ((threads + 31) / 32) * 32 : FULL_THREADS;
-  // the mbarrier (with slack to 16 bytes) and the 6 b + 1 link rows
-  const size_t smem = staged ? ((size_t)4 + (size_t)(6 * b + 1) * ls) * 4 : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  // X = 32 (the 32^3 x 64 lattice's rows, unpadded) has instances of its
-  // own with X compile time
-  const bool x32 = staged && X == 32 && ls == G * 32;
-  const int key = (g5in ? 1 : 0) | (g5out ? 2 : 0) | (staged ? 4 : 0) |
-                  (x32 ? 8 : 0);
-  switch (key) {
-    case 0: err = launch<false, false, false>(a, blocks, threads, smem, s); break;
-    case 1: err = launch<true, false, false>(a, blocks, threads, smem, s); break;
-    case 2: err = launch<false, true, false>(a, blocks, threads, smem, s); break;
-    case 3: err = launch<true, true, false>(a, blocks, threads, smem, s); break;
-    case 4: err = launch<false, false, true>(a, blocks, threads, smem, s); break;
-    case 5: err = launch<true, false, true>(a, blocks, threads, smem, s); break;
-    case 6: err = launch<false, true, true>(a, blocks, threads, smem, s); break;
-    case 7: err = launch<true, true, true>(a, blocks, threads, smem, s); break;
-    case 12: err = launch<false, false, true, 32>(a, blocks, threads, smem, s); break;
-    case 13: err = launch<true, false, true, 32>(a, blocks, threads, smem, s); break;
-    case 14: err = launch<false, true, true, 32>(a, blocks, threads, smem, s); break;
-    default: err = launch<true, true, true, 32>(a, blocks, threads, smem, s); break;
-  }
-  return static_cast<int>(err);
+  if (storage == 1)
+    return full<wilson::bf16>(u, psi, out, T, Z, Y, X, N, g5in, g5out, rows,
+                              ls, m_hi, m_lo, tw_hi, tw_lo, s);
+  return full<float>(u, psi, out, T, Z, Y, X, N, g5in, g5out, rows, ls, m_hi,
+                     m_lo, tw_hi, tw_lo, s);
 }
 
 }  // extern "C"

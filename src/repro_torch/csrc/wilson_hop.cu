@@ -10,12 +10,14 @@
 // `_dslash_parity_kernel` (launched by `_dslash_parity_pallas`, which
 // `dslash_eo_pallas` / `dslash_oe_pallas` call with parity 0 / 1).
 //
-// Layouts (f32): psi, psi_acc, out [N][T][Z][Y][24][Xh]; u_out, u_nbr
+// Layouts (float32 or bf16, one type per launch): psi, psi_acc, out
+// [N][T][Z][Y][24][Xh]; u_out, u_nbr
 // [4][T][Z][Y][18][Xh], component index (spin*3+color)*2+reim resp.
 // (row*3+col)*2+reim, X innermost.  u_out holds the links at the output
 // parity's sites (forward hops), u_nbr those at the neighbour parity
 // (backward hops take U_mu(x-mu)^dag there).  A "row" below is one
-// (t, z, y) line of a field: 24 (spinor) or 18 (link) planes of Xh floats.
+// (t, z, y) line of a field: 24 (spinor) or 18 (link) planes of Xh
+// elements.
 //
 // What bounds it: memory.  Per output site and RHS the kernel must read
 // 8 links (144 floats; no link is read by two sites), the neighbours'
@@ -44,11 +46,19 @@
 //    resident blocks cover the wait.  Every RHS runs the same instruction
 //    sequence on the same staged layout, so a batched launch equals N
 //    single launches bitwise;
-//  * a tile whose rows a bulk copy cannot take (odd Xh makes a link row
-//    72 Xh bytes, not a multiple of 16; a base pointer off 16 bytes) is
-//    staged by all threads with plain loads instead; a row too wide for
-//    shared memory (Xh above about 170) is read from global memory in
-//    place (STAGED = false).  Same compute code, every shape;
+//  * a tile whose rows a bulk copy cannot take (a link row is 18 Xh
+//    elements, a multiple of 16 bytes only for even Xh in f32 and Xh a
+//    multiple of 8 in bf16 with its padded strides; a base pointer off 16
+//    bytes) is staged by all threads with plain loads instead; a row too
+//    wide for shared memory (Xh above about 170 in f32) is read from
+//    global memory in place (STAGED = false).  Same compute code, every
+//    shape;
+//  * bf16 storage (the mixed-precision solve's inner operator) stages the
+//    rows as stored, so a tile takes half the bytes of shared memory and
+//    of traffic, and widens each value to f32 where a thread reads it
+//    (wilson_common.cuh); the sums and the epilogue are f32 and each
+//    output is rounded once on its store.  The f32 instances are the same
+//    code with T = float;
 //  * the Schur axpy and the twisted-mass site term stay in the epilogue,
 //    so the Schur normal operator is four launches of this kernel.
 //  The host (kernels/wilson_dslash/kernel.py::hop_tile_plan) picks b and
@@ -68,6 +78,8 @@ namespace {
 using wilson::G;
 using wilson::S;
 using wilson::hop_colour;
+using wilson::narrow;
+using wilson::wide;
 using stage::bulk_copy;
 using stage::mbar_expect;
 using stage::mbar_init;
@@ -75,15 +87,16 @@ using stage::mbar_wait;
 
 constexpr int HOP_THREADS = 256;  // most threads a block; <= 128 registers
 
+template <class T>
 struct HopArgs {
-  const float* u_out;
-  const float* u_nbr;
-  const float* psi;
-  const float* acc;  // null: no accumulator
-  float* out;
-  int T, Z, Y, Xh, N, parity;
+  const T* u_out;
+  const T* u_nbr;
+  const T* psi;
+  const T* acc;  // null: no accumulator
+  T* out;
+  int T_, Z, Y, Xh, N, parity;
   int rows;            // b, the tile's y extent
-  int ls, ss;          // shared-memory row strides (floats) of links, spinors
+  int ls, ss;          // shared-memory row strides (elements) of links, spinors
   int bulk;            // stage with TMA bulk copies (else plain loads)
   float hc, ht;        // -1/2 hop_coeff, -1/2 hop_twist (the hop's -1/2)
   float ac, at;        // acc_coeff, acc_twist
@@ -97,19 +110,30 @@ struct Tile {
   }
 };
 
-__device__ __forceinline__ long srow(const HopArgs& a, int t, int z, int y) {
+template <class T>
+__device__ __forceinline__ long srow(const HopArgs<T>& a, int t, int z,
+                                     int y) {
   return (((long)t * a.Z + z) * a.Y + y) * S * a.Xh;
 }
-__device__ __forceinline__ long grow(const HopArgs& a, int mu, int t, int z,
-                                     int y) {
-  return ((((long)mu * a.T + t) * a.Z + z) * a.Y + y) * G * a.Xh;
+template <class T>
+__device__ __forceinline__ long grow(const HopArgs<T>& a, int mu, int t,
+                                     int z, int y) {
+  return ((((long)mu * a.T_ + t) * a.Z + z) * a.Y + y) * G * a.Xh;
+}
+
+// Byte offset of the mbarrier: after the 8 b link rows and 6 b + 2 spinor
+// rows, 8-byte aligned, with 8 bytes of slack (see the host).
+template <class T>
+__host__ __device__ __forceinline__ size_t bar_offset(int b, int ls, int ss) {
+  const size_t rows = ((size_t)8 * b * ls + (size_t)(6 * b + 2) * ss) * sizeof(T);
+  return ((rows + 7) & ~(size_t)7) + 8;
 }
 
 // Link row k of the tile (8 groups of nb): group g = hop 2 mu + (0 fwd,
 // 1 bwd), row i = y0 + i, the backward Y link from row y - 1.
-__device__ __forceinline__ const float* link_src(const HopArgs& a,
-                                                 const Tile& tl, int g,
-                                                 int i) {
+template <class T>
+__device__ __forceinline__ const T* link_src(const HopArgs<T>& a,
+                                             const Tile& tl, int g, int i) {
   const int y = tl.y0 + i, mu = g >> 1;
   if (!(g & 1)) return a.u_out + grow(a, mu, tl.t, tl.z, y);
   switch (mu) {
@@ -123,9 +147,10 @@ __device__ __forceinline__ const float* link_src(const HopArgs& a,
 // Spinor row k of the tile for RHS n: groups t+1, t-1, z+1, z-1 (nb rows
 // each, staged at g*b + i), the centre rows y0-1 .. y0+nb (at 4b + i), the
 // accumulator rows (at 5b + 2 + i).
-__device__ __forceinline__ const float* spin_src(const HopArgs& a,
-                                                 const Tile& tl, long nf,
-                                                 int k, int* slot) {
+template <class T>
+__device__ __forceinline__ const T* spin_src(const HopArgs<T>& a,
+                                             const Tile& tl, long nf, int k,
+                                             int* slot) {
   const int nb = tl.nb;
   if (k < 4 * nb) {
     const int g = k / nb, i = k - g * nb, y = tl.y0 + i;
@@ -147,34 +172,35 @@ __device__ __forceinline__ const float* spin_src(const HopArgs& a,
 // Stage the tile's rows for RHS n (and the links when `links`) into
 // shared memory; returns once the rows are issued (bulk) or written
 // (plain, after a barrier).
-__device__ __forceinline__ void stage(const HopArgs& a, const Tile& tl,
-                                      float* sl, float* ss, uint64_t* bar,
-                                      int n, bool links) {
-  const long nf = (long)n * a.T * a.Z * a.Y * S * a.Xh;
+template <class T>
+__device__ __forceinline__ void stage(const HopArgs<T>& a, const Tile& tl,
+                                      T* sl, T* ss, uint64_t* bar, int n,
+                                      bool links) {
+  const long nf = (long)n * a.T_ * a.Z * a.Y * S * a.Xh;
   const int nl = links ? 8 * tl.nb : 0;
   const int ns = 5 * tl.nb + 2 + (a.acc ? tl.nb : 0);
   const int llen = G * a.Xh, slen = S * a.Xh;
   if (a.bulk) {
     if (threadIdx.x >= 32) return;
     if (threadIdx.x == 0)
-      mbar_expect(bar, (uint32_t)(nl * llen + ns * slen) * 4u);
+      mbar_expect(bar, (uint32_t)((nl * llen + ns * slen) * sizeof(T)));
     __syncwarp();
     for (int k = threadIdx.x; k < nl + ns; k += 32) {
       if (k < nl) {
         const int g = k / tl.nb, i = k - g * tl.nb;
         bulk_copy(sl + (g * a.rows + i) * a.ls, link_src(a, tl, g, i),
-                  llen * 4u, bar);
+                  (uint32_t)(llen * sizeof(T)), bar);
       } else {
         int slot;
-        const float* src = spin_src(a, tl, nf, k - nl, &slot);
-        bulk_copy(ss + slot * a.ss, src, slen * 4u, bar);
+        const T* src = spin_src(a, tl, nf, k - nl, &slot);
+        bulk_copy(ss + slot * a.ss, src, (uint32_t)(slen * sizeof(T)), bar);
       }
     }
     return;
   }
   for (int k = 0; k < nl + ns; ++k) {
-    const float* src;
-    float* dst;
+    const T* src;
+    T* dst;
     int len;
     if (k < nl) {
       const int g = k / tl.nb, i = k - g * tl.nb;
@@ -187,15 +213,17 @@ __device__ __forceinline__ void stage(const HopArgs& a, const Tile& tl,
       dst = ss + slot * a.ss;
       len = slen;
     }
-    for (int e = threadIdx.x; e < len; e += blockDim.x) dst[e] = __ldg(src + e);
+    for (int e = threadIdx.x; e < len; e += blockDim.x)
+      dst[e] = wilson::ldg(src + e);
   }
   __syncthreads();
 }
 
-template <bool G5IN, bool G5OUT, bool STAGED>
+template <class T, bool G5IN, bool G5OUT, bool STAGED>
 __global__ void __launch_bounds__(HOP_THREADS, 2)
-wilson_hop_kernel(const HopArgs a) {
-  extern __shared__ __align__(16) float smem[];
+wilson_hop_kernel(const HopArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
   const int nyb = (a.Y + a.rows - 1) / a.rows;
   Tile tl;
   {
@@ -205,21 +233,21 @@ wilson_hop_kernel(const HopArgs a) {
     tl.t = tz / a.Z;
     tl.y0 = yb * a.rows;
     tl.nb = min(a.rows, a.Y - tl.y0);
-    tl.tp = tl.t + 1 == a.T ? 0 : tl.t + 1;
-    tl.tm = tl.t == 0 ? a.T - 1 : tl.t - 1;
+    tl.tp = tl.t + 1 == a.T_ ? 0 : tl.t + 1;
+    tl.tm = tl.t == 0 ? a.T_ - 1 : tl.t - 1;
     tl.zp = tl.z + 1 == a.Z ? 0 : tl.z + 1;
     tl.zm = tl.z == 0 ? a.Z - 1 : tl.z - 1;
   }
   const int b = a.rows, xh = a.Xh;
-  float* sl = smem;                            // 8 b link rows
-  float* ss = smem + 8 * b * a.ls;             // 6 b + 2 spinor rows
+  T* sl = smem;                                // 8 b link rows
+  T* ss = smem + 8 * b * a.ls;                 // 6 b + 2 spinor rows
   uint64_t* bar = reinterpret_cast<uint64_t*>(
-      ss + (6 * b + 2) * a.ss + 2);            // 8-byte aligned (see host)
+      smem_raw + bar_offset<T>(b, a.ls, a.ss));
   if (STAGED && a.bulk) {
     if (threadIdx.x == 0) mbar_init(bar);
     __syncthreads();
   }
-  const long field = (long)a.T * a.Z * a.Y * S * xh;
+  const long field = (long)a.T_ * a.Z * a.Y * S * xh;
   const int work = 3 * tl.nb * xh;  // (colour, row, j) items of the tile
 
   for (int n = 0; n < a.N; ++n) {
@@ -238,24 +266,24 @@ wilson_hop_kernel(const HopArgs a) {
       // row pointers, made where each hop reads them: the staged copies,
       // or the fields in place
       const long nf = (long)n * field;
-      auto spin = [&](int g) -> const float* {  // t+1, t-1, z+1, z-1, acc
+      auto spin = [&](int g) -> const T* {  // t+1, t-1, z+1, z-1, acc
         if (STAGED) return ss + (g < 4 ? g * b + r : 5 * b + 2 + r) * a.ss;
         if (g == 4) return a.acc + nf + srow(a, tl.t, tl.z, y);
         return a.psi + nf +
                srow(a, g == 0 ? tl.tp : (g == 1 ? tl.tm : tl.t),
                     g == 2 ? tl.zp : (g == 3 ? tl.zm : tl.z), y);
       };
-      auto centre = [&](int d) -> const float* {  // rows y - 1, y, y + 1
+      auto centre = [&](int d) -> const T* {  // rows y - 1, y, y + 1
         if (STAGED) return ss + (4 * b + r + d) * a.ss;
         return a.psi + nf + srow(a, tl.t, tl.z, tl.wrap_y(y - 1 + d, a.Y));
       };
-      auto link = [&](int g) -> const float* {
+      auto link = [&](int g) -> const T* {
         if (STAGED) return sl + (g * b + r) * a.ls;
         return link_src(a, tl, g, r);
       };
       float o_r[4] = {0.f, 0.f, 0.f, 0.f}, o_i[4] = {0.f, 0.f, 0.f, 0.f};
-      auto at = [xh](const float* row, int jj) {
-        return [row, jj, xh](int k) { return row[k * xh + jj]; };
+      auto at = [xh](const T* row, int jj) {
+        return [row, jj, xh](int k) { return wide(row[k * xh + jj]); };
       };
       hop_colour<0, true, G5IN, G5OUT>(o_r, o_i, c, at(spin(0), j), at(link(0), j));
       hop_colour<0, false, G5IN, G5OUT>(o_r, o_i, c, at(spin(1), j), at(link(1), j));
@@ -269,8 +297,8 @@ wilson_hop_kernel(const HopArgs a) {
       // epilogue: site-term maps on the hop (with its -1/2) and the
       // accumulator; i g5 mixes each component's re/im planes with the
       // spin block's g5 sign
-      float* o = a.out + nf + srow(a, tl.t, tl.z, y) + j;
-      const float* acc_row = a.acc ? spin(4) : nullptr;
+      T* o = a.out + nf + srow(a, tl.t, tl.z, y) + j;
+      const T* acc_row = a.acc ? spin(4) : nullptr;
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
         const float g5 = s < 2 ? 1.f : -1.f;
@@ -283,8 +311,8 @@ wilson_hop_kernel(const HopArgs a) {
         }
         const int k = (s * 3 + c) * 2;
         if (a.acc) {
-          const float ar = acc_row[k * xh + j];
-          const float ai = acc_row[(k + 1) * xh + j];
+          const float ar = wide(acc_row[k * xh + j]);
+          const float ai = wide(acc_row[(k + 1) * xh + j]);
           nr += a.ac * ar;
           ni += a.ac * ai;
           if (a.at != 0.f) {
@@ -293,23 +321,65 @@ wilson_hop_kernel(const HopArgs a) {
             ni += ag * ar;
           }
         }
-        o[k * xh] = nr;
-        o[(k + 1) * xh] = ni;
+        o[k * xh] = narrow<T>(nr);
+        o[(k + 1) * xh] = narrow<T>(ni);
       }
     }
     if (STAGED) __syncthreads();  // the staged rows are reused for n + 1
   }
 }
 
-template <bool G5IN, bool G5OUT, bool STAGED>
-cudaError_t launch(const HopArgs& a, int blocks, int threads, size_t smem,
+template <class T, bool G5IN, bool G5OUT, bool STAGED>
+cudaError_t launch(const HopArgs<T>& a, int blocks, int threads, size_t smem,
                    cudaStream_t s) {
-  auto kern = wilson_hop_kernel<G5IN, G5OUT, STAGED>;
+  auto kern = wilson_hop_kernel<T, G5IN, G5OUT, STAGED>;
   static stage::SmemOptIn opt_in;
   const cudaError_t err = opt_in.allow((const void*)kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<blocks, threads, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <class T>
+int hop(const void* u_out, const void* u_nbr, const void* psi,
+        const void* acc, void* out, int T_, int Z, int Y, int Xh, int N,
+        int parity, int g5in, int g5out, int rows, int ls, int ss,
+        float hop_coeff, float hop_twist, float acc_coeff, float acc_twist,
+        cudaStream_t s) {
+  const bool staged = rows > 0;
+  const int b = staged ? rows : 1;
+  auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+  };
+  // bulk copies need 16-byte rows, strides and bases (kernel.py::hop_bulk)
+  auto rows16 = [](long elems) { return (elems * sizeof(T)) % 16 == 0; };
+  const bool bulk = staged && rows16((long)G * Xh) && rows16((long)S * Xh) &&
+                    rows16(ls) && rows16(ss) && aligned(u_out) &&
+                    aligned(u_nbr) && aligned(psi) &&
+                    (acc == nullptr || aligned(acc));
+  const HopArgs<T> a{static_cast<const T*>(u_out), static_cast<const T*>(u_nbr),
+                     static_cast<const T*>(psi), static_cast<const T*>(acc),
+                     static_cast<T*>(out), T_, Z, Y, Xh, N, parity & 1,
+                     b, ls, ss, bulk ? 1 : 0, -0.5f * hop_coeff,
+                     -0.5f * hop_twist, acc_coeff, acc_twist};
+  const int blocks = T_ * Z * ((Y + b - 1) / b);
+  int threads = 3 * b * Xh;
+  threads = threads < HOP_THREADS ? ((threads + 31) / 32) * 32 : HOP_THREADS;
+  // links, spinor rows, the 8-byte mbarrier with its slack
+  const size_t smem = staged ? bar_offset<T>(b, ls, ss) + 8 : 0;
+  cudaError_t err;
+  const int key = (g5in ? 1 : 0) | (g5out ? 2 : 0) | (staged ? 4 : 0);
+  switch (key) {
+    case 0: err = launch<T, false, false, false>(a, blocks, threads, smem, s); break;
+    case 1: err = launch<T, true, false, false>(a, blocks, threads, smem, s); break;
+    case 2: err = launch<T, false, true, false>(a, blocks, threads, smem, s); break;
+    case 3: err = launch<T, true, true, false>(a, blocks, threads, smem, s); break;
+    case 4: err = launch<T, false, false, true>(a, blocks, threads, smem, s); break;
+    case 5: err = launch<T, true, false, true>(a, blocks, threads, smem, s); break;
+    case 6: err = launch<T, false, true, true>(a, blocks, threads, smem, s); break;
+    default: err = launch<T, true, true, true>(a, blocks, threads, smem, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -320,46 +390,24 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// rows, ls, ss: the tile plan of kernel.py::hop_tile_rows (rows == 0: the
-// rows are read in place, nothing is staged); acc may be null.  hop_coeff
-// and hop_twist are the caller's, the hop's -1/2 is applied here.
+// rows, ls, ss: the tile plan of kernel.py::hop_tile_plan (rows == 0: the
+// rows are read in place, nothing is staged; strides in elements); acc may
+// be null.  hop_coeff and hop_twist are the caller's, the hop's -1/2 is
+// applied here.  storage: 0 float32, 1 bf16, for every field and link.
 // Returns a cudaError_t code.
-int wilson_hop(const float* u_out, const float* u_nbr, const float* psi,
-               const float* acc, float* out, int T, int Z, int Y, int Xh,
+int wilson_hop(const void* u_out, const void* u_nbr, const void* psi,
+               const void* acc, void* out, int T, int Z, int Y, int Xh,
                int N, int parity, int g5in, int g5out, int rows, int ls,
                int ss, float hop_coeff, float hop_twist, float acc_coeff,
-               float acc_twist, void* stream) {
-  const bool staged = rows > 0;
-  const int b = staged ? rows : 1;
-  auto aligned = [](const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-  };
-  const bool bulk = staged && Xh % 2 == 0 && aligned(u_out) &&
-                    aligned(u_nbr) && aligned(psi) &&
-                    (acc == nullptr || aligned(acc));
-  const HopArgs a{u_out, u_nbr, psi, acc, out, T, Z, Y, Xh, N, parity & 1,
-                  b, ls, ss, bulk ? 1 : 0, -0.5f * hop_coeff,
-                  -0.5f * hop_twist, acc_coeff, acc_twist};
-  const int blocks = T * Z * ((Y + b - 1) / b);
-  int threads = 3 * b * Xh;
-  threads = threads < HOP_THREADS ? ((threads + 31) / 32) * 32 : HOP_THREADS;
-  // links, spinor rows, 2 floats of slack, the 8-byte mbarrier
-  const size_t smem =
-      staged ? ((size_t)8 * b * ls + (size_t)(6 * b + 2) * ss + 4) * 4 : 0;
+               float acc_twist, int storage, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  const int key = (g5in ? 1 : 0) | (g5out ? 2 : 0) | (staged ? 4 : 0);
-  switch (key) {
-    case 0: err = launch<false, false, false>(a, blocks, threads, smem, s); break;
-    case 1: err = launch<true, false, false>(a, blocks, threads, smem, s); break;
-    case 2: err = launch<false, true, false>(a, blocks, threads, smem, s); break;
-    case 3: err = launch<true, true, false>(a, blocks, threads, smem, s); break;
-    case 4: err = launch<false, false, true>(a, blocks, threads, smem, s); break;
-    case 5: err = launch<true, false, true>(a, blocks, threads, smem, s); break;
-    case 6: err = launch<false, true, true>(a, blocks, threads, smem, s); break;
-    default: err = launch<true, true, true>(a, blocks, threads, smem, s); break;
-  }
-  return static_cast<int>(err);
+  if (storage == 1)
+    return hop<wilson::bf16>(u_out, u_nbr, psi, acc, out, T, Z, Y, Xh, N,
+                             parity, g5in, g5out, rows, ls, ss, hop_coeff,
+                             hop_twist, acc_coeff, acc_twist, s);
+  return hop<float>(u_out, u_nbr, psi, acc, out, T, Z, Y, Xh, N, parity, g5in,
+                    g5out, rows, ls, ss, hop_coeff, hop_twist, acc_coeff,
+                    acc_twist, s);
 }
 
 }  // extern "C"

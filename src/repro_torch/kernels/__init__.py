@@ -2,10 +2,11 @@
 
 K1 ``wilson_hop`` and K4 ``wilson_full`` (:mod:`.wilson_dslash`), K2
 ``cg_update`` and K3 ``cg_xpay`` (:mod:`.cg_fused`); :mod:`.build`
-compiles ``csrc/*.cu``.
+compiles ``csrc/*.cu``.  Each kernel has a float32 and a bf16 instance.
 Nothing is built or imported from ``nvcc`` until a kernel is launched.
 """
 
+from repro_torch.kernels import build
 from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
 from repro_torch.kernels.wilson_dslash.kernel import wilson_full, wilson_hop
 
@@ -16,11 +17,15 @@ WRAPPERS = {"wilson_hop": wilson_hop, "cg_update": cg_update,
 def reset_counts() -> None:
     """Set every wrapper's launch and plain-call counts to 0."""
     for fn in WRAPPERS.values():
-        fn.launches = 0
-        fn.plain_calls = 0
+        build.zero_counts(fn)
 
 
 def counts() -> dict[str, dict[str, int]]:
-    """{kernel: {"launches": n, "plain_calls": m}} since the last reset."""
-    return {name: {"launches": fn.launches, "plain_calls": fn.plain_calls}
-            for name, fn in WRAPPERS.items()}
+    """{kernel: {"launches": n, "plain_calls": m}} since the last reset,
+    with the bf16 instances as ``<kernel>_bf16``."""
+    out = {}
+    for name, fn in WRAPPERS.items():
+        out[name] = {"launches": fn.launches, "plain_calls": fn.plain_calls}
+        out[name + "_bf16"] = {"launches": fn.launches_bf16,
+                               "plain_calls": fn.plain_calls_bf16}
+    return out

@@ -14,6 +14,11 @@ a stale library is never loaded.  Libraries go under
 git); the compiler's report (registers, spills) sits beside each library
 as ``<name>-<hash>.log``.  :func:`build_all` starts one ``nvcc`` per
 source at once and waits for all of them.
+
+Beside the build, what every wrapper shares: the storage types of the
+kernels' C interfaces (:func:`storage_code`), the check of a C entry
+point's return code (:func:`check`) and the launch and plain-call counts
+(:func:`count`).
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -118,3 +125,42 @@ def check(lib: ctypes.CDLL, rc: int, entry: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc}: "
                            f"{lib.error_string(rc).decode()}")
+
+
+def count(fn, kind: str, dtype) -> None:
+    """Add one to a wrapper's ``kind`` count ("launches" or
+    "plain_calls"); a call on bf16 storage counts as ``<kind>_bf16``, so
+    a run shows which instance it went through."""
+    attr = kind + ("_bf16" if dtype == torch.bfloat16 else "")
+    setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+COUNTS = ("launches", "plain_calls", "launches_bf16", "plain_calls_bf16")
+
+
+def zero_counts(fn) -> None:
+    """Set every count of a wrapper to 0."""
+    for attr in COUNTS:
+        setattr(fn, attr, 0)
+
+
+# the kernels' storage types and their codes in the C interfaces
+STORAGE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def storage_code(entry: str, tensors) -> int:
+    """The one storage dtype of a kernel call's operands, as its C code.
+
+    float32 and bf16 are the kernels' storage types; float16 has no
+    instance yet (ROADMAP Queue B item 9) and raises NotImplementedError,
+    on the CPU too, so the plain versions keep the kernels' contract."""
+    dtype = tensors[0].dtype
+    for v in tensors:
+        if v.dtype != dtype:
+            raise ValueError(f"{entry}: operands must share one dtype, got "
+                             f"{v.dtype} and {dtype}")
+    if dtype not in STORAGE:
+        raise NotImplementedError(
+            f"{entry} stores float32 or bfloat16, got {dtype}; other narrow "
+            "storage (float16) is ROADMAP Queue B item 9")
+    return STORAGE[dtype]

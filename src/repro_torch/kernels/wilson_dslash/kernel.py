@@ -11,10 +11,14 @@ by :func:`hop_spec`, and the staging helpers of ``csrc/stage.cuh``;
 :func:`hop_tile_plan` and :func:`full_tile_plan` size their shared-memory
 tiles.
 
-Each wrapper runs its plain version (:mod:`..ref`) for tensors on the
-CPU, and only then; for CUDA tensors it launches the kernel or raises.
+Fields and links are float32 or bf16 (the mixed-precision solve's low
+operator), one dtype per call; the kernels compute in f32 and round each
+output once to that dtype.  Each wrapper runs its plain version
+(:mod:`..ref`) for tensors on the CPU, and only then; for CUDA tensors it
+launches the kernel or raises.
 ``<wrapper>.launches`` counts kernel launches and ``<wrapper>.plain_calls``
-plain-version calls, so a run can show which path it took.
+plain-version calls (``launches_bf16`` and ``plain_calls_bf16`` those on
+bf16 storage), so a run can show which path it took.
 """
 
 from __future__ import annotations
@@ -69,64 +73,90 @@ HOP_SMEM_LIMIT = 227 * 1024      # bytes a block may use on the H100
 HOP_SMEM_TARGET = HOP_SMEM_LIMIT // 2   # two blocks per SM where it fits
 
 
-def hop_smem_bytes(rows: int, ls: int, ss: int) -> int:
+def hop_smem_bytes(rows: int, ls: int, ss: int, esize: int = 4) -> int:
     """Shared memory of a K1 tile: 8 b link rows, 6 b + 2 spinor rows (t+-1,
-    z+-1, the centre with its Y halo, the accumulator) and the mbarrier."""
-    return (8 * rows * ls + (6 * rows + 2) * ss + 4) * 4
+    z+-1, the centre with its Y halo, the accumulator), rounded up to 8
+    bytes, and the mbarrier with 8 bytes of slack."""
+    staged = (8 * rows * ls + (6 * rows + 2) * ss) * esize
+    return -(-staged // 8) * 8 + 16
 
 
-def full_smem_bytes(rows: int, ls: int) -> int:
+def full_smem_bytes(rows: int, ls: int, esize: int = 4) -> int:
     """Shared memory of a K4 tile: the mbarrier (16 bytes with its slack)
     and the 6 b + 1 link rows it stages (the spinors are read through
     L1)."""
-    return (4 + (6 * rows + 1) * ls) * 4
+    return 16 + (6 * rows + 1) * ls * esize
 
 
-def _tile_plan(y: int, width: int, sites: int,
-               smem_bytes) -> tuple[int, int, int]:
-    """``(b, ls, ss)`` for rows of ``width`` floats per component plane.
+def _tile_plan(y: int, width: int, sites: int, smem_bytes,
+               esize: int = 4) -> tuple[int, int, int]:
+    """``(b, ls, ss)`` for rows of ``width`` elements of ``esize`` bytes
+    per component plane.
 
     b covers about ``sites`` sites, prefers a divisor of Y, and shrinks
-    until the tile fits twice in an SM's shared memory (once at b = 1).  A
-    stride is padded to width mod 32 when width < 32 and width % 4 == 0, so
-    the rows a warp spans fall in distinct banks.  b == 0: a row does not
-    fit in shared memory, and the kernel reads the fields in place.
+    until the tile fits twice in an SM's shared memory (once at b = 1).
+    Where a warp spans rows (width < 32) and width is a whole number of
+    16-byte vectors, a stride is padded to width modulo the 128 bytes of
+    the 32 banks (32 f32, 64 bf16), so the rows a warp spans fall in
+    distinct banks and every row stays 16-byte aligned.  b == 0: a row
+    does not fit in shared memory, and the kernel reads the fields in
+    place.
     """
+    lanes, vec = 128 // esize, 16 // esize
+
     def pad(w):
-        return w if width % 4 or width >= 32 else w + (width - w) % 32
+        return w if width % vec or width >= 32 else w + (width - w) % lanes
 
     ls, ss = pad(18 * width), pad(24 * width)
     bmax = max(1, min(y, sites // width))
     b = next((d for d in range(bmax, 0, -1)
               if y % d == 0 and 2 * d >= bmax), bmax)
-    while b > 1 and smem_bytes(b, ls, ss) > HOP_SMEM_TARGET:
+    while b > 1 and smem_bytes(b, ls, ss, esize) > HOP_SMEM_TARGET:
         b -= 1
-    if smem_bytes(b, ls, ss) > HOP_SMEM_LIMIT:
+    if smem_bytes(b, ls, ss, esize) > HOP_SMEM_LIMIT:
         b = 0
     return b, ls, ss
 
 
-def hop_tile_plan(y: int, xh: int) -> tuple[int, int, int]:
+def hop_tile_plan(y: int, xh: int, esize: int = 4) -> tuple[int, int, int]:
     """K1's tile ``(b, ls, ss)``: b rows of Y per block, and the shared
-    memory row strides (floats) of links and spinors (see
+    memory row strides (elements) of links and spinors (see
     :func:`_tile_plan`; b == 0: rows read in place)."""
-    return _tile_plan(y, xh, HOP_TILE_SITES, hop_smem_bytes)
+    return _tile_plan(y, xh, HOP_TILE_SITES, hop_smem_bytes, esize)
 
 
-def full_tile_plan(y: int, x: int) -> tuple[int, int]:
+def full_tile_plan(y: int, x: int, esize: int = 4) -> tuple[int, int]:
     """K4's tile ``(b, ls)`` on the full X axis: b rows of Y per block and
-    the shared-memory stride (floats) of its staged link rows (see
+    the shared-memory stride (elements) of its staged link rows (see
     :func:`_tile_plan`; b == 0: links read in place)."""
-    b, ls, _ = _tile_plan(y, x, FULL_TILE_SITES,
-                          lambda rows, ls, ss: full_smem_bytes(rows, ls))
+    b, ls, _ = _tile_plan(
+        y, x, FULL_TILE_SITES,
+        lambda rows, ls, ss, es: full_smem_bytes(rows, ls, es), esize)
     return b, ls
+
+
+def _rows16(esize: int, *elems: int) -> bool:
+    return all(e * esize % 16 == 0 for e in elems)
+
+
+def hop_bulk(xh: int, ls: int, ss: int, esize: int = 4) -> bool:
+    """Whether K1 stages a tile's rows with TMA bulk copies (given 16-byte
+    aligned bases): every row and stride a multiple of 16 bytes, as
+    ``csrc/wilson_hop.cu`` tests.  Otherwise plain loads stage them."""
+    return _rows16(esize, GAUGE_G * xh, SPINOR_S * xh, ls, ss)
+
+
+def full_bulk(x: int, ls: int, esize: int = 4) -> bool:
+    """Whether K4 stages its link rows with TMA bulk copies (given a
+    16-byte aligned gauge base), as ``csrc/wilson_full.cu`` tests."""
+    return _rows16(esize, GAUGE_G * x, ls)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.library("wilson_hop")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.wilson_hop.argtypes = [p, p, p, p, p] + [i] * 11 + [f] * 4 + [p]
+    lib.wilson_hop.argtypes = [p, p, p, p, p] + [i] * 11 + [f] * 4 + [i, p]
     lib.wilson_hop.restype = ctypes.c_int
     return lib
 
@@ -158,22 +188,23 @@ def wilson_hop(u_out: torch.Tensor, u_nbr: torch.Tensor, psi: torch.Tensor,
                hop_twist: float = 0.0) -> torch.Tensor:
     """One parity hop block with the fused epilogue (see
     :func:`..ref.wilson_hop_ref` for the function).  ``psi`` is a packed
-    half field (T,Z,Y,24,Xh) or an (N,T,Z,Y,24,Xh) batch."""
+    half field (T,Z,Y,24,Xh) or an (N,T,Z,Y,24,Xh) batch; every operand
+    float32, or every operand bf16."""
     _check_operands(u_out, u_nbr, psi, psi_acc)
+    operands = [u_out, u_nbr, psi] + ([psi_acc] if psi_acc is not None
+                                      else [])
+    storage = build.storage_code("wilson_hop", operands)
     kw = dict(parity=parity, gamma5_in=gamma5_in, gamma5_out=gamma5_out,
               psi_acc=psi_acc, acc_coeff=acc_coeff, hop_coeff=hop_coeff,
               acc_twist=acc_twist, hop_twist=hop_twist)
     if psi.device.type == "cpu":
-        wilson_hop.plain_calls += 1
+        build.count(wilson_hop, "plain_calls", psi.dtype)
         return wilson_hop_ref(u_out, u_nbr, psi, **kw)
-    operands = [u_out, u_nbr, psi] + ([psi_acc] if psi_acc is not None
-                                      else [])
     for name, v in zip(("u_out", "u_nbr", "psi", "psi_acc"), operands):
-        if (v.device != psi.device or v.dtype != torch.float32
-                or not v.is_contiguous()):
+        if v.device != psi.device or not v.is_contiguous():
             raise ValueError(f"wilson_hop: {name} must be a contiguous "
-                             f"float32 tensor on {psi.device}, got "
-                             f"{v.dtype} on {v.device}")
+                             f"tensor on {psi.device}, got one on "
+                             f"{v.device}")
     _, t, z, y, _, xh = u_out.shape
     n = psi.shape[0] if psi.dim() == 6 else 1
     out = torch.empty_like(psi)
@@ -182,16 +213,16 @@ def wilson_hop(u_out: torch.Tensor, u_nbr: torch.Tensor, psi: torch.Tensor,
         u_out.data_ptr(), u_nbr.data_ptr(), psi.data_ptr(),
         psi_acc.data_ptr() if psi_acc is not None else None,
         out.data_ptr(), t, z, y, xh, n, int(parity) & 1, int(bool(gamma5_in)),
-        int(bool(gamma5_out)), *hop_tile_plan(y, xh), float(hop_coeff),
-        float(hop_twist), float(acc_coeff), float(acc_twist),
+        int(bool(gamma5_out)), *hop_tile_plan(y, xh, psi.element_size()),
+        float(hop_coeff), float(hop_twist), float(acc_coeff),
+        float(acc_twist), storage,
         torch.cuda.current_stream(psi.device).cuda_stream)
     build.check(lib, rc, "wilson_hop")
-    wilson_hop.launches += 1
+    build.count(wilson_hop, "launches", psi.dtype)
     return out
 
 
-wilson_hop.launches = 0
-wilson_hop.plain_calls = 0
+build.zero_counts(wilson_hop)
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +248,7 @@ def site_coeffs(mass, twist: float, gamma5_in: bool,
 def _full_lib() -> ctypes.CDLL:
     lib = build.library("wilson_full")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.wilson_full.argtypes = [p, p, p] + [i] * 9 + [f] * 4 + [p]
+    lib.wilson_full.argtypes = [p, p, p] + [i] * 9 + [f] * 4 + [i, p]
     lib.wilson_full.restype = ctypes.c_int
     return lib
 
@@ -232,12 +263,7 @@ def _check_full_operands(up, pp):
     if tuple(pp.shape[-5:]) != (t, z, y, SPINOR_S, x):
         raise ValueError(f"spinor {tuple(pp.shape)} does not match gauge "
                          f"{tuple(up.shape)}")
-    for name, v in (("up", up), ("pp", pp)):
-        if v.dtype != torch.float32:
-            raise NotImplementedError(
-                f"wilson_full takes float32 fields, got {name} {v.dtype}; "
-                "narrow (bf16) storage comes with mixed precision, ROADMAP "
-                "Queue A item 8")
+    return build.storage_code("wilson_full", (up, pp))
 
 
 def wilson_full(up: torch.Tensor, pp: torch.Tensor, mass, *,
@@ -246,11 +272,11 @@ def wilson_full(up: torch.Tensor, pp: torch.Tensor, mass, *,
     """``g5out (D + i twist g5) (g5in psi)`` on the full lattice (see
     :func:`..ref.wilson_full_ref`).  ``pp`` is a packed field
     (T,Z,Y,24,X) or an (N,T,Z,Y,24,X) batch, ``up`` the packed gauge
-    field (4,T,Z,Y,18,X), both float32."""
-    _check_full_operands(up, pp)
+    field (4,T,Z,Y,18,X), both float32 or both bf16."""
+    storage = _check_full_operands(up, pp)
     kw = dict(twist=twist, gamma5_in=gamma5_in, gamma5_out=gamma5_out)
     if pp.device.type == "cpu":
-        wilson_full.plain_calls += 1
+        build.count(wilson_full, "plain_calls", pp.dtype)
         return wilson_full_ref(up, pp, mass, **kw)
     for name, v in (("up", up), ("pp", pp)):
         if v.device != pp.device or not v.is_contiguous():
@@ -262,13 +288,13 @@ def wilson_full(up: torch.Tensor, pp: torch.Tensor, mass, *,
     lib = _full_lib()
     rc = lib.wilson_full(
         up.data_ptr(), pp.data_ptr(), out.data_ptr(), t, z, y, x, n,
-        int(bool(gamma5_in)), int(bool(gamma5_out)), *full_tile_plan(y, x),
-        *site_coeffs(mass, twist, gamma5_in, gamma5_out),
+        int(bool(gamma5_in)), int(bool(gamma5_out)),
+        *full_tile_plan(y, x, pp.element_size()),
+        *site_coeffs(mass, twist, gamma5_in, gamma5_out), storage,
         torch.cuda.current_stream(pp.device).cuda_stream)
     build.check(lib, rc, "wilson_full")
-    wilson_full.launches += 1
+    build.count(wilson_full, "launches", pp.dtype)
     return out
 
 
-wilson_full.launches = 0
-wilson_full.plain_calls = 0
+build.zero_counts(wilson_full)

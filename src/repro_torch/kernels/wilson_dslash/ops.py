@@ -24,7 +24,10 @@ Every entry point takes a spinor with or without a leading RHS axis
 (N, T, Z, Y, 24, X[h]); a batch rides the same launches, so
 ``schur_normal_op`` is four launches and ``normal_op`` two whatever N
 is.  Tensors on the CPU go through the kernel's plain version, CUDA
-tensors through the kernel.
+tensors through the kernel.  Fields and links are float32, or bf16 for
+the mixed-precision solve's low operator: every launch's output, and so
+every entry point's, is in the input's storage dtype, as in the JAX
+package.
 """
 
 from __future__ import annotations

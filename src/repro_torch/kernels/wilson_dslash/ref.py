@@ -38,7 +38,8 @@ def wilson_hop_ref(u_out: torch.Tensor, u_nbr: torch.Tensor,
                    acc_twist: float = 0.0,
                    hop_twist: float = 0.0) -> torch.Tensor:
     """The hop kernel's function on packed half fields (rank 5, or rank 6
-    with a leading RHS axis):
+    with a leading RHS axis), computed in f32 from the widened operands
+    and rounded once to ``psi``'s dtype:
 
         out = (acc_coeff + acc_twist i g5) psi_acc
             + (hop_coeff + hop_twist i g5) g5out Hop(g5in psi)
@@ -58,14 +59,15 @@ def wilson_hop_ref(u_out: torch.Tensor, u_nbr: torch.Tensor,
         return apply_gamma5(h) if gamma5_out else h
 
     v = unpack_spinor(psi.to(torch.float32))
-    hop = pack_spinor(_per_rhs(one, v, psi.dim() == 6), dtype=psi.dtype)
+    hop = pack_spinor(_per_rhs(one, v, psi.dim() == 6))
     out = hop if hop_coeff == 1.0 else hop_coeff * hop
     if hop_twist != 0.0:
         out = out + hop_twist * apply_igamma5_packed(hop)
     if psi_acc is not None:
-        acc = acc_coeff * psi_acc
+        acc32 = psi_acc.to(torch.float32)
+        acc = acc_coeff * acc32
         if acc_twist != 0.0:
-            acc = acc + acc_twist * apply_igamma5_packed(psi_acc)
+            acc = acc + acc_twist * apply_igamma5_packed(acc32)
         out = acc + out
     return out.to(psi.dtype)
 
@@ -78,18 +80,22 @@ def wilson_full_ref(up: torch.Tensor, pp: torch.Tensor, mass, *,
 
         out = g5out (D_wilson + i twist g5) (g5in psi)
 
-    A batch goes through one RHS at a time, so batched equals looped
-    bitwise.
+    Computed in f32 (f64 for f64 fields) from the widened operands and
+    rounded once to ``pp``'s dtype, as the kernel does.  A batch goes through one RHS at a
+    time, so batched equals looped bitwise.
     """
     def one(q):
         if gamma5_in:
             q = apply_gamma5_packed(q)
-        out = dslash_packed(up, q, mass)
+        out = dslash_packed(up_w, q, mass)
         if twist != 0.0:
-            out = (out + twist * apply_igamma5_packed(q)).to(q.dtype)
-        return apply_gamma5_packed(out) if gamma5_out else out
+            out = out + twist * apply_igamma5_packed(q)
+        out = apply_gamma5_packed(out) if gamma5_out else out
+        return out.to(pp.dtype)
 
-    return _per_rhs(one, pp, pp.dim() == 6)
+    wide = torch.float64 if pp.dtype == torch.float64 else torch.float32
+    up_w = up.to(wide)
+    return _per_rhs(one, pp.to(wide), pp.dim() == 6)
 
 
 def _via_natural(fn, u_e_p, u_o_p, pp):

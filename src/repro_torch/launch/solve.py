@@ -2,14 +2,17 @@
 
     python -m repro_torch.launch.solve --lattice 8x8x8x16
     python -m repro_torch.launch.solve --nrhs 4
+    python -m repro_torch.launch.solve --parity eo --solver cgnr
     python -m repro_torch.launch.solve --operator twisted-mass --mu 0.25
-    python -m repro_torch.launch.solve --parity full
     python -m repro_torch.launch.solve --backend reference --device cpu
 
 Builds a random SU(3) gauge configuration and source(s) from ``--seed``,
-solves D x = b by CGNR on the even-odd Schur complement (``--parity eo``,
-the default) or on the full lattice (``--parity full``) through one
-:class:`repro_torch.core.plan.SolverPlan`, and reports iterations,
+solves D x = b on the full lattice (``--parity full``, the default) or on
+the even-odd Schur complement (``--parity eo``) through one
+:class:`repro_torch.core.plan.SolverPlan`: ``--solver mpcg`` (the
+default) is the mixed-precision reliable-update CG with a bf16 inner CG,
+``cgnr`` CGNR in f32, ``cg16`` an all-bf16 CG on the full lattice (not
+accurate to ``--tol``, so it reports FAIL by design).  Reports iterations,
 matvecs, the true relative residual and the verdict — per right-hand side
 for a batch.  Runs on the card (``--device cuda``, the default) and
 refuses to fall back to the CPU when there is none.
@@ -31,21 +34,37 @@ from repro_torch.core.operators import dslash_g, get_operator, operator_names
 from repro_torch.data import lattice_problem
 
 
+# solver name -> (Krylov loop, precision), as the JAX package's CLI maps
+# them; pipecg and blockcg are refused by the plan (ROADMAP Queue A item 9)
+_SOLVERS = {
+    "cgnr": ("cgnr", "single"),
+    "pipecg": ("pipecg", "single"),
+    "blockcg": ("blockcg", "single"),
+    "mpcg": ("cgnr", "mixed"),
+    "cg16": ("cgnr", "low"),
+}
+
+
 def build_plan(args) -> plan_mod.SolverPlan:
     """Resolve the CLI axes to a SolverPlan."""
+    loop, precision = _SOLVERS[args.solver]
     return plan_mod.SolverPlan(operator="eo-schur" if args.parity == "eo"
                                else "full",
                                operator_family=args.operator, mu=args.mu,
-                               backend=args.backend, nrhs=args.nrhs)
+                               backend=args.backend, solver=loop,
+                               precision=precision, nrhs=args.nrhs)
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--lattice", default="4x4x4x8", help="TxZxYxX extents")
     p.add_argument("--mass", type=float, default=0.2)
-    p.add_argument("--parity", choices=["full", "eo"], default="eo",
-                   help="operator shape: even-odd Schur complement or the "
-                        "full lattice")
+    p.add_argument("--solver", default="mpcg", choices=sorted(_SOLVERS),
+                   help="Krylov loop / precision policy (pipecg and "
+                        "blockcg are not ported yet)")
+    p.add_argument("--parity", choices=["full", "eo"], default="full",
+                   help="operator shape: the full lattice or the even-odd "
+                        "Schur complement")
     p.add_argument("--operator", default="wilson",
                    choices=sorted(operator_names()),
                    help="operator family from the registry: "
@@ -81,8 +100,8 @@ def main(argv=None) -> int:
         return 1
     print(f"[solve] plan: operator={plan.operator} "
           f"family={plan.operator_family} mu={plan.mu} "
-          f"backend={plan.backend} solver={plan.solver} nrhs={plan.nrhs} "
-          f"device={dev}")
+          f"backend={plan.backend} solver={plan.solver} "
+          f"precision={plan.precision} nrhs={plan.nrhs} device={dev}")
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -131,6 +150,7 @@ def main(argv=None) -> int:
             for i, v in enumerate(verdicts)
             if v != solvers.CONVERGED or not verified[i]))
     print(f"[solve] lattice={shape} iters={st.iterations} "
+          f"outer={st.outer_iterations} "
           f"matvecs={max(matvecs)} (total {sum(matvecs)} across "
           f"{len(matvecs)} RHS) max_rel_res={rel:.2e} time={dt:.3f}s "
           f"device={torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")

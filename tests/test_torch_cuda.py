@@ -269,3 +269,225 @@ def test_cg_xpay_misaligned_views(dev, offsets, gated):
         single = cg_xpay(beta[i:i + 1], r[i:i + 1], p[i:i + 1],
                          None if gate is None else gate[i:i + 1])
         assert torch.equal(single[0], po[i])
+
+
+# ---------------------------------------------------------------------------
+# bf16 instances (mixed precision): each kernel against its plain version on
+# the same bf16 inputs, at most 1 bf16 ulp per entry (an entry that cancels
+# below 2^-16 of the field's largest entry, where f32 sums in another order
+# differ by more than its own ulp, is held to the ulp at that floor);
+# batched launches equal single launches bitwise
+# ---------------------------------------------------------------------------
+
+ULP_FLOOR = 2.0 ** -16
+
+
+def _bf16_within_one_ulp(out, ref):
+    assert out.dtype == ref.dtype == torch.bfloat16
+    bits = [v.contiguous().view(torch.int16).int() for v in (out, ref)]
+    ords = [torch.where(v < 0, -(v & 0x7FFF), v) for v in bits]
+    a, b = out.double(), ref.double()
+    _, e = torch.frexp(ULP_FLOOR * b.abs().max())
+    floor = torch.ldexp(torch.ones((), dtype=torch.float64, device=b.device),
+                        e - 8)
+    ok = ((ords[0] - ords[1]).abs() <= 1) | ((a - b).abs() <= floor)
+    assert bool(ok.all()), float((a - b).abs().max())
+
+
+def _bf16_hop_case(dev, dims, flags, n=3, seed=11):
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
+    from repro_torch.kernels.wilson_dslash.ref import wilson_hop_ref
+    parity, g5in, g5out, has_acc, twist = flags
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lat = tl.LatticeShape(*dims)
+    ue, uo = tl.split_eo_gauge(tl.random_gauge(gen, lat))
+    upe, upo = (tl.pack_gauge(v, dtype=torch.bfloat16) for v in (ue, uo))
+    psi = tl.pack_spinor(torch.stack(
+        [tl.split_eo(tl.random_spinor(gen, lat))[0] for _ in range(n)]),
+        dtype=torch.bfloat16)
+    acc = (-0.5 * psi).to(torch.bfloat16)
+    u_out, u_nbr = (upe, upo) if parity == 0 else (upo, upe)
+    kw = dict(parity=parity, gamma5_in=g5in, gamma5_out=g5out,
+              psi_acc=acc if has_acc else None,
+              acc_coeff=1.7 if has_acc else 0.0,
+              hop_coeff=-0.3 if (has_acc or twist) else 1.0,
+              hop_twist=0.2 if twist else 0.0,
+              acc_twist=-0.4 if (has_acc and twist) else 0.0)
+    kernels.reset_counts()
+    out = wilson_hop(u_out, u_nbr, psi, **kw)
+    assert kernels.counts()["wilson_hop_bf16"]["launches"] == 1
+    _bf16_within_one_ulp(out, wilson_hop_ref(u_out, u_nbr, psi, **kw))
+    for i in range(n):
+        kw["psi_acc"] = acc[i] if has_acc else None
+        assert torch.equal(out[i], wilson_hop(u_out, u_nbr, psi[i], **kw))
+
+
+@pytest.mark.parametrize("flags", list(itertools.product(
+    (0, 1), (False, True), (False, True), (False, True), (False, True))))
+def test_wilson_hop_bf16_matches_plain(dev, flags):
+    _bf16_hop_case(dev, (4, 6, 8, 16), flags)
+
+
+# 4^4 (Xh = 2: 4-byte planes, staged by plain loads), odd Xh, Y = 22
+# against the tile, 2x2x2x348 (staged in bf16, where f32 reads in place),
+# 2x2x2x700 (read in place), 8x8x8x32 (TMA, padded strides)
+BF16_HOP_SHAPES = [(4, 4, 4, 4), (4, 4, 6, 6), (4, 4, 22, 8), (2, 2, 2, 348),
+                   (2, 2, 2, 700), (8, 8, 8, 32)]
+
+
+@pytest.mark.parametrize("dims", BF16_HOP_SHAPES,
+                         ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("flags", [(0, False, True, True, False),
+                                   (1, True, False, False, True),
+                                   (0, True, True, True, True)])
+def test_wilson_hop_bf16_odd_and_ragged_shapes(dev, dims, flags):
+    _bf16_hop_case(dev, dims, flags, n=2, seed=12)
+
+
+def _bf16_full_case(up, pp, flags):
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_full
+    from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
+    g5in, g5out, twist = flags
+    kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
+    kernels.reset_counts()
+    out = wilson_full(up, pp, 0.1, **kw)
+    assert kernels.counts()["wilson_full_bf16"]["launches"] == 1
+    _bf16_within_one_ulp(out, wilson_full_ref(up, pp, 0.1, **kw))
+    for i in range(pp.shape[0]):
+        assert torch.equal(out[i], wilson_full(up, pp[i], 0.1, **kw))
+
+
+# K4's bf16 modes: TMA (8^4, 4x4x22x16, X = 32 instances at 4x4x8x32),
+# plain loads (4x4x6x6: 216-byte rows; 4x4x6x5), one-row tiles over X
+# (2x2x2x464, staged in bf16), links read in place (2x2x2x928)
+BF16_FULL_SHAPES = [(8, 8, 8, 8), (4, 4, 22, 16), (4, 4, 8, 32),
+                    (4, 4, 6, 6), (4, 4, 6, 5), (2, 2, 2, 464),
+                    (2, 2, 2, 928)]
+
+
+@pytest.mark.parametrize("dims", BF16_FULL_SHAPES,
+                         ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("flags", FULL_FLAGS)
+def test_wilson_full_bf16_shapes(dev, dims, flags):
+    gen = torch.Generator(device=dev).manual_seed(13)
+    lat = tl.LatticeShape(*dims)
+    up = tl.pack_gauge(tl.random_gauge(gen, lat), dtype=torch.bfloat16)
+    pp = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                     for _ in range(3)]),
+                        dtype=torch.bfloat16)
+    _bf16_full_case(up, pp, flags)
+
+
+def _off_by(v, elems):
+    """A contiguous copy of ``v`` starting ``elems`` elements past a
+    16-byte boundary."""
+    buf = torch.empty(v.numel() + 16, dtype=v.dtype, device=v.device)
+    out = buf[elems:elems + v.numel()].view(v.shape)
+    out.copy_(v)
+    assert out.data_ptr() % 16 == elems * v.element_size()
+    return out
+
+
+@pytest.mark.parametrize("which", ["psi", "gauge"])
+@pytest.mark.parametrize("elems", [1, 2])
+def test_wilson_full_bf16_misaligned_base(dev, which, elems):
+    """Bases 2 and 4 bytes off 16-byte alignment: the links staged by
+    plain loads, the spinor read through L1 as ever."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    lat = tl.LatticeShape(4, 4, 6, 8)
+    up = tl.pack_gauge(tl.random_gauge(gen, lat), dtype=torch.bfloat16)
+    pp = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                     for _ in range(3)]),
+                        dtype=torch.bfloat16)
+    if which == "psi":
+        pp = _off_by(pp, elems)
+    else:
+        up = _off_by(up, elems)
+    for flags in FULL_FLAGS:
+        _bf16_full_case(up, pp, flags)
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (3, 3), (7, 7), (1, 2),
+                                     (0, 5)])
+def test_cg_kernels_bf16_match_plain(dev, offsets):
+    """K2 and K3 on bf16 views 0-7 elements off 16-byte alignment (alike,
+    and against each other), a ragged length, a frozen lane and a closed
+    gate: within 1 bf16 ulp of the plain version, the norms (f32, of the
+    unrounded r') 1e-5 relative, frozen lanes and closed gates bitwise,
+    each single-RHS slice equal to its row of the batch."""
+    from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
+    from repro_torch.kernels.cg_fused.ref import cg_update_ref, cg_xpay_ref
+    length = 12345
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bufs = [torch.randn(3 * length + 16, generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(4)]
+    x, r, p, ap = (buf[o:o + 3 * length].view(3, length)
+                   for buf, o in zip(bufs, offsets + offsets))
+    alpha = torch.tensor([0.4, 0.0, -0.9], device=dev)
+    kernels.reset_counts()
+    xo, ro, rs = cg_update(alpha, x, r, p, ap)
+    xr, rr, rsr = cg_update_ref(alpha, x, r, p, ap)
+    _bf16_within_one_ulp(xo, xr)
+    _bf16_within_one_ulp(ro, rr)
+    assert rs.dtype == torch.float32
+    assert float(((rs - rsr).abs() / rsr).max()) <= 1e-5
+    assert torch.equal(xo[1], x[1]) and torch.equal(ro[1], r[1])
+    beta = torch.tensor([0.5, 0.25, 2.0], device=dev)
+    gate = torch.tensor([True, False, True], device=dev)
+    for g in (None, gate):
+        po = cg_xpay(beta, r, p, g)
+        _bf16_within_one_ulp(po, cg_xpay_ref(beta, r, p, g))
+        if g is not None:
+            assert torch.equal(po[1], p[1])
+        for i in range(3):
+            single = cg_xpay(beta[i:i + 1], r[i:i + 1], p[i:i + 1],
+                             None if g is None else g[i:i + 1])
+            assert torch.equal(single[0], po[i])
+    for i in range(3):
+        sx, sr, srs = cg_update(alpha[i:i + 1], x[i:i + 1], r[i:i + 1],
+                                p[i:i + 1], ap[i:i + 1])
+        assert torch.equal(sx[0], xo[i]) and torch.equal(sr[0], ro[i])
+        assert torch.equal(srs[0], rs[i])
+    c = kernels.counts()
+    assert c["cg_update_bf16"]["launches"] == 4
+    assert c["cg_xpay_bf16"]["launches"] == 8
+    assert c["cg_update"]["launches"] == c["cg_xpay"]["launches"] == 0
+
+
+# the mixed goldens (4^4, seed 7, mass 0.1, tol 1e-6), inner counts
+# within 2 of JAX's pallas-backend twin, outer counts equal
+MIXED_GOLDENS = [
+    ("eo-schur", "mixed", "wilson", 0.0, None, [15], 4),
+    ("eo-schur", "mixed", "twisted-mass", 0.25, None, [15], 4),
+    ("full", "mixed", "wilson", 0.0, None, [35], 5),
+    ("full", "mixed", "wilson", 0.0, 4, [33, 33, 35, 33], 5),
+    ("full", "low", "wilson", 0.0, None, [27], 1)]
+
+
+@pytest.mark.parametrize("case", MIXED_GOLDENS,
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[4]}")
+def test_mixed_golden_solves_through_the_kernels(dev, case):
+    operator, precision, family, mu, nrhs, golden, outer = case
+    with np.load(GOLDEN) as f:
+        u, b = tl.fields_from_numpy(f["gauge"], f["b_batch"] if nrhs
+                                    else f["b"], device=dev)
+    plan = plan_mod.SolverPlan(operator=operator, precision=precision,
+                               operator_family=family, mu=mu, nrhs=nrhs)
+    kernels.reset_counts()
+    _, st = plan_mod.solve(plan, u, b, 0.1, tol=1e-6, device=dev)
+    its = st.rhs_iterations.tolist() if nrhs else [st.iterations]
+    assert all(abs(i - g) <= 2 for i, g in zip(its, golden)), its
+    assert st.outer_iterations == outer
+    verified = torch.atleast_1d(st.verified)
+    assert bool(verified.all()) == (precision == "mixed")
+    k, o = st.iterations, st.outer_iterations
+    c = kernels.counts()
+    if operator == "eo-schur":
+        want = {"wilson_hop_bf16": 4 * k, "wilson_hop": 4 * o + 4,
+                "cg_update_bf16": k, "cg_xpay_bf16": k}
+    elif precision == "mixed":
+        want = {"wilson_full_bf16": 2 * k, "wilson_full": 2 * o + 1}
+    else:
+        want = {"wilson_full_bf16": 2 * k, "wilson_full": 1}
+    for name, v in c.items():
+        assert v == {"launches": want.get(name, 0), "plain_calls": 0}, name

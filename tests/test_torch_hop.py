@@ -318,13 +318,15 @@ def test_schur_normal_op_is_four_hops_for_any_n(packed, n, twist):
 
 
 def test_full_lattice_entry_points_name_their_roadmap_item():
-    # the full-lattice kernel takes float32; bf16 storage is mixed
-    # precision's (ROADMAP A8)
-    up = torch.zeros(4, 4, 4, 4, 18, 4, dtype=torch.bfloat16)
-    pp = torch.zeros(4, 4, 4, 24, 4, dtype=torch.bfloat16)
+    # the full-lattice kernel stores float32 or bf16 (mixed precision,
+    # ROADMAP A8, done); float16 storage is ROADMAP Queue B item 9
+    up = torch.zeros(4, 4, 4, 4, 18, 4, dtype=torch.float16)
+    pp = torch.zeros(4, 4, 4, 24, 4, dtype=torch.float16)
     for fn in (tops.dslash, tops.normal_op):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="Queue B item 9"):
             fn(up, pp, 0.1)
+    for fn in (tops.dslash, tops.normal_op):   # bf16 in, bf16 out
+        assert fn(up.bfloat16(), pp.bfloat16(), 0.1).dtype == torch.bfloat16
     with pytest.raises(ValueError, match="which"):
         tops.hop_block(None, None, None, which="ee")
 

@@ -138,12 +138,26 @@ def test_maxiter_verdict(problem):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("precision", "mixed", "item 8"),
-    ("precision", "low", "item 8"), ("solver", "pipecg", "item 9"),
-    ("solver", "blockcg", "item 9"), ("mesh", object(), "item 12")])
+    ("solver", "pipecg", "item 9"), ("solver", "blockcg", "item 9"),
+    ("mesh", object(), "item 12")])
 def test_plan_fields_outside_the_slice_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         tplan.SolverPlan(**{field: value})
+
+
+@pytest.mark.parametrize("precision,operator,golden", [
+    ("mixed", "eo-schur", 15), ("low", "full", 27)])
+def test_mixed_and_low_plans_solve(problem, precision, operator, golden):
+    """The plans that raised before mixed precision was ported now solve
+    (the counts and contracts are held against JAX in test_torch_mixed.py):
+    mixed converges and verifies, low (cg16) converges in bf16 and is
+    unverified by design."""
+    x, st = _port(problem, problem["bt"], precision=precision,
+                  operator=operator)
+    assert st.iterations == golden
+    assert int(st.verdict) == solvers.CONVERGED
+    assert bool(st.verified) == (precision == "mixed")
+    assert x.dtype == torch.complex64 and bool(torch.isfinite(x).all())
 
 
 @pytest.mark.parametrize("kw,item", [(dict(checkpoint=object()), "item 10"),
@@ -180,11 +194,13 @@ def test_cli_defaults_to_the_card():
 
 
 def test_cli_on_cpu(capsys):
+    eo_f32 = ["--parity", "eo", "--solver", "cgnr"]
     assert cli.main(["--lattice", "4x4x4x4", "--nrhs", "2", "--device",
-                     "cpu", "--mass", "0.1"]) == 0
+                     "cpu", "--mass", "0.1", *eo_f32]) == 0
     out = capsys.readouterr().out
     assert "per-RHS iterations" in out and "verdict" in out
+    assert "operator=eo-schur" in out and "precision=single" in out
     assert cli.main(["--lattice", "4x4x4x4", "--device", "cpu",
                      "--operator", "twisted-mass", "--mu", "0.25",
-                     "--backend", "reference"]) == 0
+                     "--backend", "reference", *eo_f32]) == 0
     assert "verdict: converged verified=True" in capsys.readouterr().out
