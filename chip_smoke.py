@@ -35,7 +35,14 @@ instances, f32 reliable updates), and the full lattice's all-bf16 cg16
    instances), 4x4x22x16, 4x4x6x5, 2x2x2x348, 2x2x2x464, 2x2x2x928 (in
    place) and misaligned bases, K2 at N = 1 and 3 with a frozen RHS, K3
    gated and ungated on misaligned views; batched equal to single
-   launches bitwise;
+   launches bitwise.  K1's even Xh and K4's X = 32 run the Wilson
+   kernels' bf16 pair instances (two sites a thread, each component of
+   both read as one 32-bit word), other widths and bases 2 bytes off
+   4-byte alignment the one-site instances; the pair counts say which
+   ran.  At
+   16^3 x 32 each pair instance is held bitwise against its one-site
+   instance (the same inputs, copied 2 bytes off alignment) for every
+   flag set;
 3. goldens: the committed 4^4 seed-7 fixture solved through the kernels
    (even-odd: 14 iterations Wilson, 13 twisted mass mu = 0.25, 14 for
    each of 4 batched RHS; full lattice: 27 in each case), and against
@@ -56,7 +63,8 @@ instances, f32 reliable updates), and the full lattice's all-bf16 cg16
    a verified solution beside the f32 solve's of the same path.  Each
    solve has every count set to 0 just before it; it must converge and
    verify with a true relative residual below 10 tol, launch no other
-   kernel and call no plain version;
+   kernel and call no plain version; every bf16 Wilson launch of these
+   32^3 x 64 solves must run the pair instance;
 5. timings at the main path's shapes: each kernel's median time over
    CUDA events, one call per event pair (``ms``, which includes the
    wrapper's host latency before the launch) and per call over ten
@@ -65,7 +73,9 @@ instances, f32 reliable updates), and the full lattice's all-bf16 cg16
    on the same inputs, beside the plain version's time, its bound and,
    for the ungated xpay, one library call computing the same function,
    timed both ways; the bf16 instances likewise, against their bounds at
-   2 bytes a real (K3 against ``torch.addcmul`` on bf16);
+   2 bytes a real (K3 against ``torch.addcmul`` on bf16), the Wilson
+   kernels' labelled with the instance they ran, beside the pair
+   kernels' registers and spills from the compiler's report;
 6. one traced single-RHS Wilson solve of each path, the 4-RHS
    full-lattice solve and the mixed single-RHS solve of each path
    (``torch.profiler``): device time by kernel and the card's idle share
@@ -73,7 +83,8 @@ instances, f32 reliable updates), and the full lattice's all-bf16 cg16
 
 Any failure raises; no phase's error is caught.  The last line is the
 JSON object ``{"ok": true, "device": {...}}``; the line before it lists
-the kernels, the bf16 instances as ``<kernel>_bf16``.  Exits non-zero without printing a result when there is no
+the kernels, the bf16 instances as ``<kernel>_bf16`` (with the Wilson
+kernels' instance).  Exits non-zero without printing a result when there is no
 CUDA device or the port's sources are missing.
 """
 
@@ -273,16 +284,78 @@ def check_hop(dev, gen, dims, dtype=torch.float32) -> float:
     return worst
 
 
-def off_by_one_float(v: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``v`` whose data starts 4 bytes (one float, two
-    bf16) past a 16-byte boundary (a view into a larger buffer)."""
-    k = 4 // v.element_size()
+def off_by_one_float(v: torch.Tensor, nbytes: int = 4) -> torch.Tensor:
+    """A contiguous copy of ``v`` whose data starts ``nbytes`` bytes (4: one
+    float, two bf16) past a 16-byte boundary (a view into a larger
+    buffer)."""
+    k = nbytes // v.element_size()
     buf = torch.empty(v.numel() + 16, dtype=v.dtype, device=v.device)
     out = buf[k:k + v.numel()].view(v.shape)
     out.copy_(v)
-    check(out.is_contiguous() and out.data_ptr() % 16 == 4,
-          "off_by_one_float: view not 4 bytes off alignment")
+    check(out.is_contiguous() and out.data_ptr() % 16 == nbytes,
+          f"off_by_one_float: view not {nbytes} bytes off alignment")
     return out
+
+
+def pair_launches() -> dict:
+    from repro_torch import kernels
+    return kernels.pair_launches()
+
+
+def check_pairs(dev, gen, dims) -> dict:
+    """The bf16 pair instances of K1 and K4 against their one-site
+    instances, bitwise, for every flag set at N = 3: the pair instance on
+    the fields as allocated, the one-site instance on copies of the
+    spinors 2 bytes off 4-byte alignment; each launch's instance read from
+    the pair counts.  Returns the launches of each instance."""
+    from repro_torch.core import lattice as tl
+    from repro_torch.kernels.wilson_dslash.kernel import (wilson_full,
+                                                          wilson_hop)
+    upe, upo, psi, acc = random_packed(gen, dims, 3, BF16)
+    psi2, acc2 = off_by_one_float(psi, 2), off_by_one_float(acc, 2)
+    ran = {"pair": 0, "one-site": 0}
+
+    def both(name, pair_call, one_call, what):
+        before = pair_launches()[name]
+        out = pair_call()
+        check(pair_launches()[name] == before + 1,
+              f"{what}: the pair instance did not run")
+        one = one_call()
+        check(pair_launches()[name] == before + 1,
+              f"{what}: the one-site instance did not run")
+        check(torch.equal(out, one), f"{what}: pair and one-site instances "
+                                     "differ")
+        ran["pair"] += 1
+        ran["one-site"] += 1
+
+    for parity, g5in, g5out, has_acc, twist in itertools.product(
+            (0, 1), (False, True), (False, True), (False, True),
+            (False, True)):
+        u_out, u_nbr = (upe, upo) if parity == 0 else (upo, upe)
+        kw = dict(parity=parity, gamma5_in=g5in, gamma5_out=g5out,
+                  hop_coeff=-0.3 if (has_acc or twist) else 1.0,
+                  hop_twist=0.2 if twist else 0.0,
+                  acc_coeff=1.7 if has_acc else 0.0,
+                  acc_twist=-0.4 if (has_acc and twist) else 0.0)
+        both("wilson_hop_bf16",
+             lambda: wilson_hop(u_out, u_nbr, psi,
+                                psi_acc=acc if has_acc else None, **kw),
+             lambda: wilson_hop(u_out, u_nbr, psi2,
+                                psi_acc=acc2 if has_acc else None, **kw),
+             f"wilson_hop bf16 {dims} {kw} has_acc={has_acc}")
+    lat = tl.LatticeShape(*dims)
+    up = tl.pack_gauge(tl.random_gauge(gen, lat), BF16)
+    pp = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                     for _ in range(3)]), BF16)
+    pp2 = off_by_one_float(pp, 2)
+    for g5in, g5out, twist in itertools.product((False, True),
+                                                (False, True), (0.0, MU)):
+        kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
+        both("wilson_full_bf16", lambda: wilson_full(up, pp, MASS, **kw),
+             lambda: wilson_full(up, pp2, MASS, **kw),
+             f"wilson_full bf16 {dims} {kw}")
+    torch.cuda.synchronize()
+    return ran
 
 
 def check_full(dev, gen, dims, misaligned: str = "",
@@ -463,7 +536,7 @@ def check_cg_bf16(dev, gen) -> tuple[float, float]:
 
 def solve_counted(plan, u, b, dev, layout="natural"):
     """One solve with every count set to 0 just before and read just after;
-    returns (x, stats, counts, wall seconds, peak bytes)."""
+    returns (x, stats, counts, pair launches, wall seconds, peak bytes)."""
     from repro_torch import kernels
     from repro_torch.core import plan as plan_mod
     torch.cuda.synchronize()
@@ -475,7 +548,8 @@ def solve_counted(plan, u, b, dev, layout="natural"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.counts()
-    return x, st, counts, wall, torch.cuda.max_memory_allocated(dev)
+    return (x, st, counts, kernels.pair_launches(), wall,
+            torch.cuda.max_memory_allocated(dev))
 
 
 def want_launches(plan, st, layout="natural") -> dict:
@@ -549,7 +623,7 @@ def goldens(dev):
              [FULL_GOLDEN]),
             ("full_batch_n4", SP(operator="full", nrhs=4), batch,
              [FULL_GOLDEN] * 4)):
-        x, st, counts, _, _ = solve_counted(plan, u, rhs, dev)
+        x, st, counts, _, _, _ = solve_counted(plan, u, rhs, dev)
         its = (st.rhs_iterations.tolist() if plan.batched
                else [st.iterations])
         check(its == want, f"golden {name}: iterations {its}, want {want}")
@@ -566,8 +640,8 @@ def goldens(dev):
         out[name] = its
     for name, kw, batched, want, outer in MIXED_GOLDENS:
         plan = SP(**kw)
-        x, st, counts, _, _ = solve_counted(plan, u, batch if batched else b,
-                                            dev)
+        x, st, counts, pairs, _, _ = solve_counted(
+            plan, u, batch if batched else b, dev)
         its = st.rhs_iterations.tolist() if batched else [st.iterations]
         check(len(its) == len(want)
               and all(abs(i - w) <= 2 for i, w in zip(its, want))
@@ -577,7 +651,8 @@ def goldens(dev):
         check_solve(name, st, rel_res(st, batch if batched else b, batched),
                     verified=plan.precision == "mixed")
         check_launches(name, st, counts, plan)
-        out[name] = dict(inner=its, outer=st.outer_iterations)
+        out[name] = dict(inner=its, outer=st.outer_iterations,
+                         pair_launches=pairs)
     return out
 
 
@@ -616,11 +691,15 @@ def main_path(dev):
         gauge = u
         if layout == "packed":
             gauge, rhs = tl.pack_gauge(u), tl.pack_spinor(rhs)
-        x, st, counts, wall, peak = solve_counted(plan, gauge, rhs, dev,
-                                                  layout)
+        x, st, counts, pairs, wall, peak = solve_counted(plan, gauge, rhs,
+                                                         dev, layout)
         rel = rel_res(st, rhs, plan.batched)
         check_solve(name, st, rel, verified=plan.precision != "low")
         check_launches(name, st, counts, plan, layout)
+        for kern, n in pairs.items():   # the pair instances only
+            check(n == counts[kern]["launches"],
+                  f"{name}: {kern} ran its pair instance {n} of "
+                  f"{counts[kern]['launches']} times")
         its = st.rhs_iterations.tolist() if plan.batched else [st.iterations]
         log(f"main path {name}: iterations {its} (loop {st.iterations}, "
             f"outer {st.outer_iterations}), true rel_res "
@@ -631,7 +710,8 @@ def main_path(dev):
                           outer=st.outer_iterations, rel=rel, wall_s=wall,
                           peak_bytes=peak,
                           launches={k: v["launches"]
-                                    for k, v in counts.items()})
+                                    for k, v in counts.items()},
+                          pair_launches=pairs)
         del x, st, gauge
     # time to a solution, mixed against f32 on the same path and RHS
     for mixed, single in (("eo_mixed_n1", "wilson_n1"),
@@ -662,6 +742,31 @@ def bound(nbytes: float, flops: float, bw: float) -> dict:
             "model_bytes": nbytes, "model_flops": flops}
 
 
+def instance_label(dtype, name: str, before: int) -> str:
+    """", pair instance" or ", one-site instance" for a bf16 Wilson call
+    just made (the pair count was ``before``), "" for f32."""
+    if dtype != BF16:
+        return ""
+    ran = pair_launches()[name] - before
+    return ", pair instance" if ran else ", one-site instance"
+
+
+def ptxas_pairs(name: str) -> list[str]:
+    """The compiler's registers and spills for each pair kernel instance
+    of csrc/<name>.cu, from its build log."""
+    from repro_torch.kernels import build
+    out, func = [], None
+    for line in build.build_log(name).splitlines():
+        if "Function properties for" in line:
+            func = line.split(" for ", 1)[1].strip()
+        elif func and "_pair_kernel" in func and (
+                "registers" in line or "spill" in line):
+            # the template arguments: g5in, g5out, staged (and X for K4)
+            args = func.split("_pair_kernelI", 1)[1].split("EEEv", 1)[0]
+            out.append(f"<{args}>: {line.strip()}")
+    return out
+
+
 def time_hop(u, b, batch, bw, n, dtype=torch.float32):
     from repro_torch.core import lattice as tl
     from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
@@ -681,7 +786,9 @@ def time_hop(u, b, batch, bw, n, dtype=torch.float32):
     m = MASS + 4.0
     kw = dict(parity=0, gamma5_out=True, psi_acc=pe, acc_coeff=m,
               hop_coeff=-1.0 / m)
+    before = pair_launches()["wilson_hop_bf16"]
     out = wilson_hop(upe, upo, po, **kw)
+    instance = instance_label(dtype, "wilson_hop_bf16", before)
     ref = wilson_hop_ref(upe, upo, po, **kw)
     err = agree(out, ref, f"wilson_hop {dtype} main shape N={n}")
     del out, ref
@@ -695,7 +802,7 @@ def time_hop(u, b, batch, bw, n, dtype=torch.float32):
     nbytes = sites * ((144 + 48 * n) * es + 24 * es * n)
     return dict(**ms, plain_ms=plain_ms, library_ms=None,
                 max_abs_err=err, shape=f"N={n} half field "
-                f"{tuple(po.shape)} {dtype}, has_acc",
+                f"{tuple(po.shape)} {dtype}, has_acc{instance}",
                 **bound(nbytes, HOP_FLOPS_PER_SITE * sites * n, bw))
 
 
@@ -707,7 +814,9 @@ def time_full(u, b, batch, bw, n, dtype=torch.float32):
     pp = tl.pack_spinor(b if n == 1 else batch, dtype)
     # the normal operator's second launch: D^dag with both gamma5 flags
     kw = dict(gamma5_in=True, gamma5_out=True)
+    before = pair_launches()["wilson_full_bf16"]
     out = wilson_full(up, pp, MASS, **kw)
+    instance = instance_label(dtype, "wilson_full_bf16", before)
     ref = wilson_full_ref(up, pp, MASS, **kw)
     err = agree(out, ref, f"wilson_full {dtype} main shape N={n}")
     del out, ref
@@ -722,7 +831,8 @@ def time_full(u, b, batch, bw, n, dtype=torch.float32):
     nbytes = sites * (72 + 48 * n) * es
     model_bytes = sites * (144 + 48 * n) * es
     return dict(**ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
-                shape=f"N={n} field {tuple(pp.shape)} {dtype}, dagger",
+                shape=f"N={n} field {tuple(pp.shape)} {dtype}, dagger"
+                f"{instance}",
                 bound_ms_intensity_model=model_bytes / PEAK_BYTES_PER_S * 1e3,
                 bound_ms_intensity_model_measured_bw=model_bytes / bw * 1e3,
                 **bound(nbytes, HOP_FLOPS_PER_SITE * sites * n, bw))
@@ -873,6 +983,8 @@ def main() -> int:
     check(not wk.hop_bulk(2, *wk.hop_tile_plan(4, 2, 2)[1:], 2)
           and wk.hop_bulk(16, *wk.hop_tile_plan(32, 16, 2)[1:], 2),
           "bf16 K1 staging: plain loads at Xh = 2, TMA at Xh = 16")
+    from repro_torch import kernels
+    kernels.reset_counts()
     errs["wilson_hop_bf16"] = max(check_hop(dev, gen, dims, BF16) for dims in (
         (8, 8, 8, 8), (4, 6, 8, 16), (4, 4, 4, 4), (4, 4, 6, 6),
         (4, 4, 22, 8), (2, 2, 2, 348), (2, 2, 2, 700)))
@@ -883,6 +995,19 @@ def main() -> int:
             (2, 2, 2, 348), (2, 2, 2, 464), (2, 2, 2, 928))]
         + [check_full(dev, gen, (4, 4, 6, 8), which, BF16)
            for which in ("psi", "gauge")])
+    # the bf16 Wilson checks above: even Xh (K1) and X = 32 (K4) ran the
+    # pair instances, the other shapes the one-site instances
+    c, pairs = kernels.counts(), kernels.pair_launches()
+    for name in pairs:
+        n = c[name]["launches"]
+        check(0 < pairs[name] < n, f"bf16 checks: {name} ran its pair "
+                                   f"instance {pairs[name]} of {n} times")
+        log(f"bf16 checks: {name} pair instance {pairs[name]} of {n} "
+            "launches, one-site the rest")
+    # each pair instance bitwise against its one-site instance (at 16^3 x
+    # 32 a different rounding would show in a few hundred bf16 entries)
+    log("pair against one-site, bitwise: "
+        + json.dumps(check_pairs(dev, gen, (16, 16, 16, 32))))
     log("kernels: " + json.dumps({k: {"max_abs_err": v}
                                   for k, v in errs.items()}))
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
@@ -897,6 +1022,8 @@ def main() -> int:
     base = ("wilson_hop", "cg_update", "cg_xpay", "wilson_full")
     names = base + tuple(f"{k}_bf16" for k in base)
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in names}
+    pair_total = {k: sum(r["pair_launches"][k] for r in runs.values())
+                  for k in ("wilson_hop_bf16", "wilson_full_bf16")}
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 5: timings at the main path's shapes
@@ -927,6 +1054,9 @@ def main() -> int:
                     f"({v['bound_ms_intensity_model_measured_bw']:.4f} ms "
                     "at the measured copy rate)")
 
+    for name in ("wilson_hop", "wilson_full"):
+        for line in ptxas_pairs(name):
+            log(f"  ptxas {name} pair instance {line}")
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 6: one traced solve of each path
@@ -974,6 +1104,7 @@ def main() -> int:
             "ms_back_to_back": t["ms_back_to_back"],
             "library_ms_back_to_back": t.get("library_ms_back_to_back"),
             "shape": t["shape"],
+            "pair_launches": pair_total.get(name),
             "batched": {k: timings[4][name][k] for k in
                         ("ms", "ms_back_to_back", "plain_ms", "bound_ms",
                          "library_ms", "shape")}})

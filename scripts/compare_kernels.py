@@ -12,7 +12,8 @@ its own ``kernels/build.py`` and is called through its own public wrappers
 ``wilson_hop``, ``cg_xpay`` and ``wilson_full``; their C interfaces may
 differ between the versions.
 
-Cases, on the 32^3 x 64 lattice, for each storage type of ``--dtype``
+Cases, on the 32^3 x 64 lattice (or ``--dims``), for each storage type
+of ``--dtype``
 (float32, bfloat16): K1 ``wilson_hop`` at N = 1 and 4 (the Schur
 operator's second launch: parity 0, gamma5_out, the accumulator), K2
 ``cg_update`` at N = 1 and 4, K3 ``cg_xpay`` at N = 1 (no gate, with
@@ -20,14 +21,19 @@ operator's second launch: parity 0, gamma5_out, the accumulator), K2
 ``wilson_full`` at N = 1 and 4 (the normal operator's dagger launch).
 float32: the old result is held against the new one (and K2/K3 against
 the plain version) before anything is timed, and each of ``--turns``
-turns times old, new, new, old.  bfloat16, which an earlier version may
-not have: the new kernel is held against its plain version (at most 1
-bf16 ulp, as ``chip_smoke.py`` holds it) and each turn times it twice.
-Every timing is taken both ways ``chip_smoke.py`` times a kernel
-(``ms``: one call per CUDA event pair; ``ms_back_to_back``: ten calls
-per pair).  With ``--rows`` the current K1, with ``--full-rows`` the
-current K4, is also timed at other tile heights (float32).  Prints the
-card's name and power limit, then one JSON object as its last line.
+turns times old, new, new, old.  bfloat16: where the earlier version has
+bf16 instances, the old result is held against the new one bitwise and
+each turn times old, new, new, old; where it has none, the new kernel is
+held against its plain version (at most 1 bf16 ulp, as
+``chip_smoke.py`` holds it) and each turn times it twice.  Each bf16
+Wilson case records the instance it ran (``pair``: two sites a thread,
+or ``one-site``).  Every timing is taken both ways ``chip_smoke.py``
+times a kernel (``ms``: one call per CUDA event pair;
+``ms_back_to_back``: ten calls per pair).  With ``--rows`` the current
+K1, with ``--full-rows`` the current K4, is also timed at other tile
+heights (each storage type, each height checked bitwise against the
+plan's).  Prints the card's name and power limit, then one JSON object
+as its last line.
 """
 
 from __future__ import annotations
@@ -35,7 +41,9 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import re
 import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -82,6 +90,39 @@ def ptxas(build) -> dict:
                    if "registers" in ln or "spill" in ln
                    or "Function properties" in ln]
             for name in build.sources()}
+
+
+def sass(build, names=("wilson_hop", "wilson_full")) -> dict:
+    """Static SASS opcode counts of each kernel function of the current
+    libraries of ``names`` (``cuobjdump -sass``, from the toolkit beside
+    ``nvcc``): the loads and stores by kind and the instructions in all;
+    the Wilson kernels' loop bodies are straight-line code, so these are
+    the instructions one pass (one or two sites a thread) issues."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    out = {}
+    for name in names:
+        text = subprocess.run(
+            [str(tool), "-sass", str(build._target(name))],
+            capture_output=True, text=True, check=True).stdout
+        func = None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                func = m.group(1)
+                out[func] = {"all": 0}
+                continue
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9]*)(\.\S*)?", line)
+            if func and m:
+                op, c = m.group(1), out[func]
+                c["all"] += 1
+                if op in ("LDG", "LDS", "STG", "LD"):  # with the width
+                    op += m.group(2) or ""
+                elif op not in ("PRMT", "FFMA", "FADD", "FMUL", "IMAD",
+                                "SHF", "LOP3"):
+                    continue
+                c[op] = c.get(op, 0) + 1
+    return out
 
 
 def turns(old, new, n_turns: int, extra=None) -> dict:
@@ -142,6 +183,10 @@ def main() -> int:
                     help="comma-separated K4 tile heights to time as well")
     ap.add_argument("--dtype", default="float32",
                     help="comma-separated storage types: float32, bfloat16")
+    ap.add_argument("--sass", action="store_true",
+                    help="also count the Wilson kernels' SASS opcodes")
+    ap.add_argument("--dims", default=",".join(map(str, cs.MAIN_DIMS)),
+                    help="the lattice T,Z,Y,X (even extents)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
@@ -164,32 +209,49 @@ def main() -> int:
     card = cs.smi()
     build.build_all()
     old["build"].build_all()
-    res = {"card": card, "turns": args.turns,
+    res = {"card": card, "turns": args.turns, "dims": args.dims,
            "ptxas_old": ptxas(old["build"]), "ptxas_new": ptxas(build)}
+    if args.sass:
+        res["sass_old"], res["sass_new"] = sass(old["build"]), sass(build)
 
-    lat = tl.LatticeShape(*cs.MAIN_DIMS)
+    lat = tl.LatticeShape(*map(int, args.dims.split(",")))
     u, b = lattice_problem(lat, seed=0, packed=False, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     batch = torch.stack([tl.random_spinor(gen, lat) for _ in range(4)])
 
     def versus(what, k_old, k_new, ref, exact=False):
-        """The old version (f32) or the plain version (bf16) against the
-        new one, before timing; returns the case's record to fill."""
+        """The old version against the new one (bf16: bitwise), or, where
+        the old version has no instance of the storage type, the plain
+        version (bf16, at most 1 ulp), before timing; returns the case's
+        record to fill."""
         new = k_new()
         if k_old is None:
             return dict(max_abs_err=cs.bf16_check(new, ref(), what))
         theirs = k_old()
         diff = cs.max_err(theirs, new)
+        exact = exact or new.dtype == torch.bfloat16
         check(diff <= (0.0 if exact else cs.HOP_TOL * cs.scale(new)),
               f"{what}: old and new differ by {diff}")
+        check(not exact or torch.equal(theirs, new),
+              f"{what}: old and new differ bitwise")
         return dict(max_abs_diff=diff,
                     bitwise_equal_old=torch.equal(theirs, new))
+
+    def instance(fn, call) -> str:
+        """The instance one bf16 call of a Wilson wrapper runs."""
+        build.zero_counts(fn)
+        call()
+        return "pair" if fn.launches_bf16_pair else "one-site"
+
+    # the earlier version's storage types
+    old_dtypes = getattr(old["build"], "STORAGE", {torch.float32: 0})
 
     for dname in dtypes:
         dtype = DTYPES[dname]
         f32 = dtype == torch.float32
         sfx = "" if f32 else "_bf16"
+        has_old = dtype in old_dtypes
         if "wilson_hop" in kernels:
             ue, uo = tl.split_eo_gauge(u)
             upe, upo = tl.pack_gauge(ue, dtype), tl.pack_gauge(uo, dtype)
@@ -209,21 +271,27 @@ def main() -> int:
                 kw = dict(parity=0, gamma5_out=True, psi_acc=pe,
                           acc_coeff=m, hop_coeff=-1.0 / m)
                 k_old = ((lambda: old["wilson_hop"](upe, upo, po, **kw))
-                         if f32 else None)
+                         if has_old else None)
                 k_new = lambda: wk.wilson_hop(upe, upo, po, **kw)
                 r = versus(f"K1 {dname} N={n}", k_old, k_new,
                            lambda: wilson_hop_ref(upe, upo, po, **kw))
+                if not f32:
+                    r["instance"] = instance(wk.wilson_hop, k_new)
                 r.update(turns(k_old, k_new, args.turns))
                 r["plan"] = list(wk.hop_tile_plan(po.shape[-3], po.shape[-1],
                                                   es))
-                if args.rows and f32:
-                    plan = wk.hop_tile_plan
+                if args.rows:
+                    plan, want = wk.hop_tile_plan, k_new()
                     r["rows_ms"] = {}
                     for rows in map(int, args.rows.split(",")):
                         wk.hop_tile_plan = (
                             lambda y, xh, es=4, rows=rows:
                             (rows, *plan(y, xh, es)[1:]))
                         try:
+                            # every tile height computes each site alike
+                            check(torch.equal(k_new(), want),
+                                  f"K1 {dname} N={n} b={rows} differs from "
+                                  "the plan's")
                             r["rows_ms"][rows] = cs.kernel_ms(k_new)
                         finally:
                             wk.hop_tile_plan = plan
@@ -241,7 +309,7 @@ def main() -> int:
                                  for _ in range(4))
                 alpha = torch.linspace(0.2, 0.8, n, device=dev)
                 k_old = ((lambda: old["cg_update"](alpha, x, rr, pp, ap)[1])
-                         if f32 else None)
+                         if has_old else None)
                 k_new = lambda: ck.cg_update(alpha, x, rr, pp, ap)[1]
                 new_rs = ck.cg_update(alpha, x, rr, pp, ap)[2]
                 ref_rs = cg_update_ref(alpha, x, rr, pp, ap)[2]
@@ -265,7 +333,7 @@ def main() -> int:
                 gate = (torch.ones(n, dtype=torch.bool, device=dev)
                         if n > 1 else None)
                 k_old = ((lambda: old["cg_xpay"](beta, rr, pp, gate))
-                         if f32 else None)
+                         if has_old else None)
                 k_new = lambda: ck.cg_xpay(beta, rr, pp, gate)
                 if f32:
                     err = cs.max_err(k_new(), cg_xpay_ref(beta, rr, pp, gate))
@@ -286,14 +354,16 @@ def main() -> int:
                 pp = tl.pack_spinor(b if n == 1 else batch, dtype)
                 kw = dict(gamma5_in=True, gamma5_out=True)
                 k_old = ((lambda: old["wilson_full"](up, pp, cs.MASS, **kw))
-                         if f32 else None)
+                         if has_old else None)
                 k_new = lambda: wk.wilson_full(up, pp, cs.MASS, **kw)
                 r = versus(f"K4 {dname} N={n}", k_old, k_new,
                            lambda: wilson_full_ref(up, pp, cs.MASS, **kw))
+                if not f32:
+                    r["instance"] = instance(wk.wilson_full, k_new)
                 r.update(turns(k_old, k_new, args.turns))
                 r["plan"] = list(wk.full_tile_plan(pp.shape[-3],
                                                    pp.shape[-1], es))
-                if args.full_rows and f32:
+                if args.full_rows:
                     plan, want = wk.full_tile_plan, k_new()
                     r["rows_ms"] = {}
                     for rows in map(int, args.full_rows.split(",")):
@@ -303,8 +373,8 @@ def main() -> int:
                         try:
                             # every tile height computes each site alike
                             check(torch.equal(k_new(), want),
-                                  f"K4 N={n} b={rows} differs from the "
-                                  "plan's")
+                                  f"K4 {dname} N={n} b={rows} differs from "
+                                  "the plan's")
                             r["rows_ms"][rows] = cs.kernel_ms(k_new)
                         finally:
                             wk.full_tile_plan = plan

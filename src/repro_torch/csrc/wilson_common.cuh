@@ -33,7 +33,9 @@
 // solve's low operator), one type T per launch.  Every value is widened to
 // f32 where it is read into a register (`wide`), all arithmetic is f32, and
 // an output is rounded once, to nearest even, where it is stored
-// (`narrow`); staged rows stay in T in shared memory.
+// (`narrow`); staged rows stay in T in shared memory.  The bf16 pair
+// instances read two adjacent sites' values of a component as one 32-bit
+// word (`word`, `half`, `store_pair` below).
 
 #pragma once
 
@@ -62,6 +64,31 @@ __device__ __forceinline__ bf16 narrow<bf16>(float v) {
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
 __device__ __forceinline__ bf16 ldg(const bf16* p) {
   return __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// The bf16 pair instances of K1 and K4: a thread computes two adjacent sites
+// of a row and reads each component of both as one 32-bit word (p 4-byte
+// aligned), the lower site in the low half.  `half` widens one half of a
+// word, exactly as `wide` widens the element: a byte permute puts the
+// selected half in the high 16 bits of an f32 and zeroes the low ones.
+// Each site then runs the one-site hop code on its values (explicit fmaf
+// and adds, rounded alike in every instance), so with an epilogue that
+// rounds as the one-site kernel's does, a pair instance's outputs equal
+// the one-site instance's bitwise.
+constexpr unsigned LO = 0x1044u;  // the low half (the lower site)
+constexpr unsigned HI = 0x3244u;  // the high half
+__device__ __forceinline__ float half(unsigned w, unsigned sel) {
+  return __uint_as_float(__byte_perm(w, 0u, sel));
+}
+__device__ __forceinline__ unsigned word(const bf16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+__device__ __forceinline__ unsigned ldg_word(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned*>(p));
+}
+// Two sites' outputs, each rounded once to nearest even, as one word.
+__device__ __forceinline__ void store_pair(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
 // gamma_mu[row] has one nonzero, i^gamma_k at column gamma_col; mu in

@@ -63,7 +63,16 @@
 //    spinors are read as stored, half the bytes, and widened to f32 where a
 //    thread reads them (wilson_common.cuh); the sums and the site term are
 //    f32 and each output is rounded once on its store.  The f32 instances
-//    are the same code with ST = float.
+//    are the same code with ST = float.  Read one bf16 element at a time,
+//    that code issues as many loads as the f32 one for half the bytes,
+//    and its time followed the loads, not the bytes (PERF.md); so at
+//    X = 32 with 4-byte aligned bases bf16 runs a pair instance instead
+//    (wilson_full_pair_kernel): a thread owns two adjacent sites, reads
+//    each component of both as one 32-bit word (half the loads), keeps the
+//    128-thread block with twice the sites a tile (b = 8) and computes
+//    each site with the one-site code, so its outputs equal the one-site
+//    instance's bitwise.  Other widths and misaligned bases keep the
+//    one-site instance (a shape rule, kernel.py::full_pair).
 //  The host (kernels/wilson_dslash/kernel.py::full_tile_plan) picks b and
 //  the shared-memory row stride; the same plan drives the CPU tests'
 //  emulation.  Offsets are 64-bit: an N = 4 field at 32^3 x 64 holds
@@ -72,6 +81,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "stage.cuh"
 #include "wilson_common.cuh"
@@ -293,21 +303,155 @@ wilson_full_kernel(const FullArgs<ST> a) {
   }
 }
 
+// The bf16 pair instance (X = 32, staged links, 4-byte aligned bases):
+// one thread per two sites (x, x + 1) of the tile, x even, all N
+// right-hand sides.  Every component of the two sites is one 32-bit word,
+// read once, whose halves feed the one-site hop code (hop_site) once per
+// site; the X hops read the unaligned pairs from the two aligned words
+// around them (the forward neighbours x + 1, x + 2 are the high half of
+// the pair's own word and the low half of the next pair's; the backward
+// ones x - 1, x the high half of the previous pair's and the low half of
+// its own; the backward X link likewise), wrapping at the row's ends.  The
+// outputs are stored a word at a time.  The staging is the one-site
+// kernel's.  Two sites' 48 sums fit three 128-thread blocks an SM only
+// with X compile time (168 registers, 56 bytes spilled); with X a runtime
+// value the same code took 255 registers and spilled 256-672 bytes, and
+// at X = 48 ran slower than the one-site instance (PERF.md), so other
+// widths keep that one.
+template <bool G5IN, bool G5OUT>
+__global__ void __launch_bounds__(FULL_THREADS, 3)
+wilson_full_pair_kernel(const FullArgs<wilson::bf16> a) {
+  using wilson::bf16;
+  using wilson::HI;
+  using wilson::LO;
+  using wilson::half;
+  constexpr int X = 32, H = X / 2, ls = G * X;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = a.rows;
+  const Tile tl = make_tile(a, blockIdx.x);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  bf16* sl = reinterpret_cast<bf16*>(smem_raw + 16);  // 6 b + 1 link rows
+  if (a.bulk) {
+    if (threadIdx.x == 0) mbar_init(bar);
+    __syncthreads();
+  }
+  stage_links(a, tl, sl, bar);
+  if (a.bulk)
+    mbar_wait(bar, 0);
+  else
+    __syncthreads();
+  const long field = (long)a.T * a.Z * a.Y * S * X;
+  const bool twisted = a.tw_hi != 0.f;
+  // a row's component k at site xx, the half `sel` of the word at xx (even):
+  // spinors through L1, links from shared memory
+  auto at = [](const bf16* row, int xx, unsigned sel) {
+    return [row, xx, sel](int k) {
+      return half(wilson::ldg_word(row + xx + k * X), sel);
+    };
+  };
+  auto lk = [](const bf16* row, int xx, unsigned sel) {
+    return [row, xx, sel](int k) {
+      return half(wilson::word(row + xx + k * X), sel);
+    };
+  };
+  for (int w = threadIdx.x; w < tl.nb * H; w += blockDim.x) {
+    const int r = w / H, x = 2 * (w - r * H);
+    const int y = tl.y0 + r;
+    const int yp = wrap(y + 1, a.Y), ym = wrap(y - 1, a.Y);
+    // the next and the previous pair
+    const int xp = x + 2 == X ? 0 : x + 2, xm = x == 0 ? X - 2 : x - 2;
+    // link rows: u_t, u_t(t-1), u_z, u_z(z-1), u_x (g = 0..4), u_y at y - 1
+    // and y (g = 5, 6)
+    auto link = [&](int g) -> const bf16* {
+      return sl + (g < 5 ? g * b + r : 5 * b + r + g - 5) * ls;
+    };
+    const long here = srow(a, tl.t, tl.z, y);
+    for (int n = 0; n < a.N; ++n) {
+      const bf16* p = a.psi + n * field;
+      float o_r[2][3][4], o_i[2][3][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int s = 0; s < 4; ++s) o_r[h][c][s] = o_i[h][c][s] = 0.f;
+      // site x + h: the same hops in the same order as the one-site
+      // kernel; site 1 reads the words site 0 read
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned sel = h ? HI : LO;
+        const int xf = h ? xp : x, xb = h ? x : xm;  // words of x+h+1, x+h-1
+        const unsigned sf = h ? LO : HI, sb = h ? LO : HI;
+        hop_site<0, true, G5IN, G5OUT>(o_r[h], o_i[h], at(p + srow(a, tl.tp, tl.z, y), x, sel), lk(link(0), x, sel));
+        hop_site<0, false, G5IN, G5OUT>(o_r[h], o_i[h], at(p + srow(a, tl.tm, tl.z, y), x, sel), lk(link(1), x, sel));
+        hop_site<1, true, G5IN, G5OUT>(o_r[h], o_i[h], at(p + srow(a, tl.t, tl.zp, y), x, sel), lk(link(2), x, sel));
+        hop_site<1, false, G5IN, G5OUT>(o_r[h], o_i[h], at(p + srow(a, tl.t, tl.zm, y), x, sel), lk(link(3), x, sel));
+        hop_site<2, true, G5IN, G5OUT>(o_r[h], o_i[h], at(p + srow(a, tl.t, tl.z, yp), x, sel), lk(link(6), x, sel));
+        hop_site<2, false, G5IN, G5OUT>(o_r[h], o_i[h], at(p + srow(a, tl.t, tl.z, ym), x, sel), lk(link(5), x, sel));
+        hop_site<3, true, G5IN, G5OUT>(o_r[h], o_i[h], at(p + here, xf, sf), lk(link(4), x, sel));
+        hop_site<3, false, G5IN, G5OUT>(o_r[h], o_i[h], at(p + here, xb, sb), lk(link(4), xb, sb));
+      }
+
+      // epilogue: the one-site kernel's, per site, on the centre's words
+      bf16* o = a.out + n * field + here + x;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const float m = s < 2 ? a.m_hi : a.m_lo;
+        const float tw = s < 2 ? a.tw_hi : a.tw_lo;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const int k = (s * 3 + c) * 2;
+          const auto c0 = at(p + here, x, LO), c1 = at(p + here, x, HI);
+          float v_r[2], v_i[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float pr = h ? c1(k) : c0(k), pi = h ? c1(k + 1) : c0(k + 1);
+            float nr = m * pr, ni = m * pi;
+            if (twisted) {
+              nr -= tw * pi;
+              ni += tw * pr;
+            }
+            v_r[h] = nr + -0.5f * o_r[h][c][s];
+            v_i[h] = ni + -0.5f * o_i[h][c][s];
+          }
+          wilson::store_pair(o + k * X, v_r[0], v_r[1]);
+          wilson::store_pair(o + (k + 1) * X, v_i[0], v_i[1]);
+        }
+      }
+    }
+  }
+}
+
+// Launch one kernel instance; its opt-in for more than 48 KB of shared
+// memory is kept per instance.
+template <auto KERN, class A>
+cudaError_t run(const A& a, int blocks, int threads, size_t smem,
+                cudaStream_t s) {
+  static stage::SmemOptIn opt_in;
+  const cudaError_t err = opt_in.allow((const void*)KERN, smem);
+  if (err != cudaSuccess) return err;
+  KERN<<<blocks, threads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 template <class ST, bool G5IN, bool G5OUT, bool STAGED, int XC = 0>
 cudaError_t launch(const FullArgs<ST>& a, int blocks, int threads,
                    size_t smem, cudaStream_t s) {
-  auto kern = wilson_full_kernel<ST, G5IN, G5OUT, STAGED, XC>;
-  static stage::SmemOptIn opt_in;
-  const cudaError_t err = opt_in.allow((const void*)kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<blocks, threads, smem, s>>>(a);
-  return cudaGetLastError();
+  return run<wilson_full_kernel<ST, G5IN, G5OUT, STAGED, XC>>(
+      a, blocks, threads, smem, s);
+}
+
+template <bool G5IN, bool G5OUT>
+cudaError_t launch_pair(const FullArgs<wilson::bf16>& a, int blocks,
+                        int threads, size_t smem, cudaStream_t s) {
+  return run<wilson_full_pair_kernel<G5IN, G5OUT>>(a, blocks, threads, smem,
+                                                   s);
 }
 
 template <class ST>
 int full(const void* u, const void* psi, void* out, int T, int Z, int Y,
          int X, int N, int g5in, int g5out, int rows, int ls, float m_hi,
-         float m_lo, float tw_hi, float tw_lo, cudaStream_t s) {
+         float m_lo, float tw_hi, float tw_lo, cudaStream_t s, int* pair) {
   const bool staged = rows > 0;
   const int b = staged ? rows : 1;
   // bulk copies need 16-byte rows, strides and base (kernel.py::full_bulk)
@@ -334,6 +478,28 @@ int full(const void* u, const void* psi, void* out, int T, int Z, int Y,
   const bool x32 = staged && X == 32 && ls == G * 32;
   const int key = (g5in ? 1 : 0) | (g5out ? 2 : 0) | (staged ? 4 : 0) |
                   (x32 ? 8 : 0);
+  // the bf16 pair instance's rule (kernel.py::full_pair): the X = 32
+  // tiles, and every base 4-byte aligned, so that each pair of sites is
+  // one word
+  auto word = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 3u) == 0;
+  };
+  *pair = 0;
+  if constexpr (std::is_same_v<ST, wilson::bf16>) {
+    if (x32 && word(u) && word(psi) && word(out)) {
+      *pair = 1;
+      threads = b * X / 2;  // a thread per two sites
+      threads = threads < FULL_THREADS ? ((threads + 31) / 32) * 32
+                                       : FULL_THREADS;
+      switch (key & 3) {
+        case 0: err = launch_pair<false, false>(a, blocks, threads, smem, s); break;
+        case 1: err = launch_pair<true, false>(a, blocks, threads, smem, s); break;
+        case 2: err = launch_pair<false, true>(a, blocks, threads, smem, s); break;
+        default: err = launch_pair<true, true>(a, blocks, threads, smem, s); break;
+      }
+      return static_cast<int>(err);
+    }
+  }
   switch (key) {
     case 0: err = launch<ST, false, false, false>(a, blocks, threads, smem, s); break;
     case 1: err = launch<ST, true, false, false>(a, blocks, threads, smem, s); break;
@@ -363,17 +529,18 @@ const char* error_string(int code) {
 // rows, ls: the tile plan of kernel.py::full_tile_plan (rows == 0: the
 // links are read in place, nothing is staged; ls in elements); (m_hi,
 // m_lo, tw_hi, tw_lo): the folded site term; storage: 0 float32, 1 bf16,
-// for the field and the links.  Returns a cudaError_t code.
+// for the field and the links.  *pair is set to 1 when the bf16 pair
+// instance ran, else 0.  Returns a cudaError_t code.
 int wilson_full(const void* u, const void* psi, void* out, int T, int Z,
                 int Y, int X, int N, int g5in, int g5out, int rows, int ls,
                 float m_hi, float m_lo, float tw_hi, float tw_lo, int storage,
-                void* stream) {
+                void* stream, int* pair) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (storage == 1)
     return full<wilson::bf16>(u, psi, out, T, Z, Y, X, N, g5in, g5out, rows,
-                              ls, m_hi, m_lo, tw_hi, tw_lo, s);
+                              ls, m_hi, m_lo, tw_hi, tw_lo, s, pair);
   return full<float>(u, psi, out, T, Z, Y, X, N, g5in, g5out, rows, ls, m_hi,
-                     m_lo, tw_hi, tw_lo, s);
+                     m_lo, tw_hi, tw_lo, s, pair);
 }
 
 }  // extern "C"

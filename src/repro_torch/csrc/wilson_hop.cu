@@ -58,7 +58,16 @@
 //    of traffic, and widens each value to f32 where a thread reads it
 //    (wilson_common.cuh); the sums and the epilogue are f32 and each
 //    output is rounded once on its store.  The f32 instances are the same
-//    code with T = float;
+//    code with T = float.  Read one bf16 element at a time, that code
+//    issues as many shared loads as the f32 one for half the bytes and
+//    ran no faster (PERF.md); so at even Xh with 4-byte aligned bases bf16
+//    runs a pair instance instead (wilson_hop_pair_kernel): a work item is
+//    one colour of two adjacent sites, each component of both one 32-bit
+//    word of a staged row (half the loads), twice the sites a tile (b = 4
+//    at Xh = 16) for the same threads, and each site computed with the
+//    one-site code and its roundings, so its outputs equal the one-site
+//    instance's bitwise.  Odd Xh and misaligned bases keep the one-site
+//    instance (a shape rule, kernel.py::hop_pair);
 //  * the Schur axpy and the twisted-mass site term stay in the epilogue,
 //    so the Schur normal operator is four launches of this kernel.
 //  The host (kernels/wilson_dslash/kernel.py::hop_tile_plan) picks b and
@@ -69,6 +78,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "stage.cuh"
 #include "wilson_common.cuh"
@@ -329,15 +339,213 @@ wilson_hop_kernel(const HopArgs<T> a) {
   }
 }
 
+// The one-site kernel's epilogue for spin s of one site, its roundings
+// written out.  That kernel writes nr = hc hr, nr -= hg hi, nr += ac ar,
+// nr -= ag ai (ni alike) and leaves nvcc free to contract a product and a
+// sum into one FMA, and which product it fuses differs between the three
+// code paths it splits the loop body into (no accumulator; accumulator
+// and twist; accumulator, no twist) and between spins.  Written as plain
+// expressions in the pair kernel, whose code paths differ, the same
+// source was contracted otherwise and gave 1-ulp differences.  The FMAs
+// here are those of the one-site bf16 instances as nvcc 12.9 compiles
+// them for sm_90a (read from their PTX and SASS, every instance alike), so
+// a pair rounds each site as the one-site instance does; the tests hold
+// the two instances bitwise equal on the card.
+__device__ __forceinline__ void pair_epilogue(const HopArgs<wilson::bf16>& a,
+                                              int s, float hr, float hi,
+                                              float ar, float ai, float& nr,
+                                              float& ni) {
+  const float g5 = s < 2 ? 1.f : -1.f;
+  const float hg = a.ht * g5;
+  if (!a.acc) {
+    nr = __fmul_rn(a.hc, hr);
+    ni = __fmul_rn(a.hc, hi);
+    if (a.ht != 0.f) {
+      nr = __fmaf_rn(-hg, hi, nr);
+      ni = __fmaf_rn(hg, hr, ni);
+    }
+    return;
+  }
+  if (a.ht != 0.f) {
+    nr = __fmaf_rn(a.hc, hr, -__fmul_rn(hg, hi));
+    ni = s < 2 ? __fmaf_rn(hg, hr, __fmul_rn(a.hc, hi))
+               : __fmaf_rn(a.hc, hi, __fmul_rn(hg, hr));
+    nr = __fmaf_rn(a.ac, ar, nr);
+    ni = __fmaf_rn(a.ac, ai, ni);
+  } else if (s == 0) {
+    nr = __fmaf_rn(a.ac, ar, __fmul_rn(a.hc, hr));
+    ni = __fmaf_rn(a.ac, ai, __fmul_rn(a.hc, hi));
+  } else {
+    nr = __fmaf_rn(a.hc, hr, __fmul_rn(a.ac, ar));
+    ni = __fmaf_rn(a.hc, hi, __fmul_rn(a.ac, ai));
+  }
+  if (a.at != 0.f) {
+    const float ag = a.at * g5;
+    nr = __fmaf_rn(-ag, ai, nr);
+    ni = __fmaf_rn(ag, ar, ni);
+  }
+}
+
+// The bf16 pair instance (even Xh, 4-byte aligned bases): a work item is
+// one output colour of two sites (j, j + 1) of a row, j even.  Every
+// component of the two sites is one 32-bit word of a staged row (or of the
+// field, in place), read once, whose halves feed the one-site hop code
+// (hop_colour) once per site.  The X hops: a row's sites sit at x = 2 j +
+// s_out, so the forward neighbours are the elements j + s_out + (0, 1) and
+// the backward ones j - 1 + s_out + (0, 1); for s_out = 1 the forward pair
+// is the high half of the pair's own word and the low half of the next
+// pair's, for s_out = 0 the backward pair the high half of the previous
+// pair's word and the low half of its own (the backward X link likewise),
+// with the wrap at the row's ends.  s_out differs between the rows a warp
+// spans, so the word and the half each site takes are selected, not
+// branched on.  The outputs are stored a word at a time.  The staging is
+// the one-site kernel's.
+template <bool G5IN, bool G5OUT, bool STAGED>
+__global__ void __launch_bounds__(HOP_THREADS, 2)
+wilson_hop_pair_kernel(const HopArgs<wilson::bf16> a) {
+  using T = wilson::bf16;
+  using wilson::HI;
+  using wilson::LO;
+  using wilson::half;
+  using wilson::word;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  const int nyb = (a.Y + a.rows - 1) / a.rows;
+  Tile tl;
+  {
+    const int yb = blockIdx.x % nyb;
+    const int tz = blockIdx.x / nyb;
+    tl.z = tz % a.Z;
+    tl.t = tz / a.Z;
+    tl.y0 = yb * a.rows;
+    tl.nb = min(a.rows, a.Y - tl.y0);
+    tl.tp = tl.t + 1 == a.T_ ? 0 : tl.t + 1;
+    tl.tm = tl.t == 0 ? a.T_ - 1 : tl.t - 1;
+    tl.zp = tl.z + 1 == a.Z ? 0 : tl.z + 1;
+    tl.zm = tl.z == 0 ? a.Z - 1 : tl.z - 1;
+  }
+  const int b = a.rows, xh = a.Xh, hp = xh / 2;
+  T* sl = smem;                                // 8 b link rows
+  T* ss = smem + 8 * b * a.ls;                 // 6 b + 2 spinor rows
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      smem_raw + bar_offset<T>(b, a.ls, a.ss));
+  if (STAGED && a.bulk) {
+    if (threadIdx.x == 0) mbar_init(bar);
+    __syncthreads();
+  }
+  const long field = (long)a.T_ * a.Z * a.Y * S * xh;
+  const int work = 3 * tl.nb * hp;  // (colour, row, pair) items of the tile
+
+  for (int n = 0; n < a.N; ++n) {
+    if (STAGED) {
+      stage(a, tl, sl, ss, bar, n, n == 0);
+      if (a.bulk) mbar_wait(bar, n & 1);
+    }
+    for (int w = threadIdx.x; w < work; w += blockDim.x) {
+      const int c = w / (tl.nb * hp);
+      const int rq = w - c * tl.nb * hp;
+      const int r = rq / hp, j = 2 * (rq - r * hp);
+      const int y = tl.y0 + r;
+      const int s_out = (tl.t + tl.z + y + a.parity) & 1;
+      // the word and half each site (0, 1) reads in the X hops: forward
+      // (j HI, j+2 LO) for s_out = 1, (j LO, j HI) for s_out = 0; backward
+      // (j LO, j HI) for s_out = 1, (j-2 HI, j LO) for s_out = 0
+      const int jn = j + 2 == xh ? 0 : j + 2, jv = j == 0 ? xh - 2 : j - 2;
+      const int xf[2] = {j, s_out ? jn : j}, xb[2] = {s_out ? j : jv, j};
+      const unsigned sf[2] = {s_out ? HI : LO, s_out ? LO : HI};
+      const unsigned sb[2] = {s_out ? LO : HI, s_out ? HI : LO};
+      const long nf = (long)n * field;
+      auto spin = [&](int g) -> const T* {  // t+1, t-1, z+1, z-1, acc
+        if (STAGED) return ss + (g < 4 ? g * b + r : 5 * b + 2 + r) * a.ss;
+        if (g == 4) return a.acc + nf + srow(a, tl.t, tl.z, y);
+        return a.psi + nf +
+               srow(a, g == 0 ? tl.tp : (g == 1 ? tl.tm : tl.t),
+                    g == 2 ? tl.zp : (g == 3 ? tl.zm : tl.z), y);
+      };
+      auto centre = [&](int d) -> const T* {  // rows y - 1, y, y + 1
+        if (STAGED) return ss + (4 * b + r + d) * a.ss;
+        return a.psi + nf + srow(a, tl.t, tl.z, tl.wrap_y(y - 1 + d, a.Y));
+      };
+      auto link = [&](int g) -> const T* {
+        if (STAGED) return sl + (g * b + r) * a.ls;
+        return link_src(a, tl, g, r);
+      };
+      float o_r[2][4], o_i[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) o_r[h][s] = o_i[h][s] = 0.f;
+      // a row's component k, the half `sel` of the word at jj (even)
+      auto at = [xh](const T* row, int jj, unsigned sel) {
+        return [row, jj, sel, xh](int k) {
+          return half(word(row + k * xh + jj), sel);
+        };
+      };
+      // site j + h: the same hops in the same order as the one-site
+      // kernel; site 1 reads the words site 0 read
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned sel = h ? HI : LO;
+        hop_colour<0, true, G5IN, G5OUT>(o_r[h], o_i[h], c, at(spin(0), j, sel), at(link(0), j, sel));
+        hop_colour<0, false, G5IN, G5OUT>(o_r[h], o_i[h], c, at(spin(1), j, sel), at(link(1), j, sel));
+        hop_colour<1, true, G5IN, G5OUT>(o_r[h], o_i[h], c, at(spin(2), j, sel), at(link(2), j, sel));
+        hop_colour<1, false, G5IN, G5OUT>(o_r[h], o_i[h], c, at(spin(3), j, sel), at(link(3), j, sel));
+        hop_colour<2, true, G5IN, G5OUT>(o_r[h], o_i[h], c, at(centre(2), j, sel), at(link(4), j, sel));
+        hop_colour<2, false, G5IN, G5OUT>(o_r[h], o_i[h], c, at(centre(0), j, sel), at(link(5), j, sel));
+        hop_colour<3, true, G5IN, G5OUT>(o_r[h], o_i[h], c, at(centre(1), xf[h], sf[h]), at(link(6), j, sel));
+        hop_colour<3, false, G5IN, G5OUT>(o_r[h], o_i[h], c, at(centre(1), xb[h], sb[h]), at(link(7), xb[h], sb[h]));
+      }
+
+      // epilogue: the one-site kernel's roundings (pair_epilogue), per
+      // site, on the accumulator's words
+      T* o = a.out + nf + srow(a, tl.t, tl.z, y) + j;
+      const T* acc_row = a.acc ? spin(4) : nullptr;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int k = (s * 3 + c) * 2;
+        float v_r[2], v_i[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float ar = 0.f, ai = 0.f;
+          if (a.acc) {
+            const unsigned sel = h ? HI : LO;
+            ar = half(word(acc_row + k * xh + j), sel);
+            ai = half(word(acc_row + (k + 1) * xh + j), sel);
+          }
+          pair_epilogue(a, s, o_r[h][s], o_i[h][s], ar, ai, v_r[h], v_i[h]);
+        }
+        wilson::store_pair(o + k * xh, v_r[0], v_r[1]);
+        wilson::store_pair(o + (k + 1) * xh, v_i[0], v_i[1]);
+      }
+    }
+    if (STAGED) __syncthreads();  // the staged rows are reused for n + 1
+  }
+}
+
+// Launch one kernel instance; its opt-in for more than 48 KB of shared
+// memory is kept per instance.
+template <auto KERN, class A>
+cudaError_t run(const A& a, int blocks, int threads, size_t smem,
+                cudaStream_t s) {
+  static stage::SmemOptIn opt_in;
+  const cudaError_t err = opt_in.allow((const void*)KERN, smem);
+  if (err != cudaSuccess) return err;
+  KERN<<<blocks, threads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 template <class T, bool G5IN, bool G5OUT, bool STAGED>
 cudaError_t launch(const HopArgs<T>& a, int blocks, int threads, size_t smem,
                    cudaStream_t s) {
-  auto kern = wilson_hop_kernel<T, G5IN, G5OUT, STAGED>;
-  static stage::SmemOptIn opt_in;
-  const cudaError_t err = opt_in.allow((const void*)kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<blocks, threads, smem, s>>>(a);
-  return cudaGetLastError();
+  return run<wilson_hop_kernel<T, G5IN, G5OUT, STAGED>>(a, blocks, threads,
+                                                        smem, s);
+}
+
+template <bool G5IN, bool G5OUT, bool STAGED>
+cudaError_t launch_pair(const HopArgs<wilson::bf16>& a, int blocks,
+                        int threads, size_t smem, cudaStream_t s) {
+  return run<wilson_hop_pair_kernel<G5IN, G5OUT, STAGED>>(a, blocks, threads,
+                                                          smem, s);
 }
 
 template <class T>
@@ -345,7 +553,7 @@ int hop(const void* u_out, const void* u_nbr, const void* psi,
         const void* acc, void* out, int T_, int Z, int Y, int Xh, int N,
         int parity, int g5in, int g5out, int rows, int ls, int ss,
         float hop_coeff, float hop_twist, float acc_coeff, float acc_twist,
-        cudaStream_t s) {
+        cudaStream_t s, int* pair) {
   const bool staged = rows > 0;
   const int b = staged ? rows : 1;
   auto aligned = [](const void* p) {
@@ -369,6 +577,32 @@ int hop(const void* u_out, const void* u_nbr, const void* psi,
   const size_t smem = staged ? bar_offset<T>(b, ls, ss) + 8 : 0;
   cudaError_t err;
   const int key = (g5in ? 1 : 0) | (g5out ? 2 : 0) | (staged ? 4 : 0);
+  *pair = 0;
+  if constexpr (std::is_same_v<T, wilson::bf16>) {
+    // the pair instance's rule: even Xh (so are the plan's strides) and
+    // every base 4-byte aligned, so that each pair of sites is one word
+    auto word = [](const void* p) {
+      return (reinterpret_cast<uintptr_t>(p) & 3u) == 0;
+    };
+    if (Xh % 2 == 0 && ls % 2 == 0 && ss % 2 == 0 && word(u_out) &&
+        word(u_nbr) && word(psi) && word(acc) && word(out)) {
+      *pair = 1;
+      threads = 3 * b * Xh / 2;  // a thread per colour of two sites
+      threads = threads < HOP_THREADS ? ((threads + 31) / 32) * 32
+                                      : HOP_THREADS;
+      switch (key) {
+        case 0: err = launch_pair<false, false, false>(a, blocks, threads, smem, s); break;
+        case 1: err = launch_pair<true, false, false>(a, blocks, threads, smem, s); break;
+        case 2: err = launch_pair<false, true, false>(a, blocks, threads, smem, s); break;
+        case 3: err = launch_pair<true, true, false>(a, blocks, threads, smem, s); break;
+        case 4: err = launch_pair<false, false, true>(a, blocks, threads, smem, s); break;
+        case 5: err = launch_pair<true, false, true>(a, blocks, threads, smem, s); break;
+        case 6: err = launch_pair<false, true, true>(a, blocks, threads, smem, s); break;
+        default: err = launch_pair<true, true, true>(a, blocks, threads, smem, s); break;
+      }
+      return static_cast<int>(err);
+    }
+  }
   switch (key) {
     case 0: err = launch<T, false, false, false>(a, blocks, threads, smem, s); break;
     case 1: err = launch<T, true, false, false>(a, blocks, threads, smem, s); break;
@@ -394,20 +628,21 @@ const char* error_string(int code) {
 // rows are read in place, nothing is staged; strides in elements); acc may
 // be null.  hop_coeff and hop_twist are the caller's, the hop's -1/2 is
 // applied here.  storage: 0 float32, 1 bf16, for every field and link.
-// Returns a cudaError_t code.
+// *pair is set to 1 when the bf16 pair instance ran, else 0.  Returns a
+// cudaError_t code.
 int wilson_hop(const void* u_out, const void* u_nbr, const void* psi,
                const void* acc, void* out, int T, int Z, int Y, int Xh,
                int N, int parity, int g5in, int g5out, int rows, int ls,
                int ss, float hop_coeff, float hop_twist, float acc_coeff,
-               float acc_twist, int storage, void* stream) {
+               float acc_twist, int storage, void* stream, int* pair) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (storage == 1)
     return hop<wilson::bf16>(u_out, u_nbr, psi, acc, out, T, Z, Y, Xh, N,
                              parity, g5in, g5out, rows, ls, ss, hop_coeff,
-                             hop_twist, acc_coeff, acc_twist, s);
+                             hop_twist, acc_coeff, acc_twist, s, pair);
   return hop<float>(u_out, u_nbr, psi, acc, out, T, Z, Y, Xh, N, parity, g5in,
                     g5out, rows, ls, ss, hop_coeff, hop_twist, acc_coeff,
-                    acc_twist, s);
+                    acc_twist, s, pair);
 }
 
 }  // extern "C"

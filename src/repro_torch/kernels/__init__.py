@@ -20,6 +20,14 @@ def reset_counts() -> None:
         build.zero_counts(fn)
 
 
+def pair_launches() -> dict[str, int]:
+    """{kernel: n} since the last reset: the launches of the Wilson
+    kernels' bf16 pair instances, a part of their ``<kernel>_bf16``
+    launches (the rest ran the one-site instance)."""
+    return {name + "_bf16": WRAPPERS[name].launches_bf16_pair
+            for name in ("wilson_hop", "wilson_full")}
+
+
 def counts() -> dict[str, dict[str, int]]:
     """{kernel: {"launches": n, "plain_calls": m}} since the last reset,
     with the bf16 instances as ``<kernel>_bf16``."""

@@ -18,7 +18,8 @@ output once to that dtype.  Each wrapper runs its plain version
 launches the kernel or raises.
 ``<wrapper>.launches`` counts kernel launches and ``<wrapper>.plain_calls``
 plain-version calls (``launches_bf16`` and ``plain_calls_bf16`` those on
-bf16 storage), so a run can show which path it took.
+bf16 storage, ``launches_bf16_pair`` the bf16 launches that ran the pair
+instance, two sites a thread), so a run can show which path it took.
 """
 
 from __future__ import annotations
@@ -66,7 +67,9 @@ def hop_spec(mu: int, forward: bool, gamma5_in: bool, gamma5_out: bool):
 # sites (96 threads) is b = 2 at 32^3 x 64, the fastest of b = 1, 2, 3, 4,
 # 5, 8 that scripts/compare_kernels.py timed on the H100 (PERF.md).
 # FULL_TILE_SITES sets K4's: 128 sites (one thread each) is b = 4 at
-# 32^3 x 64.
+# 32^3 x 64.  The bf16 pair instances (two sites a thread, see
+# :func:`hop_pair` and :func:`full_pair`) keep the threads and take twice
+# the sites: b = 4 for K1 and 8 for K4 at 32^3 x 64.
 HOP_TILE_SITES = 32
 FULL_TILE_SITES = 128
 HOP_SMEM_LIMIT = 227 * 1024      # bytes a block may use on the H100
@@ -118,19 +121,38 @@ def _tile_plan(y: int, width: int, sites: int, smem_bytes,
     return b, ls, ss
 
 
+def hop_pair(xh: int, esize: int) -> bool:
+    """Whether K1 runs its bf16 pair instance, two adjacent sites a thread
+    with each component of both read as one 32-bit word: bf16 storage and
+    an even Xh, given 4-byte aligned bases, as ``csrc/wilson_hop.cu``
+    tests.  Otherwise the one-site instance runs."""
+    return esize == 2 and xh % 2 == 0
+
+
+def full_pair(x: int, esize: int) -> bool:
+    """Whether K4 runs its bf16 pair instance: bf16 storage and X = 32,
+    whose compile-time instance holds two sites' sums in three blocks an
+    SM (a runtime-X one spilled and lost to the one-site instance at
+    X = 48, PERF.md), given 4-byte aligned bases, as
+    ``csrc/wilson_full.cu`` tests."""
+    return esize == 2 and x == 32
+
+
 def hop_tile_plan(y: int, xh: int, esize: int = 4) -> tuple[int, int, int]:
     """K1's tile ``(b, ls, ss)``: b rows of Y per block, and the shared
     memory row strides (elements) of links and spinors (see
     :func:`_tile_plan`; b == 0: rows read in place)."""
-    return _tile_plan(y, xh, HOP_TILE_SITES, hop_smem_bytes, esize)
+    sites = HOP_TILE_SITES * (2 if hop_pair(xh, esize) else 1)
+    return _tile_plan(y, xh, sites, hop_smem_bytes, esize)
 
 
 def full_tile_plan(y: int, x: int, esize: int = 4) -> tuple[int, int]:
     """K4's tile ``(b, ls)`` on the full X axis: b rows of Y per block and
     the shared-memory stride (elements) of its staged link rows (see
     :func:`_tile_plan`; b == 0: links read in place)."""
+    sites = FULL_TILE_SITES * (2 if full_pair(x, esize) else 1)
     b, ls, _ = _tile_plan(
-        y, x, FULL_TILE_SITES,
+        y, x, sites,
         lambda rows, ls, ss, es: full_smem_bytes(rows, ls, es), esize)
     return b, ls
 
@@ -156,7 +178,8 @@ def full_bulk(x: int, ls: int, esize: int = 4) -> bool:
 def _lib() -> ctypes.CDLL:
     lib = build.library("wilson_hop")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.wilson_hop.argtypes = [p, p, p, p, p] + [i] * 11 + [f] * 4 + [i, p]
+    lib.wilson_hop.argtypes = ([p, p, p, p, p] + [i] * 11 + [f] * 4
+                               + [i, p, ctypes.POINTER(i)])
     lib.wilson_hop.restype = ctypes.c_int
     return lib
 
@@ -209,6 +232,7 @@ def wilson_hop(u_out: torch.Tensor, u_nbr: torch.Tensor, psi: torch.Tensor,
     n = psi.shape[0] if psi.dim() == 6 else 1
     out = torch.empty_like(psi)
     lib = _lib()
+    pair = ctypes.c_int(0)
     rc = lib.wilson_hop(
         u_out.data_ptr(), u_nbr.data_ptr(), psi.data_ptr(),
         psi_acc.data_ptr() if psi_acc is not None else None,
@@ -216,9 +240,9 @@ def wilson_hop(u_out: torch.Tensor, u_nbr: torch.Tensor, psi: torch.Tensor,
         int(bool(gamma5_out)), *hop_tile_plan(y, xh, psi.element_size()),
         float(hop_coeff), float(hop_twist), float(acc_coeff),
         float(acc_twist), storage,
-        torch.cuda.current_stream(psi.device).cuda_stream)
+        torch.cuda.current_stream(psi.device).cuda_stream, ctypes.byref(pair))
     build.check(lib, rc, "wilson_hop")
-    build.count(wilson_hop, "launches", psi.dtype)
+    build.count(wilson_hop, "launches", psi.dtype, pair.value)
     return out
 
 
@@ -248,7 +272,8 @@ def site_coeffs(mass, twist: float, gamma5_in: bool,
 def _full_lib() -> ctypes.CDLL:
     lib = build.library("wilson_full")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.wilson_full.argtypes = [p, p, p] + [i] * 9 + [f] * 4 + [i, p]
+    lib.wilson_full.argtypes = ([p, p, p] + [i] * 9 + [f] * 4
+                                + [i, p, ctypes.POINTER(i)])
     lib.wilson_full.restype = ctypes.c_int
     return lib
 
@@ -286,14 +311,15 @@ def wilson_full(up: torch.Tensor, pp: torch.Tensor, mass, *,
     n = pp.shape[0] if pp.dim() == 6 else 1
     out = torch.empty_like(pp)
     lib = _full_lib()
+    pair = ctypes.c_int(0)
     rc = lib.wilson_full(
         up.data_ptr(), pp.data_ptr(), out.data_ptr(), t, z, y, x, n,
         int(bool(gamma5_in)), int(bool(gamma5_out)),
         *full_tile_plan(y, x, pp.element_size()),
         *site_coeffs(mass, twist, gamma5_in, gamma5_out), storage,
-        torch.cuda.current_stream(pp.device).cuda_stream)
+        torch.cuda.current_stream(pp.device).cuda_stream, ctypes.byref(pair))
     build.check(lib, rc, "wilson_full")
-    build.count(wilson_full, "launches", pp.dtype)
+    build.count(wilson_full, "launches", pp.dtype, pair.value)
     return out
 
 

@@ -491,3 +491,123 @@ def test_mixed_golden_solves_through_the_kernels(dev, case):
         want = {"wilson_full_bf16": 2 * k, "wilson_full": 1}
     for name, v in c.items():
         assert v == {"launches": want.get(name, 0), "plain_calls": 0}, name
+
+
+# ---------------------------------------------------------------------------
+# The bf16 pair instances of K1 and K4 (two sites a thread, each component
+# of both read as one 32-bit word): even widths with 4-byte aligned bases
+# run them, against the plain version at 1 bf16 ulp and batched equal to
+# single bitwise; their outputs equal the one-site instance's bitwise (the
+# one-site instance runs on copies of the same inputs 2 bytes off
+# alignment); odd widths and such offsets run the one-site instance
+# ---------------------------------------------------------------------------
+
+# K1, even Xh: 4^4 (Xh = 2, staged by plain loads), 4x4x22x8 (Y = 22
+# against the tile), 8x8x8x32 (Xh = 16 as at 32^3 x 64, TMA), 2x2x2x700
+# (read in place)
+PAIR_HOP_SHAPES = [(4, 4, 4, 4), (4, 4, 22, 8), (8, 8, 8, 32),
+                   (2, 2, 2, 700)]
+PAIR_HOP_FLAGS = [(0, False, True, True, False), (1, True, False, False, True),
+                  (0, True, True, True, True), (1, False, False, True, False)]
+
+
+@pytest.mark.parametrize("dims", PAIR_HOP_SHAPES,
+                         ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("flags", PAIR_HOP_FLAGS)
+def test_wilson_hop_bf16_pair_instance(dev, dims, flags):
+    _bf16_hop_case(dev, dims, flags, n=3, seed=16)
+    assert kernels.pair_launches()["wilson_hop_bf16"] == 4
+
+
+# the equality checks also at 16^3 x 32 (3 M outputs): two roundings that
+# differ in the f32 result differ in its bf16 rounding about once in 2^16
+# entries, so a small shape can miss them
+EQUAL_SHAPE = (16, 16, 16, 32)
+
+
+@pytest.mark.parametrize("dims", PAIR_HOP_SHAPES + [EQUAL_SHAPE],
+                         ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("flags", PAIR_HOP_FLAGS)
+def test_wilson_hop_bf16_pair_equals_one_site(dev, dims, flags):
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
+    parity, g5in, g5out, has_acc, twist = flags
+    gen = torch.Generator(device=dev).manual_seed(17)
+    lat = tl.LatticeShape(*dims)
+    ue, uo = tl.split_eo_gauge(tl.random_gauge(gen, lat))
+    upe, upo = (tl.pack_gauge(v, dtype=torch.bfloat16) for v in (ue, uo))
+    psi = tl.pack_spinor(torch.stack(
+        [tl.split_eo(tl.random_spinor(gen, lat))[0] for _ in range(2)]),
+        dtype=torch.bfloat16)
+    u_out, u_nbr = (upe, upo) if parity == 0 else (upo, upe)
+    kw = dict(parity=parity, gamma5_in=g5in, gamma5_out=g5out,
+              acc_coeff=1.3 if has_acc else 0.0, hop_coeff=-0.7,
+              hop_twist=0.3 if twist else 0.0,
+              acc_twist=0.2 if (has_acc and twist) else 0.0)
+    acc = (0.5 * psi).to(torch.bfloat16) if has_acc else None
+    kernels.reset_counts()
+    pair = wilson_hop(u_out, u_nbr, psi, psi_acc=acc, **kw)
+    assert kernels.pair_launches()["wilson_hop_bf16"] == 1
+    one = wilson_hop(u_out, u_nbr, _off_by(psi, 1),
+                     psi_acc=None if acc is None else _off_by(acc, 1), **kw)
+    assert kernels.pair_launches()["wilson_hop_bf16"] == 1
+    assert kernels.counts()["wilson_hop_bf16"]["launches"] == 2
+    assert torch.equal(pair, one)
+
+
+# K4 at X = 32 (its pair instance's width): 4x4x8x32, 3x5x7x32 (odd T,
+# Z, Y: one 7-row tile), 2x2x12x32 (Y = 12 against an 8-row tile)
+PAIR_FULL_SHAPES = [(4, 4, 8, 32), (3, 5, 7, 32), (2, 2, 12, 32)]
+
+
+@pytest.mark.parametrize("dims", PAIR_FULL_SHAPES + [EQUAL_SHAPE],
+                         ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("flags", FULL_FLAGS)
+def test_wilson_full_bf16_pair_instance(dev, dims, flags):
+    gen = torch.Generator(device=dev).manual_seed(18)
+    lat = tl.LatticeShape(*dims)
+    up = tl.pack_gauge(tl.random_gauge(gen, lat), dtype=torch.bfloat16)
+    pp = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                     for _ in range(3)]),
+                        dtype=torch.bfloat16)
+    _bf16_full_case(up, pp, flags)
+    assert kernels.pair_launches()["wilson_full_bf16"] == 4
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_full
+    g5in, g5out, twist = flags
+    kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
+    kernels.reset_counts()
+    pair = wilson_full(up, pp, 0.1, **kw)
+    one = wilson_full(up, _off_by(pp, 1), 0.1, **kw)
+    assert kernels.pair_launches()["wilson_full_bf16"] == 1
+    assert kernels.counts()["wilson_full_bf16"]["launches"] == 2
+    assert torch.equal(pair, one)
+
+
+@pytest.mark.parametrize("case", [
+    ("hop", (4, 4, 6, 6), 0, 0), ("hop", (4, 4, 4, 4), 1, 0),
+    ("hop", (4, 4, 4, 4), 2, 1), ("full", (4, 4, 6, 5), 0, 0),
+    ("full", (4, 4, 6, 8), 2, 0), ("full", (2, 2, 4, 32), 1, 0),
+    ("full", (2, 2, 4, 32), 2, 1)],
+    ids=lambda c: f"{c[0]}-{'x'.join(map(str, c[1]))}-off{c[2]}")
+def test_bf16_instance_rule(dev, case):
+    """The pair instances run with 4-byte aligned bases only, K1's at even
+    Xh, K4's at X = 32: odd Xh, another X, or a base 2 bytes off runs the
+    one-site instance."""
+    from repro_torch.kernels.wilson_dslash.kernel import (wilson_full,
+                                                          wilson_hop)
+    kind, dims, elems, want = case
+    gen = torch.Generator(device=dev).manual_seed(19)
+    lat = tl.LatticeShape(*dims)
+    kernels.reset_counts()
+    if kind == "hop":
+        ue, uo = tl.split_eo_gauge(tl.random_gauge(gen, lat))
+        upe, upo = (tl.pack_gauge(v, dtype=torch.bfloat16) for v in (ue, uo))
+        psi = tl.pack_spinor(tl.split_eo(tl.random_spinor(gen, lat))[0],
+                             dtype=torch.bfloat16)
+        wilson_hop(upe, upo, _off_by(psi, elems), parity=0)
+    else:
+        up = tl.pack_gauge(tl.random_gauge(gen, lat), dtype=torch.bfloat16)
+        pp = tl.pack_spinor(tl.random_spinor(gen, lat), dtype=torch.bfloat16)
+        wilson_full(up, _off_by(pp, elems), 0.1)
+    name = f"wilson_{kind}_bf16"
+    assert kernels.counts()[name]["launches"] == 1
+    assert kernels.pair_launches()[name] == want

@@ -17,6 +17,11 @@
   site coefficients, against its plain version for every flag
   combination, also at odd and ragged shapes; the plan's sizes; the
   staged rows cover every neighbour.
+* K4's bf16 pair instance (X = 32: two sites a thread, every component
+  of both read as one 32-bit word, the X hops' unaligned pairs from the
+  words around them), emulated on bf16 fields: bitwise the one-site
+  emulation's, within 1 bf16 ulp of the plain version; the tile plan at
+  esize 2, X = 32 and other widths.
 * ``normal_op`` is two kernel calls for any N.
 * ``plan.solve(SolverPlan(operator="full"))`` on the 4^4, seed-7,
   mass-0.1, tol-1e-6 problem of the JAX solver goldens: 27 iterations
@@ -228,7 +233,37 @@ def _cplx(rows, shape):
     return torch.complex(q[..., 0], q[..., 1])
 
 
-def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out):
+def full_pair_words(x_, hop):
+    """K4's pair kernel (csrc/wilson_full.cu ``wilson_full_pair_kernel``):
+    for each site x = 2 xp + h of a row, the word (its even element index)
+    and the half (0 low, 1 high) that its hop reads, for the spinor and
+    for the link: the pair's own word, but for the X hops the neighbours
+    x + 1 (the high half of its own word for site 0, the low half of the
+    next pair's for site 1) and x - 1 (the high half of the previous
+    pair's word for site 0, the low half of its own for site 1), wrapped
+    at the row's ends; the backward X link likewise."""
+    x = torch.arange(x_)
+    h, x0 = x % 2, x - x % 2
+    own = (x0, h)
+    if hop == (3, True):
+        return (torch.where(h == 0, x0, (x0 + 2) % x_), 1 - h), own
+    if hop == (3, False):
+        back = (torch.where(h == 0, (x0 - 2) % x_, x0), 1 - h)
+        return back, back
+    return own, own
+
+
+def _widen_half(words, half):
+    """``wilson::half``: the half (0 low, 1 high) of 32-bit words of bf16
+    pairs as f32, the selected half in the high 16 bits, zeros below."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    bits = torch.where(half == 1, w & 0xFFFF0000, (w & 0xFFFF) << 16)
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out,
+                        pair=False):
     """csrc/wilson_full.cu step by step: the host's tile plan, the link rows
     each tile stages (once for all N; the Y wrap included) in their slots,
     the loop body's spinor reads (from the field, X and Y wrapped) and link
@@ -236,24 +271,31 @@ def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out):
     compile-time projection/reconstruction of ``hop_spec`` (one projection
     per hop for all three colours), the SU(3) product (daggered for
     backward hops) and the epilogue: the site term of ``site_coeffs`` and
-    the hops' sum scaled by -1/2."""
+    the hops' sum scaled by -1/2.  Fields in their storage dtype (f32 or
+    bf16), staged as stored, widened where read, outputs rounded once.
+    ``pair``: the bf16 pair instance, whose sites read their values as
+    halves of 32-bit words (``full_pair_words``)."""
     m_hi, m_lo, tw_hi, tw_lo = tk.site_coeffs(mass, twist, gamma5_in,
                                               gamma5_out)
     batched = pp.dim() == 6
     ps = pp if batched else pp[None]
     n_rhs, t_, z_, y_, _, x_ = ps.shape
     dims = (t_, z_, y_, x_)
-    b, _ = tk.full_tile_plan(y_, x_)
+    b, _ = tk.full_tile_plan(y_, x_, pp.element_size())
     assert b > 0
+    assert not pair or tk.full_pair(x_, pp.element_size())
     tiles = [full_block_tile(i, dims[:3], b, n_rhs)      # the block order
              for i in range(t_ * z_ * -(-y_ // b))]
-    lk = torch.zeros(len(tiles), 6 * b + 1, 18, x_)
+    lk = torch.zeros(len(tiles), 6 * b + 1, 18, x_, dtype=up.dtype)
     for i, (t, z, yb) in enumerate(tiles):
         for k, (mu, tt, zz, yy) in full_tile_links(dims[:3], b, t, z,
                                                    yb).items():
             lk[i, k] = up[mu, tt, zz, yy]
-    lk = _cplx(lk.transpose(-1, -2), (3, 3))    # (tile, slot, X, 3, 3)
-    ps = _cplx(ps.transpose(-1, -2), (4, 3))    # (N, T, Z, Y, X, 4, 3)
+    if pair:    # words: (tile, slot, X/2, 18) and (N, T, Z, Y, X/2, 24)
+        lk_w = lk.view(torch.int32).transpose(-1, -2)
+        ps_w = ps.contiguous().view(torch.int32).transpose(-1, -2)
+    lk = _cplx(lk.float().transpose(-1, -2), (3, 3))    # (tile, slot, X, 3, 3)
+    ps = _cplx(ps.float().transpose(-1, -2), (4, 3))    # (N, T, Z, Y, X, 4, 3)
     tix = torch.arange(len(tiles))[:, None, None]
     tt, zz, y0 = (torch.tensor([tile[k] * (b if k == 2 else 1)
                                 for tile in tiles])[:, None, None]
@@ -268,6 +310,12 @@ def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out):
         v = ps[:, st, sz, sy, sx]                   # (N, tile, b, X, 4, 3)
         ti, slot, xl = torch.broadcast_tensors(tix, slot, xl)
         link = lk[ti, slot, xl]                     # (tile, b, X, 3, 3)
+        if pair:    # the same values, read as halves of words
+            (sw, sh), (lw, lh) = full_pair_words(x_, (mu, fwd))
+            v = _cplx(_widen_half(ps_w[:, st, sz, sy, sw // 2],
+                                  sh[:, None]), (4, 3))
+            link = _cplx(_widen_half(lk_w[ti, slot, lw // 2], lh[:, None]),
+                         (3, 3))
         if not fwd:
             link = link.conj().transpose(-1, -2)
         proj, recon = tk.hop_spec(mu, fwd, gamma5_in, gamma5_out)
@@ -280,13 +328,18 @@ def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out):
     m = torch.tensor([m_hi, m_hi, m_lo, m_lo])[:, None]
     tw_s = torch.tensor([tw_hi, tw_hi, tw_lo, tw_lo])[:, None]
     st, sz, sy, sx = torch.broadcast_tensors(tt, zz, (y0 + r) % y_, x)
-    res = (m + 1j * tw_s) * ps[:, st, sz, sy, sx] - 0.5 * acc
+    centre = ps[:, st, sz, sy, sx]
+    if pair:        # the pair's own words
+        (sw, sh), _ = full_pair_words(x_, (0, True))
+        centre = _cplx(_widen_half(ps_w[:, st, sz, sy, sw // 2],
+                                   sh[:, None]), (4, 3))
+    res = (m + 1j * tw_s) * centre - 0.5 * acc
     out = torch.empty(n_rhs, t_, z_, y_, x_, 4, 3, dtype=torch.complex64)
     for i, (t, z, yb) in enumerate(tiles):
         nb = min(b, y_ - yb * b)
         out[:, t, z, yb * b:yb * b + nb] = res[:, i, :nb]
     packed = torch.view_as_real(out).reshape(out.shape[:5] + (24,))
-    packed = packed.permute(0, 1, 2, 3, 5, 4).contiguous()
+    packed = packed.permute(0, 1, 2, 3, 5, 4).contiguous().to(pp.dtype)
     return packed if batched else packed[0]
 
 
@@ -417,6 +470,92 @@ def test_kernel_algorithm_at_odd_and_ragged_shapes(dims, flags):
     close(out, wilson_full_ref(up, pp, MASS, **kw))
     for i in range(2):
         assert torch.equal(out[i], emulate_wilson_full(up, pp[i], MASS, **kw))
+
+
+def _bf16_within_one_ulp(out, ref):
+    """At most 1 bf16 ulp an entry; an entry that cancels below 2^-16 of
+    the field's largest is held to the ulp at that floor (the bar of
+    tests/test_torch_cuda.py and chip_smoke.py)."""
+    assert out.dtype == ref.dtype == torch.bfloat16
+    bits = [v.contiguous().view(torch.int16).int() for v in (out, ref)]
+    ords = [torch.where(v < 0, -(v & 0x7FFF), v) for v in bits]
+    a, b = out.double(), ref.double()
+    _, e = torch.frexp(2.0 ** -16 * b.abs().max())
+    floor = torch.ldexp(torch.ones((), dtype=torch.float64), e - 8)
+    ok = ((ords[0] - ords[1]).abs() <= 1) | ((a - b).abs() <= floor)
+    assert bool(ok.all()), float((a - b).abs().max())
+
+
+def _full_pair_case(up, pp, flags):
+    g5in, g5out, twist = flags
+    kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
+    pair = emulate_wilson_full(up, pp, MASS, pair=True, **kw)
+    assert torch.equal(pair, emulate_wilson_full(up, pp, MASS, **kw))
+    _bf16_within_one_ulp(pair, wilson_full_ref(up, pp, MASS, **kw))
+    return pair, kw
+
+
+def _bf16_fields(dims, n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    lat = tl.LatticeShape(*dims)
+    up = pack_gauge(tl.random_gauge(gen, lat), torch.bfloat16)
+    pp = pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                  for _ in range(n)]), torch.bfloat16)
+    return up, pp
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("flags", FLAGS, ids=lambda f: "-".join(map(str, f)))
+def test_pair_algorithm_equals_one_site(flags, n):
+    """The pair instance on bf16 fields at 2x2x4x32 (every row's first and
+    last pair read across the row's ends), Wilson and twisted mass, every
+    gamma5 flag pair, N = 1 and 3."""
+    up, pp = _bf16_fields((2, 2, 4, 32), 3, 63)
+    _full_pair_case(up, pp[0] if n == 1 else pp, flags)
+
+
+@pytest.mark.parametrize("dims", [(3, 5, 7, 32), (2, 2, 12, 32)],
+                         ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("flags", [(True, True, 0.25), (False, True, 0.0)],
+                         ids=lambda f: "-".join(map(str, f)))
+def test_pair_algorithm_other_shapes(dims, flags):
+    """Odd T, Z, Y (one 7-row tile), Y = 12 against an 8-row tile (the
+    last one ragged); batched equal to single RHS bitwise."""
+    up, pp = _bf16_fields(dims, 2, 62)
+    out, kw = _full_pair_case(up, pp, flags)
+    for i in range(2):
+        assert torch.equal(out[i], emulate_wilson_full(up, pp[i], MASS,
+                                                       pair=True, **kw))
+
+
+# (Y, X) -> K4's bf16 plan (b, ls): X = 32 runs the pair instance, 256
+# sites a tile (b = 8 at 32^3 x 64, a thread per two sites), other widths
+# the one-site one, 128 sites as in f32; X = 928 reads its links in place
+FULL_BF16_PLANS = {(32, 32): (8, 576), (7, 32): (7, 576), (6, 32): (6, 576),
+                   (8, 8): (8, 200), (22, 16): (8, 336), (6, 6): (6, 108),
+                   (6, 5): (6, 90), (2, 464): (1, 8352), (2, 928): (0, 16704)}
+
+
+@pytest.mark.parametrize("yx", list(FULL_BF16_PLANS),
+                         ids=lambda k: "%dx%d" % k)
+def test_full_tile_plan_bf16(yx):
+    y, x = yx
+    b, ls = tk.full_tile_plan(y, x, esize=2)
+    assert (b, ls) == FULL_BF16_PLANS[yx]
+    pair = tk.full_pair(x, 2)
+    assert pair == (x == 32) and not tk.full_pair(x, 4)
+    if b == 0:
+        assert tk.full_smem_bytes(1, ls, 2) > tk.HOP_SMEM_LIMIT
+        return
+    sites = tk.FULL_TILE_SITES * (2 if pair else 1)
+    assert b * x <= max(sites, x)
+    if b > 1:
+        assert 2 * tk.full_smem_bytes(b, ls, 2) <= tk.HOP_SMEM_LIMIT
+    if pair:
+        assert ls % 2 == 0
+    if yx == (32, 32):   # 128 threads, three blocks an SM
+        assert b * x // 2 == 128
+        assert 3 * tk.full_smem_bytes(b, ls, 2) <= tk.HOP_SMEM_LIMIT
 
 
 @pytest.mark.parametrize("twist", [0.0, 0.25])

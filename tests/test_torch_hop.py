@@ -10,6 +10,11 @@
   index arithmetic (this machine cannot run it), against the plain
   version for every flag combination; the staged rows cover every
   neighbour; the spin structure is the projector.
+* The bf16 pair instance's algorithm (two sites a thread, every component
+  of both read as one 32-bit word of a staged row), emulated with its
+  tile plan and its word and half selection, bitwise against the one-site
+  emulation on the same bf16 inputs and within 1 bf16 ulp of the plain
+  version; the tile plans at esize 2, even and odd widths.
 * Launch accounting: the Schur normal operator is 4 hop calls for any N.
 """
 
@@ -137,20 +142,67 @@ def _cplx(rows, shape):
     return torch.complex(q[..., 0], q[..., 1])
 
 
+def pair_hop_reads(b, r, j, s_out, xh):
+    """The pair kernel's compute loop (csrc/wilson_hop.cu
+    ``wilson_hop_pair_kernel``): per hop (mu, forward) the spinor slot and
+    the link slot, and for each site j = 2 jp + h of the tile the word
+    (its even element index) and the half (0 low, 1 high) it reads there.
+    The forward X neighbours are the elements j + s_out + (0, 1) of the
+    pair, the backward ones j - 1 + s_out + (0, 1): one word and half per
+    site, selected by s_out and wrapped at the row's ends."""
+    h, j0 = j % 2, j - j % 2                   # site of the pair, its word
+    jn, jv = (j0 + 2) % xh, (j0 - 2) % xh      # the next and previous pair
+    xf = torch.where(h == 0, j0, torch.where(s_out == 1, jn, j0))
+    sf = torch.where(h == 0, s_out, 1 - s_out)
+    xb = torch.where(h == 1, j0, torch.where(s_out == 1, j0, jv))
+    sb = torch.where(h == 0, 1 - s_out, s_out)
+    own = (j0, h)
+    return [((0, True), 0 * b + r, own, 0 * b + r, own),
+            ((0, False), 1 * b + r, own, 1 * b + r, own),
+            ((1, True), 2 * b + r, own, 2 * b + r, own),
+            ((1, False), 3 * b + r, own, 3 * b + r, own),
+            ((2, True), 4 * b + r + 2, own, 4 * b + r, own),
+            ((2, False), 4 * b + r, own, 5 * b + r, own),
+            ((3, True), 4 * b + r + 1, (xf, sf), 6 * b + r, own),
+            ((3, False), 4 * b + r + 1, (xb, sb), 7 * b + r, (xb, sb))]
+
+
+def widen_half(words, half):
+    """``wilson::half``: the half (0 low, 1 high) of 32-bit words of bf16
+    pairs as f32, the selected half in the high 16 bits, zeros below."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    bits = torch.where(half == 1, w & 0xFFFF0000, (w & 0xFFFF) << 16)
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def word_reads(rows, slot, word, half):
+    """Component values (..., K) that sites read as words: ``rows`` (slots,
+    K, X) of bf16, the word at even element ``word`` of row ``slot``."""
+    words = rows.contiguous().view(torch.int32).transpose(1, 2)  # slot, X/2, K
+    slot, word, half = torch.broadcast_tensors(slot, word, half)
+    return widen_half(words[slot, word // 2], half[..., None])
+
+
 def emulate_wilson_hop(u_out, u_nbr, psi, *, parity, gamma5_in, gamma5_out,
-                       psi_acc, acc_coeff, hop_coeff, acc_twist, hop_twist):
+                       psi_acc, acc_coeff, hop_coeff, acc_twist, hop_twist,
+                       pair=False):
     """csrc/wilson_hop.cu step by step: the host's tile plan, the rows each
     tile stages (Y wrap included) in their slots, the compute loop's slots
     and X indices (all (r, j) of a tile at once, as the tile's threads
     run them), the compile-time projection/reconstruction of ``hop_spec``,
     the SU(3) row (daggered for backward hops) and the epilogue with the
-    hop's -1/2 folded into the coefficients."""
+    hop's -1/2 folded into the coefficients.  Fields in their storage
+    dtype (f32 or bf16), staged as stored, widened where read, outputs
+    rounded once.  ``pair``: the bf16 pair instance, whose sites read
+    their values as halves of 32-bit words (``pair_hop_reads``)."""
     batched = psi.dim() == 6
     psi = psi if batched else psi[None]
     acc = None if psi_acc is None else (psi_acc if batched else psi_acc[None])
     n_rhs, t_, z_, y_, _, xh = psi.shape
-    b, _, _ = tk.hop_tile_plan(y_, xh)
+    b, _, _ = tk.hop_tile_plan(y_, xh, psi.element_size())
     assert b > 0
+    assert not pair or tk.hop_pair(xh, psi.element_size())
     fields = {"out": u_out, "nbr": u_nbr}
     hc = float(np.float32(-0.5) * np.float32(hop_coeff))
     ht = float(np.float32(-0.5) * np.float32(hop_twist))
@@ -160,7 +212,7 @@ def emulate_wilson_hop(u_out, u_nbr, psi, *, parity, gamma5_in, gamma5_out,
         for z in range(z_):
             for yb in range(-(-y_ // b)):
                 links, spins, accs = tile_rows((t_, z_, y_), b, t, z, yb)
-                lk = torch.zeros(8 * b, 18, xh)
+                lk = torch.zeros(8 * b, 18, xh, dtype=psi.dtype)
                 for k, (f, mu, tt, zz, yy) in links.items():
                     lk[k] = fields[f][mu, tt, zz, yy]
                 nb = min(b, y_ - yb * b)
@@ -168,19 +220,30 @@ def emulate_wilson_hop(u_out, u_nbr, psi, *, parity, gamma5_in, gamma5_out,
                 j = torch.arange(xh)[None, :]
                 s_out = (t + z + yb * b + r + parity) & 1
                 for n in range(n_rhs):
-                    sp = torch.zeros(6 * b + 2, 24, xh)
+                    sp = torch.zeros(6 * b + 2, 24, xh, dtype=psi.dtype)
                     for k, (tt, zz, yy) in spins.items():
                         sp[k] = psi[n, tt, zz, yy]
                     if acc is not None:
                         for k, (tt, zz, yy) in accs.items():
                             sp[k] = acc[n, tt, zz, yy]
                     o = torch.zeros(nb, xh, 4, 3, dtype=torch.complex64)
-                    for (mu, fwd), ss, js, ls, jl in hop_reads(b, r, j, s_out,
-                                                               xh):
-                        ss, js, ls, jl = torch.broadcast_tensors(ss, js, ls,
-                                                                 jl)
-                        v = _cplx(sp.transpose(1, 2)[ss, js], (4, 3))
-                        u = _cplx(lk.transpose(1, 2)[ls, jl], (3, 3))
+                    if pair:
+                        reads = [(hop, word_reads(sp, ss, *sw),
+                                  word_reads(lk, ls, *lw))
+                                 for hop, ss, sw, ls, lw in pair_hop_reads(
+                                     b, r, j, s_out, xh)]
+                    else:
+                        reads = []
+                        for hop, ss, js, ls, jl in hop_reads(b, r, j, s_out,
+                                                             xh):
+                            ss, js, ls, jl = torch.broadcast_tensors(
+                                ss, js, ls, jl)
+                            reads.append((hop,
+                                          sp.transpose(1, 2)[ss, js].float(),
+                                          lk.transpose(1, 2)[ls, jl].float()))
+                    for (mu, fwd), sv, lv in reads:
+                        v = _cplx(sv, (4, 3))
+                        u = _cplx(lv, (3, 3))
                         proj, recon = tk.hop_spec(mu, fwd, gamma5_in,
                                                   gamma5_out)
                         h = torch.stack([v[..., a, :] + UNIT[q] * v[..., col, :]
@@ -194,8 +257,11 @@ def emulate_wilson_hop(u_out, u_nbr, psi, *, parity, gamma5_in, gamma5_out,
                             o[..., 2 + i, :] += UNIT[ph] * g[..., src, :]
                     res = hc * o + 1j * ht * g5 * o
                     if acc is not None:
-                        a = _cplx(sp[5 * b + 2:5 * b + 2 + nb].transpose(1, 2),
-                                  (4, 3))
+                        a = sp[5 * b + 2:5 * b + 2 + nb].transpose(1, 2)
+                        if pair:    # the pair's own words
+                            a = word_reads(sp, 5 * b + 2 + r, j - j % 2,
+                                           j % 2)
+                        a = _cplx(a.float(), (4, 3))
                         res = res + acc_coeff * a + 1j * acc_twist * g5 * a
                     rows = torch.view_as_real(res).reshape(nb, xh, 24)
                     out[n, t, z, yb * b:yb * b + nb] = rows.transpose(1, 2)
@@ -217,6 +283,115 @@ def test_kernel_algorithm_matches_plain_version(packed, flags, n):
     np.testing.assert_allclose(
         emulate_wilson_hop(u_out, u_nbr, pb, **kw).numpy(),
         wilson_hop_ref(u_out, u_nbr, pb, **kw).numpy(), rtol=0, atol=1e-5)
+
+
+def bf16_within_one_ulp(out, ref):
+    """At most 1 bf16 ulp an entry; an entry that cancels below 2^-16 of
+    the field's largest, where f32 sums in another order differ by more
+    than its own ulp, is held to the ulp at that floor (the bar of
+    tests/test_torch_cuda.py and chip_smoke.py)."""
+    assert out.dtype == ref.dtype == torch.bfloat16
+    bits = [v.contiguous().view(torch.int16).int() for v in (out, ref)]
+    ords = [torch.where(v < 0, -(v & 0x7FFF), v) for v in bits]
+    a, b = out.double(), ref.double()
+    _, e = torch.frexp(2.0 ** -16 * b.abs().max())
+    floor = torch.ldexp(torch.ones((), dtype=torch.float64), e - 8)
+    ok = ((ords[0] - ords[1]).abs() <= 1) | ((a - b).abs() <= floor)
+    assert bool(ok.all()), float((a - b).abs().max())
+
+
+def _pair_case(u_out, u_nbr, psi, flags):
+    """The pair instance's emulation on bf16 fields: bitwise the one-site
+    emulation's, within 1 bf16 ulp of the plain version."""
+    which, g5in, g5out, acc, twist = flags
+    f = _flags(which, g5in, g5out, acc, twist)
+    del f["which"]
+    if which == "oe":
+        u_out, u_nbr = u_nbr, u_out
+    kw = dict(parity=0 if which == "eo" else 1,
+              psi_acc=(0.7 * psi).bfloat16() if acc else None, **f)
+    pair = emulate_wilson_hop(u_out, u_nbr, psi, pair=True, **kw)
+    assert torch.equal(pair, emulate_wilson_hop(u_out, u_nbr, psi, **kw))
+    bf16_within_one_ulp(pair, wilson_hop_ref(u_out, u_nbr, psi, **kw))
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("flags", ALL_FLAGS, ids=lambda f: "-".join(
+    map(str, f)))
+def test_pair_algorithm_equals_one_site(packed, flags, n):
+    """Xh = 4: two pairs a row, so every pair's unaligned X neighbours
+    wrap at one of the row's ends; both parities give both s_out on
+    every row."""
+    upe, upo, pb = (T(a).bfloat16() for a in packed["4x4x4x8"])
+    _pair_case(upe, upo, pb[0] if n == 1 else pb, flags)
+
+
+@pytest.mark.parametrize("dims", [(4, 4, 4, 4), (4, 4, 6, 16),
+                                  (4, 4, 22, 8)],
+                         ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("flags", [("eo", False, True, True, False),
+                                   ("oe", True, False, False, True),
+                                   ("eo", True, True, True, True)],
+                         ids=lambda f: "-".join(map(str, f)))
+def test_pair_algorithm_other_widths(dims, flags):
+    """Xh = 2 (one pair a row: its next and previous pair are itself),
+    Xh = 8 (interior pairs), Y = 22 against an 11-row tile."""
+    from repro_torch.core import lattice as tl
+    gen = torch.Generator().manual_seed(71)
+    lat = tl.LatticeShape(*dims)
+    ue, uo = tl.split_eo_gauge(tl.random_gauge(gen, lat))
+    psi = torch.stack([tl.split_eo(tl.random_spinor(gen, lat))[0]
+                       for _ in range(2)])
+    _pair_case(tl.pack_gauge(ue, torch.bfloat16),
+               tl.pack_gauge(uo, torch.bfloat16),
+               tl.pack_spinor(psi, torch.bfloat16), flags)
+
+
+# (Y, Xh) -> K1's bf16 plan (b, ls, ss): even Xh runs the pair instance, 64
+# sites a tile (b = 4 at 32^3 x 64), odd Xh the one-site one, 32 sites as
+# in f32; Xh = 350 reads in place
+HOP_BF16_PLANS = {(32, 16): (4, 336, 400), (4, 2): (4, 36, 48),
+                  (22, 4): (11, 72, 96), (6, 8): (6, 200, 200),
+                  (6, 3): (6, 54, 72), (8, 5): (4, 90, 120),
+                  (2, 350): (0, 6300, 8400)}
+
+
+@pytest.mark.parametrize("yx", list(HOP_BF16_PLANS),
+                         ids=lambda k: "%dx%d" % k)
+def test_hop_tile_plan_bf16(yx):
+    y, xh = yx
+    b, ls, ss = tk.hop_tile_plan(y, xh, esize=2)
+    assert (b, ls, ss) == HOP_BF16_PLANS[yx]
+    pair = tk.hop_pair(xh, 2)
+    assert pair == (xh % 2 == 0) and not tk.hop_pair(xh, 4)
+    if b == 0:
+        assert tk.hop_smem_bytes(1, ls, ss, 2) > tk.HOP_SMEM_LIMIT
+        return
+    sites = tk.HOP_TILE_SITES * (2 if pair else 1)
+    assert b * xh <= max(sites, xh)
+    assert tk.hop_smem_bytes(b, ls, ss, 2) <= tk.HOP_SMEM_TARGET
+    if pair:   # words: even strides; a thread per colour of two sites
+        assert ls % 2 == 0 and ss % 2 == 0 and 3 * b * xh // 2 <= 256
+    else:      # the one-site tile is the f32 sizing rule's
+        assert tk._tile_plan(y, xh, tk.HOP_TILE_SITES, tk.hop_smem_bytes,
+                             2) == (b, ls, ss)
+
+
+def test_pair_launch_counts():
+    """A pair launch counts as a bf16 launch and as a pair launch; a reset
+    zeroes both."""
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+    kernels.reset_counts()
+    build.count(tk.wilson_hop, "launches", torch.bfloat16, pair=True)
+    build.count(tk.wilson_hop, "launches", torch.bfloat16)
+    build.count(tk.wilson_full, "launches", torch.bfloat16, pair=True)
+    assert kernels.counts()["wilson_hop_bf16"]["launches"] == 2
+    assert kernels.pair_launches() == {"wilson_hop_bf16": 1,
+                                       "wilson_full_bf16": 1}
+    kernels.reset_counts()
+    assert kernels.pair_launches() == {"wilson_hop_bf16": 0,
+                                       "wilson_full_bf16": 0}
 
 
 def _true_reads(dims, t, z, y):

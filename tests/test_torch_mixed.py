@@ -245,9 +245,11 @@ def test_bf16_vector_split_writes_every_element_once(offset, length):
 def test_tile_plans_count_in_bytes():
     """bf16 tiles: strides in bf16 elements, padded to the 64 bf16 of the
     banks, 16-byte rows; TMA at 32^3 x 64, plain loads at the 4^4
-    goldens' Xh = 2 (4-byte planes), as csrc/wilson_hop.cu decides."""
+    goldens' Xh = 2 (4-byte planes), as csrc/wilson_hop.cu decides.  At
+    even widths the bf16 pair instances take twice the sites a tile (b =
+    4 for K1, 8 for K4 at 32^3 x 64)."""
     b, ls, ss = tk.hop_tile_plan(32, 16, esize=2)
-    assert (b, ls, ss) == (2, 336, 400)
+    assert (b, ls, ss) == (4, 336, 400)
     assert ls % 64 == 16 and ss % 64 == 16
     assert tk.hop_bulk(16, ls, ss, esize=2)
     assert tk.hop_smem_bytes(b, ls, ss, esize=2) == (
@@ -256,9 +258,9 @@ def test_tile_plans_count_in_bytes():
     assert tk.hop_bulk(2, *tk.hop_tile_plan(4, 2)[1:])   # f32 unchanged
     assert tk.hop_tile_plan(32, 16) == (2, 304, 400)
     # K4 at X = 32: unpadded (a warp spans one row), so the X = 32
-    # instances serve bf16 too; half the f32 tile's bytes
+    # instances serve bf16 too; half the f32 tile's bytes at equal b
     b, ls = tk.full_tile_plan(32, 32, esize=2)
-    assert (b, ls) == (4, 576) and tk.full_bulk(32, ls, esize=2)
+    assert (b, ls) == (8, 576) and tk.full_bulk(32, ls, esize=2)
     assert (tk.full_smem_bytes(b, ls, esize=2) - 16) * 2 == (
         tk.full_smem_bytes(b, ls) - 16)
     assert tk.full_bulk(4, tk.full_tile_plan(4, 4, esize=2)[1], esize=2)
