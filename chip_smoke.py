@@ -10,7 +10,10 @@ operator (``operator="eo-schur"``), and CGNR on the full-lattice normal
 operator (``operator="full"``), each in f32 and in mixed precision
 (``precision="mixed"``: a bf16 inner CG through the kernels' bf16
 instances, f32 reliable updates), and the full lattice's all-bf16 cg16
-(``precision="low"``).  Phases:
+(``precision="low"``); then the other Krylov loops on the same kernels:
+pipelined CG (``solver="pipecg"``), block CG (``solver="blockcg"``, the
+hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
+``solve(..., deflation=)``).  Phases:
 
 0. build every kernel (one ``nvcc`` per source, all at once);
 1. banner: the card's name and power limit, and the measured
@@ -50,7 +53,16 @@ instances, f32 reliable updates), and the full lattice's all-bf16 cg16
    iterations within 2 of JAX's pallas backend's count, outer equal):
    even-odd Wilson and twisted mass 15 / 4, full N = 1 35 / 5 and N = 4
    33, 33, 35, 33 / 5, cg16 27 (unverified by design), each with its
-   launch counts and no plain-version call;
+   launch counts and no plain-version call; then the other Krylov loops
+   (fixture batch ``b_batch16``): at mass 0.1 pipecg even-odd 14 (N = 1
+   and 4, 15 matvecs) and full 30 (N = 1 and 4, 33 matvecs), blockcg
+   N = 4 even-odd 14 and full 27, equal to the JAX twins' counts (a
+   solve one iteration later must hold a recursive residual within 5 %
+   of the stopping limit at the twins' count); at mass -1.7 blockcg
+   N = 16 (JAX: 71 reference, 90 pallas), the harvest of batch[0] (tol
+   1e-8, nev 32, m_max 160: 153 iterations / 185 matvecs), batch[1]
+   cold (110) and deflated (109-111), each within 2 of one twin's count
+   or between the twins';
 4. both paths at full size, 64x32x32x32 (T, Z, Y, X), mass 0.1,
    tol 1e-6.  Even-odd: a single-RHS Wilson solve, a 4-RHS Wilson solve
    and a single-RHS twisted-mass solve, with hop launches 4I+4, update
@@ -60,8 +72,13 @@ instances, f32 reliable updates), and the full lattice's all-bf16 cg16
    runs the kernel).  Then mixed precision: even-odd N = 1, full N = 1
    and N = 4, and full cg16 N = 1 (which must converge in bf16 and is
    unverified by design; its true residual is printed), with the time to
-   a verified solution beside the f32 solve's of the same path.  Each
-   solve has every count set to 0 just before it; it must converge and
+   a verified solution beside the f32 solve's of the same path.  Then
+   the other Krylov loops: even-odd pipecg N = 1 and 4, full pipecg
+   N = 1, even-odd blockcg N = 16 beside even-odd CGNR N = 16, and a
+   harvest (nev 8, m_max 48, tol 1e-8, verified at 1e-6) followed by a
+   deflated solve of another RHS, each timed beside CGNR at the same N
+   (the 16-RHS batch exists only for the N = 16 runs).
+   Each solve has every count set to 0 just before it; it must converge and
    verify with a true relative residual below 10 tol, launch no other
    kernel and call no plain version; every bf16 Wilson launch of these
    32^3 x 64 solves must run the pair instance;
@@ -75,11 +92,16 @@ instances, f32 reliable updates), and the full lattice's all-bf16 cg16
    timed both ways; the bf16 instances likewise, against their bounds at
    2 bytes a real (K3 against ``torch.addcmul`` on bf16), the Wilson
    kernels' labelled with the instance they ran, beside the pair
-   kernels' registers and spills from the compiler's report;
+   kernels' registers and spills from the compiler's report; the hop
+   kernel in f32 once more at N = 16, block CG's width;
 6. one traced single-RHS Wilson solve of each path, the 4-RHS
-   full-lattice solve and the mixed single-RHS solve of each path
-   (``torch.profiler``): device time by kernel and the card's idle share
+   full-lattice solve, the mixed single-RHS solve of each path, the
+   16-RHS even-odd block CG, the single-RHS even-odd pipecg and the
+   deflated single-RHS solve (``torch.profiler``): device time by kernel and the card's idle share
    of the solve.
+
+Block CG's Gram products must run in full f32: the script checks that
+TF32 is off for matrix products before any phase.
 
 Any failure raises; no phase's error is caught.  The last line is the
 JSON object ``{"ok": true, "device": {...}}``; the line before it lists
@@ -90,6 +112,7 @@ CUDA device or the port's sources are missing.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import statistics
@@ -109,6 +132,7 @@ PEAK_FP32_FLOPS = 67e12
 HOP_FLOPS_PER_SITE = 1320        # per output site and RHS (paper §5)
 MAIN_DIMS = (64, 32, 32, 32)     # T, Z, Y, X: the 32^3 x 64 lattice
 MASS, TOL, MU = 0.1, 1e-6, 0.25
+LIGHT = -1.7                     # near-critical mass of the light-mass goldens
 HOP_TOL = 1e-5                   # max-abs over max(1, max |plain|): f32 order
 EO_GOLDEN, FULL_GOLDEN = 14, 27  # 4^4 seed-7 Wilson iterations (JAX reference)
 CG_TOL = 1e-5                    # max-abs on fields, relative on norms
@@ -125,6 +149,26 @@ MIXED_GOLDENS = (
     ("full_mixed_n4", dict(operator="full", precision="mixed", nrhs=4), True,
      [33, 33, 35, 33], 5),
     ("full_cg16", dict(operator="full", precision="low"), False, [27], 1))
+# 4^4 seed-7 goldens of the other Krylov loops at mass 0.1: (name, plan
+# fields, RHS count, iterations per RHS, matvecs), the JAX twins' counts
+# (reference and pallas backends alike)
+KRYLOV_GOLDENS = (
+    ("eo_pipecg", dict(solver="pipecg"), 1, [14], 15),
+    ("eo_pipecg_n4", dict(solver="pipecg", nrhs=4), 4, [14] * 4, 15),
+    ("full_pipecg", dict(operator="full", solver="pipecg"), 1, [30], 33),
+    ("full_pipecg_n4", dict(operator="full", solver="pipecg", nrhs=4), 4,
+     [30] * 4, 33),
+    ("eo_blockcg_n4", dict(solver="blockcg", nrhs=4), 4, [14] * 4, 14),
+    ("full_blockcg_n4", dict(operator="full", solver="blockcg", nrhs=4), 4,
+     [27] * 4, 27))
+# the JAX twins at mass -1.7 (reference, pallas): block CG over b_batch16
+# (loop count and per RHS), the harvest of batch[0] (iterations, matvecs),
+# batch[1] cold and deflated (iterations)
+BLOCKCG16_TWINS = (
+    (71, [67, 69, 68, 69, 69, 68, 70, 69, 69, 70, 68, 71, 68, 70, 69, 69]),
+    (90, [84, 88, 89, 89, 88, 88, 87, 87, 88, 88, 88, 90, 86, 89, 89, 90]))
+HARVEST_TWINS = ((153, 185), (153, 185))
+COLD_TWINS, DEFLATED_TWINS = (110, 110), (109, 110)
 
 
 def log(*args):
@@ -534,43 +578,66 @@ def check_cg_bf16(dev, gen) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 
 
-def solve_counted(plan, u, b, dev, layout="natural"):
-    """One solve with every count set to 0 just before and read just after;
-    returns (x, stats, counts, pair launches, wall seconds, peak bytes)."""
+def counted(dev, fn):
+    """``fn()`` with every count set to 0 just before and read just after;
+    returns (fn's result, counts, pair launches, wall seconds, peak
+    bytes)."""
     from repro_torch import kernels
-    from repro_torch.core import plan as plan_mod
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_counts()
     t0 = time.perf_counter()
-    x, st = plan_mod.solve(plan, u, b, MASS, tol=TOL, maxiter=1000,
-                           layout=layout, device=dev)
+    out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.counts()
-    return (x, st, counts, kernels.pair_launches(), wall,
+    return (out, counts, kernels.pair_launches(), wall,
             torch.cuda.max_memory_allocated(dev))
 
 
-def want_launches(plan, st, layout="natural") -> dict:
-    """Kernel launches of a solve of k (inner) iterations and o reliable
-    updates; every other kernel runs 0."""
+def solve_counted(plan, u, b, dev, layout="natural", mass=MASS, **kw):
+    """One counted solve (:func:`counted`); returns (x, stats, counts, pair
+    launches, wall seconds, peak bytes)."""
+    from repro_torch.core import plan as plan_mod
+    (x, st), *rest = counted(dev, lambda: plan_mod.solve(
+        plan, u, b, mass, tol=TOL, maxiter=1000, layout=layout, device=dev,
+        **kw))
+    return (x, st, *rest)
+
+
+def harvest_counted(plan, u, b, dev, mass, **kw):
+    """One counted :func:`harvest_deflation`; returns (x, stats, basis,
+    counts, pair launches, wall seconds, peak bytes)."""
+    from repro_torch.core import plan as plan_mod
+    (x, st, basis), *rest = counted(dev, lambda: plan_mod.harvest_deflation(
+        plan, u, b, mass, maxiter=1000, device=dev, **kw))
+    return (x, st, basis, *rest)
+
+
+def want_launches(plan, st, layout="natural", harvest=False) -> dict:
+    """Kernel launches of a solve of k (inner) iterations, o reliable
+    updates and m Krylov matvecs (k, or k + 1 from a deflated start;
+    pipecg k + 1 + 2 (k // 25); a harvest k + min(nev, k)); every other
+    kernel runs 0.  Only CGNR drives the fused CG kernels."""
     k, o = st.iterations, st.outer_iterations
+    mv = int(torch.atleast_1d(st.matvecs).max())
     packed = int(layout == "packed")
     if plan.operator == "full":
         if plan.precision == "mixed":
             return {"wilson_full_bf16": 2 * k, "wilson_full": 2 * o + 1 + packed}
         if plan.precision == "low":
             return {"wilson_full_bf16": 2 * k, "wilson_full": 1 + packed}
-        return {"wilson_full": 2 * k + 1 + packed}
+        return {"wilson_full": 2 * mv + 1 + packed}
     if plan.precision == "mixed":
         return {"wilson_hop_bf16": 4 * k, "wilson_hop": 4 * o + 4,
                 "cg_update_bf16": k, "cg_xpay_bf16": k}
-    return {"wilson_hop": 4 * k + 4, "cg_update": k, "cg_xpay": k}
+    if plan.solver != "cgnr" or harvest:
+        return {"wilson_hop": 4 * mv + 4}
+    return {"wilson_hop": 4 * mv + 4, "cg_update": k, "cg_xpay": k}
 
 
-def check_launches(name, st, counts, plan, layout="natural"):
-    want = want_launches(plan, st, layout)
+def check_launches(name, st, counts, plan, layout="natural", harvest=False):
+    want = want_launches(plan, st, layout, harvest)
     for kern in counts:
         n = want.get(kern, 0)
         got = counts[kern]
@@ -602,6 +669,53 @@ def check_solve(name, st, rel, verified=True):
         check(not bool(ver.any()), f"{name}: cg16 verified")
 
 
+def near_or_between(n: int, twins) -> bool:
+    """Within 2 of one twin's count, or between the two twins' counts."""
+    return (min(twins) <= n <= max(twins)
+            or any(abs(n - t) <= 2 for t in twins))
+
+
+def krylov_rhs_norm2(plan, u, b, mass) -> torch.Tensor:
+    """||rhs||^2 per RHS of the system the Krylov loop iterates on (D^dag b
+    on the full lattice, the Schur RHS on the even-odd path)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.eo import schur_rhs
+    from repro_torch.core.lattice import pack_gauge, pack_spinor
+    from repro_torch.kernels.wilson_dslash import ops as wops
+    if plan.operator == "full":
+        r = wops.dslash_dagger(pack_gauge(u), pack_spinor(b), mass)
+    else:
+        ctx = plan_mod.resolve(plan, u, mass)
+        r = schur_rhs(ctx.ops, *ctx.prepare(b))
+    r = r if plan.batched else r[None]
+    return torch.stack([(v.double() ** 2).sum() for v in r])
+
+
+def check_twin_counts(name, plan, u, rhs, its, want, dev) -> list[int]:
+    """The mass-0.1 rule: the port's iterations equal the twins', or stop
+    one iteration later with the recursive residual at the twins' count
+    within 5 % of the stopping limit (a miss at rounding level, checked
+    by solving again to that count).  Returns the RHS that stopped late."""
+    from repro_torch.core import plan as plan_mod
+    late = [i for i, (a, w) in enumerate(zip(its, want)) if a != w]
+    check(all(its[i] == want[i] + 1 for i in late),
+          f"golden {name}: iterations {its}, want {want}")
+    if late:
+        norm2 = krylov_rhs_norm2(plan, u, rhs, MASS)
+    for i in late:
+        _, st = plan_mod.solve(plan, u, rhs, MASS, tol=TOL, maxiter=want[i],
+                               device=dev)
+        ratio = float(torch.atleast_1d(st.residual_norm2)[i].double()
+                      / (TOL ** 2 * norm2[i]))
+        check(ratio <= 1.05, f"golden {name}: RHS {i} stopped at {its[i]}, "
+                             f"want {want[i]}; its residual there is "
+                             f"{ratio:.4f} of the limit")
+        log(f"golden {name}: RHS {i} stopped one iteration after the twins "
+            f"({its[i]} against {want[i]}), its residual at {want[i]} "
+            f"{ratio:.4f} of the limit")
+    return late
+
+
 def goldens(dev):
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.lattice import fields_from_numpy
@@ -610,6 +724,9 @@ def goldens(dev):
     with np.load(path) as f:
         u, b = fields_from_numpy(f["gauge"], f["b"], device=dev)
         _, batch = fields_from_numpy(f["gauge"], f["b_batch"], device=dev)
+        _, batch16 = fields_from_numpy(f["gauge"], f["b_batch16"], device=dev)
+    check(torch.equal(batch16[:4], batch), "fixture: b_batch16[:4] is not "
+                                           "b_batch")
     out = {}
     SP = plan_mod.SolverPlan
     for name, plan, rhs, want in (
@@ -653,6 +770,73 @@ def goldens(dev):
         check_launches(name, st, counts, plan)
         out[name] = dict(inner=its, outer=st.outer_iterations,
                          pair_launches=pairs)
+    out.update(krylov_goldens(dev, u, b, batch16))
+    return out
+
+
+def krylov_goldens(dev, u, b, batch16) -> dict:
+    """Phase 3's rows of the other Krylov loops (KRYLOV_GOLDENS and the
+    light-mass twins): every solve converges, verifies, launches only its
+    kernels and calls no plain version."""
+    from repro_torch.core import plan as plan_mod
+    SP = plan_mod.SolverPlan
+    out = {}
+    for name, kw, n, want, mv in KRYLOV_GOLDENS:
+        plan = SP(**kw)
+        rhs = b if n == 1 else batch16[:n]
+        x, st, counts, _, _, _ = solve_counted(plan, u, rhs, dev)
+        its = st.rhs_iterations.tolist() if plan.batched else [st.iterations]
+        late = check_twin_counts(name, plan, u, rhs, its, want, dev)
+        k = st.iterations
+        got_mv = torch.atleast_1d(st.matvecs).tolist()
+        want_mv = k + 1 + 2 * (k // 25) if plan.solver == "pipecg" else k
+        check(got_mv == [want_mv] * n and (late or want_mv == mv),
+              f"golden {name}: matvecs {got_mv}, want {mv}")
+        check_solve(name, st, rel_res(st, rhs, plan.batched))
+        check_launches(name, st, counts, plan)
+        xr, _ = plan_mod.solve(dataclasses.replace(plan, backend="reference"),
+                               u, rhs, MASS, tol=TOL, device=dev)
+        err = max_err(x, xr) / float(xr.abs().max())
+        check(err <= 1e-4, f"golden {name}: kernels vs reference backend "
+                           f"x differ by {err} (relative)")
+        out[name] = dict(iterations=its, matvecs=max(got_mv), late=late)
+    # mass -1.7: block CG at 16 RHS, the harvest, cold and deflated solves
+    plan = SP(solver="blockcg", nrhs=16)
+    _, st, counts, _, _, _ = solve_counted(plan, u, batch16, dev, mass=LIGHT)
+    its = st.rhs_iterations.tolist()
+    check(near_or_between(st.iterations, [t[0] for t in BLOCKCG16_TWINS])
+          and all(near_or_between(n, [t[1][i] for t in BLOCKCG16_TWINS])
+                  for i, n in enumerate(its)),
+          f"golden blockcg_n16_light: iterations {st.iterations} {its}, "
+          f"twins {BLOCKCG16_TWINS}")
+    check_solve("blockcg_n16_light", st, rel_res(st, batch16, True))
+    check_launches("blockcg_n16_light", st, counts, plan)
+    out["blockcg_n16_light"] = dict(loop=st.iterations, iterations=its)
+    plan = SP()
+    _, sh, basis, counts, _, _, _ = harvest_counted(
+        plan, u, batch16[0], dev, LIGHT, tol=1e-8, nev=32, m_max=160,
+        verify_tol=TOL)
+    check(near_or_between(sh.iterations, [t[0] for t in HARVEST_TWINS])
+          and int(sh.matvecs) == sh.iterations + 32,
+          f"golden harvest_light: {sh.iterations} iterations / "
+          f"{int(sh.matvecs)} matvecs, twins {HARVEST_TWINS}")
+    check_solve("harvest_light", sh, rel_res(sh, batch16[0], False))
+    check_launches("harvest_light", sh, counts, plan, harvest=True)
+    runs = {}
+    for name, kw, twins in (("cold_light", {}, COLD_TWINS),
+                            ("deflated_light", dict(deflation=basis),
+                             DEFLATED_TWINS)):
+        _, st, counts, _, _, _ = solve_counted(plan, u, batch16[1], dev,
+                                               mass=LIGHT, **kw)
+        check(near_or_between(st.iterations, twins)
+              and int(st.matvecs) == st.iterations + len(kw),
+              f"golden {name}: {st.iterations} iterations / "
+              f"{int(st.matvecs)} matvecs, twins {twins}")
+        check_solve(name, st, rel_res(st, batch16[1], False))
+        check_launches(name, st, counts, plan)
+        runs[name] = st.iterations
+    out["deflation_light"] = dict(harvest=(sh.iterations, int(sh.matvecs)),
+                                  **runs)
     return out
 
 
@@ -713,19 +897,82 @@ def main_path(dev):
                                     for k, v in counts.items()},
                           pair_launches=pairs)
         del x, st, gauge
-    # time to a solution, mixed against f32 on the same path and RHS
-    for mixed, single in (("eo_mixed_n1", "wilson_n1"),
+    batch16, basis = krylov_path(dev, u, b, batch, gen, runs)
+    # time to a solution against f32 CGNR on the same path, N and RHS
+    for other, single in (("eo_mixed_n1", "wilson_n1"),
                           ("full_mixed_n1", "full_wilson_n1"),
                           ("full_mixed_n4", "full_wilson_n4"),
-                          ("full_cg16_n1", "full_wilson_n1")):
-        m, f = runs[mixed], runs[single]
-        log(f"time to solution {mixed}: {m['wall_s']:.4f} s "
-            f"({'verified' if mixed != 'full_cg16_n1' else 'unverified'}), "
+                          ("full_cg16_n1", "full_wilson_n1"),
+                          ("eo_pipecg_n1", "wilson_n1"),
+                          ("eo_pipecg_n4", "wilson_n4"),
+                          ("full_pipecg_n1", "full_wilson_n1"),
+                          ("eo_blockcg_n16", "wilson_n16"),
+                          ("eo_harvest_n1", "wilson_n1"),
+                          ("eo_deflated_n1", "wilson_n1")):
+        m, f = runs[other], runs[single]
+        log(f"time to solution {other}: {m['wall_s']:.4f} s "
+            f"({'verified' if other != 'full_cg16_n1' else 'unverified'}), "
             f"{single} (cgnr, f32) {f['wall_s']:.4f} s, ratio "
             f"{m['wall_s'] / f['wall_s']:.3f}; peak memory "
             f"{m['peak_bytes'] / 2**30:.3f} against "
             f"{f['peak_bytes'] / 2**30:.3f} GiB")
-    return u, b, batch, runs
+    return u, b, batch, batch16, basis, runs
+
+
+def krylov_path(dev, u, b, batch, gen, runs) -> torch.Tensor:
+    """Phase 4's runs of the other Krylov loops at 32^3 x 64 (into
+    ``runs``): even-odd pipecg N = 1 and 4, full pipecg N = 1, a harvest
+    (nev 8, m_max 48, tol 1e-8, verified at tol) on batch[0] followed by a
+    deflated solve of b, then even-odd CGNR and block CG at N = 16 (the
+    16-RHS batch is made after the smaller runs, so their peak memory
+    holds what the earlier phase-4 runs held).  Returns the 16-RHS batch
+    (its first 4 are ``batch``)."""
+    from repro_torch.core import lattice as tl
+    from repro_torch.core import plan as plan_mod
+    lat = tl.LatticeShape(*MAIN_DIMS)
+    SP = plan_mod.SolverPlan
+
+    def record(name, plan, rhs, st, counts, pairs, wall, peak,
+               harvest=False):
+        rel = rel_res(st, rhs, plan.batched)
+        check_solve(name, st, rel)
+        check_launches(name, st, counts, plan, harvest=harvest)
+        its = st.rhs_iterations.tolist() if plan.batched else [st.iterations]
+        mv = int(torch.atleast_1d(st.matvecs).max())
+        log(f"main path {name}: iterations {its} (loop {st.iterations}, "
+            f"matvecs {mv}), true rel_res {[f'{r:.3e}' for r in rel]}, wall "
+            f"{wall:.4f} s, peak memory {peak / 2**30:.3f} GiB, launches "
+            f"{ {k: v['launches'] for k, v in counts.items() if v['launches']} }")
+        runs[name] = dict(iterations=its, loop=st.iterations,
+                          outer=st.outer_iterations, matvecs=mv, rel=rel,
+                          wall_s=wall, peak_bytes=peak,
+                          launches={k: v["launches"]
+                                    for k, v in counts.items()},
+                          pair_launches=pairs)
+
+    for name, plan, rhs in (
+            ("eo_pipecg_n1", SP(solver="pipecg"), b),
+            ("eo_pipecg_n4", SP(solver="pipecg", nrhs=4), batch),
+            ("full_pipecg_n1", SP(operator="full", solver="pipecg"), b)):
+        x, st, *rest = solve_counted(plan, u, rhs, dev)
+        del x
+        record(name, plan, rhs, st, *rest)
+    x, st, basis, *rest = harvest_counted(SP(), u, batch[0], dev, MASS,
+                                          tol=1e-8, nev=8, m_max=48,
+                                          verify_tol=TOL)
+    del x
+    record("eo_harvest_n1", SP(), batch[0], st, *rest, harvest=True)
+    x, st, *rest = solve_counted(SP(), u, b, dev, deflation=basis)
+    del x
+    record("eo_deflated_n1", SP(), b, st, *rest)
+    batch16 = torch.cat([batch, torch.stack([tl.random_spinor(gen, lat)
+                                             for _ in range(12)])])
+    for name, plan in (("wilson_n16", SP(nrhs=16)),
+                       ("eo_blockcg_n16", SP(solver="blockcg", nrhs=16))):
+        x, st, *rest = solve_counted(plan, u, batch16, dev)
+        del x
+        record(name, plan, batch16, st, *rest)
+    return batch16, basis
 
 
 # ---------------------------------------------------------------------------
@@ -897,7 +1144,7 @@ def time_cg(dev, bw, n, length, dtype=torch.float32):
 # ---------------------------------------------------------------------------
 
 
-def profile_solve(plan, u, b, dev) -> dict:
+def profile_solve(plan, u, b, dev, **kw) -> dict:
     """One traced Wilson solve at full size under ``torch.profiler``:
     device time by kernel (device-side events only: an operator's row
     would count its kernels twice) and the card's idle share of the
@@ -908,7 +1155,7 @@ def profile_solve(plan, u, b, dev) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        plan_mod.solve(plan, u, b, MASS, tol=TOL, device=dev)
+        plan_mod.solve(plan, u, b, MASS, tol=TOL, device=dev, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -936,6 +1183,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # block CG's Gram products lose about 10 bits under TF32 and break
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matrix products are not full f32 (TF32 is on)")
     t_start = time.perf_counter()
 
     # phase 0: build
@@ -1018,7 +1269,7 @@ def main() -> int:
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 4: main path
-    u, b, batch, runs = main_path(dev)
+    u, b, batch, batch16, basis, runs = main_path(dev)
     base = ("wilson_hop", "cg_update", "cg_xpay", "wilson_full")
     names = base + tuple(f"{k}_bf16" for k in base)
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in names}
@@ -1054,6 +1305,15 @@ def main() -> int:
                     f"({v['bound_ms_intensity_model_measured_bw']:.4f} ms "
                     "at the measured copy rate)")
 
+    # the hop kernel in f32 at block CG's width (the N = 16 solve of phase 4)
+    hop16 = time_hop(u, b, batch16, bw, 16)
+    log(f"timing wilson_hop {hop16['shape']}: {hop16['ms']:.4f} ms (back to "
+        f"back {hop16['ms_back_to_back']:.4f} ms), plain "
+        f"{hop16['plain_ms']:.4f} ms, bound {hop16['bound_ms']:.4f} ms "
+        f"({hop16['bound_by']}; {hop16['bound_ms_measured_bw']:.4f} ms at the "
+        f"measured copy rate), max-abs error {hop16['max_abs_err']:.3e}, "
+        f"{runs['eo_blockcg_n16']['launches']['wilson_hop']} launches in the "
+        "N = 16 block CG solve")
     for name in ("wilson_hop", "wilson_full"):
         for line in ptxas_pairs(name):
             log(f"  ptxas {name} pair instance {line}")
@@ -1067,8 +1327,13 @@ def main() -> int:
             ("full_wilson_n4", SolverPlan(operator="full", nrhs=4), batch),
             ("eo_mixed_n1", SolverPlan(precision="mixed"), b),
             ("full_mixed_n1", SolverPlan(operator="full",
-                                         precision="mixed"), b)):
-        prof = profile_solve(plan, u, rhs, dev)
+                                         precision="mixed"), b),
+            ("eo_blockcg_n16", SolverPlan(solver="blockcg", nrhs=16),
+             batch16),
+            ("eo_pipecg_n1", SolverPlan(solver="pipecg"), b),
+            ("eo_deflated_n1", SolverPlan(), b)):
+        kw = dict(deflation=basis) if name == "eo_deflated_n1" else {}
+        prof = profile_solve(plan, u, rhs, dev, **kw)
         if prof["top"]:
             log(f"profile {name}: wall {prof['wall_ms']:.2f} ms (traced), "
                 f"device busy {prof['device_busy_ms']:.2f} ms, idle share "
@@ -1079,6 +1344,7 @@ def main() -> int:
         else:
             log(f"profile {name}: the profiler recorded no device time "
                 "(not measured)")
+    log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
     replaces = {
         "wilson_hop": "src/repro/kernels/wilson_dslash/kernel.py:684",
@@ -1108,6 +1374,12 @@ def main() -> int:
             "batched": {k: timings[4][name][k] for k in
                         ("ms", "ms_back_to_back", "plain_ms", "bound_ms",
                          "library_ms", "shape")}})
+        if name == "wilson_hop":
+            kernels_line[-1]["max_abs_err"] = max(
+                kernels_line[-1]["max_abs_err"], hop16["max_abs_err"])
+            kernels_line[-1]["n16"] = {
+                k: hop16[k] for k in ("ms", "ms_back_to_back", "plain_ms",
+                                      "bound_ms", "bound_by", "shape")}
     log("main path runs: " + json.dumps(runs))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

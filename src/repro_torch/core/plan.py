@@ -1,15 +1,16 @@
 """SolverPlan — the one declarative entry point of the port's solve stack.
 
 A :class:`SolverPlan` names a solve as data (operator, operator family,
-backend, batch shape, precision, mesh) and :func:`solve` runs it.  The
-port carries two operators, single device, one RHS or a masked batch,
-for every registered operator family:
+backend, Krylov loop, batch shape, precision, mesh) and :func:`solve`
+runs it.  The port carries two operators, single device, one RHS or a
+batch, for every registered operator family:
 
-* ``"eo-schur"`` (default) — the paper's solve: CGNR on the even-odd
-  Schur complement (:func:`_solve_eo`), or with ``precision="mixed"``
-  the reliable-update mpcg with a bf16 inner CG (:func:`_solve_eo_mp`,
-  one RHS);
-* ``"full"`` — CGNR on the full-lattice normal operator D^dag D
+* ``"eo-schur"`` (default) — the paper's solve on the even-odd Schur
+  complement (:func:`_solve_eo`): CGNR, pipelined CG (``"pipecg"``) or
+  block CG (``"blockcg"``, a batch sharing one Krylov space), or with
+  ``precision="mixed"`` the reliable-update mpcg with a bf16 inner CG
+  (:func:`_solve_eo_mp`, one RHS);
+* ``"full"`` — the same loops on the full-lattice normal operator D^dag D
   (:func:`_solve_full`), in the natural layout or, with
   ``layout="packed"``, on packed real fields in and out; with
   ``precision="mixed"`` mpcg, with ``"low"`` an all-bf16 CG (cg16, not
@@ -22,17 +23,20 @@ Backends:
 
 * ``"kernels"`` (default) — packed fields through the port's CUDA
   kernels: the parity hop kernel (four launches per Schur normal matvec)
-  and the fused CG vector kernels, or the full-lattice kernel (two
-  launches per normal matvec, plain vector algebra as in the JAX
+  and, for CGNR, the fused CG vector kernels; or the full-lattice kernel
+  (two launches per normal matvec, plain vector algebra as in the JAX
   package).  ``low`` storage goes through the kernels' bf16 instances.
   On CPU tensors each kernel's plain PyTorch version runs instead.
 * ``"reference"`` — the plain operators: natural-layout complex einsums
   for ``"eo-schur"``, the packed einsum operator for ``"full"``.
 
-Plan fields outside the port raise ``NotImplementedError`` naming their
-ROADMAP item.  Every solve ends with one verification matvec
-(:func:`_attach_verification`): the natural-layout operator, or for
-``layout="packed"`` the full-lattice kernel.
+:func:`harvest_deflation` solves one system and returns an EigCG
+deflation basis that later single-precision CGNR or block CG solves on
+the same gauge field take as ``deflation=``.  Plan fields outside the
+port raise ``NotImplementedError`` naming their ROADMAP item.  Every
+solve ends with one verification matvec (:func:`_attach_verification`):
+the natural-layout operator, or for ``layout="packed"`` the full-lattice
+kernel.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ import dataclasses
 import torch
 
 from repro_torch.core import solvers
-from repro_torch.core.eo import EOContext, eo_context
+from repro_torch.core.eo import (EOContext, back_substitute_odd,
+                                 eo_context, schur_rhs)
 from repro_torch.core.lattice import (complex_to_real_pair, field_norm2,
                                       field_norm2_batched, pack_gauge,
                                       pack_spinor, real_pair_to_complex,
@@ -61,12 +66,8 @@ _PRECISIONS = ("single", "mixed", "low")
 # where each plan field outside this slice is scheduled (ROADMAP.md)
 _NOT_PORTED = {
     "mesh": "mesh plans are multi-device; ROADMAP Queue A item 12",
-    "pipecg": "solver='pipecg' is ROADMAP Queue A item 9",
-    "blockcg": "solver='blockcg' is ROADMAP Queue A item 9",
     "checkpoint": "checkpointed (segmented, durable) solves are ROADMAP "
                   "Queue A item 10",
-    "deflation": "deflated solves (EigCG basis, deflate_x0) are ROADMAP "
-                 "Queue A item 9",
 }
 
 # the low storage the kernels have instances for
@@ -83,7 +84,10 @@ class SolverPlan:
       operator_family: a registered lattice operator ("wilson",
         "twisted-mass"); ``mu`` is the twisted-mass parameter.
       backend:   "kernels" (packed fields, CUDA kernels) or "reference".
-      solver:    "cgnr" ("pipecg"/"blockcg" are not ported yet).
+      solver:    "cgnr", "pipecg" (pipelined CG: one fused reduction an
+        iteration) or "blockcg" (block CGNR: the N right-hand sides share
+        one Krylov search space through N x N Gram solves; needs
+        ``nrhs`` and single precision).
       precision: "single", "mixed" (reliable-update mpcg: bulk iterations
         in ``low``, true residuals wide) or "low" (all-low cg16, the full
         operator only).
@@ -126,6 +130,11 @@ class SolverPlan:
                 "SolverPlan: the mixed/low precision paths use the "
                 f"reliable-update CG loop; solver={self.solver!r} composes "
                 "with precision='single' only")
+        if self.solver == "blockcg" and self.nrhs is None:
+            raise ValueError(
+                "SolverPlan: solver='blockcg' shares one Krylov space "
+                "across a batch of right-hand sides; set nrhs (a single "
+                "RHS has nothing to share — use solver='cgnr')")
         if self.precision == "low" and self.operator != "full":
             raise ValueError(
                 "SolverPlan: precision='low' (all-low cg16) exists for the "
@@ -143,12 +152,6 @@ class SolverPlan:
                     f"SolverPlan.low={self.low!r}: the kernels store "
                     "bfloat16 or float32; other narrow storage (float16) "
                     "is ROADMAP Queue B item 9")
-        for field, value in (("operator", self.operator),
-                             ("precision", self.precision),
-                             ("solver", self.solver)):
-            if value in _NOT_PORTED:
-                raise NotImplementedError(f"SolverPlan.{field}: "
-                                          + _NOT_PORTED[value])
         if self.mesh is not None:
             raise NotImplementedError("SolverPlan.mesh: "
                                       + _NOT_PORTED["mesh"])
@@ -156,6 +159,14 @@ class SolverPlan:
     @property
     def batched(self) -> bool:
         return self.nrhs is not None
+
+    def cache_key(self) -> tuple:
+        """The plan's hashable identity: every field that shapes a solve.
+        A deflation basis belongs to the key of the plan that harvested
+        it, with the same gauge field and mass."""
+        return (self.operator, self.operator_family, self.mu, self.backend,
+                self.solver, self.precision, str(self.low), self.nrhs,
+                self.mesh, self.r)
 
     @property
     def low_dtype(self):
@@ -259,7 +270,8 @@ def _check_batch_shape(plan: SolverPlan, b: Tensor, layout: str):
 def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
           maxiter: int = 1000, inner_tol: float = 5e-2,
           inner_maxiter: int = 200, max_outer: int = 50,
-          layout: str = "natural", checkpoint=None, deflation=None,
+          residual_replacement_every: int = 25, layout: str = "natural",
+          checkpoint=None, deflation: solvers.DeflationBasis | None = None,
           device="cuda") -> tuple[Tensor, solvers.SolveStats]:
     """Execute a :class:`SolverPlan`.
 
@@ -272,7 +284,14 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
       tol/maxiter: CG stopping rule (relative, per RHS when batched).
       inner_tol/inner_maxiter/max_outer: the mixed precision's inner CG
         stopping rule and its number of reliable updates.
-      checkpoint/deflation: not ported yet; anything but None raises.
+      residual_replacement_every: pipecg's drift control (0: never).
+      checkpoint: not ported yet; anything but None raises.
+      deflation: a :class:`solvers.DeflationBasis` from
+        :func:`harvest_deflation` on the same gauge field, family, mass
+        and backend: the solve starts from the Galerkin projection of the
+        RHS on the basis (single-precision ``"cgnr"``/``"blockcg"``); the
+        verification still gates against the original system, so a stale
+        basis fails loudly.
       device: where the solve runs, ``"cuda"`` unless the caller asks for
         ``"cpu"`` (then each kernel's plain version runs).
     Returns:
@@ -285,47 +304,124 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
     if layout == "packed" and plan.operator != "full":
         raise ValueError("layout='packed' is the full-operator contract; "
                          "the even-odd path takes natural-layout fields")
-    for name, value in (("checkpoint", checkpoint),
-                        ("deflation", deflation)):
-        if value is not None:
-            raise NotImplementedError(f"solve({name}=...): "
-                                      + _NOT_PORTED[name])
+    if deflation is not None and (
+            plan.mesh is not None or checkpoint is not None
+            or plan.solver == "pipecg" or plan.precision != "single"):
+        raise NotImplementedError(
+            "deflation composes with the single-device single-precision "
+            "cg paths (solver='cgnr'/'blockcg', no checkpoint); got "
+            f"solver={plan.solver!r} precision={plan.precision!r} "
+            f"mesh={'set' if plan.mesh is not None else None} "
+            f"checkpoint={'set' if checkpoint is not None else None}")
+    if checkpoint is not None:
+        raise NotImplementedError("solve(checkpoint=...): "
+                                  + _NOT_PORTED["checkpoint"])
     dev = resolve_device(device)
     u = torch.as_tensor(u, device=dev)
     b = torch.as_tensor(b, device=dev)
     _check_batch_shape(plan, b, layout)
-    mp = dict(inner_tol=inner_tol, inner_maxiter=inner_maxiter,
-              max_outer=max_outer)
+    kw = dict(tol=tol, maxiter=maxiter, inner_tol=inner_tol,
+              inner_maxiter=inner_maxiter, max_outer=max_outer,
+              residual_replacement_every=residual_replacement_every,
+              deflation=deflation)
     if plan.operator == "full":
-        x, stats = _solve_full(plan, u, b, mass, tol=tol, maxiter=maxiter,
-                               layout=layout, **mp)
+        x, stats = _solve_full(plan, u, b, mass, layout=layout, **kw)
     elif plan.precision == "mixed":
         if plan.batched:
             raise NotImplementedError(
                 "batched mixed-precision eo-schur is not wired yet (as in "
                 "the JAX package); drop nrhs or precision")
-        x, stats = _solve_eo_mp(plan, u, b, mass, tol=tol, **mp)
+        x, stats = _solve_eo_mp(plan, u, b, mass, **kw)
     else:
-        x, stats = _solve_eo(plan, u, b, mass, tol=tol, maxiter=maxiter)
+        x, stats = _solve_eo(plan, u, b, mass, **kw)
     return x, _attach_verification(plan, u, b, mass, x, stats, tol,
                                    layout=layout)
 
 
-def _solve_eo(plan, u, b, mass, *, tol, maxiter):
+def harvest_deflation(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
+                      maxiter: int = 1000, nev: int = 8, m_max: int = 48,
+                      verify_tol: float | None = None, device="cuda",
+                      ) -> tuple[Tensor, solvers.SolveStats,
+                                 solvers.DeflationBasis]:
+    """Solve one system and harvest a :class:`solvers.DeflationBasis`.
+
+    Runs :func:`solvers.cg_harvest` (the plain CG trajectory, one Lanczos
+    vector recorded an iteration in an ``m_max``-deep buffer on the
+    device) on the plan's Schur normal operator, then condenses the
+    records into the ``nev`` smallest Ritz pairs (the tridiagonal on the
+    host, the vectors on the device).  The basis lives in the plan's
+    working layout: reuse it through ``solve(..., deflation=basis)`` on
+    the same gauge field, mass, family and backend.
+
+    Returns ``(x, stats, basis)``; ``stats.matvecs`` includes the
+    ``min(nev, iterations)`` matvecs of the projection ``W^H A W``.
+    Verification gates at ``verify_tol`` (default ``tol``): a harvest
+    iterates past the served tolerance to mine spectrum, and f32 cannot
+    push the true residual below ~1e-7 relative.  Single-device,
+    single-precision, single-RHS eo-schur only.
+    """
+    if (plan.operator != "eo-schur" or plan.precision != "single"
+            or plan.batched or plan.mesh is not None):
+        raise NotImplementedError(
+            "harvest_deflation needs the single-device single-precision "
+            "unbatched eo-schur path; got "
+            f"operator={plan.operator!r} precision={plan.precision!r} "
+            f"nrhs={plan.nrhs} mesh="
+            f"{'set' if plan.mesh is not None else None}")
+    dev = resolve_device(device)
+    u = torch.as_tensor(u, device=dev)
+    b = torch.as_tensor(b, device=dev)
+    _check_batch_shape(plan, b, "natural")
     ctx = resolve(plan, u, mass, out_dtype=b.dtype)
     b_e, b_o = ctx.prepare(b)
     ops = ctx.ops
-    engine = {}
-    if ctx.engine is not None:
-        engine = dict(update=ctx.engine[0], xpay=ctx.engine[1])
-    (x_e, x_o), stats = solvers.cgnr_eo(
-        ops.dhat, ops.dhat_dag, ops.d_eo, ops.d_oe, ops.m_inv, b_e, b_o,
-        tol=tol, maxiter=maxiter, batched=ctx.batched, **engine)
-    return ctx.finish(x_e, x_o), stats
+    a_hat = lambda v: ops.dhat_dag(ops.dhat(v))  # noqa: E731
+    x_e, stats, (vbuf, albuf, bebuf) = solvers.cg_harvest(
+        a_hat, schur_rhs(ops, b_e, b_o), tol=tol, maxiter=maxiter,
+        m_max=m_max)
+    k = stats.iterations
+    basis = solvers.ritz_deflation_basis(a_hat, vbuf, albuf, bebuf, k, nev)
+    del vbuf
+    n_eff = max(1, min(nev, k, int(m_max)))
+    stats = stats._replace(matvecs=stats.matvecs + n_eff)
+    x = ctx.finish(x_e, back_substitute_odd(ops, b_o, x_e))
+    stats = _attach_verification(
+        plan, u, b, mass, x, stats,
+        tol if verify_tol is None else float(verify_tol))
+    return x, stats, basis
+
+
+def _solve_eo(plan, u, b, mass, *, tol, maxiter, residual_replacement_every,
+              deflation, **_):
+    """CGNR (through the fused CG kernels on the kernels backend),
+    pipelined CG or block CG on the Schur normal equations, then the odd
+    half back-substituted.  Pipecg and block CG run plain vector algebra,
+    as in the JAX package (their recurrences have another shape)."""
+    ctx = resolve(plan, u, mass, out_dtype=b.dtype)
+    b_e, b_o = ctx.prepare(b)
+    ops = ctx.ops
+    a_hat = lambda v: ops.dhat_dag(ops.dhat(v))  # noqa: E731
+    rhs = schur_rhs(ops, b_e, b_o)
+    x0 = None if deflation is None else solvers.deflate_x0(deflation, rhs)
+    if plan.solver == "pipecg":
+        x_e, stats = solvers.pipecg(
+            a_hat, rhs, tol=tol, maxiter=maxiter,
+            residual_replacement_every=residual_replacement_every,
+            batched=ctx.batched)
+    elif plan.solver == "blockcg":
+        x_e, stats = solvers.blockcg(a_hat, rhs, x0, tol=tol,
+                                     maxiter=maxiter)
+    else:
+        engine = {}
+        if ctx.engine is not None:
+            engine = dict(update=ctx.engine[0], xpay=ctx.engine[1])
+        x_e, stats = solvers.cg(a_hat, rhs, x0, tol=tol, maxiter=maxiter,
+                                batched=ctx.batched, **engine)
+    return ctx.finish(x_e, back_substitute_odd(ops, b_o, x_e)), stats
 
 
 def _solve_eo_mp(plan, u, b, mass, *, tol, inner_tol, inner_maxiter,
-                 max_outer):
+                 max_outer, **_):
     """Even-odd + mixed precision: a low-storage inner CG, wide reliable
     updates and back-substitution.
 
@@ -391,13 +487,14 @@ def _solve_eo_mp(plan, u, b, mass, *, tol, inner_tol, inner_maxiter,
 
 
 def _solve_full(plan, u, b, mass, *, tol, maxiter, layout, inner_tol,
-                inner_maxiter, max_outer):
-    """CGNR on D^dag D over packed full-lattice fields: the right-hand side
-    D^dag b is one launch of the full-lattice kernel, every iteration two,
-    and the vector algebra is plain tensor code, as in the JAX package.
-    ``precision="mixed"``: mpcg, its inner CG on ``low`` fields and links
-    (rounded once), each reliable update two f32 launches; ``"low"``:
-    cg16, the whole CG on ``low`` storage."""
+                inner_maxiter, max_outer, residual_replacement_every,
+                deflation):
+    """CGNR, pipelined CG or block CG on D^dag D over packed full-lattice
+    fields: the right-hand side D^dag b is one launch of the full-lattice
+    kernel, every matvec two, and the vector algebra is plain tensor code,
+    as in the JAX package.  ``precision="mixed"``: mpcg, its inner CG on
+    ``low`` fields and links (rounded once), each reliable update two f32
+    launches; ``"low"``: cg16, the whole CG on ``low`` storage."""
     from repro_torch.kernels.wilson_dslash import ops as wops
 
     if plan.r != 1.0:
@@ -411,22 +508,30 @@ def _solve_full(plan, u, b, mass, *, tol, maxiter, layout, inner_tol,
     m = float(mass)
     kw = dict(twist=_family_site(plan, mass).twist,
               use_kernels=plan.backend == "kernels")
+    op_hi = lambda v: wops.normal_op(up, v, m, **kw)  # noqa: E731
+    rhs = wops.dslash_dagger(up, pp, m, **kw)
+    x0 = None if deflation is None else solvers.deflate_x0(deflation, rhs)
     if plan.precision == "single":
-        x, stats = solvers.cgnr(lambda v: wops.dslash(up, v, m, **kw),
-                                lambda v: wops.dslash_dagger(up, v, m, **kw),
-                                pp, tol=tol, maxiter=maxiter,
-                                batched=plan.batched)
+        if plan.solver == "pipecg":
+            x, stats = solvers.pipecg(
+                op_hi, rhs, tol=tol, maxiter=maxiter,
+                residual_replacement_every=residual_replacement_every,
+                batched=plan.batched)
+        elif plan.solver == "blockcg":
+            x, stats = solvers.blockcg(op_hi, rhs, x0, tol=tol,
+                                       maxiter=maxiter)
+        else:
+            x, stats = solvers.cg(op_hi, rhs, x0, tol=tol, maxiter=maxiter,
+                                  batched=plan.batched)
     else:
         low_dtype = plan.low_dtype
         up_lo = up.to(low_dtype)
-        rhs = wops.dslash_dagger(up, pp, m, **kw)
         op_lo = lambda v: wops.normal_op(up_lo, v, m, **kw)  # noqa: E731
         if plan.precision == "mixed":
             x, stats = solvers.mpcg(
-                op_lo, lambda v: wops.normal_op(up, v, m, **kw), rhs,
-                tol=tol, inner_tol=inner_tol, inner_maxiter=inner_maxiter,
-                max_outer=max_outer, low_dtype=low_dtype,
-                batched=plan.batched)
+                op_lo, op_hi, rhs, tol=tol, inner_tol=inner_tol,
+                inner_maxiter=inner_maxiter, max_outer=max_outer,
+                low_dtype=low_dtype, batched=plan.batched)
         else:  # "low": all-low cg16, NOT accurate to tol (a measurement rig)
             x, stats = solvers.cg(op_lo, rhs.to(low_dtype), tol=tol,
                                   maxiter=maxiter, batched=plan.batched)

@@ -3,6 +3,8 @@
     python -m repro_torch.launch.solve --lattice 8x8x8x16
     python -m repro_torch.launch.solve --nrhs 4
     python -m repro_torch.launch.solve --parity eo --solver cgnr
+    python -m repro_torch.launch.solve --parity eo --solver blockcg --nrhs 4
+    python -m repro_torch.launch.solve --parity eo --solver cgnr --deflate 8
     python -m repro_torch.launch.solve --operator twisted-mass --mu 0.25
     python -m repro_torch.launch.solve --backend reference --device cpu
 
@@ -11,8 +13,13 @@ solves D x = b on the full lattice (``--parity full``, the default) or on
 the even-odd Schur complement (``--parity eo``) through one
 :class:`repro_torch.core.plan.SolverPlan`: ``--solver mpcg`` (the
 default) is the mixed-precision reliable-update CG with a bf16 inner CG,
-``cgnr`` CGNR in f32, ``cg16`` an all-bf16 CG on the full lattice (not
-accurate to ``--tol``, so it reports FAIL by design).  Reports iterations,
+``cgnr`` CGNR in f32, ``pipecg`` pipelined CG (one fused reduction an
+iteration), ``blockcg`` block CG over an ``--nrhs`` batch (one shared
+Krylov space), ``cg16`` an all-bf16 CG on the full lattice (not accurate
+to ``--tol``, so it reports FAIL by design).  ``--deflate NEV`` first
+harvests an NEV-vector EigCG basis from a solve of another RHS on the
+same gauge field (even-odd, cgnr or blockcg) and starts this solve from
+its projection.  Reports iterations,
 matvecs, the true relative residual and the verdict — per right-hand side
 for a batch.  Runs on the card (``--device cuda``, the default) and
 refuses to fall back to the CPU when there is none.
@@ -21,6 +28,7 @@ refuses to fall back to the CPU when there is none.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -35,7 +43,7 @@ from repro_torch.data import lattice_problem
 
 
 # solver name -> (Krylov loop, precision), as the JAX package's CLI maps
-# them; pipecg and blockcg are refused by the plan (ROADMAP Queue A item 9)
+# them
 _SOLVERS = {
     "cgnr": ("cgnr", "single"),
     "pipecg": ("pipecg", "single"),
@@ -60,8 +68,8 @@ def main(argv=None) -> int:
     p.add_argument("--lattice", default="4x4x4x8", help="TxZxYxX extents")
     p.add_argument("--mass", type=float, default=0.2)
     p.add_argument("--solver", default="mpcg", choices=sorted(_SOLVERS),
-                   help="Krylov loop / precision policy (pipecg and "
-                        "blockcg are not ported yet)")
+                   help="Krylov loop / precision policy (blockcg shares "
+                        "one search space across an --nrhs batch)")
     p.add_argument("--parity", choices=["full", "eo"], default="full",
                    help="operator shape: the full lattice or the even-odd "
                         "Schur complement")
@@ -79,6 +87,15 @@ def main(argv=None) -> int:
     p.add_argument("--tol", type=float, default=1e-6)
     p.add_argument("--maxiter", type=int, default=2000)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--deflate", type=int, default=0, metavar="NEV",
+                   help="harvest an NEV-vector EigCG deflation basis from "
+                        "a solve of a separate RHS (same gauge and mass), "
+                        "then start this solve from its projection (eo "
+                        "parity, cgnr/blockcg, single precision only)")
+    p.add_argument("--deflate-harvest-tol", type=float, default=1e-8,
+                   help="recursive-residual tolerance the harvest solve "
+                        "iterates to (deeper than --tol mines more "
+                        "spectrum)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
@@ -103,11 +120,37 @@ def main(argv=None) -> int:
           f"backend={plan.backend} solver={plan.solver} "
           f"precision={plan.precision} nrhs={plan.nrhs} device={dev}")
 
+    deflation = None
+    if args.deflate > 0:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 2)
+        b_h = random_spinor(gen, shape)
+        th = time.perf_counter()
+        try:
+            _, hst, deflation = plan_mod.harvest_deflation(
+                dataclasses.replace(plan, solver="cgnr", nrhs=None), u, b_h,
+                args.mass, tol=args.deflate_harvest_tol,
+                maxiter=args.maxiter, nev=args.deflate,
+                m_max=max(4 * args.deflate, 48), verify_tol=args.tol,
+                device=dev)
+        except (ValueError, NotImplementedError) as e:
+            print(f"[solve] invalid plan: {e}")
+            return 1
+        print(f"[solve] deflation harvest: nev={deflation.nev} "
+              f"iters={hst.iterations} matvecs={int(hst.matvecs)} "
+              f"verified={bool(hst.verified)} "
+              f"time={time.perf_counter() - th:.2f}s")
+
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    xsol, st = plan_mod.solve(plan, u, b, args.mass, tol=args.tol,
-                              maxiter=args.maxiter, device=dev)
+    try:
+        xsol, st = plan_mod.solve(plan, u, b, args.mass, tol=args.tol,
+                                  maxiter=args.maxiter, deflation=deflation,
+                                  device=dev)
+    except NotImplementedError as e:  # a composition the plan refuses
+        print(f"[solve] invalid plan: {e}")
+        return 1
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

@@ -30,14 +30,15 @@ SHAPES = [jl.LatticeShape(4, 4, 4, 4), jl.LatticeShape(4, 4, 4, 8)]
 def golden_fields_from_jax() -> dict:
     """The 4^4 seed-7 problem of the JAX package's solver goldens: gauge
     and RHS from ``split(PRNGKey(7))``, and the batch RHS ``n`` from
-    ``fold_in(kb, n)`` (benchmarks/bench_solvers.py's generation)."""
+    ``fold_in(kb, n)`` (benchmarks/bench_solvers.py's generation): 4 of
+    them as ``b_batch``, 16 as ``b_batch16`` (block CG's width)."""
     lat = jl.LatticeShape(4, 4, 4, 4)
     ku, kb = jax.random.split(jax.random.PRNGKey(7))
-    batch = jnp.stack([jl.random_spinor(jax.random.fold_in(kb, i), lat)
-                       for i in range(4)])
+    batch = np.asarray(jnp.stack([
+        jl.random_spinor(jax.random.fold_in(kb, i), lat) for i in range(16)]))
     return {"gauge": np.asarray(jl.random_gauge(ku, lat)),
             "b": np.asarray(jl.random_spinor(kb, lat)),
-            "b_batch": np.asarray(batch)}
+            "b_batch": batch[:4], "b_batch16": batch}
 
 
 def _fields(lat, seed):
@@ -148,6 +149,21 @@ def test_golden_fixture_equals_jax_generation():
     for k in fresh:
         assert stored[k].dtype == fresh[k].dtype
         np.testing.assert_array_equal(stored[k], fresh[k])
+
+
+def test_golden_batch16_extends_the_batch_of_4():
+    """``b_batch16`` is ``fold_in(kb, i)`` for i < 16, bitwise, and its
+    first 4 are ``b_batch``."""
+    with np.load(GOLDEN) as f:
+        b4, b16 = f["b_batch"], f["b_batch16"]
+    lat = jl.LatticeShape(4, 4, 4, 4)
+    _, kb = jax.random.split(jax.random.PRNGKey(7))
+    assert b16.shape == (16, 4, 4, 4, 4, 4, 3) and b16.dtype == np.complex64
+    for i in range(16):
+        np.testing.assert_array_equal(
+            b16[i], np.asarray(jl.random_spinor(jax.random.fold_in(kb, i),
+                                                lat)))
+    np.testing.assert_array_equal(b16[:4], b4)
 
 
 def test_cuda_device_is_refused_without_a_card():

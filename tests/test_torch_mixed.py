@@ -615,5 +615,6 @@ def test_cli_defaults_are_jax_defaults(capsys):
     # cg16 runs and reports FAIL (not accurate to tol by design)
     assert cli.main(args + ["--solver", "cg16"]) == 1
     assert "precision=low" in capsys.readouterr().out
-    assert cli.main(args + ["--solver", "pipecg"]) == 1
-    assert "item 9" in capsys.readouterr().out
+    # pipecg, refused before the solvers of ROADMAP item 9 were ported
+    assert cli.main(args + ["--solver", "pipecg"]) == 0
+    assert "solver=pipecg" in capsys.readouterr().out

@@ -140,7 +140,17 @@ def test_maxiter_verdict(problem):
 @pytest.mark.parametrize("field,value,item", [
     ("solver", "pipecg", "item 9"), ("solver", "blockcg", "item 9"),
     ("mesh", object(), "item 12")])
-def test_plan_fields_outside_the_slice_raise(field, value, item):
+def test_plan_fields_outside_the_slice_raise(problem, field, value, item):
+    """Plan fields of later slices raise naming their ROADMAP item; the
+    item-9 solvers, ported since, build and solve (their counts are held
+    against JAX in test_torch_krylov.py)."""
+    if item == "item 9":
+        nrhs = 2 if value == "blockcg" else None
+        x, st = _port(problem, problem["batch_t"][:2] if nrhs
+                      else problem["bt"], **{field: value}, nrhs=nrhs)
+        assert bool(torch.atleast_1d(st.verified).all())
+        assert st.iterations == 14
+        return
     with pytest.raises(NotImplementedError, match=item):
         tplan.SolverPlan(**{field: value})
 
@@ -161,8 +171,18 @@ def test_mixed_and_low_plans_solve(problem, precision, operator, golden):
 
 
 @pytest.mark.parametrize("kw,item", [(dict(checkpoint=object()), "item 10"),
-                                     (dict(deflation=object()), "item 9")])
+                                     (dict(deflation="harvested"), "item 9")])
 def test_solve_options_outside_the_slice_raise(problem, kw, item):
+    """``checkpoint`` raises naming its ROADMAP item; ``deflation``, ported
+    since, takes a harvested basis: one more matvec, verified."""
+    if item == "item 9":
+        _, _, basis = tplan.harvest_deflation(
+            tplan.SolverPlan(), problem["ut"], problem["batch_t"][0], MASS,
+            tol=1e-8, nev=4, verify_tol=TOL, device="cpu")
+        _, st = tplan.solve(tplan.SolverPlan(), problem["ut"], problem["bt"],
+                            MASS, tol=TOL, deflation=basis, device="cpu")
+        assert bool(st.verified) and int(st.matvecs) == st.iterations + 1
+        return
     with pytest.raises(NotImplementedError, match=item):
         tplan.solve(tplan.SolverPlan(), problem["ut"], problem["bt"], MASS,
                     device="cpu", **kw)
