@@ -1,8 +1,10 @@
 """Krylov solvers: CG with an injectable vector engine, the
-mixed-precision reliable-update CG (``mpcg``, ``mpcg_eo``), pipelined CG
-(``pipecg``), BiCGStab, block CG (``blockcg``) and EigCG-style deflation
+mixed-precision reliable-update CG (``mpcg``), pipelined CG (``pipecg``),
+BiCGStab, block CG (``blockcg``) and EigCG-style deflation
 (``cg_harvest``, ``ritz_deflation_basis``, ``deflate_x0``).  CGNR is
-:func:`cg` on a normal operator (``plan._solve_eo``/``_solve_full``).
+:func:`cg` on a normal operator (``plan._parts_eo``/``_parts_full``); the
+even-odd mixed solve is :func:`mpcg` on the Schur normal equations
+(``plan._parts_eo_mp``).
 
 The JAX package runs its loop in ``lax.while_loop`` with no host syncs.
 Here the loop is Python: ``cond`` reads the stop test (one small
@@ -118,12 +120,37 @@ def _stop_limit(tol, bs: Tensor, batched: bool) -> Tensor:
 class LoopParts(NamedTuple):
     """A solver loop decomposed: ``cg`` is ``finish`` of iterating ``body``
     from ``init`` while ``cond`` holds.  ``cond`` is the one place the
-    host reads the device."""
+    host reads the device.  ``counter`` is the loop's iteration count, a
+    host int kept in the carry (``mpcg``: the accumulated inner
+    iterations), so a segmented runner (:func:`segment_cond`) bounds the
+    loop without another read; it iterates the same ``body``, so a
+    segmented solve is bitwise the one-shot solve."""
 
     init: dict
     cond: Callable[[dict], bool]
     body: Callable[[dict], dict]
     finish: Callable[[dict], tuple]
+    counter: Callable[[dict], int]
+
+
+def run(parts: LoopParts) -> tuple:
+    """Iterate ``body`` from ``init`` while ``cond`` holds; ``finish``."""
+    carry = parts.init
+    while parts.cond(carry):
+        carry = parts.body(carry)
+    return parts.finish(carry)
+
+
+def segment_cond(parts: LoopParts) -> Callable[[dict, int], bool]:
+    """The segmented stopping rule: the solver's own ``cond`` and an
+    iteration bound ``counter(carry) < stop``.  The bound is tested first,
+    on the host int, so a segment's last test reads nothing from the
+    device."""
+
+    def cond(carry: dict, stop: int) -> bool:
+        return parts.counter(carry) < stop and parts.cond(carry)
+
+    return cond
 
 
 def cg_parts(op: Op, b: Tensor, x0: Tensor | None = None, *,
@@ -207,7 +234,8 @@ def cg_parts(op: Op, b: Tensor, x0: Tensor | None = None, *,
                                device=rs.device))
         return c["x"], stats
 
-    return LoopParts(init=init, cond=cond, body=body, finish=finish)
+    return LoopParts(init=init, cond=cond, body=body, finish=finish,
+                     counter=lambda c: c["k"])
 
 
 def cg(op: Op, b: Tensor, x0: Tensor | None = None, *,
@@ -222,41 +250,7 @@ def cg(op: Op, b: Tensor, x0: Tensor | None = None, *,
     """
     parts = cg_parts(op, b, x0, tol=tol, maxiter=maxiter, update=update,
                      xpay=xpay, batched=batched)
-    carry = parts.init
-    while parts.cond(carry):
-        carry = parts.body(carry)
-    return parts.finish(carry)
-
-
-# ---------------------------------------------------------------------------
-# Even-odd (Schur) preconditioned mixed-precision CG
-# ---------------------------------------------------------------------------
-#
-# For D = [[M_ee, D_eo], [D_oe, M_oo]], eliminating the odd block of D x = b
-# leaves D_hat x_e = b_hat with D_hat = M_ee - D_eo M_oo^-1 D_oe and
-# b_hat = b_e - D_eo M_oo^-1 b_o; then x_o = M_oo^-1 (b_o - D_oe x_e).
-# The normal equations D_hat^dag D_hat x_e = D_hat^dag b_hat are solved by
-# any of the loops here (``plan._solve_eo``).
-
-
-def mpcg_eo(a_low: Op, a_high: Op, dhat_dag: Op, d_eo: Op, d_oe: Op,
-            m_inv: Op, b_e: Tensor, b_o: Tensor, *, tol: float = 1e-6,
-            inner_tol: float = 5e-2, inner_maxiter: int = 200,
-            max_outer: int = 50, low_dtype=torch.bfloat16, to_low=None,
-            to_high=None, update=None, xpay=None, batched: bool = False,
-            ) -> tuple[tuple[Tensor, Tensor], SolveStats]:
-    """Even-odd reduction composed with mixed-precision reliable-update CG:
-    the Schur normal system by :func:`mpcg` (bulk iterations through
-    ``a_low``, true residuals through ``a_high``), then the odd sites
-    back-substituted in high precision."""
-    b_hat = b_e - d_eo(m_inv(b_o))
-    x_e, stats = mpcg(a_low, a_high, dhat_dag(b_hat), tol=tol,
-                      inner_tol=inner_tol, inner_maxiter=inner_maxiter,
-                      max_outer=max_outer, low_dtype=low_dtype,
-                      to_low=to_low, to_high=to_high, update=update,
-                      xpay=xpay, batched=batched)
-    x_o = m_inv(b_o - d_oe(x_e))
-    return (x_e, x_o), stats
+    return run(parts)
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +336,11 @@ def mpcg_parts(op_low: Op, op_high: Op, b: Tensor, *, tol: float = 1e-6,
                                device=rs.device))
         return c["x"], stats
 
-    return LoopParts(init=init, cond=cond, body=body, finish=finish)
+    # the outer loop ends at reliable-update boundaries: a segment's
+    # bound reads the accumulated inner count, and a segment may overrun
+    # its stop by one inner solve
+    return LoopParts(init=init, cond=cond, body=body, finish=finish,
+                     counter=lambda c: c["inner"])
 
 
 def mpcg(op_low: Op, op_high: Op, b: Tensor, *, tol: float = 1e-6,
@@ -358,10 +356,7 @@ def mpcg(op_low: Op, op_high: Op, b: Tensor, *, tol: float = 1e-6,
                        inner_maxiter=inner_maxiter, max_outer=max_outer,
                        low_dtype=low_dtype, to_low=to_low, to_high=to_high,
                        update=update, xpay=xpay, batched=batched)
-    carry = parts.init
-    while parts.cond(carry):
-        carry = parts.body(carry)
-    return parts.finish(carry)
+    return run(parts)
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +470,8 @@ def pipecg_parts(op: Op, b: Tensor, *, tol: float = 1e-8,
                                device=gamma.device))
         return c["x"], stats
 
-    return LoopParts(init=init, cond=cond, body=body, finish=finish)
+    return LoopParts(init=init, cond=cond, body=body, finish=finish,
+                     counter=lambda c: c["k"])
 
 
 def pipecg(op: Op, b: Tensor, *, tol: float = 1e-8, maxiter: int = 1000,
@@ -487,10 +483,7 @@ def pipecg(op: Op, b: Tensor, *, tol: float = 1e-8, maxiter: int = 1000,
         op, b, tol=tol, maxiter=maxiter,
         residual_replacement_every=residual_replacement_every,
         fused_dots=fused_dots, batched=batched)
-    carry = parts.init
-    while parts.cond(carry):
-        carry = parts.body(carry)
-    return parts.finish(carry)
+    return run(parts)
 
 
 # ---------------------------------------------------------------------------

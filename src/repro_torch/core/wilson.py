@@ -267,31 +267,41 @@ def hop_term_packed(u_mu: torch.Tensor, psi_nbr: torch.Tensor, mu: int,
 
 
 def dslash_packed(up: torch.Tensor, pp: torch.Tensor, mass,
-                  r: float = 1.0) -> torch.Tensor:
+                  r: float = 1.0, *, hop_dtype=None) -> torch.Tensor:
     """The Dirac-Wilson operator on the packed real layout.
 
     ``up`` (4,T,Z,Y,18,X), ``pp`` (T,Z,Y,24,X); returns packed D psi with
-    ``pp``'s shape and dtype.  Every contraction sums in f32 (f64 for f64
-    fields) whatever the storage dtype.
+    ``pp``'s shape and dtype.  The mass term and the eight hop terms are
+    summed in f32 (f64 for f64 fields) whatever the storage dtype.
+
+    ``hop_dtype`` is the dtype each of the eight hop terms (colour
+    product and spin projection) is evaluated in before it is rounded to
+    the accumulation dtype and summed into the result.  It defaults to
+    float64 for float32 fields: one rounding a hop term, which matches
+    the rounding error of the JAX package's XLA-compiled operator (a
+    pipelined CG's count on the 4^4 fixture depends on it).  The bf16
+    plain versions pass float32.
     """
     acc = _acc_dtype(pp.dtype)
+    if hop_dtype is None:
+        hop_dtype = torch.float64 if pp.dtype == torch.float32 else acc
     pm, pp_c = _projectors(r)
-    pr, pi = (a.to(acc) for a in _split_packed_spinor(pp))
-    ur, ui = (a.to(acc) for a in _split_packed_gauge(up))
+    pr, pi = (a.to(hop_dtype) for a in _split_packed_spinor(pp))
+    ur, ui = (a.to(hop_dtype) for a in _split_packed_gauge(up))
     m = mass + 4.0 * r
-    outr, outi = m * pr, m * pi
+    outr, outi = m * pr.to(acc), m * pi.to(acc)
     for mu in range(NDIRS):
         ax = _ROLL_AXIS[mu]
         hr, hi = _link_times(ur[mu], ui[mu], torch.roll(pr, -1, ax),
                              torch.roll(pi, -1, ax), dag=False)
         hr, hi = _spin_times(pm[mu], hr, hi)
-        outr, outi = outr - 0.5 * hr, outi - 0.5 * hi
+        outr, outi = outr - 0.5 * hr.to(acc), outi - 0.5 * hi.to(acc)
         hr, hi = _link_times(torch.roll(ur[mu], 1, ax),
                              torch.roll(ui[mu], 1, ax),
                              torch.roll(pr, 1, ax), torch.roll(pi, 1, ax),
                              dag=True)
         hr, hi = _spin_times(pp_c[mu], hr, hi)
-        outr, outi = outr - 0.5 * hr, outi - 0.5 * hi
+        outr, outi = outr - 0.5 * hr.to(acc), outi - 0.5 * hi.to(acc)
     return _merge_packed_spinor(outr.to(pp.dtype), outi.to(pp.dtype))
 
 

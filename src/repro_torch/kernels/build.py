@@ -29,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -127,15 +128,19 @@ def check(lib: ctypes.CDLL, rc: int, entry: str) -> None:
                            f"{lib.error_string(rc).decode()}")
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def count(fn, kind: str, dtype, pair: bool = False) -> None:
     """Add one to a wrapper's ``kind`` count ("launches" or
     "plain_calls"); a call on bf16 storage counts as ``<kind>_bf16``, so
     a run shows which instance it went through, and a launch of a Wilson
     kernel's bf16 pair instance (``pair``) in ``launches_bf16_pair`` too."""
     attr = kind + ("_bf16" if dtype == torch.bfloat16 else "")
-    setattr(fn, attr, getattr(fn, attr) + 1)
-    if pair:
-        fn.launches_bf16_pair += 1
+    with _COUNT_LOCK:   # a server's worker thread launches too
+        setattr(fn, attr, getattr(fn, attr) + 1)
+        if pair:
+            fn.launches_bf16_pair += 1
 
 
 COUNTS = ("launches", "plain_calls", "launches_bf16", "plain_calls_bf16",

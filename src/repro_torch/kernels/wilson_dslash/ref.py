@@ -87,13 +87,17 @@ def wilson_full_ref(up: torch.Tensor, pp: torch.Tensor, mass, *,
     def one(q):
         if gamma5_in:
             q = apply_gamma5_packed(q)
-        out = dslash_packed(up_w, q, mass)
+        out = dslash_packed(up_w, q, mass, hop_dtype=hop)
         if twist != 0.0:
             out = out + twist * apply_igamma5_packed(q)
         out = apply_gamma5_packed(out) if gamma5_out else out
         return out.to(pp.dtype)
 
     wide = torch.float64 if pp.dtype == torch.float64 else torch.float32
+    # f32 fields: each hop term in f64, rounded once (see dslash_packed);
+    # narrow storage keeps f32 throughout
+    hop = (torch.float64 if pp.dtype in (torch.float32, torch.float64)
+           else torch.float32)
     up_w = up.to(wide)
     return _per_rhs(one, pp.to(wide), pp.dim() == 6)
 

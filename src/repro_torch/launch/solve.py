@@ -7,6 +7,10 @@
     python -m repro_torch.launch.solve --parity eo --solver cgnr --deflate 8
     python -m repro_torch.launch.solve --operator twisted-mass --mu 0.25
     python -m repro_torch.launch.solve --backend reference --device cpu
+    python -m repro_torch.launch.solve --parity eo --solver cgnr \
+        --checkpoint-dir ckpt --checkpoint-every 5
+    python -m repro_torch.launch.solve --parity eo --solver cgnr \
+        --checkpoint-dir ckpt --resume
 
 Builds a random SU(3) gauge configuration and source(s) from ``--seed``,
 solves D x = b on the full lattice (``--parity full``, the default) or on
@@ -19,7 +23,12 @@ Krylov space), ``cg16`` an all-bf16 CG on the full lattice (not accurate
 to ``--tol``, so it reports FAIL by design).  ``--deflate NEV`` first
 harvests an NEV-vector EigCG basis from a solve of another RHS on the
 same gauge field (even-odd, cgnr or blockcg) and starts this solve from
-its projection.  Reports iterations,
+its projection.  ``--checkpoint-dir`` segments the
+solve and snapshots it every ``--checkpoint-every`` iterations;
+``--resume`` continues from the directory's latest valid snapshot (the
+JAX package's checkpoints included) in a fresh process.  The sha256 of
+the u and b built from ``--seed`` is printed, so a resumed process shows
+it solves the killed process's system.  Reports iterations,
 matvecs, the true relative residual and the verdict — per right-hand side
 for a batch.  Runs on the card (``--device cuda``, the default) and
 refuses to fall back to the CPU when there is none.
@@ -29,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import sys
 import time
 
@@ -51,6 +61,12 @@ _SOLVERS = {
     "mpcg": ("cgnr", "mixed"),
     "cg16": ("cgnr", "low"),
 }
+
+
+def _sha256(t: torch.Tensor) -> str:
+    """The sha256 of a tensor's bytes on the host."""
+    return hashlib.sha256(
+        t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
 
 
 def build_plan(args) -> plan_mod.SolverPlan:
@@ -96,10 +112,25 @@ def main(argv=None) -> int:
                    help="recursive-residual tolerance the harvest solve "
                         "iterates to (deeper than --tol mines more "
                         "spectrum)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="segment the solve and snapshot (x, iteration, "
+                        "verdict, rhs_mask) here every --checkpoint-every "
+                        "iterations")
+    p.add_argument("--checkpoint-every", type=int, default=50,
+                   help="segment length in iterations between snapshots")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest valid checkpoint from "
+                        "--checkpoint-dir and defect-correct from the "
+                        "saved iterate (fresh checkpointed solve when the "
+                        "directory has no checkpoint yet)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
     args = p.parse_args(argv)
+    if args.resume and args.checkpoint_dir is None:
+        p.error("--resume requires --checkpoint-dir")
+    if args.deflate > 0 and (args.resume or args.checkpoint_dir):
+        p.error("--deflate does not compose with checkpointed solves")
 
     dev = resolve_device(args.device)
     shape = LatticeShape(*(int(v) for v in args.lattice.split("x")))
@@ -119,6 +150,8 @@ def main(argv=None) -> int:
           f"family={plan.operator_family} mu={plan.mu} "
           f"backend={plan.backend} solver={plan.solver} "
           f"precision={plan.precision} nrhs={plan.nrhs} device={dev}")
+    print(f"[solve] system: u sha256={_sha256(u)} b sha256={_sha256(b)}",
+          flush=True)
 
     deflation = None
     if args.deflate > 0:
@@ -145,10 +178,40 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     try:
-        xsol, st = plan_mod.solve(plan, u, b, args.mass, tol=args.tol,
-                                  maxiter=args.maxiter, deflation=deflation,
-                                  device=dev)
-    except NotImplementedError as e:  # a composition the plan refuses
+        if args.resume:
+            from repro_torch.core import resilience
+            xsol, st, record = resilience.resume_solve(
+                plan, u, b, args.mass, checkpoint_dir=args.checkpoint_dir,
+                tol=args.tol, maxiter=args.maxiter, missing_ok=True,
+                device=dev)
+            if record.resumed_from_step is None:
+                print("[solve] no checkpoint found; fresh checkpointed "
+                      "solve", flush=True)
+            else:
+                print(f"[solve] resumed from step "
+                      f"{record.resumed_from_step} "
+                      f"({record.checkpoint_iterations} iterations banked, "
+                      f"checkpoint verdict "
+                      f"{record.checkpoint_verdict})", flush=True)
+            for a in record.attempts:
+                print(f"[solve] attempt {a.attempt}: {a.plan_desc} "
+                      f"restarted={a.restarted} iterations={a.iterations} "
+                      f"verdict={a.verdict} verified={a.verified}",
+                      flush=True)
+        else:
+            policy = None
+            if args.checkpoint_dir is not None:
+                policy = plan_mod.CheckpointPolicy(
+                    dir=args.checkpoint_dir,
+                    every_iters=args.checkpoint_every)
+                print(f"[solve] checkpointing to {policy.dir} every "
+                      f"{policy.every_iters} iterations", flush=True)
+            xsol, st = plan_mod.solve(plan, u, b, args.mass, tol=args.tol,
+                                      maxiter=args.maxiter,
+                                      deflation=deflation,
+                                      checkpoint=policy, device=dev)
+    except (ValueError, NotImplementedError) as e:
+        # a composition the plan refuses
         print(f"[solve] invalid plan: {e}")
         return 1
     if dev.type == "cuda":

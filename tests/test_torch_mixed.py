@@ -10,7 +10,9 @@
   sums are taken in another order, so one rounding to bf16 may land on
   the neighbouring value); the residual norms, f32 sums, 1e-5 relative.
 * ``complex_to_real_pair``/``real_pair_to_complex`` bitwise.
-* ``mpcg``/``mpcg_eo`` on injected dense operators against JAX's.
+* ``mpcg`` on injected dense operators against JAX's, and the even-odd
+  composition the plan runs (``eo.schur_rhs``, ``mpcg``,
+  ``eo.back_substitute_odd``) against JAX's ``mpcg_eo``.
 * ``plan.solve`` mixed and low on the 4^4, seed-7, mass-0.1, tol-1e-6
   goldens, with the JAX tests' contracts: converged and verified, true
   relative residual < 1e-5, inner iterations >= 2x outer (even-odd) or
@@ -23,6 +25,8 @@
   before it widens; cg16 27, verified False by design.
 * The plan's rules.
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -372,7 +376,10 @@ def test_mpcg_stagnation_and_breakdown_verdicts():
 
 def test_mpcg_eo_matches_jax():
     """Block operators of a 2x2 system with M_oo = s: D_hat = M_ee -
-    D_eo D_oe / s, its normal operator in bf16 and f32."""
+    D_eo D_oe / s, its normal operator in bf16 and f32.  The port's
+    even-odd mixed solve (the Schur RHS, mpcg, the odd half
+    back-substituted, as ``plan._parts_eo_mp`` composes them) against
+    JAX's ``mpcg_eo``."""
     n, s = 24, 3.0
     rng = np.random.default_rng(10)
     mee = (4.0 * np.eye(n) + 0.3 * rng.standard_normal((n, n))).astype(
@@ -395,9 +402,12 @@ def test_mpcg_eo_matches_jax():
         return lambda w: (w.astype(jnp.float32) @ a.T).astype(w.dtype)
 
     kw = dict(tol=1e-6, inner_tol=5e-2)
-    (xe, xo), st = solvers.mpcg_eo(*blocks(torch.from_numpy, t_low),
-                                   torch.from_numpy(be), torch.from_numpy(bo),
-                                   **kw)
+    a_low, a_high, *eo_ops = blocks(torch.from_numpy, t_low)
+    ops = types.SimpleNamespace(**dict(zip(
+        ("dhat_dag", "d_eo", "d_oe", "m_inv"), eo_ops)))
+    tbe, tbo = torch.from_numpy(be), torch.from_numpy(bo)
+    xe, st = solvers.mpcg(a_low, a_high, eo.schur_rhs(ops, tbe, tbo), **kw)
+    xo = eo.back_substitute_odd(ops, tbo, xe)
     (jxe, jxo), sj = jsolvers.mpcg_eo(*blocks(jnp.asarray, j_low),
                                       jnp.asarray(be), jnp.asarray(bo),
                                       low_dtype=jnp.bfloat16, **kw)

@@ -170,11 +170,13 @@ def test_mixed_and_low_plans_solve(problem, precision, operator, golden):
     assert x.dtype == torch.complex64 and bool(torch.isfinite(x).all())
 
 
-@pytest.mark.parametrize("kw,item", [(dict(checkpoint=object()), "item 10"),
+@pytest.mark.parametrize("kw,item", [(dict(checkpoint="policy"), "item 10"),
                                      (dict(deflation="harvested"), "item 9")])
-def test_solve_options_outside_the_slice_raise(problem, kw, item):
-    """``checkpoint`` raises naming its ROADMAP item; ``deflation``, ported
-    since, takes a harvested basis: one more matvec, verified."""
+def test_solve_options_outside_the_slice_raise(problem, kw, item, tmp_path):
+    """The options of later slices, ported since: ``deflation`` takes a
+    harvested basis (one more matvec, verified); ``checkpoint`` takes a
+    CheckpointPolicy and solves in segments, bitwise the one-shot solve
+    (held against JAX in test_torch_durability.py)."""
     if item == "item 9":
         _, _, basis = tplan.harvest_deflation(
             tplan.SolverPlan(), problem["ut"], problem["batch_t"][0], MASS,
@@ -183,9 +185,16 @@ def test_solve_options_outside_the_slice_raise(problem, kw, item):
                             MASS, tol=TOL, deflation=basis, device="cpu")
         assert bool(st.verified) and int(st.matvecs) == st.iterations + 1
         return
-    with pytest.raises(NotImplementedError, match=item):
-        tplan.solve(tplan.SolverPlan(), problem["ut"], problem["bt"], MASS,
-                    device="cpu", **kw)
+    policy = tplan.CheckpointPolicy(dir=str(tmp_path), every_iters=5)
+    x, st = tplan.solve(tplan.SolverPlan(), problem["ut"], problem["bt"],
+                        MASS, tol=TOL, device="cpu", checkpoint=policy)
+    x1, st1 = tplan.solve(tplan.SolverPlan(), problem["ut"], problem["bt"],
+                          MASS, tol=TOL, device="cpu")
+    assert bool(st.verified) and st.iterations == st1.iterations
+    assert torch.equal(x, x1)
+    assert sorted(p.name for p in tmp_path.glob("step_*")) == [
+        f"step_{st.iterations - st.iterations % 5:08d}",
+        f"step_{st.iterations:08d}"]
 
 
 def test_plan_validation(problem):
