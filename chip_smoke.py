@@ -121,8 +121,31 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    repro_torch.launch.serve_solver`` (1 gauge, 32 requests in bursts of
    4, ladder 1,4,8) every 50 ms (an overload: queueing) and every
    1000 ms (below capacity: service time), each with its p50/p99
-   latency and solves per second.
-   Each phase prints its seconds; the checkpoint and journal
+   latency and solves per second;
+9. multi-device solves (``SolverPlan(mesh=...)``): K1 and K4 checked
+   against their plain versions at a rank's block shape (32x16x32x32),
+   single-device twins of the four solves below, then four children
+   (``chip_smoke.py --mesh-rank R --mesh-dir D``, one per rank, with a
+   deadline) on a 2x2 ``data`` x ``model`` mesh (T and Z sharded) at
+   64x32x32x32: NCCL when ``torch.cuda.device_count()`` covers the
+   ranks, else gloo with all four on card 0 and every halo plane and
+   partial sum staged through pinned host memory (the transport, the
+   device count and ``nvidia-smi -L`` printed).  Each child holds its
+   halo'd K1 (every flag set) and K4 (f32 and bf16) against the block of
+   one global launch, then runs even-odd CGNR N = 1, even-odd pipecg
+   N = 4 twisted mass mu = 0.25, full CGNR N = 1 and full mpcg N = 1,
+   each with its counts set to 0 just before it: converged, verified on
+   rank 0 and the same stats on every rank, iterations within 1 of the
+   single-device twin (mpcg's inner count within 2, its outer equal), x
+   within 1e-5, K1 4I+4 or K4 2I+1 (mpcg: bf16 2k, f32 2o+1) a rank with
+   no plain call, all-reduces 2+2I (CGNR), 2+I (pipecg), 1+3o+2k (mpcg),
+   the link planes exchanged once a solve; rank 0 traces one more
+   even-odd CGNR; a checkpointed even-odd CGNR every 5 iterations
+   bitwise the one-shot mesh x, and one starved at 7 iterations that
+   the parent resumes on one device to a verified x.  Each solve's
+   walls, rank 0's host time inside the collectives and each rank's
+   peak memory are printed beside the single-device wall.
+   Each phase prints its seconds; the checkpoint, journal and mesh
    directories live under ``build/`` and are removed.
 
 Block CG's Gram products must run in full f32: the script checks that
@@ -648,7 +671,8 @@ def want_launches(plan, st, layout="natural", harvest=False) -> dict:
     """Kernel launches of a solve of k (inner) iterations, o reliable
     updates and m Krylov matvecs (k, or k + 1 from a deflated start;
     pipecg k + 1 + 2 (k // 25); a harvest k + min(nev, k)); every other
-    kernel runs 0.  Only CGNR drives the fused CG kernels."""
+    kernel runs 0.  Only single-device CGNR drives the fused CG kernels
+    (a mesh solve's loops run plain vector algebra, as JAX's do)."""
     k, o = st.iterations, st.outer_iterations
     mv = int(torch.atleast_1d(st.matvecs).max())
     packed = int(layout == "packed")
@@ -661,7 +685,7 @@ def want_launches(plan, st, layout="natural", harvest=False) -> dict:
     if plan.precision == "mixed":
         return {"wilson_hop_bf16": 4 * k, "wilson_hop": 4 * o + 4,
                 "cg_update_bf16": k, "cg_xpay_bf16": k}
-    if plan.solver != "cgnr" or harvest:
+    if plan.solver != "cgnr" or harvest or plan.mesh is not None:
         return {"wilson_hop": 4 * mv + 4}
     return {"wilson_hop": 4 * mv + 4, "cg_update": k, "cg_xpay": k}
 
@@ -1198,10 +1222,10 @@ def timed_snapshots():
     from repro_torch.core import plan as plan_mod
     orig, records = plan_mod._snapshot, []
 
-    def timed(checkpoint, prog, carry):
+    def timed(checkpoint, prog, carry, *mesh):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step = orig(checkpoint, prog, carry)
+        step = orig(checkpoint, prog, carry, *mesh)
         records.append((step, (time.perf_counter() - t0) * 1e3))
         return step
 
@@ -1570,7 +1594,419 @@ def serving(dev, u, pool, card) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 9: multi-device solves on a 2x2 mesh
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 4
+MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")   # T over data, Z over model
+# (name, plan fields, RHS: "b" or the 4-RHS "batch")
+MESH_SOLVES = (
+    ("eo_cgnr_n1", {}, "b"),
+    ("eo_pipecg_n4_tm", dict(solver="pipecg", nrhs=4,
+                             operator_family="twisted-mass", mu=MU), "batch"),
+    ("full_cgnr_n1", dict(operator="full"), "b"),
+    ("full_mpcg_n1", dict(operator="full", precision="mixed"), "b"))
+MESH_STARVE = 7          # the starved checkpointed run's maxiter
+MESH_PG_TIMEOUT_S = 120  # every collective of the children
+MESH_DEADLINE_S = 900    # the children's join deadline
+# bf16 halo'd against global K4: the boundary planes round twice (the
+# bulk's output, then the correction), so 2 bf16 ulps of the scale
+MESH_BF16_TOL = 2.0 ** -6
+
+
+def mesh_fields(dev):
+    """The main path's u, b and 4-RHS batch (phase 4), rebuilt from their
+    seeds on ``dev``."""
+    from repro_torch.core import lattice as tl
+    from repro_torch.data import lattice_problem
+    lat = tl.LatticeShape(*MAIN_DIMS)
+    u, b = lattice_problem(lat, seed=0, packed=False, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    batch = torch.stack([tl.random_spinor(gen, lat) for _ in range(4)])
+    return u, b, batch
+
+
+def sha256(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(
+        t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def halo_kernel_checks(mesh, u, b) -> dict:
+    """The halo'd K1 and K4 on this rank's block against the block of one
+    global launch: K1 for every flag set of phase 2 (f32), K4 for every
+    gamma5 flag pair with and without twist, f32 and bf16."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import lattice as tl
+    from repro_torch.kernels.wilson_dslash import ops as wops
+    psi_spec, gauge_spec, sharded = dist.lattice_specs(mesh)
+    u_e, u_o = tl.split_eo_gauge(u)
+    upe, upo = tl.pack_gauge(u_e), tl.pack_gauge(u_o)
+    b_e, b_o = tl.split_eo(b)
+    pe, po = tl.pack_spinor(b_e), tl.pack_spinor(b_o)
+    del u_e, u_o, b_e, b_o
+    ue, uo, pel, pol = (dist.local_block(mesh, v, spec) for v, spec in (
+        (upe, gauge_spec), (upo, gauge_spec), (pe, psi_spec),
+        (po, psi_spec)))
+    prev = (dist.link_halos(mesh, sharded, ue),
+            dist.link_halos(mesh, sharded, uo))
+    worst = {"wilson_hop": 0.0, "wilson_full": 0.0, "wilson_full_bf16": 0.0}
+    for parity, g5in, g5out, has_acc, twist in itertools.product(
+            (0, 1), (False, True), (False, True), (False, True),
+            (False, True)):
+        which = "eo" if parity == 0 else "oe"
+        src, src_l = (po, pol) if parity == 0 else (pe, pel)
+        acc, acc_l = (pe, pel) if parity == 0 else (po, pol)
+        kw = dict(gamma5_in=g5in, gamma5_out=g5out,
+                  hop_coeff=-0.3 if (has_acc or twist) else 1.0,
+                  hop_twist=0.2 if twist else 0.0,
+                  acc_coeff=1.7 if has_acc else 0.0,
+                  acc_twist=-0.4 if (has_acc and twist) else 0.0)
+        ref = dist.local_block(mesh, wops.hop_block(
+            upe, upo, src, which=which, psi_acc=acc if has_acc else None,
+            **kw), psi_spec)
+        out = dist.parity_hop_halo(which, ue, uo, src_l, mesh, sharded,
+                                   psi_acc=acc_l if has_acc else None,
+                                   u_prev=prev, **kw)
+        err = max_err(out, ref)
+        check(err <= HOP_TOL * scale(ref),
+              f"mesh halo K1 {which} {kw}: max-abs error {err}")
+        worst["wilson_hop"] = max(worst["wilson_hop"], err)
+    del upe, upo, pe, po, ue, uo, pel, pol, prev
+    up, pp = tl.pack_gauge(u), tl.pack_spinor(b)
+    for dtype, name in ((torch.float32, "wilson_full"),
+                        (BF16, "wilson_full_bf16")):
+        upd, ppd = up.to(dtype), pp.to(dtype)
+        upl, ppl = dist.shard_lattice_fields(mesh, upd, ppd)
+        prev = dist.link_halos(mesh, sharded, upl)
+        for g5in, g5out, twist in itertools.product(
+                (False, True), (False, True), (0.0, MU)):
+            kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
+            ref = dist.local_block(mesh, wops.dslash(upd, ppd, MASS, **kw),
+                                   psi_spec)
+            out = dist.dslash_halo(upl, ppl, MASS, mesh, sharded, u_prev=prev,
+                                   **kw)
+            err = max_err(out, ref)
+            tol = HOP_TOL if dtype == torch.float32 else MESH_BF16_TOL
+            check(out.dtype == dtype and err <= tol * scale(ref),
+                  f"mesh halo {name} {kw}: max-abs error {err}")
+            worst[name] = max(worst[name], err)
+        del upd, ppd, upl, ppl, prev
+    torch.cuda.synchronize()
+    return worst
+
+
+def mesh_child(rank: int, d: Path) -> int:
+    """One rank of phase 9 (``chip_smoke.py --mesh-rank R --mesh-dir D``):
+    the halo'd kernels against global launches, the four solves of
+    MESH_SOLVES on the 2x2 mesh, and the checkpointed even-odd CGNR run
+    to its end and starved; writes ``rank<R>.json`` (and rank 0 each
+    solve's x) into D."""
+    import datetime
+    import torch.distributed as tdist
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import plan as plan_mod
+    cfg = json.loads((d / "mesh.json").read_text())
+    transport = cfg["transport"]
+    dev = torch.device(cfg["device_type"], rank if transport == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    timeout = datetime.timedelta(seconds=MESH_PG_TIMEOUT_S)
+    tdist.init_process_group(transport, init_method=f"file://{d}/rendezvous",
+                             rank=rank, world_size=MESH_WORLD,
+                             timeout=timeout)
+    try:
+        mesh = dist.Mesh(MESH_SHAPE, MESH_AXES, device=dev,
+                         transport=transport, timeout=timeout)
+        u, b, batch = mesh_fields(dev)
+        out = {"coords": mesh.coords, "device": str(dev),
+               "sha": [sha256(v) for v in (u, b, batch)]}
+        out["halo_checks"] = halo_kernel_checks(mesh, u, b)
+        SP = plan_mod.SolverPlan
+        out["solves"] = {}
+        x_eo = None
+        for name, kw, rhs_name in MESH_SOLVES:
+            plan = SP(mesh=mesh, **kw)
+            rhs = b if rhs_name == "b" else batch
+            mesh.barrier()
+            before, before_s = dict(mesh.counts), dict(mesh.seconds)
+            x, st, counts, pairs, wall, peak = solve_counted(plan, u, rhs, dev)
+            check_launches(f"mesh {name} rank {rank}", st, counts, plan)
+            out["solves"][name] = dict(
+                stats=mesh_stats(st), wall_s=wall, peak_bytes=peak,
+                launches={k: v["launches"] for k, v in counts.items()},
+                collectives={k: v - before.get(k, 0)
+                             for k, v in mesh.counts.items()},
+                collective_s={k: v - before_s.get(k, 0.0)
+                              for k, v in mesh.seconds.items()})
+            if rank == 0:
+                torch.save(x.cpu(), d / f"{name}.pt")
+            if name == "eo_cgnr_n1":
+                x_eo = x
+            del x
+        # rank 0 traces one more even-odd CGNR (the others run it untraced)
+        plan = SP(mesh=mesh)
+        mesh.barrier()
+        if rank == 0:
+            out["profile"] = profile_solve(plan, u, b, dev)
+        else:
+            plan_mod.solve(plan, u, b, MASS, tol=TOL, device=dev)
+        # the checkpointed even-odd CGNR: to its end (bitwise the one-shot
+        # x above), and starved for the parent to resume on one device
+        mesh.barrier()
+        x2, st2, counts, _, wall, peak = solve_counted(
+            plan, u, b, dev, checkpoint=plan_mod.CheckpointPolicy(
+                str(d / "ck_mesh"), 5, keep=100))
+        steps = ckpt.valid_steps(str(d / "ck_mesh"))
+        want = dict(out["solves"]["eo_cgnr_n1"]["launches"])
+        want["wilson_hop"] += len(steps)   # each snapshot's odd half
+        check(torch.equal(x_eo, x2), f"mesh rank {rank}: checkpointed x is "
+                                     "not bitwise the one-shot x")
+        check(want == {k: v["launches"] for k, v in counts.items()}
+              and not any(v["plain_calls"] for v in counts.values()),
+              f"mesh rank {rank} checkpointed: launches {counts}, want {want}")
+        del x_eo, x2
+        _, st3 = plan_mod.solve(
+            plan, u, b, MASS, tol=TOL, maxiter=MESH_STARVE, device=dev,
+            checkpoint=plan_mod.CheckpointPolicy(str(d / "ck_starved"), 5,
+                                                 keep=100))
+        out["durable"] = dict(
+            stats=mesh_stats(st2), wall_s=wall, peak_bytes=peak, steps=steps,
+            starved=mesh_stats(st3),
+            starved_steps=ckpt.valid_steps(str(d / "ck_starved")))
+        (d / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def mesh_stats(st) -> dict:
+    def lst(v):
+        return None if v is None else torch.atleast_1d(v).tolist()
+    return dict(iterations=st.iterations, outer=st.outer_iterations,
+                rhs_iterations=lst(st.rhs_iterations),
+                converged=lst(st.converged), verdict=lst(st.verdict),
+                verified=lst(st.verified), matvecs=lst(st.matvecs),
+                true_residual_norm2=lst(st.true_residual_norm2))
+
+
+def run_children(argvs, env, timeout_s: float) -> list[tuple[int, str]]:
+    """Run processes side by side, each one's output merged into a file;
+    past the deadline each gets SIGABRT (with PYTHONFAULTHANDLER set, it
+    prints every thread's stack) and is killed after.  Returns (exit
+    code, output) of each."""
+    env = dict(env, PYTHONFAULTHANDLER="1")
+    logs = [tempfile.TemporaryFile("w+") for _ in argvs]
+    procs = [subprocess.Popen(a, env=env, stdout=f, stderr=subprocess.STDOUT,
+                              text=True) for a, f in zip(argvs, logs)]
+    deadline = time.perf_counter() + timeout_s
+    late = False
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            late = True
+    if late:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGABRT)
+        time.sleep(30)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    res = []
+    for p, f in zip(procs, logs):
+        f.seek(0)
+        res.append((p.returncode, f.read()))
+        f.close()
+    if late:
+        fail(f"mesh children did not end within {timeout_s} s:\n"
+             + "\n".join(o[-3000:] for _, o in res))
+    return res
+
+
+def mesh_phase(dev, card) -> dict:
+    """Phase 9: the kernel checks at a rank's block shapes, the single-
+    device twins, four ranks on a 2x2 mesh (NCCL with a card a rank, else
+    gloo on card 0 with halos staged through the host), every count held
+    to its twin's, and the starved mesh checkpoint resumed here."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import resilience
+    SP = plan_mod.SolverPlan
+    n_cards = torch.cuda.device_count()
+    transport = "nccl" if n_cards >= MESH_WORLD else "gloo"
+    cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                           text=True, timeout=60).stdout.strip()
+    log(f"mesh: {MESH_SHAPE} {MESH_AXES} over {MESH_WORLD} ranks, transport "
+        f"{transport}, torch.cuda.device_count() {n_cards}; nvidia-smi -L: "
+        + " | ".join(cards.splitlines()))
+    if transport == "gloo":
+        log("mesh: the 4 ranks share one card and route every halo plane "
+            "and partial sum through the host: the walls below are no "
+            "scaling figure")
+    # K1 and K4 at a rank's block shapes (T and Z halved)
+    local = (MAIN_DIMS[0] // 2, MAIN_DIMS[1] // 2) + MAIN_DIMS[2:]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    errs = {"wilson_hop": check_hop(dev, gen, local),
+            "wilson_full": check_full(dev, gen, local),
+            "wilson_full_bf16": check_full(dev, gen, local, dtype=BF16)}
+    log(f"mesh: kernels at the block shape {local}: " + json.dumps(errs))
+    u, b, batch = mesh_fields(dev)
+    sha = [sha256(v) for v in (u, b, batch)]
+    singles = {}
+    for name, kw, rhs_name in MESH_SOLVES:
+        plan = SP(**kw)
+        rhs = b if rhs_name == "b" else batch
+        x, st, counts, _, wall, peak = solve_counted(plan, u, rhs, dev)
+        check_solve(f"mesh single {name}", st, rel_res(st, rhs, plan.batched))
+        check_launches(f"mesh single {name}", st, counts, plan)
+        singles[name] = dict(x=x.cpu(), stats=mesh_stats(st), wall_s=wall,
+                             peak_bytes=peak)
+        del x
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=ROOT / "build"))
+    out = {"transport": transport, "device_count": n_cards,
+           "world": MESH_WORLD, "block_kernel_errs": errs}
+    try:
+        (tmp / "mesh.json").write_text(json.dumps(
+            {"transport": transport, "device_type": dev.type}))
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        res = run_children(
+            [[sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+              str(r), "--mesh-dir", str(tmp)] for r in range(MESH_WORLD)],
+            env, MESH_DEADLINE_S)
+        out["children_s"] = time.perf_counter() - t0
+        for r, (rc, text) in enumerate(res):
+            check(rc == 0, f"mesh rank {r} failed (rc {rc}):\n{text[-6000:]}")
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+        for r, rk in enumerate(ranks):
+            check(rk["sha"] == sha, f"mesh rank {r}: u, b or the batch differ "
+                                    "from the parent's")
+        for name, kw, rhs_name in MESH_SOLVES:
+            plan = SP(**kw)
+            one = singles[name]
+            st = ranks[0]["solves"][name]["stats"]
+            check(all(rk["solves"][name]["stats"] == st for rk in ranks),
+                  f"mesh {name}: stats differ between ranks")
+            check(all(v == 0 for v in st["verdict"]) and all(st["verified"]),
+                  f"mesh {name}: verdicts {st['verdict']}, verified "
+                  f"{st['verified']}")
+            mine = st["rhs_iterations"] or [st["iterations"]]
+            theirs = (one["stats"]["rhs_iterations"]
+                      or [one["stats"]["iterations"]])
+            # bf16 inner counts sit on rounding (MIXED_GOLDENS: +-2)
+            slack = 2 if plan.precision == "mixed" else 1
+            check(all(abs(a - c) <= slack for a, c in zip(mine, theirs))
+                  and st["outer"] == one["stats"]["outer"],
+                  f"mesh {name}: iterations {mine} / {st['outer']} outer, "
+                  f"single device {theirs} / {one['stats']['outer']}")
+            x = torch.load(tmp / f"{name}.pt")
+            err = max_err(x, one["x"]) / float(one["x"].abs().max())
+            check(err <= 1e-5, f"mesh {name}: x differs from the single-"
+                               f"device x by {err} (relative)")
+            coll = ranks[0]["solves"][name]["collectives"]
+            k, o = st["iterations"], st["outer"]
+            want_ar = {"cgnr": 2 + 2 * k, "pipecg": 2 + k}[plan.solver]
+            if plan.precision == "mixed":
+                want_ar = 1 + 3 * o + 2 * k
+            fields = 2 if plan.operator == "eo-schur" else 1
+            check(coll.get("all_reduce") == want_ar
+                  and coll.get("link_planes") == 2 * fields
+                  and coll.get("all_gather") == 1,
+                  f"mesh {name}: collectives {coll}, want {want_ar} "
+                  f"all-reduces and {2 * fields} link planes")
+            secs = ranks[0]["solves"][name]["collective_s"]
+            walls = [rk["solves"][name]["wall_s"] for rk in ranks]
+            peaks = [rk["solves"][name]["peak_bytes"] / 2**30 for rk in ranks]
+            ran = {n: v for n, v in
+                   ranks[0]["solves"][name]["launches"].items() if v}
+            log(f"mesh {name}: iterations {mine} (outer {st['outer']}; single "
+                f"device {theirs}), x rel err {err:.2e}, launches per rank "
+                f"{ran}, "
+                f"all-reduces {coll['all_reduce']} ({want_ar}), spinor "
+                f"planes {coll.get('spinor_planes', 0)} "
+                f"({coll.get('spinor_bytes', 0) / 1e6:.1f} MB sent), link "
+                f"planes {coll['link_planes']}; wall {max(walls):.4f} s "
+                f"(ranks {[f'{w:.4f}' for w in walls]}) against "
+                f"{one['wall_s']:.4f} s on one device; rank 0's host wall "
+                f"inside collectives "
+                f"{ {k: round(v, 4) for k, v in secs.items() if v} } s; "
+                f"peak {[f'{p:.3f}' for p in peaks]} GiB a rank ({card})")
+            out[name] = dict(iterations=mine, outer=st["outer"],
+                             single=theirs, x_rel_err=err, walls_s=walls,
+                             single_wall_s=one["wall_s"], peaks_gib=peaks,
+                             launches=ranks[0]["solves"][name]["launches"],
+                             collectives=coll, collective_s=secs)
+        dur = [rk["durable"] for rk in ranks]
+        st = dur[0]["stats"]
+        k = st["iterations"]
+        check(all(dd["stats"] == st for dd in dur)
+              and dur[0]["steps"] == list(range(5, k, 5)) + [k]
+              and dur[0]["starved_steps"] == [5, MESH_STARVE],
+              f"mesh checkpointed: steps {dur[0]['steps']}, starved "
+              f"{dur[0]['starved_steps']}, iterations {k}")
+        (x, st_r, rec), counts, _, wall, _ = counted(
+            dev, lambda: resilience.resume_solve(
+                SP(), u, b, MASS, checkpoint_dir=str(tmp / "ck_starved"),
+                tol=TOL, maxiter=1000, device=dev))
+        check(rec.resumed_from_step == MESH_STARVE and bool(st_r.verified)
+              and not any(v["plain_calls"] for v in counts.values()),
+              f"mesh resume: from {rec.resumed_from_step}, verified "
+              f"{st_r.verified}, attempts {rec.attempts}")
+        log(f"mesh checkpointed eo_cgnr_n1: x bitwise the one-shot mesh x, "
+            f"snapshots at {dur[0]['steps']}, wall {dur[0]['wall_s']:.4f} s; "
+            f"starved at {MESH_STARVE} (steps {dur[0]['starved_steps']}) and "
+            f"resumed on one device from step {rec.resumed_from_step}: "
+            f"{rec.attempts[-1].iterations} more iterations, verified, "
+            f"{wall:.4f} s ({card})")
+        out["durable"] = dict(steps=dur[0]["steps"],
+                              wall_s=dur[0]["wall_s"],
+                              resumed_from=rec.resumed_from_step,
+                              resume_wall_s=wall)
+        out["rank_peak_gib"] = [
+            max(s["peak_bytes"] for s in rk["solves"].values()) / 2**30
+            for rk in ranks]
+        out["halo_checks"] = [rk["halo_checks"] for rk in ranks]
+        prof = ranks[0]["profile"]
+        out["profile_rank0_eo_cgnr_n1"] = prof
+        if prof["top"]:
+            log(f"mesh profile eo_cgnr_n1, rank 0: wall {prof['wall_ms']:.2f} "
+                f"ms (traced), rank 0's device busy "
+                f"{prof['device_busy_ms']:.2f} ms, its idle share "
+                f"{prof['idle_share']:.3f} (the card also runs 3 other "
+                f"ranks' work) ({card})")
+            for row in prof["top"]:
+                log(f"  {row['ms']:9.3f} ms  x{row['count']:<5d} "
+                    f"{row['name']}")
+        else:
+            log("mesh profile eo_cgnr_n1: the profiler recorded no device "
+                "time (not measured)")
+        launches = {}
+        for rk_solve in ranks[0]["solves"].values():
+            for n, v in rk_solve["launches"].items():
+                launches[n] = launches.get(n, 0) + v
+        out["launches"] = launches
+        log(f"mesh: each rank's peak {[f'{p:.3f}' for p in out['rank_peak_gib']]}"
+            f" GiB; halo'd kernels against global launches (max-abs) "
+            f"{json.dumps(ranks[0]['halo_checks'])}; children "
+            f"{out['children_s']:.1f} s ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
+    if "--mesh-rank" in sys.argv:
+        i = sys.argv.index
+        return mesh_child(int(sys.argv[i("--mesh-rank") + 1]),
+                          Path(sys.argv[i("--mesh-dir") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
@@ -1766,6 +2202,12 @@ def main() -> int:
     served = serving(dev, u, batch16[:8], card)
     phase_done(8)
 
+    # phase 9: multi-device solves on a 2x2 mesh
+    del u, b, batch, batch16, basis
+    torch.cuda.empty_cache()
+    meshed = mesh_phase(dev, card)
+    phase_done(9)
+
     replaces = {
         "wilson_hop": "src/repro/kernels/wilson_dslash/kernel.py:684",
         "cg_update": "src/repro/kernels/cg_fused/kernel.py:114",
@@ -1797,7 +2239,8 @@ def main() -> int:
         kernels_line[-1]["launches_by_path"] = {
             "main": total[name],
             "durability": durable["launches"].get(name, 0),
-            "serving": served["launches"].get(name, 0)}
+            "serving": served["launches"].get(name, 0),
+            "mesh_rank0": meshed["launches"].get(name, 0)}
         if name in n8:
             kernels_line[-1]["max_abs_err"] = max(
                 kernels_line[-1]["max_abs_err"], n8[name]["max_abs_err"])
@@ -1813,6 +2256,7 @@ def main() -> int:
     log("main path runs: " + json.dumps(runs))
     log("durability: " + json.dumps(durable))
     log("serving: " + json.dumps(served))
+    log("mesh: " + json.dumps(meshed))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels_line}))

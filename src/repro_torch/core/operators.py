@@ -24,8 +24,9 @@ from typing import Callable
 import torch
 
 from repro_torch.core.lattice import NCOL, NSPIN
-from repro_torch.core.wilson import (apply_gamma5, dslash, dslash_eo,
-                                     dslash_oe, schur_dagger, schur_op)
+from repro_torch.core.wilson import (apply_gamma5, device_const, dslash,
+                                     dslash_eo, dslash_oe, schur_dagger,
+                                     schur_op)
 
 Tensor = torch.Tensor
 
@@ -58,8 +59,8 @@ def apply_igamma5_packed(p: Tensor) -> Tensor:
         raise ValueError(f"packed spinor needs S={NSPIN * NCOL * 2}, got {s}")
     q = p.reshape(p.shape[:-2] + (NSPIN, NCOL, 2, x))
     re, im = q[..., 0, :], q[..., 1, :]
-    sign = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=p.dtype,
-                        device=p.device).reshape(NSPIN, 1, 1)
+    sign = device_const((1.0, 1.0, -1.0, -1.0), (NSPIN, 1, 1), p.device,
+                        p.dtype)
     return torch.stack([-sign * im, sign * re], dim=-2).reshape(p.shape)
 
 

@@ -2,8 +2,9 @@
 
 A :class:`SolverPlan` names a solve as data (operator, operator family,
 backend, Krylov loop, batch shape, precision, mesh) and :func:`solve`
-runs it.  The port carries two operators, single device, one RHS or a
-batch, for every registered operator family:
+runs it.  The port carries two operators, on one device or a
+:class:`repro_torch.core.distributed.Mesh` of ranks, one RHS or a batch,
+for every registered operator family:
 
 * ``"eo-schur"`` (default) — the paper's solve on the even-odd Schur
   complement (:func:`_parts_eo`): CGNR, pipelined CG (``"pipecg"``) or
@@ -35,29 +36,42 @@ deflation basis that later single-precision CGNR or block CG solves on
 the same gauge field take as ``deflation=``.  ``solve(checkpoint=
 CheckpointPolicy(...))`` runs any loop but block CG in segments and
 snapshots it between them (:func:`loop_program`, :func:`_solve_checkpointed`;
-:mod:`repro_torch.core.resilience` resumes such a run).  A mesh, the one
-plan field outside the port, raises ``NotImplementedError`` naming its
-ROADMAP item.  Every
-solve ends with one verification matvec (:func:`_attach_verification`):
-the natural-layout operator, or for ``layout="packed"`` the full-lattice
-kernel.
+:mod:`repro_torch.core.resilience` resumes such a run).
+
+A mesh plan (``mesh=``, ``axis_map=``) decomposes the lattice over the
+mesh's ranks: every rank calls :func:`solve` with the same GLOBAL fields,
+slices its own block of the packed fields, and iterates the same loops
+with halo-corrected local operators (K1 or K4 on the block) and
+all-reduced reductions (:mod:`repro_torch.core.distributed`); the result
+is the gathered global x and the same stats on every rank.  The mesh
+rules are the JAX package's: no block CG, even-odd single precision
+only, the full operator single-RHS only (:func:`_parts_full_sharded`,
+:func:`_parts_eo_sharded`).
+
+Every solve ends with one verification matvec (:func:`_attach_verification`,
+``verify=False`` skips it): the natural-layout operator, or for
+``layout="packed"`` the full-lattice kernel; a mesh solve verifies the
+gathered x on rank 0 against the global fields, through no halo code, and
+broadcasts the verdict.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as dist
 from repro_torch.core import solvers
 from repro_torch.core.eo import (EOContext, back_substitute_odd,
                                  eo_context, schur_rhs)
-from repro_torch.core.lattice import (complex_to_real_pair, field_norm2,
-                                      field_norm2_batched, pack_gauge,
-                                      pack_spinor, real_pair_to_complex,
-                                      resolve_device, unpack_spinor)
+from repro_torch.core.lattice import (complex_to_real_pair, field_dot,
+                                      field_norm2, field_norm2_batched,
+                                      pack_gauge, pack_spinor,
+                                      real_pair_to_complex, resolve_device,
+                                      unpack_spinor)
 from repro_torch.core.operators import (SiteTerm, dslash_g, get_operator,
                                         schur_normal_op_g, unknown_name)
 from repro_torch.core.precision import parse_dtype
@@ -68,11 +82,6 @@ _OPERATORS = ("full", "eo-schur")
 _BACKENDS = ("reference", "kernels")
 _SOLVERS = ("cgnr", "pipecg", "blockcg")
 _PRECISIONS = ("single", "mixed", "low")
-
-# where each plan field outside this slice is scheduled (ROADMAP.md)
-_NOT_PORTED = {
-    "mesh": "mesh plans are multi-device; ROADMAP Queue A item 12",
-}
 
 # the low storage the kernels have instances for
 _KERNEL_LOW = (torch.bfloat16, torch.float32)
@@ -98,7 +107,11 @@ class SolverPlan:
       low:       the narrow dtype (name or torch dtype) for mixed/low;
         the kernels backend stores bfloat16 or float32.
       nrhs:      None for one RHS, or N for a masked batch of N.
-      mesh:      None (multi-device plans are not ported yet).
+      mesh/axis_map: None for one device, or a
+        :class:`repro_torch.core.distributed.Mesh` (and an optional
+        {lattice axis: mesh axis name} override): the solve runs on every
+        rank of the mesh with halo-corrected local operators and
+        all-reduced reductions.
       r:         Wilson parameter (the kernels need r = 1).
     """
 
@@ -110,7 +123,8 @@ class SolverPlan:
     precision: str = "single"
     low: object = "bfloat16"
     nrhs: int | None = None
-    mesh: object | None = None
+    mesh: dist.Mesh | None = None
+    axis_map: Mapping[int, str] | None = None
     r: float = 1.0
 
     def __post_init__(self):
@@ -156,9 +170,9 @@ class SolverPlan:
                     f"SolverPlan.low={self.low!r}: the kernels store "
                     "bfloat16 or float32; other narrow storage (float16) "
                     "is ROADMAP Queue B item 9")
-        if self.mesh is not None:
-            raise NotImplementedError("SolverPlan.mesh: "
-                                      + _NOT_PORTED["mesh"])
+        if self.mesh is not None and not isinstance(self.mesh, dist.Mesh):
+            raise TypeError(f"SolverPlan.mesh must be a repro_torch.core."
+                            f"distributed.Mesh, got {type(self.mesh)!r}")
 
     @property
     def batched(self) -> bool:
@@ -167,10 +181,13 @@ class SolverPlan:
     def cache_key(self) -> tuple:
         """The plan's hashable identity: every field that shapes a solve.
         A deflation basis belongs to the key of the plan that harvested
-        it, with the same gauge field and mass."""
+        it, with the same gauge field and mass.  ``axis_map`` may be a
+        plain dict, hence the sorted tuple; a mesh hashes by identity."""
+        axis_map = (None if self.axis_map is None
+                    else tuple(sorted(self.axis_map.items())))
         return (self.operator, self.operator_family, self.mu, self.backend,
                 self.solver, self.precision, str(self.low), self.nrhs,
-                self.mesh, self.r)
+                self.mesh, axis_map, self.r)
 
     @property
     def low_dtype(self):
@@ -283,7 +300,8 @@ def _check_batch_shape(plan: SolverPlan, b: Tensor, layout: str):
 def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
           maxiter: int = 1000, inner_tol: float = 5e-2,
           inner_maxiter: int = 200, max_outer: int = 50,
-          residual_replacement_every: int = 25, layout: str = "natural",
+          residual_replacement_every: int = 25, dot=field_dot,
+          norm2=field_norm2, layout: str = "natural", verify: bool = True,
           checkpoint=None, deflation: solvers.DeflationBasis | None = None,
           device="cuda") -> tuple[Tensor, solvers.SolveStats]:
     """Execute a :class:`SolverPlan`.
@@ -293,16 +311,24 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
         ``device``.  ``layout="natural"``: complex (4,T,Z,Y,X,3,3) and
         (T,Z,Y,X,4,3); ``layout="packed"`` (the full operator only):
         float32 (4,T,Z,Y,18,X) and (T,Z,Y,24,X).  The RHS has a leading
-        N axis when ``plan.nrhs`` is set.
+        N axis when ``plan.nrhs`` is set.  A mesh plan takes the GLOBAL
+        fields on every rank.
       tol/maxiter: CG stopping rule (relative, per RHS when batched).
       inner_tol/inner_maxiter/max_outer: the mixed precision's inner CG
         stopping rule and its number of reliable updates.
       residual_replacement_every: pipecg's drift control (0: never).
+      dot/norm2: injectable reductions of the single-device loops (the
+        defaults swap to their per-RHS forms for a batch); mesh plans
+        build their own all-reduced ones.
+      verify: attach the post-solve verification matvec (the default).
+        ``False`` is for callers that verify the solution themselves;
+        they must not treat x as trusted.
       checkpoint: a :class:`CheckpointPolicy` makes the solve durable: the
         same loop runs in segments of at most ``every_iters`` iterations
         and ``(x, iteration, verdict, rhs_mask)`` is written to
         ``checkpoint.dir`` between them (:func:`_solve_checkpointed`);
-        the result is bitwise the one-shot solve's.  Not for block CG.
+        the result is bitwise the one-shot solve's.  Not for block CG;
+        on a mesh, the even-odd path only, rank 0 writing.
       deflation: a :class:`solvers.DeflationBasis` from
         :func:`harvest_deflation` on the same gauge field, family, mass
         and backend: the solve starts from the Galerkin projection of the
@@ -310,7 +336,8 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
         verification still gates against the original system, so a stale
         basis fails loudly.
       device: where the solve runs, ``"cuda"`` unless the caller asks for
-        ``"cpu"`` (then each kernel's plain version runs).
+        ``"cpu"`` (then each kernel's plain version runs).  A mesh plan
+        runs on its mesh's device.
     Returns:
       (x, SolveStats): x in the layout of ``b``; per-RHS stats fields
       when batched.
@@ -325,13 +352,14 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
             f"solver={plan.solver!r} precision={plan.precision!r} "
             f"mesh={'set' if plan.mesh is not None else None} "
             f"checkpoint={'set' if checkpoint is not None else None}")
-    dev = resolve_device(device)
+    _check_mesh_plan(plan)
+    dev = resolve_device(device if plan.mesh is None else plan.mesh.device)
     u = torch.as_tensor(u, device=dev)
     b = torch.as_tensor(b, device=dev)
     kw = dict(tol=tol, maxiter=maxiter, inner_tol=inner_tol,
               inner_maxiter=inner_maxiter, max_outer=max_outer,
               residual_replacement_every=residual_replacement_every,
-              layout=layout)
+              dot=dot, norm2=norm2, layout=layout)
     if checkpoint is not None:
         x, stats = _solve_checkpointed(plan, u, b, mass,
                                        checkpoint=checkpoint, **kw)
@@ -342,8 +370,32 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
     else:
         x, stats = _run(_loop_parts(plan, u, b, mass, deflation=deflation,
                                     **kw))
+    if not verify:
+        return x, stats
+    if plan.mesh is not None:
+        return x, _attach_verification_mesh(plan, u, b, mass, x, stats, tol,
+                                            layout)
     return x, _attach_verification(plan, u, b, mass, x, stats, tol,
                                    layout=layout)
+
+
+def _check_mesh_plan(plan: SolverPlan):
+    """The JAX package's dispatch rules for mesh plans, in its words."""
+    if plan.mesh is None:
+        return
+    if plan.solver == "blockcg":
+        raise NotImplementedError(
+            "blockcg is single-device (its N×N Gram einsums contract "
+            "unsharded site axes); drop the mesh or use solver='cgnr'")
+    if plan.operator == "eo-schur":
+        if plan.precision != "single":
+            raise NotImplementedError(
+                "sharded eo-schur supports precision='single' (the "
+                "mixed-precision Schur solve is single-device for now)")
+    elif plan.batched:
+        raise NotImplementedError(
+            "sharded full-operator solves are single-RHS; use "
+            "operator='eo-schur' for the sharded batched fast path")
 
 
 def harvest_deflation(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
@@ -406,9 +458,14 @@ def _loop_parts(plan, u, b, mass, *, layout, deflation=None, **kw):
     """Resolve a plan (any loop but block CG) to its solver loop and the
     map of the loop's iterate to the plan's output layout: ``(parts,
     post)``.  :func:`solve` runs the loop to its end, a checkpointed solve
-    in segments (:func:`loop_program`); both iterate the same body."""
+    in segments (:func:`loop_program`); both iterate the same body.  On a
+    mesh the loop runs on this rank's blocks and ``post`` gathers."""
     _check_layout(plan, layout)
     _check_batch_shape(plan, b, layout)
+    if plan.mesh is not None:
+        if plan.operator == "full":
+            return _parts_full_sharded(plan, u, b, mass, layout=layout, **kw)
+        return _parts_eo_sharded(plan, u, b, mass, **kw)
     if plan.operator == "full":
         return _parts_full(plan, u, b, mass, layout=layout,
                            deflation=deflation, **kw)
@@ -439,7 +496,7 @@ def _eo_post(ctx: EOContext, b_o: Tensor):
 
 
 def _parts_eo(plan, u, b, mass, *, tol, maxiter, residual_replacement_every,
-              deflation, **_):
+              deflation, dot, norm2, **_):
     """CGNR (through the fused CG kernels on the kernels backend) or
     pipelined CG on the Schur normal equations, then the odd half
     back-substituted.  Pipecg runs plain vector algebra, as in the JAX
@@ -449,7 +506,7 @@ def _parts_eo(plan, u, b, mass, *, tol, maxiter, residual_replacement_every,
         parts = solvers.pipecg_parts(
             a_hat, rhs, tol=tol, maxiter=maxiter,
             residual_replacement_every=residual_replacement_every,
-            batched=ctx.batched)
+            dot=dot, norm2=norm2, batched=ctx.batched)
     else:
         x0 = None if deflation is None else solvers.deflate_x0(deflation,
                                                                rhs)
@@ -457,28 +514,31 @@ def _parts_eo(plan, u, b, mass, *, tol, maxiter, residual_replacement_every,
         if ctx.engine is not None:
             engine = dict(update=ctx.engine[0], xpay=ctx.engine[1])
         parts = solvers.cg_parts(a_hat, rhs, x0, tol=tol, maxiter=maxiter,
-                                 batched=ctx.batched, **engine)
+                                 dot=dot, norm2=norm2, batched=ctx.batched,
+                                 **engine)
     return parts, _eo_post(ctx, b_o)
 
 
 def _solve_blockcg(plan, u, b, mass, *, tol, maxiter, layout, deflation,
-                   **_):
+                   norm2, **_):
     """Block CG on the Schur normal equations (then the odd half
     back-substituted) or on D^dag D over packed full-lattice fields."""
     if plan.operator == "full":
         up, rhs, op_hi, unpack = _full_setup(plan, u, b, mass, layout)
         x0 = None if deflation is None else solvers.deflate_x0(deflation,
                                                                rhs)
-        x, stats = solvers.blockcg(op_hi, rhs, x0, tol=tol, maxiter=maxiter)
+        x, stats = solvers.blockcg(op_hi, rhs, x0, tol=tol, maxiter=maxiter,
+                                   norm2=norm2)
         return unpack(x), stats
     ctx, b_o, a_hat, rhs = _eo_setup(plan, u, b, mass)
     x0 = None if deflation is None else solvers.deflate_x0(deflation, rhs)
-    x_e, stats = solvers.blockcg(a_hat, rhs, x0, tol=tol, maxiter=maxiter)
+    x_e, stats = solvers.blockcg(a_hat, rhs, x0, tol=tol, maxiter=maxiter,
+                                 norm2=norm2)
     return _eo_post(ctx, b_o)(x_e, stats)
 
 
 def _parts_eo_mp(plan, u, b, mass, *, tol, inner_tol, inner_maxiter,
-                 max_outer, **_):
+                 max_outer, dot, norm2, **_):
     """Even-odd + mixed precision: a low-storage inner CG, wide reliable
     updates and back-substitution.  The loop is the outer reliable-update
     cycle, so a checkpointed solve's segments end at reliable updates.
@@ -539,8 +599,16 @@ def _parts_eo_mp(plan, u, b, mass, *, tol, inner_tol, inner_maxiter,
         a_low, a_high, rhs, tol=tol,
         inner_tol=inner_tol, inner_maxiter=inner_maxiter,
         max_outer=max_outer, low_dtype=low_dtype, to_low=to_low,
-        to_high=to_high, **engine)
+        to_high=to_high, dot=dot, norm2=norm2, **engine)
     return parts, _eo_post(ctx, b_o)
+
+
+def _check_full_r(plan):
+    if plan.r != 1.0:
+        raise NotImplementedError(
+            "the full-lattice operator hard-codes r=1 (its spin-projection "
+            f"tables need the rank-2 projectors (1 -+ gamma_mu)); got "
+            f"r={plan.r}")
 
 
 def _full_setup(plan, u, b, mass, layout):
@@ -549,11 +617,7 @@ def _full_setup(plan, u, b, mass, layout):
     the RHS's layout."""
     from repro_torch.kernels.wilson_dslash import ops as wops
 
-    if plan.r != 1.0:
-        raise NotImplementedError(
-            "the full-lattice operator hard-codes r=1 (its spin-projection "
-            f"tables need the rank-2 projectors (1 -+ gamma_mu)); got "
-            f"r={plan.r}")
+    _check_full_r(plan)
     packed_in = layout == "packed"
     up = u if packed_in else pack_gauge(u)
     pp = b if packed_in else pack_spinor(b)
@@ -572,7 +636,7 @@ def _full_setup(plan, u, b, mass, layout):
 
 def _parts_full(plan, u, b, mass, *, tol, maxiter, layout, inner_tol,
                 inner_maxiter, max_outer, residual_replacement_every,
-                deflation):
+                deflation, dot, norm2):
     """CGNR or pipelined CG on D^dag D over packed full-lattice fields:
     the right-hand side D^dag b is one launch of the full-lattice kernel,
     every matvec two, and the vector algebra is plain tensor code, as in
@@ -587,12 +651,13 @@ def _parts_full(plan, u, b, mass, *, tol, maxiter, layout, inner_tol,
             parts = solvers.pipecg_parts(
                 op_hi, rhs, tol=tol, maxiter=maxiter,
                 residual_replacement_every=residual_replacement_every,
-                batched=plan.batched)
+                dot=dot, norm2=norm2, batched=plan.batched)
         else:
             x0 = (None if deflation is None
                   else solvers.deflate_x0(deflation, rhs))
             parts = solvers.cg_parts(op_hi, rhs, x0, tol=tol,
-                                     maxiter=maxiter, batched=plan.batched)
+                                     maxiter=maxiter, dot=dot, norm2=norm2,
+                                     batched=plan.batched)
     else:
         low_dtype = plan.low_dtype
         up_lo = up.to(low_dtype)
@@ -604,11 +669,194 @@ def _parts_full(plan, u, b, mass, *, tol, maxiter, layout, inner_tol,
             parts = solvers.mpcg_parts(
                 op_lo, op_hi, rhs, tol=tol, inner_tol=inner_tol,
                 inner_maxiter=inner_maxiter, max_outer=max_outer,
-                low_dtype=low_dtype, batched=plan.batched)
+                low_dtype=low_dtype, dot=dot, norm2=norm2,
+                batched=plan.batched)
         else:  # "low": all-low cg16, NOT accurate to tol (a measurement rig)
             parts = solvers.cg_parts(op_lo, rhs.to(low_dtype), tol=tol,
-                                     maxiter=maxiter, batched=plan.batched)
+                                     maxiter=maxiter, dot=dot, norm2=norm2,
+                                     batched=plan.batched)
     return parts, lambda x, stats: (unpack(x), stats)
+
+
+# ---------------------------------------------------------------------------
+# Mesh paths: halo-corrected local operators, all-reduced reductions
+# ---------------------------------------------------------------------------
+#
+# Every rank holds the global fields, slices its own block of the packed
+# fields, and runs the single-device loops (cg, pipecg, mpcg) on its
+# blocks with the reductions of :func:`dist.make_psum_dots`: every value a
+# loop's host test reads is all-reduced, so the ranks stop together.  The
+# JAX package's sharded loops use plain vector algebra, without the fused
+# CG kernels; so do these.  ``post`` gathers x once, on every rank.
+
+
+def _parts_full_sharded(plan, u, b, mass, *, tol, maxiter, layout,
+                        inner_tol, inner_maxiter, max_outer,
+                        residual_replacement_every, **_):
+    """The full-lattice loops on this rank's block: K4 on the block (two
+    launches a matvec, one for the RHS D^dag b) with halo corrections;
+    CGNR, pipecg (one all-reduce an iteration), mpcg (the inner CG on K4's
+    bf16 instance, the links and their halo planes rounded once) or cg16.
+    One RHS."""
+    _check_full_r(plan)
+    mesh = plan.mesh
+    packed_in = layout == "packed"
+    up = u if packed_in else pack_gauge(u)
+    pp = b if packed_in else pack_spinor(b)
+    psi_spec, gauge_spec, sharded = dist.lattice_specs(mesh, plan.axis_map)
+    up_l = dist.local_block(mesh, up, gauge_spec)
+    b_l = dist.local_block(mesh, pp, psi_spec)
+    del up
+    m = float(mass)
+    hkw = dict(use_kernels=plan.backend == "kernels",
+               twist=_family_site(plan, mass).twist)
+    u_prev = dist.link_halos(mesh, sharded, up_l)
+    pdot, pnorm2 = dist.make_psum_dots(mesh)
+
+    def normal_op(links, prev):
+        return lambda v: dist.normal_op_halo(links, v, m, mesh, sharded,
+                                             u_prev=prev, **hkw)
+
+    op_hi = normal_op(up_l, u_prev)
+    rhs = dist.dslash_dagger_halo(up_l, b_l, m, mesh, sharded, u_prev=u_prev,
+                                  **hkw)
+    kw = dict(tol=tol, dot=pdot, norm2=pnorm2)
+    if plan.precision == "single":
+        if plan.solver == "pipecg":
+            parts = solvers.pipecg_parts(
+                op_hi, rhs, maxiter=maxiter,
+                residual_replacement_every=residual_replacement_every,
+                fused_dots=dist.make_fused_psum_dots(mesh), **kw)
+        else:
+            parts = solvers.cg_parts(op_hi, rhs, maxiter=maxiter, **kw)
+    else:
+        low = plan.low_dtype
+        # the halo planes rounded as the links are: the planes an exchange
+        # of the low links would bring
+        op_lo = normal_op(up_l.to(low),
+                          {mu: p.to(low) for mu, p in u_prev.items()})
+        if plan.precision == "mixed":
+            parts = solvers.mpcg_parts(
+                op_lo, op_hi, rhs, inner_tol=inner_tol,
+                inner_maxiter=inner_maxiter, max_outer=max_outer,
+                low_dtype=low, **kw)
+        else:  # "low": all-low cg16, NOT accurate to tol (a measurement rig)
+            parts = solvers.cg_parts(op_lo, rhs.to(low), maxiter=maxiter,
+                                     **kw)
+
+    def post(x_l, stats):
+        x = dist.gather_blocks(mesh, x_l.to(pp.dtype), psi_spec, pp.shape)
+        return (x if packed_in else unpack_spinor(x, dtype=b.dtype)), stats
+
+    return parts, post
+
+
+def _eo_sharded_prep(plan: SolverPlan, u: Tensor, b: Tensor, mass):
+    """Validate a sharded even-odd plan and slice this rank's blocks.
+
+    The global fields are split and packed as on one device (the packed
+    context of :func:`eo_context`, whatever the backend: the sharded
+    stack runs on packed half fields); each rank keeps its block of the
+    packed links and RHS halves.  Returns ``(ctx, (upe, upo, pb_e, pb_o),
+    sharded, psi_spec, half_shape)``, ``half_shape`` the global shape of a
+    packed half RHS.
+    """
+    mesh = plan.mesh
+    if plan.r != 1.0:
+        # both backends: the halo corrections, the plain hop blocks and the
+        # kernel all assume r=1 here; fail, never answer wrongly
+        raise NotImplementedError(
+            "the sharded parity stack hard-codes r=1 (bulk blocks AND "
+            f"boundary corrections); got r={plan.r}. Use the single-device "
+            "natural-layout path for r != 1.")
+    psi_spec, gauge_spec, sharded = dist.lattice_specs(mesh, plan.axis_map)
+    dims = b.shape[1:4] if plan.batched else b.shape[:3]
+    for mu, (ax, n) in sorted(sharded.items()):
+        ext = dims[mu]
+        if ext % n or (ext // n) % 2:
+            raise ValueError(
+                "sharded even-odd needs EVEN local extents (shard origins "
+                "then have even global parity, so each device's local row "
+                f"offsets equal the global ones); lattice axis {mu} has "
+                f"extent {ext} over {n} '{ax}' shards")
+    ctx = eo_context(u, mass, twist=_family_site(plan, mass).twist,
+                     use_kernels=True, batched=plan.batched,
+                     out_dtype=b.dtype)
+    b_e, b_o = ctx.prepare(b)
+    blocks = (dist.local_block(mesh, ctx.ops.u_e, gauge_spec),
+              dist.local_block(mesh, ctx.ops.u_o, gauge_spec),
+              dist.local_block(mesh, b_e, psi_spec),
+              dist.local_block(mesh, b_o, psi_spec))
+    return ctx, blocks, sharded, psi_spec, tuple(b_e.shape)
+
+
+def _parts_eo_sharded(plan, u, b, mass, *, tol, maxiter,
+                      residual_replacement_every, **_):
+    """Even-odd Schur CGNR or pipecg on this rank's blocks: the matvec is
+    :func:`dist.schur_normal_op_halo` (four K1 launches on the block and
+    their halo corrections); the RHS costs three launches and the odd
+    half's back-substitution one, so a solve launches K1 4I + 4 times, as
+    on one device.  The link halo planes are exchanged once, here."""
+    mesh = plan.mesh
+    batched = plan.batched
+    ctx, (upe, upo, pb_e, pb_o), sharded, psi_spec, half_shape = (
+        _eo_sharded_prep(plan, u, b, mass))
+    site = _family_site(plan, mass)
+    hkw = dict(use_kernels=plan.backend == "kernels",
+               u_prev=(dist.link_halos(mesh, sharded, upe),
+                       dist.link_halos(mesh, sharded, upo)))
+
+    def d_eo(v):
+        return dist.parity_hop_halo("eo", upe, upo, v, mesh, sharded, **hkw)
+
+    def d_oe(v):
+        return dist.parity_hop_halo("oe", upe, upo, v, mesh, sharded, **hkw)
+
+    def a_hat(v):
+        return dist.schur_normal_op_halo(upe, upo, v, mass, mesh, sharded,
+                                         twist=site.twist, **hkw)
+
+    b_hat = pb_e - d_eo(site.solve(pb_o))
+    rhs = dist.schur_op_halo(upe, upo, b_hat, mass, mesh, sharded,
+                             twist=site.twist, dagger=True, **hkw)
+    pdot, pnorm2 = dist.make_psum_dots(mesh, batched=batched)
+    kw = dict(tol=tol, maxiter=maxiter, dot=pdot, norm2=pnorm2,
+              batched=batched)
+    if plan.solver == "pipecg":
+        parts = solvers.pipecg_parts(
+            a_hat, rhs, residual_replacement_every=residual_replacement_every,
+            fused_dots=dist.make_fused_psum_dots(mesh, batched=batched), **kw)
+    else:
+        parts = solvers.cg_parts(a_hat, rhs, **kw)
+
+    def post(x_e, stats):
+        x_o = site.solve(pb_o - d_oe(x_e))
+        both = dist.gather_blocks(mesh, torch.stack([x_e, x_o]), psi_spec,
+                                  (2,) + half_shape)
+        return ctx.finish(both[0], both[1]), stats
+
+    return parts, post
+
+
+def _attach_verification_mesh(plan: SolverPlan, u, b, mass, x, stats, tol,
+                              layout: str) -> solvers.SolveStats:
+    """:func:`_attach_verification` of a mesh solve: rank 0 checks the
+    gathered x against the global fields with the single-device oracle
+    (no halo code, so a broken transport cannot vouch for itself) and
+    broadcasts the true residual, the gate's result and the verdict in
+    one collective; every rank returns the same stats."""
+    mesh = plan.mesh
+    rs, ok, verdict = (stats.residual_norm2.to(torch.float32),
+                       torch.zeros_like(stats.converged), stats.verdict)
+    if mesh.rank == 0:
+        v = _attach_verification(plan, u, b, mass, x, stats, tol,
+                                 layout=layout)
+        rs, ok, verdict = v.true_residual_norm2, v.verified, v.verdict
+    got = mesh.broadcast(torch.stack([rs.double(), ok.double(),
+                                      verdict.double()]))
+    return stats._replace(true_residual_norm2=got[0].to(torch.float32),
+                          verified=got[1] != 0,
+                          verdict=got[2].to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -696,48 +944,65 @@ def _segmented_program(parts: solvers.LoopParts, post) -> LoopProgram:
 def loop_program(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
                  maxiter: int = 1000, inner_tol: float = 5e-2,
                  inner_maxiter: int = 200, max_outer: int = 50,
-                 residual_replacement_every: int = 25,
-                 layout: str = "natural", device="cuda") -> LoopProgram:
+                 residual_replacement_every: int = 25, dot=field_dot,
+                 norm2=field_norm2, layout: str = "natural",
+                 device="cuda") -> LoopProgram:
     """Resolve a plan to its host-steppable :class:`LoopProgram`.
 
     Mirrors :func:`solve`'s dispatch; ``finalize(carry)`` after stepping
     to the end is bitwise the one-shot ``solve``'s result before its
     verification (the same loop body, only the stopping rule differs).
+    On a mesh (the even-odd path only) the carry stays on each rank's
+    blocks between segments and ``finalize`` gathers the global x, so a
+    snapshot holds the unsharded iterate.
     """
     if plan.solver == "blockcg":
         raise NotImplementedError(
             "blockcg has no segmented LoopProgram (checkpointing shares "
             "the cg/pipecg carry contracts); use solver='cgnr' for "
             "checkpointed solves")
+    if plan.mesh is not None:
+        if plan.operator != "eo-schur":
+            raise NotImplementedError(
+                "segmented solving on a mesh is wired for the eo-schur "
+                "fast path; use operator='eo-schur' (or drop the mesh)")
+        _check_mesh_plan(plan)
+        device = plan.mesh.device
     dev = resolve_device(device)
     u = torch.as_tensor(u, device=dev)
     b = torch.as_tensor(b, device=dev)
     return _segmented_program(*_loop_parts(
         plan, u, b, mass, tol=tol, maxiter=maxiter, inner_tol=inner_tol,
         inner_maxiter=inner_maxiter, max_outer=max_outer,
-        residual_replacement_every=residual_replacement_every,
-        layout=layout))
+        residual_replacement_every=residual_replacement_every, dot=dot,
+        norm2=norm2, layout=layout))
 
 
-def _snapshot(checkpoint: CheckpointPolicy, prog: LoopProgram, carry) -> int:
+def _snapshot(checkpoint: CheckpointPolicy, prog: LoopProgram, carry,
+              mesh: dist.Mesh | None = None) -> int:
     """Write one durable snapshot from a segment-boundary carry.
 
     Stores the plan-layout iterate and the resume contract ``(x,
     iteration, verdict, rhs_mask)`` as host arrays, in the JAX package's
     dtypes (the iteration an int32 scalar), keyed by the iteration count
-    as the step number.  Returns the step written.
+    as the step number.  On a mesh every rank finalizes (the gather is a
+    collective), rank 0 writes the unsharded x, and a barrier holds every
+    rank until the step is on disk.  Returns the step written.
     """
     from repro_torch.checkpoint import ckpt
 
     x, stats = prog.finalize(carry)
     step = int(stats.iterations)
-    ckpt.save_checkpoint(checkpoint.dir, step, {
-        "x": x,
-        "iteration": np.asarray(step, np.int32),
-        "verdict": stats.verdict,
-        "rhs_mask": stats.converged,
-    })
-    ckpt.prune_checkpoints(checkpoint.dir, checkpoint.keep)
+    if mesh is None or mesh.rank == 0:
+        ckpt.save_checkpoint(checkpoint.dir, step, {
+            "x": x,
+            "iteration": np.asarray(step, np.int32),
+            "verdict": stats.verdict,
+            "rhs_mask": stats.converged,
+        })
+        ckpt.prune_checkpoints(checkpoint.dir, checkpoint.keep)
+    if mesh is not None:
+        mesh.barrier()
     return step
 
 
@@ -755,5 +1020,5 @@ def _solve_checkpointed(plan, u, b, mass, *, checkpoint, **kw):
     carry, cont = prog.start()
     while cont:
         carry, cont = prog.step(carry, prog.counter(carry) + every)
-        _snapshot(checkpoint, prog, carry)
+        _snapshot(checkpoint, prog, carry, plan.mesh)
     return prog.finalize(carry)

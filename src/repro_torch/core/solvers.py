@@ -16,6 +16,10 @@ waiting on the device.  Everything else follows the JAX solver:
   ``xpay(beta, r, p[, gate]) -> p'`` inject the vector algebra (the fused
   kernels of :mod:`repro_torch.kernels.cg_fused`); the defaults are plain
   tensor expressions.
+* ``dot``/``norm2`` inject the reductions: on a mesh they take the local
+  shard's partial sums and all-reduce them
+  (:mod:`repro_torch.core.distributed`), so every host read of the loop
+  reads a value that is the same bits on every rank.
 * ``batched=True``: operands carry a leading RHS axis, reductions are
   per RHS, and a converged (or broken-down) system's alpha is forced to 0
   and its direction update gated off, so it stays frozen bit for bit
@@ -96,6 +100,21 @@ def _bcast(s: Tensor, field: Tensor) -> Tensor:
     return s.reshape(s.shape + (1,) * (field.dim() - 1))
 
 
+def _batched_defaults(dot, norm2):
+    """The default reductions swap to their per-RHS forms for a batch; an
+    injected reduction is already per RHS."""
+    if dot is field_dot:
+        dot = field_dot_batched
+    if norm2 is field_norm2:
+        norm2 = field_norm2_batched
+    return dot, norm2
+
+
+# the fused update's in-kernel norm stands in for norm2 only when norm2 is
+# a default: an injected reduction (an all-reduce) is never bypassed
+_DEFAULT_NORM2 = (field_norm2, field_norm2_batched)
+
+
 def _stop_limit(tol, bs: Tensor, batched: bool) -> Tensor:
     """The stopping limit ``tol^2 * ||b||^2`` (per RHS when batched).
 
@@ -155,10 +174,11 @@ def segment_cond(parts: LoopParts) -> Callable[[dict, int], bool]:
 
 def cg_parts(op: Op, b: Tensor, x0: Tensor | None = None, *,
              tol: float = 1e-8, maxiter: int = 1000,
+             dot=field_dot, norm2=field_norm2,
              update=None, xpay=None, batched: bool = False) -> LoopParts:
     """:func:`cg` decomposed into :class:`LoopParts` (same arguments)."""
-    dot, norm2 = ((field_dot_batched, field_norm2_batched) if batched
-                  else (field_dot, field_norm2))
+    if batched:
+        dot, norm2 = _batched_defaults(dot, norm2)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - op(x) if x0 is not None else b
     rs = _real(norm2(r))
@@ -198,6 +218,8 @@ def cg_parts(op: Op, b: Tensor, x0: Tensor | None = None, *,
             rs_new = _real(norm2(r))
         else:
             x, r, rs_new = update(alpha, x, r, p, ap)
+            if norm2 not in _DEFAULT_NORM2:
+                rs_new = _real(norm2(r))
         beta = rs_new / (torch.where(rs == 0, torch.ones_like(rs), rs)
                          if batched else rs)
         if xpay is None:
@@ -240,16 +262,19 @@ def cg_parts(op: Op, b: Tensor, x0: Tensor | None = None, *,
 
 def cg(op: Op, b: Tensor, x0: Tensor | None = None, *,
        tol: float = 1e-8, maxiter: int = 1000,
+       dot=field_dot, norm2=field_norm2,
        update=None, xpay=None, batched: bool = False,
        ) -> tuple[Tensor, SolveStats]:
     """Conjugate gradient for a Hermitian positive-definite ``op``.
 
     Stops when ``||r||^2 <= tol^2 ||b||^2`` (per RHS when batched) or at
     ``maxiter``.  ``update`` must return the residual norm it computed
-    with the new x/r.
+    with the new x/r; with an injected ``norm2`` (not a default) the loop
+    recomputes it through ``norm2``.
     """
-    parts = cg_parts(op, b, x0, tol=tol, maxiter=maxiter, update=update,
-                     xpay=xpay, batched=batched)
+    parts = cg_parts(op, b, x0, tol=tol, maxiter=maxiter, dot=dot,
+                     norm2=norm2, update=update, xpay=xpay,
+                     batched=batched)
     return run(parts)
 
 
@@ -261,8 +286,8 @@ def cg(op: Op, b: Tensor, x0: Tensor | None = None, *,
 def mpcg_parts(op_low: Op, op_high: Op, b: Tensor, *, tol: float = 1e-6,
                inner_tol: float = 5e-2, inner_maxiter: int = 200,
                max_outer: int = 50, low_dtype=torch.bfloat16, to_low=None,
-               to_high=None, update=None, xpay=None,
-               batched: bool = False) -> LoopParts:
+               to_high=None, dot=field_dot, norm2=field_norm2, update=None,
+               xpay=None, batched: bool = False) -> LoopParts:
     """:func:`mpcg` decomposed into :class:`LoopParts` (same arguments).
 
     Each outer cycle solves ``A d = r`` approximately in low precision
@@ -279,7 +304,8 @@ def mpcg_parts(op_low: Op, op_high: Op, b: Tensor, *, tol: float = 1e-6,
     the next inner solve with a zeroed residual, so the inner mask
     freezes it at iteration 0 and its solution stops moving.
     """
-    norm2 = field_norm2_batched if batched else field_norm2
+    if batched:
+        _, norm2 = _batched_defaults(dot, norm2)
     high = b.dtype
     if to_low is None:
         to_low = lambda v: v.to(low_dtype)  # noqa: E731
@@ -301,8 +327,8 @@ def mpcg_parts(op_low: Op, op_high: Op, b: Tensor, *, tol: float = 1e-6,
         if batched:  # freeze converged systems: zero RHS, inactive inner CG
             rhs = torch.where(_bcast(rs > limit, r), r, torch.zeros_like(r))
         d, st = cg(op_low, to_low(rhs), tol=inner_tol,
-                   maxiter=inner_maxiter, update=update, xpay=xpay,
-                   batched=batched)
+                   maxiter=inner_maxiter, dot=dot, norm2=norm2,
+                   update=update, xpay=xpay, batched=batched)
         x = c["x"] + to_high(d)
         r = b - op_high(x)                     # the reliable update
         out = dict(outer=c["outer"] + 1, inner=c["inner"] + st.iterations,
@@ -346,8 +372,8 @@ def mpcg_parts(op_low: Op, op_high: Op, b: Tensor, *, tol: float = 1e-6,
 def mpcg(op_low: Op, op_high: Op, b: Tensor, *, tol: float = 1e-6,
          inner_tol: float = 5e-2, inner_maxiter: int = 200,
          max_outer: int = 50, low_dtype=torch.bfloat16, to_low=None,
-         to_high=None, update=None, xpay=None,
-         batched: bool = False) -> tuple[Tensor, SolveStats]:
+         to_high=None, dot=field_dot, norm2=field_norm2, update=None,
+         xpay=None, batched: bool = False) -> tuple[Tensor, SolveStats]:
     """Two-precision CG: bulk iterations in ``low_dtype``, corrected by
     high-precision true-residual reliable updates (see
     :func:`mpcg_parts`).  ``iterations`` counts the inner iterations,
@@ -355,7 +381,8 @@ def mpcg(op_low: Op, op_high: Op, b: Tensor, *, tol: float = 1e-6,
     parts = mpcg_parts(op_low, op_high, b, tol=tol, inner_tol=inner_tol,
                        inner_maxiter=inner_maxiter, max_outer=max_outer,
                        low_dtype=low_dtype, to_low=to_low, to_high=to_high,
-                       update=update, xpay=xpay, batched=batched)
+                       dot=dot, norm2=norm2, update=update, xpay=xpay,
+                       batched=batched)
     return run(parts)
 
 
@@ -366,15 +393,18 @@ def mpcg(op_low: Op, op_high: Op, b: Tensor, *, tol: float = 1e-6,
 
 def pipecg_parts(op: Op, b: Tensor, *, tol: float = 1e-8,
                  maxiter: int = 1000, residual_replacement_every: int = 25,
-                 fused_dots=None, batched: bool = False) -> LoopParts:
+                 dot=field_dot, norm2=field_norm2, fused_dots=None,
+                 batched: bool = False) -> LoopParts:
     """:func:`pipecg` decomposed into :class:`LoopParts` (same arguments).
 
     Pipelined CG fuses the two inner products of an iteration,
     ``gamma = (r, r)`` and ``delta = (w, r)``, into one reduction, so the
     host reads one stacked tensor per iteration (in ``cond``), as plain
     CG does.  ``fused_dots(r, w)`` returns that stack (or the pair);
-    a distributed version stacks both local partials and all-reduces
-    them once.
+    the default composes ``norm2`` and ``dot``; a distributed version
+    stacks both local partials and all-reduces them once
+    (:func:`repro_torch.core.distributed.make_fused_psum_dots`).  ``norm2``
+    also gives ``||b||^2``.
 
     The three-term recurrences drift in floating point, so every
     ``residual_replacement_every`` iterations (0: never) the true
@@ -387,8 +417,8 @@ def pipecg_parts(op: Op, b: Tensor, *, tol: float = 1e-8,
     system, which would grow them).  The residual replacement stays
     global.
     """
-    dot, norm2 = ((field_dot_batched, field_norm2_batched) if batched
-                  else (field_dot, field_norm2))
+    if batched:
+        dot, norm2 = _batched_defaults(dot, norm2)
     dt = b.dtype
     rr = int(residual_replacement_every)
     if fused_dots is None:
@@ -475,14 +505,15 @@ def pipecg_parts(op: Op, b: Tensor, *, tol: float = 1e-8,
 
 
 def pipecg(op: Op, b: Tensor, *, tol: float = 1e-8, maxiter: int = 1000,
-           residual_replacement_every: int = 25, fused_dots=None,
+           residual_replacement_every: int = 25, dot=field_dot,
+           norm2=field_norm2, fused_dots=None,
            batched: bool = False) -> tuple[Tensor, SolveStats]:
     """Pipelined CG for a Hermitian positive-definite ``op``: one fused
     reduction an iteration (see :func:`pipecg_parts`)."""
     parts = pipecg_parts(
         op, b, tol=tol, maxiter=maxiter,
-        residual_replacement_every=residual_replacement_every,
-        fused_dots=fused_dots, batched=batched)
+        residual_replacement_every=residual_replacement_every, dot=dot,
+        norm2=norm2, fused_dots=fused_dots, batched=batched)
     return run(parts)
 
 
@@ -598,8 +629,8 @@ def _check_full_f32():
 
 
 def blockcg(op: Op, b: Tensor, x0: Tensor | None = None, *,
-            tol: float = 1e-8, maxiter: int = 1000
-            ) -> tuple[Tensor, SolveStats]:
+            tol: float = 1e-8, maxiter: int = 1000,
+            norm2=field_norm2_batched) -> tuple[Tensor, SolveStats]:
     """Block CG for a Hermitian positive-definite ``op`` over a leading RHS
     axis: N systems share one Krylov search space.
 
@@ -615,7 +646,7 @@ def blockcg(op: Op, b: Tensor, x0: Tensor | None = None, *,
     if b.dim() < 2:
         raise ValueError("blockcg requires a leading RHS-batch axis")
     _check_full_f32()
-    norm2 = field_norm2_batched
+    _, norm2 = _batched_defaults(field_dot, norm2)  # always per RHS here
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - op(x) if x0 is not None else b
     rs = _real(norm2(r))

@@ -22,6 +22,8 @@ version of the full-lattice kernel.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -55,6 +57,18 @@ GAMMAS = np.stack([GAMMA_T, GAMMA_Z, GAMMA_Y, GAMMA_X])
 GAMMA5 = np.diag([1, 1, -1, -1]).astype(np.complex64)  # g5 = gt gx gy gz
 
 EYE4 = np.eye(4, dtype=np.complex64)
+
+
+@functools.lru_cache(maxsize=None)
+def device_const(values: tuple, shape: tuple, device: torch.device,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """A small constant tensor (spin matrices, gamma5 signs) on ``device``,
+    copied there once and reused: a host-to-device copy on every call
+    would make the host wait for the card's queue each time."""
+    return torch.tensor(values, dtype=dtype).reshape(shape).to(device)
+
+
+_G5_SIGNS = (1.0, 1.0, -1.0, -1.0)
 
 
 def _projectors(r: float):
@@ -94,9 +108,8 @@ def dslash(u: torch.Tensor, psi: torch.Tensor, mass,
 
 def apply_gamma5(psi: torch.Tensor) -> torch.Tensor:
     """gamma5 = diag(+,+,-,-) on the spin axis (-2) of a natural field."""
-    sign = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=psi.dtype,
-                        device=psi.device)
-    return psi * sign[:, None]
+    sign = device_const(_G5_SIGNS, (NSPIN, 1), psi.device, psi.dtype)
+    return psi * sign
 
 
 def dslash_dagger(u: torch.Tensor, psi: torch.Tensor, mass,
@@ -235,8 +248,8 @@ def _link_times(ur, ui, pr, pi, dag: bool):
 
 def _spin_times(mat: np.ndarray, hr, hi):
     """A constant complex 4x4 on the spin axis (3) of (re, im) pairs."""
-    mr = torch.from_numpy(np.ascontiguousarray(np.real(mat))).to(hr)
-    mi = torch.from_numpy(np.ascontiguousarray(np.imag(mat))).to(hr)
+    mr, mi = (device_const(tuple(part(mat).ravel().tolist()), mat.shape,
+                           hr.device, hr.dtype) for part in (np.real, np.imag))
 
     def e(m, h):
         return torch.einsum("sp,tzypcx->tzyscx", m, h)
@@ -245,16 +258,18 @@ def _spin_times(mat: np.ndarray, hr, hi):
 
 
 def hop_term_packed(u_mu: torch.Tensor, psi_nbr: torch.Tensor, mu: int,
-                    forward: bool, r: float = 1.0) -> torch.Tensor:
+                    forward: bool, r: float = 1.0, *,
+                    hop_dtype=None) -> torch.Tensor:
     """One hop's contribution ``-1/2 (r -+ gamma_mu) U psi`` on pre-aligned
     packed fields (no shifts here: the caller aligns the neighbours).
 
     ``u_mu`` (T,Z,Y,18,X) is U_mu at the output site (forward hop) or at
     the neighbour site (backward hop, daggered here); ``psi_nbr``
     (T,Z,Y,24,X) is psi at the neighbour site.  Sums in f32 for narrow
-    storage; the result has ``psi_nbr``'s dtype.
+    storage, or in ``hop_dtype`` when given; the result has ``psi_nbr``'s
+    dtype.
     """
-    acc = _acc_dtype(psi_nbr.dtype)
+    acc = _acc_dtype(psi_nbr.dtype) if hop_dtype is None else hop_dtype
     pm, pp = _projectors(r)
     t, z, y, s, x = psi_nbr.shape
     q = psi_nbr.reshape(t, z, y, NSPIN, NCOL, 2, x).to(acc)
@@ -310,9 +325,9 @@ def apply_gamma5_packed(p: torch.Tensor) -> torch.Tensor:
     if p.shape[-2] != SPINOR_S:
         raise ValueError(f"packed spinor needs S={SPINOR_S}, got "
                          f"{p.shape[-2]}")
-    sign = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=p.dtype,
-                        device=p.device).repeat_interleave(NCOL * 2)
-    return p * sign[:, None]
+    sign = device_const(tuple(np.repeat(_G5_SIGNS, NCOL * 2).tolist()),
+                        (SPINOR_S, 1), p.device, p.dtype)
+    return p * sign
 
 
 def dslash_dagger_packed(up: torch.Tensor, pp: torch.Tensor, mass,

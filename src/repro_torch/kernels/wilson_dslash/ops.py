@@ -36,7 +36,8 @@ import torch
 
 from repro_torch.core.operators import schur_launch_coeffs
 from repro_torch.kernels.wilson_dslash.kernel import wilson_full, wilson_hop
-from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
+from repro_torch.kernels.wilson_dslash.ref import (wilson_full_ref,
+                                                   wilson_hop_ref)
 
 
 def dslash(up, pp, mass, *, twist: float = 0.0, gamma5_in: bool = False,
@@ -80,19 +81,22 @@ def dslash_oe(u_e, u_o, pp_e, *, gamma5_in: bool = False,
 def hop_block(u_e, u_o, pp, *, which: str, gamma5_in: bool = False,
               gamma5_out: bool = False, psi_acc=None, acc_coeff: float = 0.0,
               hop_coeff: float = 1.0, acc_twist: float = 0.0,
-              hop_twist: float = 0.0) -> torch.Tensor:
+              hop_twist: float = 0.0, use_kernels: bool = True
+              ) -> torch.Tensor:
     """One parity hop block with the fused epilogue::
 
         out = (acc_coeff + acc_twist i g5) psi_acc
             + (hop_coeff + hop_twist i g5) g5out Hop_which(g5in psi)
 
     ``which`` is ``"eo"`` (odd in, even out) or ``"oe"`` (even in, odd out).
+    ``use_kernels=False`` runs K1's plain version directly.
     """
     if which not in ("eo", "oe"):
         raise ValueError(f"hop_block: which must be 'eo' or 'oe', "
                          f"got {which!r}")
     u_out, u_nbr = (u_e, u_o) if which == "eo" else (u_o, u_e)
-    return wilson_hop(u_out, u_nbr, pp, parity=0 if which == "eo" else 1,
+    fn = wilson_hop if use_kernels else wilson_hop_ref
+    return fn(u_out, u_nbr, pp, parity=0 if which == "eo" else 1,
                       gamma5_in=gamma5_in, gamma5_out=gamma5_out,
                       psi_acc=psi_acc, acc_coeff=acc_coeff,
                       hop_coeff=hop_coeff, acc_twist=acc_twist,

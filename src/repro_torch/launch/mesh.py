@@ -1,0 +1,68 @@
+"""Debug meshes for the port's multi-device solves.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.solve --mesh debug ...
+
+:func:`make_debug_mesh` is the counterpart of the JAX package's
+``repro.launch.mesh.make_debug_mesh``.  That module's
+``make_production_mesh`` describes TPU pods (16 x 16 chips, two pods on
+a ``pod`` axis) for the LM scaffold and is left to it (ROADMAP Queue A
+item 14).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+
+import torch
+import torch.distributed as tdist
+
+from repro_torch.core.distributed import Mesh
+from repro_torch.core.lattice import resolve_device
+
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def pick_transport(device: torch.device, world_size: int) -> str:
+    """NCCL when every rank can have a card of its own, else gloo (CPU
+    ranks, or ranks sharing card 0 with halos staged through the host)."""
+    if device.type == "cuda" and torch.cuda.device_count() >= world_size:
+        return "nccl"
+    return "gloo"
+
+
+def make_debug_mesh(shape=(2, 2), axes=("data", "model"), *, device="cuda",
+                    backend: str | None = None,
+                    timeout: datetime.timedelta = datetime.timedelta(
+                        seconds=120)) -> Mesh:
+    """A small mesh over the ranks of this job.
+
+    Initialises the default process group from the ``torchrun``
+    environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``) when none exists, and raises naming ``torchrun`` when
+    that environment is missing.  ``backend``: the transport, "gloo" or
+    "nccl"; None picks NCCL where ``torch.cuda.device_count()`` covers the
+    ranks, else gloo (:func:`pick_transport`).  With NCCL rank r runs on
+    card ``LOCAL_RANK``; with gloo on a CUDA device every rank shares card
+    0.  ``timeout`` bounds every collective.
+    """
+    dev = resolve_device(device)
+    if not tdist.is_initialized():
+        missing = [k for k in _TORCHRUN_ENV if k not in os.environ]
+        if missing:
+            raise RuntimeError(
+                "make_debug_mesh: no process group and no torchrun "
+                f"environment (missing {', '.join(missing)}); run under "
+                "`torchrun --nproc-per-node N ...`")
+        backend = backend or pick_transport(dev, int(os.environ["WORLD_SIZE"]))
+        tdist.init_process_group(backend, init_method="env://",
+                                 timeout=timeout)
+    actual = tdist.get_backend()
+    if backend is not None and backend != actual:
+        raise ValueError(f"make_debug_mesh: backend {backend!r} asked for, "
+                         f"but the process group runs {actual!r}")
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", tdist.get_rank()))
+        dev = torch.device("cuda", local if actual == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    return Mesh(shape, axes, device=dev, transport=actual, timeout=timeout)

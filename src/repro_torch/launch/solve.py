@@ -11,6 +11,8 @@
         --checkpoint-dir ckpt --checkpoint-every 5
     python -m repro_torch.launch.solve --parity eo --solver cgnr \
         --checkpoint-dir ckpt --resume
+    torchrun --nproc-per-node 4 -m repro_torch.launch.solve --device cpu \
+        --mesh debug --parity eo --nrhs 4 --solver pipecg
 
 Builds a random SU(3) gauge configuration and source(s) from ``--seed``,
 solves D x = b on the full lattice (``--parity full``, the default) or on
@@ -26,7 +28,11 @@ same gauge field (even-odd, cgnr or blockcg) and starts this solve from
 its projection.  ``--checkpoint-dir`` segments the
 solve and snapshots it every ``--checkpoint-every`` iterations;
 ``--resume`` continues from the directory's latest valid snapshot (the
-JAX package's checkpoints included) in a fresh process.  The sha256 of
+JAX package's checkpoints included) in a fresh process.  ``--mesh debug``
+runs under ``torchrun --nproc-per-node 4`` on a 2x2 ``data`` x ``model``
+mesh (T and Z sharded; :func:`repro_torch.launch.mesh.make_debug_mesh`:
+NCCL with a card a rank, else gloo); every rank solves the same system
+and rank 0 reports.  The sha256 of
 the u and b built from ``--seed`` is printed, so a resumed process shows
 it solves the killed process's system.  Reports iterations,
 matvecs, the true relative residual and the verdict — per right-hand side
@@ -69,14 +75,25 @@ def _sha256(t: torch.Tensor) -> str:
         t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
 
 
-def build_plan(args) -> plan_mod.SolverPlan:
+def build_plan(args, mesh=None) -> plan_mod.SolverPlan:
     """Resolve the CLI axes to a SolverPlan."""
     loop, precision = _SOLVERS[args.solver]
     return plan_mod.SolverPlan(operator="eo-schur" if args.parity == "eo"
                                else "full",
                                operator_family=args.operator, mu=args.mu,
                                backend=args.backend, solver=loop,
-                               precision=precision, nrhs=args.nrhs)
+                               precision=precision, nrhs=args.nrhs,
+                               mesh=mesh)
+
+
+def debug_mesh(device):
+    """The 2x2 ``data`` x ``model`` mesh of ``--mesh debug``; outside
+    ``torchrun`` a clear exit."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    try:
+        return make_debug_mesh((2, 2), ("data", "model"), device=device)
+    except RuntimeError as e:
+        raise SystemExit(f"[solve] --mesh debug: {e}") from None
 
 
 def main(argv=None) -> int:
@@ -126,13 +143,34 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
+    p.add_argument("--mesh", default="none", choices=["none", "debug"],
+                   help="debug: a 2x2 data x model mesh over the ranks of "
+                        "`torchrun --nproc-per-node 4`")
     args = p.parse_args(argv)
     if args.resume and args.checkpoint_dir is None:
         p.error("--resume requires --checkpoint-dir")
     if args.deflate > 0 and (args.resume or args.checkpoint_dir):
         p.error("--deflate does not compose with checkpointed solves")
+    if args.mesh != "none" and (args.resume or args.deflate > 0):
+        p.error("--resume and --deflate run on one device (a meshless "
+                "--resume restores a mesh run's snapshots)")
 
-    dev = resolve_device(args.device)
+    mesh = debug_mesh(args.device) if args.mesh == "debug" else None
+    try:
+        return _run(args, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as tdist
+            tdist.destroy_process_group()
+
+
+def _run(args, mesh) -> int:
+    # on a mesh every rank solves and rank 0 reports
+    def say(*a, **k):
+        if mesh is None or mesh.rank == 0:
+            print(*a, **k)
+
+    dev = resolve_device(args.device if mesh is None else mesh.device)
     shape = LatticeShape(*(int(v) for v in args.lattice.split("x")))
     u, b = lattice_problem(shape, mass=args.mass, seed=args.seed,
                            packed=False, device=dev)
@@ -142,16 +180,19 @@ def main(argv=None) -> int:
         b = torch.stack([random_spinor(gen, shape)
                          for _ in range(args.nrhs)])
     try:
-        plan = build_plan(args)
+        plan = build_plan(args, mesh)
     except (ValueError, NotImplementedError) as e:
-        print(f"[solve] invalid plan: {e}")
+        say(f"[solve] invalid plan: {e}")
         return 1
-    print(f"[solve] plan: operator={plan.operator} "
-          f"family={plan.operator_family} mu={plan.mu} "
-          f"backend={plan.backend} solver={plan.solver} "
-          f"precision={plan.precision} nrhs={plan.nrhs} device={dev}")
-    print(f"[solve] system: u sha256={_sha256(u)} b sha256={_sha256(b)}",
-          flush=True)
+    where = (None if mesh is None else f"{mesh.shape} transport="
+             f"{mesh.transport} world={mesh.world_size}")
+    say(f"[solve] plan: operator={plan.operator} "
+        f"family={plan.operator_family} mu={plan.mu} "
+        f"backend={plan.backend} solver={plan.solver} "
+        f"precision={plan.precision} nrhs={plan.nrhs} mesh={where} "
+        f"device={dev}")
+    say(f"[solve] system: u sha256={_sha256(u)} b sha256={_sha256(b)}",
+        flush=True)
 
     deflation = None
     if args.deflate > 0:
@@ -167,12 +208,12 @@ def main(argv=None) -> int:
                 m_max=max(4 * args.deflate, 48), verify_tol=args.tol,
                 device=dev)
         except (ValueError, NotImplementedError) as e:
-            print(f"[solve] invalid plan: {e}")
+            say(f"[solve] invalid plan: {e}")
             return 1
-        print(f"[solve] deflation harvest: nev={deflation.nev} "
-              f"iters={hst.iterations} matvecs={int(hst.matvecs)} "
-              f"verified={bool(hst.verified)} "
-              f"time={time.perf_counter() - th:.2f}s")
+        say(f"[solve] deflation harvest: nev={deflation.nev} "
+            f"iters={hst.iterations} matvecs={int(hst.matvecs)} "
+            f"verified={bool(hst.verified)} "
+            f"time={time.perf_counter() - th:.2f}s")
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -185,34 +226,34 @@ def main(argv=None) -> int:
                 tol=args.tol, maxiter=args.maxiter, missing_ok=True,
                 device=dev)
             if record.resumed_from_step is None:
-                print("[solve] no checkpoint found; fresh checkpointed "
-                      "solve", flush=True)
+                say("[solve] no checkpoint found; fresh checkpointed "
+                    "solve", flush=True)
             else:
-                print(f"[solve] resumed from step "
-                      f"{record.resumed_from_step} "
-                      f"({record.checkpoint_iterations} iterations banked, "
-                      f"checkpoint verdict "
-                      f"{record.checkpoint_verdict})", flush=True)
+                say(f"[solve] resumed from step "
+                    f"{record.resumed_from_step} "
+                    f"({record.checkpoint_iterations} iterations banked, "
+                    f"checkpoint verdict "
+                    f"{record.checkpoint_verdict})", flush=True)
             for a in record.attempts:
-                print(f"[solve] attempt {a.attempt}: {a.plan_desc} "
-                      f"restarted={a.restarted} iterations={a.iterations} "
-                      f"verdict={a.verdict} verified={a.verified}",
-                      flush=True)
+                say(f"[solve] attempt {a.attempt}: {a.plan_desc} "
+                    f"restarted={a.restarted} iterations={a.iterations} "
+                    f"verdict={a.verdict} verified={a.verified}",
+                    flush=True)
         else:
             policy = None
             if args.checkpoint_dir is not None:
                 policy = plan_mod.CheckpointPolicy(
                     dir=args.checkpoint_dir,
                     every_iters=args.checkpoint_every)
-                print(f"[solve] checkpointing to {policy.dir} every "
-                      f"{policy.every_iters} iterations", flush=True)
+                say(f"[solve] checkpointing to {policy.dir} every "
+                    f"{policy.every_iters} iterations", flush=True)
             xsol, st = plan_mod.solve(plan, u, b, args.mass, tol=args.tol,
                                       maxiter=args.maxiter,
                                       deflation=deflation,
                                       checkpoint=policy, device=dev)
     except (ValueError, NotImplementedError) as e:
         # a composition the plan refuses
-        print(f"[solve] invalid plan: {e}")
+        say(f"[solve] invalid plan: {e}")
         return 1
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -230,19 +271,19 @@ def main(argv=None) -> int:
     matvecs = torch.atleast_1d(st.matvecs).tolist()
     if plan.batched:
         per_rhs = st.rhs_iterations.tolist()
-        print("[solve] per-RHS iterations: " + " ".join(
+        say("[solve] per-RHS iterations: " + " ".join(
             f"rhs{i}={n}" for i, n in enumerate(per_rhs)))
-        print("[solve] per-RHS matvecs:    " + " ".join(
+        say("[solve] per-RHS matvecs:    " + " ".join(
             f"rhs{i}={v}" for i, v in enumerate(matvecs)))
-        print("[solve] per-RHS rel_res:   " + " ".join(
+        say("[solve] per-RHS rel_res:   " + " ".join(
             f"rhs{i}={r:.2e}" for i, r in enumerate(rels)))
-        print("[solve] per-RHS verdict:   " + " ".join(
+        say("[solve] per-RHS verdict:   " + " ".join(
             f"rhs{i}={solvers.verdict_name(v)}"
             + ("" if verified[i] else "(UNVERIFIED)")
             for i, v in enumerate(verdicts)))
     else:
-        print(f"[solve] verdict: {solvers.verdict_name(verdicts[0])} "
-              f"verified={verified[0]}")
+        say(f"[solve] verdict: {solvers.verdict_name(verdicts[0])} "
+            f"verified={verified[0]}")
 
     # a solve succeeds only when every RHS converged by the taxonomy and
     # passed the true-residual verification matvec
@@ -251,15 +292,15 @@ def main(argv=None) -> int:
         v == solvers.CONVERGED and verified[i]
         for i, v in enumerate(verdicts))
     if not ok:
-        print("[solve] FAIL: " + " ".join(
+        say("[solve] FAIL: " + " ".join(
             f"rhs{i}:{solvers.verdict_name(v)}"
             for i, v in enumerate(verdicts)
             if v != solvers.CONVERGED or not verified[i]))
-    print(f"[solve] lattice={shape} iters={st.iterations} "
-          f"outer={st.outer_iterations} "
-          f"matvecs={max(matvecs)} (total {sum(matvecs)} across "
-          f"{len(matvecs)} RHS) max_rel_res={rel:.2e} time={dt:.3f}s "
-          f"device={torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
+    say(f"[solve] lattice={shape} iters={st.iterations} "
+        f"outer={st.outer_iterations} "
+        f"matvecs={max(matvecs)} (total {sum(matvecs)} across "
+        f"{len(matvecs)} RHS) max_rel_res={rel:.2e} time={dt:.3f}s "
+        f"device={torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
     return 0 if ok else 1
 
 

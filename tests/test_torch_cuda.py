@@ -611,3 +611,110 @@ def test_bf16_instance_rule(dev, case):
     name = f"wilson_{kind}_bf16"
     assert kernels.counts()[name]["launches"] == 1
     assert kernels.pair_launches()[name] == want
+
+
+# Two gloo ranks sharing card 0, T split over a ``data`` axis at 8x8x8x16:
+# each rank's halo'd K1 (every flag set of chip_smoke.py's phase 2) and
+# K4 (every gamma5 pair with and without twist, f32 and bf16) against the
+# block of one global launch of the same kernel.  bf16: the boundary
+# planes round twice (the bulk's output, then the correction), so 2 bf16
+# ulps of the scale.
+_MESH_RANK = r"""
+import datetime, itertools, json, sys
+import torch, torch.distributed as tdist
+from repro_torch import kernels
+from repro_torch.core import distributed as dist
+from repro_torch.core import lattice as tl
+from repro_torch.kernels.wilson_dslash import ops as wops
+
+rank, d = int(sys.argv[1]), sys.argv[2]
+timeout = datetime.timedelta(seconds=60)
+torch.cuda.set_device(0)
+tdist.init_process_group("gloo", init_method=f"file://{d}/rendezvous",
+                         rank=rank, world_size=2, timeout=timeout)
+mesh = dist.Mesh((2,), ("data",), device="cuda:0", transport="gloo",
+                 timeout=timeout)
+psi_spec, gauge_spec, sharded = dist.lattice_specs(mesh, {0: "data"})
+gen = torch.Generator(device="cuda").manual_seed(23)
+lat = tl.LatticeShape(8, 8, 8, 16)
+u, b = tl.random_gauge(gen, lat), tl.random_spinor(gen, lat)
+u_e, u_o = tl.split_eo_gauge(u)
+upe, upo = tl.pack_gauge(u_e), tl.pack_gauge(u_o)
+pe, po = (tl.pack_spinor(h) for h in tl.split_eo(b))
+loc = lambda v, spec: dist.local_block(mesh, v, spec)
+ue, uo, pel, pol = (loc(upe, gauge_spec), loc(upo, gauge_spec),
+                    loc(pe, psi_spec), loc(po, psi_spec))
+
+
+def err(out, ref):
+    return float((out.float() - ref.float()).abs().max()
+                 / max(1.0, float(ref.float().abs().max())))
+
+
+worst = {}
+kernels.reset_counts()
+for parity, g5in, g5out, has_acc, twist in itertools.product(
+        (0, 1), (False, True), (False, True), (False, True), (False, True)):
+    which = "eo" if parity == 0 else "oe"
+    src, src_l = (po, pol) if parity == 0 else (pe, pel)
+    acc, acc_l = (pe, pel) if parity == 0 else (po, pol)
+    kw = dict(gamma5_in=g5in, gamma5_out=g5out,
+              hop_coeff=-0.3 if (has_acc or twist) else 1.0,
+              hop_twist=0.2 if twist else 0.0,
+              acc_coeff=1.7 if has_acc else 0.0,
+              acc_twist=-0.4 if (has_acc and twist) else 0.0)
+    ref = loc(wops.hop_block(upe, upo, src, which=which,
+                             psi_acc=acc if has_acc else None, **kw),
+              psi_spec)
+    out = dist.parity_hop_halo(which, ue, uo, src_l, mesh, sharded,
+                               psi_acc=acc_l if has_acc else None, **kw)
+    worst["wilson_hop"] = max(worst.get("wilson_hop", 0.0), err(out, ref))
+up, pp = tl.pack_gauge(u), tl.pack_spinor(b)
+for dtype, name in ((torch.float32, "wilson_full"),
+                    (torch.bfloat16, "wilson_full_bf16")):
+    upd, ppd = up.to(dtype), pp.to(dtype)
+    upl, ppl = dist.shard_lattice_fields(mesh, upd, ppd, {0: "data"})
+    for g5in, g5out, tw in itertools.product((False, True), (False, True),
+                                             (0.0, 0.25)):
+        kw = dict(twist=tw, gamma5_in=g5in, gamma5_out=g5out)
+        ref = loc(wops.dslash(upd, ppd, 0.1, **kw), psi_spec)
+        out = dist.dslash_halo(upl, ppl, 0.1, mesh, sharded, **kw)
+        assert out.dtype == dtype
+        worst[name] = max(worst.get(name, 0.0), err(out, ref))
+torch.cuda.synchronize()
+print("RESULT" + json.dumps({"worst": worst, "counts": kernels.counts()}))
+tdist.destroy_process_group()
+"""
+
+
+def test_halo_kernels_on_a_two_rank_mesh_match_global_launches(dev,
+                                                               tmp_path):
+    import json
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]
+                                          / "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", _MESH_RANK, str(r),
+                               str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=300)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail("a mesh rank did not end within 300 s")
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+        res = json.loads([ln for ln in out.splitlines()
+                          if ln.startswith("RESULT")][-1][len("RESULT"):])
+        assert res["worst"]["wilson_hop"] <= 1e-5
+        assert res["worst"]["wilson_full"] <= 1e-5
+        assert res["worst"]["wilson_full_bf16"] <= 2.0 ** -6
+        for name in ("wilson_hop", "wilson_full", "wilson_full_bf16"):
+            c = res["counts"][name]
+            assert c["launches"] > 0 and c["plain_calls"] == 0, (name, c)

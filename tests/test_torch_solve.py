@@ -141,9 +141,11 @@ def test_maxiter_verdict(problem):
     ("solver", "pipecg", "item 9"), ("solver", "blockcg", "item 9"),
     ("mesh", object(), "item 12")])
 def test_plan_fields_outside_the_slice_raise(problem, field, value, item):
-    """Plan fields of later slices raise naming their ROADMAP item; the
-    item-9 solvers, ported since, build and solve (their counts are held
-    against JAX in test_torch_krylov.py)."""
+    """The plan fields of the later slices are ported: the item-9 solvers
+    build and solve (their counts are held against JAX in
+    test_torch_krylov.py); the item-12 mesh takes a
+    ``repro_torch.core.distributed.Mesh`` and refuses anything else (mesh
+    solves are held against JAX in test_torch_distributed.py)."""
     if item == "item 9":
         nrhs = 2 if value == "blockcg" else None
         x, st = _port(problem, problem["batch_t"][:2] if nrhs
@@ -151,7 +153,7 @@ def test_plan_fields_outside_the_slice_raise(problem, field, value, item):
         assert bool(torch.atleast_1d(st.verified).all())
         assert st.iterations == 14
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match="Mesh"):
         tplan.SolverPlan(**{field: value})
 
 
