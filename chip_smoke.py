@@ -93,7 +93,9 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    kernels' labelled with the instance they ran, beside the pair
    kernels' registers and spills from the compiler's report; the hop
    kernel in f32 once more at N = 16, block CG's width, and the hop,
-   update and xpay kernels at N = 8, the server's top rung;
+   update and xpay kernels at N = 8, the server's top rung; each Wilson
+   timing names the tile it ran (the launch space's pick: the checked-in
+   tuning cache's entry, else the default);
 6. one traced single-RHS Wilson solve of each path, the 4-RHS
    full-lattice solve, the mixed single-RHS solve of each path, the
    16-RHS even-odd block CG, the single-RHS even-odd pipecg and the
@@ -145,6 +147,18 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    the parent resumes on one device to a verified x.  Each solve's
    walls, rank 0's host time inside the collectives and each rank's
    peak memory are printed beside the single-device wall.
+   The halo'd K4 bf16's max-abs against the global launch is printed
+   beside the 0.125 measured before;
+10. the launch space: every candidate tile of K1 and K4
+   (``repro_torch.kernels.autotune.candidates``: K1's rows b, K4's b and
+   block-order chunk tchunk), f32 and bf16, N = 1 and 4, at the main
+   path's shapes launched and held bitwise against the default tile's
+   output, each timed once (``ms``, ``ms_back_to_back``); phase 4's
+   even-odd and full N = 4 solves with the checked-in tuning cache and
+   with ``REPRO_TORCH_TUNING_CACHE=0``, equal counts and bitwise x; the
+   production dry-run's six rows (cg, pipecg, mpcg at 128^3 x 256 on
+   the 16 x 16 and 2 x 16 x 16 meshes, reckoned, the memory term at
+   phase 1's copy rate).
    Each phase prints its seconds; the checkpoint, journal and mesh
    directories live under ``build/`` and are removed.
 
@@ -1056,6 +1070,7 @@ def time_hop(u, b, batch, bw, n, dtype=torch.float32):
     err = agree(out, ref, f"wilson_hop {dtype} main shape N={n}")
     del out, ref
     ms = kernel_ms(lambda: wilson_hop(upe, upo, po, **kw))
+    tile = wilson_hop.last_tile
     plain_ms = time_ms(lambda: wilson_hop_ref(upe, upo, po, **kw), reps=3,
                        warmup=1)
     sites = po.shape[-5] * po.shape[-4] * po.shape[-3] * po.shape[-1]
@@ -1065,7 +1080,8 @@ def time_hop(u, b, batch, bw, n, dtype=torch.float32):
     nbytes = sites * ((144 + 48 * n) * es + 24 * es * n)
     return dict(**ms, plain_ms=plain_ms, library_ms=None,
                 max_abs_err=err, shape=f"N={n} half field "
-                f"{tuple(po.shape)} {dtype}, has_acc{instance}",
+                f"{tuple(po.shape)} {dtype}, has_acc{instance}, tile "
+                f"b={tile['b']} (picked {tile['picked']})", tile=tile,
                 **bound(nbytes, HOP_FLOPS_PER_SITE * sites * n, bw))
 
 
@@ -1084,6 +1100,7 @@ def time_full(u, b, batch, bw, n, dtype=torch.float32):
     err = agree(out, ref, f"wilson_full {dtype} main shape N={n}")
     del out, ref
     ms = kernel_ms(lambda: wilson_full(up, pp, MASS, **kw))
+    tile = wilson_full.last_tile
     plain_ms = time_ms(lambda: wilson_full_ref(up, pp, MASS, **kw), reps=3,
                        warmup=1)
     sites = pp.shape[-5] * pp.shape[-4] * pp.shape[-3] * pp.shape[-1]
@@ -1095,7 +1112,8 @@ def time_full(u, b, batch, bw, n, dtype=torch.float32):
     model_bytes = sites * (144 + 48 * n) * es
     return dict(**ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
                 shape=f"N={n} field {tuple(pp.shape)} {dtype}, dagger"
-                f"{instance}",
+                f"{instance}, tile b={tile['b']} tchunk={tile['tchunk']} "
+                f"(picked {tile['picked']})", tile=tile,
                 bound_ms_intensity_model=model_bytes / PEAK_BYTES_PER_S * 1e3,
                 bound_ms_intensity_model_measured_bw=model_bytes / bw * 1e3,
                 **bound(nbytes, HOP_FLOPS_PER_SITE * sites * n, bw))
@@ -1613,6 +1631,8 @@ MESH_DEADLINE_S = 900    # the children's join deadline
 # bf16 halo'd against global K4: the boundary planes round twice (the
 # bulk's output, then the correction), so 2 bf16 ulps of the scale
 MESH_BF16_TOL = 2.0 ** -6
+# its max-abs on the card before (0.125, one bf16 ulp at |x| in [16, 32))
+MESH_BF16_MAX_ABS_BEFORE = 0.125
 
 
 def mesh_fields(dev):
@@ -1997,8 +2017,105 @@ def mesh_phase(dev, card) -> dict:
             f" GiB; halo'd kernels against global launches (max-abs) "
             f"{json.dumps(ranks[0]['halo_checks'])}; children "
             f"{out['children_s']:.1f} s ({card})")
+        k4 = max(rk["halo_checks"]["wilson_full_bf16"] for rk in ranks)
+        log(f"mesh: K4 bf16 halo'd against one global launch: max-abs "
+            f"{k4:.6g} over every rank (before: {MESH_BF16_MAX_ABS_BEFORE}) "
+            f"({card})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the launch space
+# ---------------------------------------------------------------------------
+
+# the main path's K1 (half field T, Z, Y, Xh) and K4 (T, Z, Y, X) shapes
+LAUNCH_SHAPES = (("wilson_hop", MAIN_DIMS[:3] + (MAIN_DIMS[3] // 2,)),
+                 ("wilson_full", MAIN_DIMS))
+
+
+def launch_space(dev, card: str, bw: float) -> dict:
+    """Every candidate tile of K1 and K4 (f32 and bf16, N = 1 and 4) at
+    the main path's shapes launched once, its output held bitwise against
+    the default tile's, and timed once (``autotune.sweep`` with one
+    round); phase 4's even-odd and full N = 4 solves with the checked-in
+    tuning cache and with ``REPRO_TORCH_TUNING_CACHE=0``: equal counts,
+    bitwise x; the production dry-run's six rows, reckoned."""
+    from repro_torch import kernels
+    from repro_torch.core.plan import SolverPlan
+    from repro_torch.kernels import autotune, dispatch
+    from repro_torch.launch import dryrun_wilson as dw
+    out = {"sweeps": {}, "solves": {}, "dryrun": []}
+    cache = dispatch.read_tuning_cache()
+    for kernel, dims in LAUNCH_SHAPES:
+        for dtype in (torch.float32, BF16):
+            for n in (1, 4):
+                key = dispatch.cache_key(kernel, dispatch.BACKEND, dims, n,
+                                         dtype)
+                _, rows = autotune.sweep(kernel, dims, n, dtype, rounds=1,
+                                         device=dev)
+                hit = cache.get(key)
+                # an entry of None keeps the default tile (rows[0])
+                hit = hit and tuple(
+                    rows[0][k] if hit[k] is None else hit[k]
+                    for k in ("b", "tchunk"))
+                for i, r in enumerate(rows):
+                    check(r["bitwise"], f"launch space {key}: tile b="
+                          f"{r['b']} tchunk={r['tchunk']} differs from the "
+                          "default tile's bits")
+                    tags = (["default"] if i == 0 else []) + (
+                        ["cached"] if hit == (r["b"], r["tchunk"]) else [])
+                    log(f"launch space {key} b={r['b']} tchunk="
+                        f"{r['tchunk']}: {r['ms']:.4f} ms (back to back "
+                        f"{r['ms_back_to_back']:.4f} ms), bitwise "
+                        f"{' '.join(tags)} ({card})")
+                out["sweeps"][key] = [
+                    {k: r[k] for k in ("b", "tchunk", "ms",
+                                       "ms_back_to_back", "bitwise")}
+                    for r in rows]
+    u, b, batch = mesh_fields(dev)
+    for name, plan in (("wilson_n4", SolverPlan(nrhs=4)),
+                       ("full_wilson_n4", SolverPlan(operator="full",
+                                                     nrhs=4))):
+        x1, st1, c1, _, wall1, _ = solve_counted(plan, u, batch, dev)
+        used = {k: kernels.WRAPPERS[k].last_tile
+                for k in ("wilson_hop", "wilson_full")
+                if c1[k]["launches"]}
+        old = os.environ.get("REPRO_TORCH_TUNING_CACHE")
+        os.environ["REPRO_TORCH_TUNING_CACHE"] = "0"
+        try:
+            x0, st0, c0, _, wall0, _ = solve_counted(plan, u, batch, dev)
+            off = {k: kernels.WRAPPERS[k].last_tile for k in used}
+        finally:
+            if old is None:
+                os.environ.pop("REPRO_TORCH_TUNING_CACHE")
+            else:
+                os.environ["REPRO_TORCH_TUNING_CACHE"] = old
+        its1, its0 = st1.rhs_iterations.tolist(), st0.rhs_iterations.tolist()
+        check(its1 == its0 and torch.equal(x1, x0)
+              and all(c1[k]["launches"] == c0[k]["launches"] for k in c1),
+              f"launch space {name}: the cached tiles gave {its1}, the "
+              f"defaults {its0} (x bitwise {torch.equal(x1, x0)})")
+        log(f"launch space {name}: iterations {its1} with the checked-in "
+            f"cache (tiles {used}, {wall1:.4f} s) and without (tiles {off}, "
+            f"{wall0:.4f} s), x bitwise equal ({card})")
+        out["solves"][name] = dict(iterations=its1, tiles_cached=used,
+                                   tiles_default=off, wall_cached_s=wall1,
+                                   wall_default_s=wall0)
+        del x1, x0
+    del u, b, batch
+    device = {"card": card, "hbm_bytes_per_s": bw,
+              "hbm_source": "device-to-device copy of phase 1"}
+    for solver in dw.SOLVERS:
+        for mesh_kind in dw.MESH_KINDS:
+            row = dw.reckon(solver, mesh_kind, hbm_bytes_per_s=bw,
+                            device=device)
+            log(dw.describe(row) + f" ({card})")
+            out["dryrun"].append({k: row[k] for k in (
+                "arch", "mesh", "label", "block", "per_iteration",
+                "per_setup", "per_device_bytes", "roofline")})
+    torch.cuda.synchronize()
     return out
 
 
@@ -2208,6 +2325,11 @@ def main() -> int:
     meshed = mesh_phase(dev, card)
     phase_done(9)
 
+    # phase 10: the launch space
+    torch.cuda.empty_cache()
+    tiles = launch_space(dev, card, bw)
+    phase_done(10)
+
     replaces = {
         "wilson_hop": "src/repro/kernels/wilson_dslash/kernel.py:684",
         "cg_update": "src/repro/kernels/cg_fused/kernel.py:114",
@@ -2257,6 +2379,7 @@ def main() -> int:
     log("durability: " + json.dumps(durable))
     log("serving: " + json.dumps(served))
     log("mesh: " + json.dumps(meshed))
+    log("launch space: " + json.dumps(tiles))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels_line}))

@@ -123,6 +123,14 @@ def random_gauge(gen: torch.Generator, lat: LatticeShape,
     return _project_su3(torch.complex(re, im).to(dtype))
 
 
+def unit_gauge(lat: LatticeShape, dtype=torch.complex64,
+               device=None) -> torch.Tensor:
+    """Free-field (identity links) gauge configuration, natural layout
+    (4,T,Z,Y,X,3,3)."""
+    eye = torch.eye(NCOL, dtype=dtype, device=device)
+    return eye.expand((NDIRS,) + lat.dims + (NCOL, NCOL)).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Layout packing (natural complex <-> packed real)
 # ---------------------------------------------------------------------------
@@ -180,6 +188,16 @@ def eo_row_offset(t: int, z: int, y: int) -> np.ndarray:
     return ((tt + zz + yy) % 2).astype(np.int32)
 
 
+def parity_masks(lat: LatticeShape) -> tuple[np.ndarray, np.ndarray]:
+    """(even_mask, odd_mask) boolean site masks of shape (T, Z, Y, X), as
+    numpy arrays (host constants, as in the JAX package)."""
+    tt, zz, yy, xx = np.meshgrid(np.arange(lat.t), np.arange(lat.z),
+                                 np.arange(lat.y), np.arange(lat.x),
+                                 indexing="ij")
+    even = (tt + zz + yy + xx) % 2 == 0
+    return even, ~even
+
+
 def _eo_row_sel(t: int, z: int, y: int, n_rest: int,
                 device) -> torch.Tensor:
     """Broadcastable bool: True where the even-site row offset is 0."""
@@ -216,6 +234,12 @@ def split_eo_gauge(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     halves = [split_eo(u[mu]) for mu in range(u.shape[0])]
     return (torch.stack([h[0] for h in halves]),
             torch.stack([h[1] for h in halves]))
+
+
+def merge_eo_gauge(u_e: torch.Tensor, u_o: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`split_eo_gauge`."""
+    return torch.stack([merge_eo(u_e[mu], u_o[mu])
+                        for mu in range(u_e.shape[0])])
 
 
 # ---------------------------------------------------------------------------

@@ -168,6 +168,22 @@ def dslash_g(u: Tensor, psi: Tensor, mass, r: float = 1.0,
     return out
 
 
+def dslash_dagger_g(u: Tensor, psi: Tensor, mass, r: float = 1.0,
+                    twist: float = 0.0) -> Tensor:
+    """D^dag = gamma5 D(-twist) gamma5 (for twist = 0: plain gamma5 D
+    gamma5, the Wilson dagger)."""
+    return apply_gamma5(dslash_g(u, apply_gamma5(psi), mass, r=r,
+                                 twist=-twist))
+
+
+def normal_op_g(u: Tensor, psi: Tensor, mass, r: float = 1.0,
+                twist: float = 0.0) -> Tensor:
+    """A = D^dag D, Hermitian positive definite for every family: the
+    CGNR operator."""
+    return dslash_dagger_g(u, dslash_g(u, psi, mass, r=r, twist=twist),
+                           mass, r=r, twist=twist)
+
+
 def schur_launch_coeffs(scale: float, twist: float, dagger: bool
                         ) -> tuple[float, float, float, float]:
     """Epilogue coefficients of the TWO-launch twisted Schur split.

@@ -1,10 +1,13 @@
 """Krylov solvers: CG with an injectable vector engine, the
 mixed-precision reliable-update CG (``mpcg``), pipelined CG (``pipecg``),
 BiCGStab, block CG (``blockcg``) and EigCG-style deflation
-(``cg_harvest``, ``ritz_deflation_basis``, ``deflate_x0``).  CGNR is
-:func:`cg` on a normal operator (``plan._parts_eo``/``_parts_full``); the
-even-odd mixed solve is :func:`mpcg` on the Schur normal equations
-(``plan._parts_eo_mp``).
+(``cg_harvest``, ``ritz_deflation_basis``, ``deflate_x0``), beside
+``cg_trace`` (a fixed number of CG iterations with the ||r||^2 history),
+``cgnr`` and ``cgnr_eo`` (the JAX package's public CGNR forms, both
+:func:`cg` on a normal operator).  The plan runs CGNR as
+:func:`cg_parts` on a normal operator (``plan._parts_eo``/
+``_parts_full``); the even-odd mixed solve is :func:`mpcg` on the Schur
+normal equations (``plan._parts_eo_mp``).
 
 The JAX package runs its loop in ``lax.while_loop`` with no host syncs.
 Here the loop is Python: ``cond`` reads the stop test (one small
@@ -276,6 +279,105 @@ def cg(op: Op, b: Tensor, x0: Tensor | None = None, *,
                      norm2=norm2, update=update, xpay=xpay,
                      batched=batched)
     return run(parts)
+
+
+def cg_trace(op: Op, b: Tensor, *, iters: int, dot=field_dot,
+             norm2=field_norm2, update=None, xpay=None,
+             batched: bool = False,
+             tol: float | None = None) -> tuple[Tensor, Tensor]:
+    """CG for a fixed number of iterations, recording ||r||^2 after each
+    (convergence studies; the paper's mixed-precision study).
+    ``update``/``xpay`` inject the fused vector engine as in :func:`cg`.
+
+    ``batched=True`` records a per-RHS history of shape (iters, N); with
+    ``tol`` also given, :func:`cg`'s convergence mask applies and a
+    converged system's entries stay flat at their frozen value.  ``tol``
+    is a masking knob of the batched mode only and is refused without
+    ``batched=True``.  Returns ``(x, history)``.
+    """
+    if tol is not None and not batched:
+        raise ValueError("cg_trace: tol enables the per-RHS convergence "
+                         "mask and requires batched=True")
+    if batched:
+        dot, norm2 = _batched_defaults(dot, norm2)
+    x, r, p = torch.zeros_like(b), b, b
+    rs = _real(norm2(r))
+    limit = None if tol is None else _stop_limit(tol, _real(norm2(b)),
+                                                 batched)
+    hist = []
+    for _ in range(iters):
+        ap = op(p)
+        pap = _real(dot(p, ap))
+        safe = pap != 0
+        alpha = torch.where(
+            safe, rs / torch.where(safe, pap, torch.ones_like(pap)),
+            torch.zeros_like(pap))
+        active = None
+        if batched and limit is not None:
+            active = rs > limit
+            alpha = torch.where(active, alpha, torch.zeros_like(alpha))
+        if update is None:
+            a = (_bcast(alpha, b) if batched else alpha).to(b.dtype)
+            x = x + a * p
+            r = r - a * ap
+            rs_new = _real(norm2(r))
+        else:
+            x, r, rs_new = update(alpha, x, r, p, ap)
+            if norm2 not in _DEFAULT_NORM2:
+                rs_new = _real(norm2(r))
+        pos = rs > 0
+        beta = torch.where(
+            pos, rs_new / torch.where(pos, rs, torch.ones_like(rs)),
+            torch.zeros_like(rs))
+        if xpay is None:
+            bb = (_bcast(beta, b) if batched else beta).to(b.dtype)
+            p_new = r + bb * p
+            p = (torch.where(_bcast(active, b), p_new, p)
+                 if active is not None else p_new)
+        elif batched:
+            gate = (active if active is not None
+                    else torch.ones_like(rs, dtype=torch.bool))
+            p = xpay(beta, r, p, gate)
+        else:
+            p = xpay(beta, r, p)
+        rs = rs_new
+        hist.append(rs_new)
+    return x, torch.stack(hist)
+
+
+def cgnr(d_op: Op, d_dag_op: Op, b: Tensor,
+         **kw) -> tuple[Tensor, SolveStats]:
+    """Solve D x = b for non-Hermitian D via D^dag D x = D^dag b.
+
+    Keyword arguments (``update``/``xpay``/``batched`` included) go to
+    :func:`cg`; for a batched solve the operators take the leading RHS
+    axis."""
+    return cg(lambda v: d_dag_op(d_op(v)), d_dag_op(b), **kw)
+
+
+def cgnr_eo(dhat: Op, dhat_dag: Op, d_eo: Op, d_oe: Op, m_inv: Op,
+            b_e: Tensor, b_o: Tensor, x0: Tensor | None = None, *,
+            tol: float = 1e-8, maxiter: int = 1000, dot=field_dot,
+            norm2=field_norm2, update=None, xpay=None,
+            batched: bool = False,
+            ) -> tuple[tuple[Tensor, Tensor], SolveStats]:
+    """Even-odd Schur-preconditioned CGNR: :func:`cg` on ``D_hat^dag D_hat
+    x_e = D_hat^dag (b_e - D_eo M_oo^-1 b_o)``, then ``x_o = M_oo^-1 (b_o
+    - D_oe x_e)``.
+
+    The blocks are callables: the natural-layout ones of
+    ``eo.eo_operators``, or ``eo.eo_operators_packed``'s on packed half
+    fields (the hop kernel K1), with ``update``/``xpay`` the fused CG
+    kernels K2/K3 (``kernels.cg_fused.ops.fused_engine``), as the plan's
+    even-odd solve runs them.  ``x0``: an even-parity initial guess.
+    Returns ``((x_e, x_o), stats)``; ``lattice.merge_eo`` gives the full
+    field.  ``iterations`` counts the half-size CG steps."""
+    b_hat = b_e - d_eo(m_inv(b_o))
+    x_e, stats = cg(lambda v: dhat_dag(dhat(v)), dhat_dag(b_hat), x0,
+                    tol=tol, maxiter=maxiter, dot=dot, norm2=norm2,
+                    update=update, xpay=xpay, batched=batched)
+    x_o = m_inv(b_o - d_oe(x_e))
+    return (x_e, x_o), stats
 
 
 # ---------------------------------------------------------------------------

@@ -41,8 +41,9 @@
 //  * a block owns a tile (t, z, y0 .. y0+b-1, all X) of about 128 sites
 //    (b = 4 at X = 32), blocks ordered y-tile fastest, then z, then t, so
 //    resident blocks share their t+-1 and z+-1 rows in L2; with N > 1 the
-//    order takes t in chunks of 4 planes before z, which keeps a plane's
-//    N-fold larger rows in L2 between their three uses;
+//    order takes t in chunks of 4 planes before z by default, which keeps
+//    a plane's N-fold larger rows in L2 between their three uses (the
+//    chunk and b are the launch space's knobs, kernels/dispatch.py);
 //  * the tile's 6b + 1 link rows are staged in shared memory once, with
 //    TMA bulk copies completing on an mbarrier (stage.cuh), and serve all
 //    N right-hand sides (the tile's own u_t, u_z, u_x rows, u_t at t-1, u_z
@@ -73,9 +74,9 @@
 //    each site with the one-site code, so its outputs equal the one-site
 //    instance's bitwise.  Other widths and misaligned bases keep the
 //    one-site instance (a shape rule, kernel.py::full_pair).
-//  The host (kernels/wilson_dslash/kernel.py::full_tile_plan) picks b and
-//  the shared-memory row stride; the same plan drives the CPU tests'
-//  emulation.  Offsets are 64-bit: an N = 4 field at 32^3 x 64 holds
+//  The host (kernels/wilson_dslash/kernel.py::full_tile_plan and
+//  ::full_tchunk) picks b, the shared-memory row stride and the chunk; the
+//  same plan drives the CPU tests' emulation.  Offsets are 64-bit: an N = 4 field at 32^3 x 64 holds
 //  201 M floats.
 
 #include <cuda_runtime.h>
@@ -450,19 +451,18 @@ cudaError_t launch_pair(const FullArgs<wilson::bf16>& a, int blocks,
 
 template <class ST>
 int full(const void* u, const void* psi, void* out, int T, int Z, int Y,
-         int X, int N, int g5in, int g5out, int rows, int ls, float m_hi,
-         float m_lo, float tw_hi, float tw_lo, cudaStream_t s, int* pair) {
+         int X, int N, int g5in, int g5out, int rows, int ls, int tchunk,
+         float m_hi, float m_lo, float tw_hi, float tw_lo, cudaStream_t s,
+         int* pair) {
+  // the block order's t chunks must tile T (make_tile)
+  if (tchunk < 1 || T % tchunk != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool staged = rows > 0;
   const int b = staged ? rows : 1;
   // bulk copies need 16-byte rows, strides and base (kernel.py::full_bulk)
   const bool bulk = staged && ((size_t)G * X * sizeof(ST)) % 16 == 0 &&
                     ((size_t)ls * sizeof(ST)) % 16 == 0 &&
                     (reinterpret_cast<uintptr_t>(u) & 15u) == 0;
-  // the block order's t chunks: with N > 1 right-hand sides a plane's rows
-  // are reused (as t+1, centre, t-1) by blocks up to 2 chunks apart in the
-  // order, 4 planes a chunk keeps them in L2; one plane a chunk keeps the z
-  // neighbours closer, which N = 1 needs more (PERF.md)
-  const int tchunk = N > 1 && T % 4 == 0 ? 4 : 1;
   const FullArgs<ST> a{static_cast<const ST*>(u), static_cast<const ST*>(psi),
                        static_cast<ST*>(out), T, Z, Y, X, N, b, tchunk, ls,
                        bulk ? 1 : 0, m_hi, m_lo, tw_hi, tw_lo};
@@ -527,20 +527,25 @@ const char* error_string(int code) {
 
 // g5in, g5out: the gamma5 flags (each instance has them compiled in);
 // rows, ls: the tile plan of kernel.py::full_tile_plan (rows == 0: the
-// links are read in place, nothing is staged; ls in elements); (m_hi,
+// links are read in place, nothing is staged; ls in elements); tchunk:
+// the t planes a chunk of the block order takes before z, dividing T
+// (kernel.py::full_tchunk: by default 4 with N > 1 right-hand sides, where
+// a plane's rows are reused as t+1, centre and t-1 by blocks up to 2
+// chunks apart and 4 planes a chunk keeps them in L2, else 1, which keeps
+// the z neighbours closer, as N = 1 needs more; PERF.md); (m_hi,
 // m_lo, tw_hi, tw_lo): the folded site term; storage: 0 float32, 1 bf16,
 // for the field and the links.  *pair is set to 1 when the bf16 pair
 // instance ran, else 0.  Returns a cudaError_t code.
 int wilson_full(const void* u, const void* psi, void* out, int T, int Z,
                 int Y, int X, int N, int g5in, int g5out, int rows, int ls,
-                float m_hi, float m_lo, float tw_hi, float tw_lo, int storage,
-                void* stream, int* pair) {
+                int tchunk, float m_hi, float m_lo, float tw_hi, float tw_lo,
+                int storage, void* stream, int* pair) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (storage == 1)
     return full<wilson::bf16>(u, psi, out, T, Z, Y, X, N, g5in, g5out, rows,
-                              ls, m_hi, m_lo, tw_hi, tw_lo, s, pair);
-  return full<float>(u, psi, out, T, Z, Y, X, N, g5in, g5out, rows, ls, m_hi,
-                     m_lo, tw_hi, tw_lo, s, pair);
+                              ls, tchunk, m_hi, m_lo, tw_hi, tw_lo, s, pair);
+  return full<float>(u, psi, out, T, Z, Y, X, N, g5in, g5out, rows, ls,
+                     tchunk, m_hi, m_lo, tw_hi, tw_lo, s, pair);
 }
 
 }  // extern "C"

@@ -9,7 +9,7 @@ kernel.py::_dslash_parity_kernel`` and ``::_dslash_kernel``, and share the
 compile-time spin structure of ``csrc/wilson_common.cuh``, mirrored here
 by :func:`hop_spec`, and the staging helpers of ``csrc/stage.cuh``;
 :func:`hop_tile_plan` and :func:`full_tile_plan` size their shared-memory
-tiles.
+tiles, after the launch space's tile (:mod:`..dispatch`).
 
 Fields and links are float32 or bf16 (the mixed-precision solve's low
 operator), one dtype per call; the kernels compute in f32 and round each
@@ -19,7 +19,9 @@ launches the kernel or raises.
 ``<wrapper>.launches`` counts kernel launches and ``<wrapper>.plain_calls``
 plain-version calls (``launches_bf16`` and ``plain_calls_bf16`` those on
 bf16 storage, ``launches_bf16_pair`` the bf16 launches that ran the pair
-instance, two sites a thread), so a run can show which path it took.
+instance, two sites a thread), so a run can show which path it took;
+``<wrapper>.last_tile`` the tile its last launch ran (its ``b``, K4's
+``tchunk``, and the launch space's pick).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import functools
 import torch
 
 from repro_torch.core.lattice import GAUGE_G, NDIRS, SPINOR_S
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.wilson_dslash.ref import (wilson_full_ref,
                                                    wilson_hop_ref)
 
@@ -69,7 +71,9 @@ def hop_spec(mu: int, forward: bool, gamma5_in: bool, gamma5_out: bool):
 # FULL_TILE_SITES sets K4's: 128 sites (one thread each) is b = 4 at
 # 32^3 x 64.  The bf16 pair instances (two sites a thread, see
 # :func:`hop_pair` and :func:`full_pair`) keep the threads and take twice
-# the sites: b = 4 for K1 and 8 for K4 at 32^3 x 64.
+# the sites: b = 4 for K1 and 8 for K4 at 32^3 x 64.  These are the
+# defaults; a tile of the launch space (:mod:`..dispatch`) may set b, and
+# K4's block order, instead.
 HOP_TILE_SITES = 32
 FULL_TILE_SITES = 128
 HOP_SMEM_LIMIT = 227 * 1024      # bytes a block may use on the H100
@@ -91,26 +95,37 @@ def full_smem_bytes(rows: int, ls: int, esize: int = 4) -> int:
     return 16 + (6 * rows + 1) * ls * esize
 
 
-def _tile_plan(y: int, width: int, sites: int, smem_bytes,
-               esize: int = 4) -> tuple[int, int, int]:
-    """``(b, ls, ss)`` for rows of ``width`` elements of ``esize`` bytes
-    per component plane.
+def _full_smem(rows: int, ls: int, ss: int, esize: int) -> int:
+    return full_smem_bytes(rows, ls, esize)
 
-    b covers about ``sites`` sites, prefers a divisor of Y, and shrinks
-    until the tile fits twice in an SM's shared memory (once at b = 1).
-    Where a warp spans rows (width < 32) and width is a whole number of
-    16-byte vectors, a stride is padded to width modulo the 128 bytes of
-    the 32 banks (32 f32, 64 bf16), so the rows a warp spans fall in
-    distinct banks and every row stays 16-byte aligned.  b == 0: a row
-    does not fit in shared memory, and the kernel reads the fields in
-    place.
-    """
+
+def _strides(width: int, esize: int) -> tuple[int, int]:
+    """Shared-memory row strides (elements) of links and spinors for rows
+    of ``width`` elements of ``esize`` bytes per component plane.  Where
+    a warp spans rows (width < 32) and width is a whole number of 16-byte
+    vectors, a stride is padded to width modulo the 128 bytes of the 32
+    banks (32 f32, 64 bf16), so the rows a warp spans fall in distinct
+    banks and every row stays 16-byte aligned."""
     lanes, vec = 128 // esize, 16 // esize
 
     def pad(w):
         return w if width % vec or width >= 32 else w + (width - w) % lanes
 
-    ls, ss = pad(18 * width), pad(24 * width)
+    return pad(18 * width), pad(24 * width)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_plan(y: int, width: int, sites: int, smem_bytes,
+               esize: int = 4) -> tuple[int, int, int]:
+    """``(b, ls, ss)`` for rows of ``width`` elements of ``esize`` bytes
+    per component plane (strides by :func:`_strides`).
+
+    b covers about ``sites`` sites, prefers a divisor of Y, and shrinks
+    until the tile fits twice in an SM's shared memory (once at b = 1).
+    b == 0: a row does not fit in shared memory, and the kernel reads the
+    fields in place.  Cached, as every launch asks for its plan.
+    """
+    ls, ss = _strides(width, esize)
     bmax = max(1, min(y, sites // width))
     b = next((d for d in range(bmax, 0, -1)
               if y % d == 0 and 2 * d >= bmax), bmax)
@@ -121,11 +136,37 @@ def _tile_plan(y: int, width: int, sites: int, smem_bytes,
     return b, ls, ss
 
 
+def max_rows(y: int, width: int, smem_bytes, esize: int = 4) -> int:
+    """The largest b <= Y whose tile fits an SM's shared memory (0: none
+    does)."""
+    ls, ss = _strides(width, esize)
+    return next((d for d in range(y, 0, -1)
+                 if smem_bytes(d, ls, ss, esize) <= HOP_SMEM_LIMIT), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _forced_plan(kernel: str, y: int, width: int, b: int, smem_bytes,
+                 esize: int) -> tuple[int, int, int]:
+    """``(b, ls, ss)`` for a tile's b, or ValueError naming the legal
+    values: 0 (rows read in place) and every b up to Y whose tile fits
+    shared memory.  Cached: a forced tile costs a launch no scan."""
+    ls, ss = _strides(width, esize)
+    top = max_rows(y, width, smem_bytes, esize)
+    if b < 0 or b > top:
+        legal = "0 (rows read in place)" + (f" and 1..{top}" if top else "")
+        raise ValueError(
+            f"{kernel}: b={b} does not fit the Y extent {y} and "
+            f"{HOP_SMEM_LIMIT} bytes of shared memory; legal b values for "
+            f"Y={y}, rows of {width} x {esize}-byte elements: {legal}")
+    return b, ls, ss
+
+
 def hop_pair(xh: int, esize: int) -> bool:
     """Whether K1 runs its bf16 pair instance, two adjacent sites a thread
     with each component of both read as one 32-bit word: bf16 storage and
     an even Xh, given 4-byte aligned bases, as ``csrc/wilson_hop.cu``
-    tests.  Otherwise the one-site instance runs."""
+    tests.  Otherwise the one-site instance runs.  The pair instance takes
+    every tile the one-site instance does."""
     return esize == 2 and xh % 2 == 0
 
 
@@ -134,27 +175,85 @@ def full_pair(x: int, esize: int) -> bool:
     whose compile-time instance holds two sites' sums in three blocks an
     SM (a runtime-X one spilled and lost to the one-site instance at
     X = 48, PERF.md), given 4-byte aligned bases, as
-    ``csrc/wilson_full.cu`` tests."""
+    ``csrc/wilson_full.cu`` tests.  It stages its links, so it refuses
+    b = 0 (:func:`full_tile_plan`)."""
     return esize == 2 and x == 32
 
 
-def hop_tile_plan(y: int, xh: int, esize: int = 4) -> tuple[int, int, int]:
+def hop_tile_plan(y: int, xh: int, esize: int = 4,
+                  b: int | None = None) -> tuple[int, int, int]:
     """K1's tile ``(b, ls, ss)``: b rows of Y per block, and the shared
     memory row strides (elements) of links and spinors (see
-    :func:`_tile_plan`; b == 0: rows read in place)."""
+    :func:`_tile_plan`; b == 0: rows read in place).  ``b``: a tile's rows
+    instead of the heuristic's (ValueError if they do not fit)."""
+    if b is not None:
+        return _forced_plan("wilson_hop", y, xh, b, hop_smem_bytes, esize)
     sites = HOP_TILE_SITES * (2 if hop_pair(xh, esize) else 1)
     return _tile_plan(y, xh, sites, hop_smem_bytes, esize)
 
 
-def full_tile_plan(y: int, x: int, esize: int = 4) -> tuple[int, int]:
+def full_tile_plan(y: int, x: int, esize: int = 4,
+                   b: int | None = None) -> tuple[int, int]:
     """K4's tile ``(b, ls)`` on the full X axis: b rows of Y per block and
     the shared-memory stride (elements) of its staged link rows (see
-    :func:`_tile_plan`; b == 0: links read in place)."""
+    :func:`_tile_plan`; b == 0: links read in place).  ``b``: a tile's
+    rows instead of the heuristic's (ValueError if they do not fit, or if
+    b = 0 meets the bf16 pair instance, which stages its links and would
+    otherwise be swapped for the one-site instance)."""
+    if b is not None:
+        if b == 0 and full_pair(x, esize):
+            raise ValueError(
+                f"wilson_full: b=0 (links read in place) is refused at "
+                f"X={x} in bf16: the pair instance stages its links; legal "
+                f"b values there: 1..{max_rows(y, x, _full_smem, esize)}")
+        b, ls, _ = _forced_plan("wilson_full", y, x, b, _full_smem, esize)
+        return b, ls
     sites = FULL_TILE_SITES * (2 if full_pair(x, esize) else 1)
-    b, ls, _ = _tile_plan(
-        y, x, sites,
-        lambda rows, ls, ss, es: full_smem_bytes(rows, ls, es), esize)
+    b, ls, _ = _tile_plan(y, x, sites, _full_smem, esize)
     return b, ls
+
+
+def full_tchunk(t: int, n: int, tchunk: int | None = None) -> int:
+    """K4's block order: the t planes a chunk takes before z.  The default
+    is 4 with N > 1 right-hand sides and T a multiple of 4 (a plane's
+    N-fold rows stay in L2 between their three uses), else 1 (the z
+    neighbours closer, which N = 1 needs more; PERF.md).  ``tchunk``: a
+    tile's chunk instead (ValueError unless it divides T)."""
+    if tchunk is None:
+        return 4 if n > 1 and t % 4 == 0 else 1
+    legal = [c for c in dispatch.TCHUNKS if t % c == 0]
+    if tchunk not in legal:
+        raise ValueError(
+            f"wilson_full: tchunk={tchunk} does not divide the T extent "
+            f"{t}; legal tchunk values for T={t}: {legal}")
+    return tchunk
+
+
+def hop_launch_plan(shape, n: int, dtype):
+    """K1's plan at a launch of half field shape (T, Z, Y, Xh), N
+    right-hand sides and storage ``dtype``: ``((b, ls, ss), tile)``, the
+    launch space's tile (:func:`..dispatch.pick_tile`) resolved by
+    :func:`hop_tile_plan` (the default tile calls it positionally, as it
+    always was: ``scripts/compare_kernels.py`` swaps the plan to time
+    tile heights)."""
+    _, _, y, xh = shape
+    tile = dispatch.pick_tile("wilson_hop", shape, n, dtype)
+    es = dtype.itemsize
+    plan = (hop_tile_plan(y, xh, es) if tile.b is None
+            else hop_tile_plan(y, xh, es, b=tile.b))
+    return plan, tile
+
+
+def full_launch_plan(shape, n: int, dtype):
+    """K4's plan at a launch of field shape (T, Z, Y, X): ``((b, ls,
+    tchunk), tile)``, the launch space's tile resolved by
+    :func:`full_tile_plan` and :func:`full_tchunk`."""
+    t, _, y, x = shape
+    tile = dispatch.pick_tile("wilson_full", shape, n, dtype)
+    es = dtype.itemsize
+    b, ls = (full_tile_plan(y, x, es) if tile.b is None
+             else full_tile_plan(y, x, es, b=tile.b))
+    return (b, ls, full_tchunk(t, n, tile.tchunk)), tile
 
 
 def _rows16(esize: int, *elems: int) -> bool:
@@ -230,6 +329,8 @@ def wilson_hop(u_out: torch.Tensor, u_nbr: torch.Tensor, psi: torch.Tensor,
                              f"{v.device}")
     _, t, z, y, _, xh = u_out.shape
     n = psi.shape[0] if psi.dim() == 6 else 1
+    plan, tile = hop_launch_plan((t, z, y, xh), n, psi.dtype)
+    wilson_hop.last_tile = {"b": plan[0], "picked": tile.to_entry()}
     out = torch.empty_like(psi)
     lib = _lib()
     pair = ctypes.c_int(0)
@@ -237,9 +338,8 @@ def wilson_hop(u_out: torch.Tensor, u_nbr: torch.Tensor, psi: torch.Tensor,
         u_out.data_ptr(), u_nbr.data_ptr(), psi.data_ptr(),
         psi_acc.data_ptr() if psi_acc is not None else None,
         out.data_ptr(), t, z, y, xh, n, int(parity) & 1, int(bool(gamma5_in)),
-        int(bool(gamma5_out)), *hop_tile_plan(y, xh, psi.element_size()),
-        float(hop_coeff), float(hop_twist), float(acc_coeff),
-        float(acc_twist), storage,
+        int(bool(gamma5_out)), *plan, float(hop_coeff), float(hop_twist),
+        float(acc_coeff), float(acc_twist), storage,
         torch.cuda.current_stream(psi.device).cuda_stream, ctypes.byref(pair))
     build.check(lib, rc, "wilson_hop")
     build.count(wilson_hop, "launches", psi.dtype, pair.value)
@@ -247,6 +347,7 @@ def wilson_hop(u_out: torch.Tensor, u_nbr: torch.Tensor, psi: torch.Tensor,
 
 
 build.zero_counts(wilson_hop)
+wilson_hop.last_tile = None
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +373,7 @@ def site_coeffs(mass, twist: float, gamma5_in: bool,
 def _full_lib() -> ctypes.CDLL:
     lib = build.library("wilson_full")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.wilson_full.argtypes = ([p, p, p] + [i] * 9 + [f] * 4
+    lib.wilson_full.argtypes = ([p, p, p] + [i] * 10 + [f] * 4
                                 + [i, p, ctypes.POINTER(i)])
     lib.wilson_full.restype = ctypes.c_int
     return lib
@@ -309,13 +410,15 @@ def wilson_full(up: torch.Tensor, pp: torch.Tensor, mass, *,
                              f"tensor on {pp.device}")
     _, t, z, y, _, x = up.shape
     n = pp.shape[0] if pp.dim() == 6 else 1
+    plan, tile = full_launch_plan((t, z, y, x), n, pp.dtype)
+    wilson_full.last_tile = {"b": plan[0], "tchunk": plan[2],
+                             "picked": tile.to_entry()}
     out = torch.empty_like(pp)
     lib = _full_lib()
     pair = ctypes.c_int(0)
     rc = lib.wilson_full(
         up.data_ptr(), pp.data_ptr(), out.data_ptr(), t, z, y, x, n,
-        int(bool(gamma5_in)), int(bool(gamma5_out)),
-        *full_tile_plan(y, x, pp.element_size()),
+        int(bool(gamma5_in)), int(bool(gamma5_out)), *plan,
         *site_coeffs(mass, twist, gamma5_in, gamma5_out), storage,
         torch.cuda.current_stream(pp.device).cuda_stream, ctypes.byref(pair))
     build.check(lib, rc, "wilson_full")
@@ -324,3 +427,4 @@ def wilson_full(up: torch.Tensor, pp: torch.Tensor, mass, *,
 
 
 build.zero_counts(wilson_full)
+wilson_full.last_tile = None

@@ -1,17 +1,21 @@
-"""Debug meshes for the port's multi-device solves.
+"""Meshes for the port's multi-device solves.
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.solve --mesh debug ...
 
 :func:`make_debug_mesh` is the counterpart of the JAX package's
-``repro.launch.mesh.make_debug_mesh``.  That module's
-``make_production_mesh`` describes TPU pods (16 x 16 chips, two pods on
-a ``pod`` axis) for the LM scaffold and is left to it (ROADMAP Queue A
-item 14).
+``repro.launch.mesh.make_debug_mesh``: a :class:`Mesh` over the ranks of
+this job.  :func:`make_production_mesh` is the counterpart of its
+``make_production_mesh``: the paper-scale meshes (16 x 16 over ``data``
+and ``model``, or two of them on a leading ``pod`` axis) as a shape
+only, with no ranks and no process group, for the production dry-run
+(:mod:`repro_torch.launch.dryrun_wilson`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
 import os
 
 import torch
@@ -21,6 +25,27 @@ from repro_torch.core.distributed import Mesh
 from repro_torch.core.lattice import resolve_device
 
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axes and sizes without ranks: what the lattice
+    decomposition (``distributed.lattice_specs``) reads of a mesh."""
+
+    shape: dict
+    axis_names: tuple
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """16 x 16 over (``data``, ``model``), or 2 x 16 x 16 with a leading
+    ``pod`` axis: the JAX package's production meshes, as shapes."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return MeshShape(dict(zip(axes, shape)), axes)
 
 
 def pick_transport(device: torch.device, world_size: int) -> str:

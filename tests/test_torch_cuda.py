@@ -718,3 +718,77 @@ def test_halo_kernels_on_a_two_rank_mesh_match_global_launches(dev,
         for name in ("wilson_hop", "wilson_full", "wilson_full_bf16"):
             c = res["counts"][name]
             assert c["launches"] > 0 and c["plain_calls"] == 0, (name, c)
+
+
+# the launch space (kernels/dispatch.py): (kernel, T x Z x Y x W) with W
+# the half field's Xh for K1 and X for K4, an odd and a ragged shape a
+# dtype; K4 bf16 at X = 32 runs the pair instance
+TILE_CASES = [
+    ("wilson_hop", (4, 4, 6, 3), torch.float32),      # odd Xh
+    ("wilson_hop", (4, 4, 22, 4), torch.float32),     # Y = 22, 8-row tile
+    ("wilson_hop", (4, 4, 6, 3), torch.bfloat16),     # odd Xh: one-site
+    ("wilson_hop", (4, 4, 22, 4), torch.bfloat16),    # pair, ragged
+    ("wilson_full", (4, 4, 6, 5), torch.float32),     # odd X
+    ("wilson_full", (4, 6, 22, 16), torch.float32),   # Y = 22, 8-row tile
+    ("wilson_full", (4, 4, 6, 5), torch.bfloat16),    # odd X: one-site
+    ("wilson_full", (4, 2, 12, 32), torch.bfloat16)]  # pair, ragged
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("case", TILE_CASES, ids=lambda c: "-".join(
+    (c[0], "x".join(map(str, c[1])), str(c[2]).removeprefix("torch."))))
+def test_every_tile_is_bitwise_the_default(dev, case, n):
+    """Every candidate tile of the launch space (b over Y's divisors and
+    0, K4's block-order chunks over T's) and one ragged b give the default
+    tile's bits: a tile moves data, it never reorders a site's sums."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.dispatch import TileConfig
+    kernel, dims, dtype = case
+    fn = autotune.problem(kernel, dims, n, dtype, dev)
+    tiles = autotune.candidates(kernel, dims, n, dtype)
+    tiles.append(TileConfig(b=5, tchunk=tiles[0].tchunk))   # ragged rows
+    with autotune.forced(tiles[0]):
+        want = fn()
+    kernels.reset_counts()
+    for tile in tiles:
+        with autotune.forced(tile):
+            assert torch.equal(fn(), want), tile
+    c = kernels.counts()[kernel + ("_bf16" if dtype == torch.bfloat16
+                                   else "")]
+    assert c["launches"] == len(tiles) and c["plain_calls"] == 0
+    if dtype == torch.bfloat16 and dims[3] % 2 == 0 and (
+            kernel == "wilson_hop" or dims[3] == 32):
+        assert kernels.pair_launches()[kernel + "_bf16"] == len(tiles)
+
+
+def test_a_tile_that_does_not_fit_raises_before_the_launch(dev):
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.dispatch import TileConfig
+    hop = autotune.problem("wilson_hop", (4, 4, 8, 4), 1, torch.float32, dev)
+    full = autotune.problem("wilson_full", (6, 4, 8, 8), 2, torch.float32,
+                            dev)
+    kernels.reset_counts()
+    for fn, tile, match in (
+            (hop, TileConfig(b=9), r"b=9 does not fit the Y extent 8"),
+            (full, TileConfig(b=9), r"b=9 does not fit the Y extent 8"),
+            (full, TileConfig(tchunk=4), r"legal tchunk values for T=6")):
+        with autotune.forced(tile), pytest.raises(ValueError, match=match):
+            fn()
+    assert all(v["launches"] == 0 for v in kernels.counts().values())
+
+
+def test_a_pair_instance_tile_is_refused_not_replaced(dev):
+    """K4's bf16 pair instance (X = 32) stages its links: b = 0 raises in
+    the wrapper; it is never swapped for the one-site instance."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.dispatch import TileConfig
+    fn = autotune.problem("wilson_full", (4, 4, 8, 32), 1, torch.bfloat16,
+                          dev)
+    kernels.reset_counts()
+    with autotune.forced(TileConfig(b=0)), pytest.raises(
+            ValueError, match="pair instance stages its links"):
+        fn()
+    assert kernels.counts()["wilson_full_bf16"]["launches"] == 0
+    with autotune.forced(TileConfig(b=1)):
+        fn()
+    assert kernels.pair_launches()["wilson_full_bf16"] == 1

@@ -206,10 +206,17 @@ for sv in ("cg", "pipecg") if halo_mesh == "2x2" else ():
     jx = jax.make_jaxpr(shard_map(
         local, mesh=mesh, in_specs=(gauge_spec, gauge_spec, bspec, bspec),
         out_specs=bspec, check_vma=False))(upe, upo, pbe, pbo)
+    bodies = [next(subjaxprs(w.params["body_jaxpr"]))
+              for w in eqns(jx.jaxpr) if w.primitive.name == "while"]
     out[f"psums_per_iteration/{sv}"] = [
-        sum(1 for e in eqns(next(subjaxprs(w.params["body_jaxpr"])))
-            if e.primitive.name.startswith("psum"))
-        for w in eqns(jx.jaxpr) if w.primitive.name == "while"]
+        sum(1 for e in eqns(body) if e.primitive.name.startswith("psum"))
+        for body in bodies]
+    # collective-permutes of one iteration: spinor planes (24 components a
+    # site) and link planes (18), told apart by the operand's S/G axis
+    perms = [[e.invars[0].aval.shape[-2] for e in eqns(body)
+              if e.primitive.name == "ppermute"] for body in bodies]
+    out[f"ppermutes_per_iteration/{sv}"] = [
+        {"spinor": p.count(24), "link": p.count(18)} for p in perms]
 np.savez(os.path.join(d, f"jax_halos_{halo_mesh}.npz"), **arrays)
 print("RESULT" + json.dumps(out))
 """
@@ -232,15 +239,22 @@ def _stats_json(st) -> dict:
 
 def _mesh_solves(mesh: str) -> dict:
     """The solves run on ``mesh``: every one on 2x2 (held to the JAX
-    twins), the even-odd ones on 2x1x2 (held to the single-device
-    solve)."""
+    twins), the even-odd ones and full mpcg on 2x1x2 (held to the
+    single-device solve)."""
     return {k: v for k, v in SOLVES.items()
-            if mesh == "2x2" or k.startswith("eo")}
+            if mesh == "2x2" or k.startswith("eo") or k == "full_mpcg"}
+
+
+# the bf16 halo operators, each gathered and held against one global
+# plain evaluation
+BF16_HALOS = ("dslash", "dslash_dagger_tm", "hop_oe_g5in_twist",
+              "hop_eo_g5out_acc_twist_n2")
 
 
 def _worker(rank: int, d: pathlib.Path):
     import torch.distributed as tdist
 
+    from repro_torch import kernels
     from repro_torch.checkpoint import ckpt
     from repro_torch.core import distributed as dist
     from repro_torch.core import plan as tplan
@@ -287,6 +301,52 @@ def _worker(rank: int, d: pathlib.Path):
                     else pbe if r.dim() == 6 else pe)
             arrays[f"{mname}/{name}"] = dist.gather_blocks(
                 mesh, r, psi_spec, glob.shape).numpy()
+        # bf16 storage: the halo'd operators against one global plain
+        # evaluation, the interior bitwise and the boundary planes (the
+        # bulk's rounded plane plus a correction) apart
+        lo = torch.bfloat16
+        up16, upe16, upo16 = (v.to(lo) for v in (up, upe, upo))
+        pp16, pe16, pbe16 = (v.to(lo) for v in (pp, pe, pbe))
+        acc16 = (0.5 * pbe + 0.1).to(lo)
+        ul, uel, uol = (dist.local_block(mesh, v, gauge_spec)
+                        for v in (up16, upe16, upo16))
+        ppl, pel, pbel, accl = (dist.local_block(mesh, v, psi_spec)
+                                for v in (pp16, pe16, pbe16, acc16))
+        hop1, hop2 = (HOPS[h][1] for h in ("oe_g5in_twist",
+                                           "eo_g5out_acc_twist_n2"))
+        plain = dict(use_kernels=False)
+        bf16 = {
+            "dslash": (dist.dslash_halo(ul, ppl, MASS, mesh, sharded),
+                       wops.dslash(up16, pp16, MASS, **plain)),
+            "dslash_dagger_tm": (
+                dist.dslash_dagger_halo(ul, ppl, MASS, mesh, sharded,
+                                        twist=0.3),
+                wops.dslash_dagger(up16, pp16, MASS, twist=0.3, **plain)),
+            "hop_oe_g5in_twist": (
+                dist.parity_hop_halo("oe", uel, uol, pel, mesh, sharded,
+                                     **hop1),
+                wops.hop_block(upe16, upo16, pe16, which="oe", **hop1,
+                               **plain)),
+            "hop_eo_g5out_acc_twist_n2": (
+                dist.parity_hop_halo("eo", uel, uol, pbel, mesh, sharded,
+                                     psi_acc=accl, **hop2),
+                wops.hop_block(upe16, upo16, pbe16, which="eo",
+                               psi_acc=acc16, **hop2, **plain))}
+        for name in BF16_HALOS:
+            got, want = bf16[name]
+            got = dist.gather_blocks(mesh, got, psi_spec, want.shape)
+            batch, edge = want.dim() - 5, torch.zeros_like(want, dtype=bool)
+            for mu, (_, n) in sharded.items():
+                if n > 1:
+                    at = torch.arange(want.shape[mu + batch])
+                    at = at % (want.shape[mu + batch] // n)
+                    view = [1] * want.dim()
+                    view[mu + batch] = -1
+                    edge |= ((at == 0) | (at == at.max())).view(view)
+            mine[f"{mname}/bf16/{name}"] = dict(
+                interior_bitwise=bool(torch.equal(got[~edge], want[~edge])),
+                max_abs=float((got.float() - want.float()).abs().max()),
+                scale=float(want.float().abs().max()))
 
     # the sharded solves; on the 2x1x2 mesh the even-odd ones, and their
     # single-device twins
@@ -294,6 +354,7 @@ def _worker(rank: int, d: pathlib.Path):
     for mname, mesh in meshes.items():
         for name, (kw, rhs) in _mesh_solves(mname).items():
             before = dict(mesh.counts)
+            kernels.reset_counts()
             x, st = tplan.solve(tplan.SolverPlan(mesh=mesh, **kw), u,
                                 rhs_of[rhs], MASS, tol=TOL, maxiter=MAXITER,
                                 device="cpu")
@@ -302,6 +363,9 @@ def _worker(rank: int, d: pathlib.Path):
             mine[key] = _stats_json(st)
             out[f"counts/{key}"] = {k: v - before.get(k, 0)
                                     for k, v in mesh.counts.items()}
+            # K1/K4 on CPU blocks: their plain versions, counted alike
+            out[f"kernels/{key}"] = {k: v["plain_calls"]
+                                     for k, v in kernels.counts().items()}
 
     # the all-bf16 cg16 (unverified by design) and the legacy packed-layout
     # forwarder, on the 2x2 mesh
@@ -534,12 +598,105 @@ def test_sharded_solve_matches_jax_twin(runs, solve):
 def test_y_sharded_solve_matches_single_device(runs, solve):
     """On the 2x1x2 mesh (Y and Z sharded, the local row parity from
     local coordinates): the even-odd solves at the single-device solve's
-    counts per RHS, x within 1e-5."""
+    counts per RHS, and full mpcg at its outer count with the inner count
+    within MIXED_INNER_SLACK; x within 1e-5."""
     key = f"2x1x2/{solve}"
     st, one = runs["ranks"][0][key], runs["port_json"][f"single/{solve}"]
-    assert st["rhs_iterations"] == one["rhs_iterations"]
+    assert st["outer"] == one["outer"]
+    if solve == "full_mpcg":
+        assert abs(st["iterations"] - one["iterations"]) <= MIXED_INNER_SLACK
+    else:
+        assert st["rhs_iterations"] == one["rhs_iterations"]
+        assert st["iterations"] == one["iterations"]
     assert rel_err(runs["port"][key], runs["port"][f"single/{solve}"]) <= 1e-5
     _check_stats(runs, key, st)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("op", BF16_HALOS)
+def test_bf16_halo_operator_matches_global_evaluation(runs, mesh, op):
+    """bf16 storage, on every rank: a halo'd operator's gathered output
+    is bitwise one global plain evaluation away from the blocks'
+    boundary planes, and within 2 bf16 ulps of the scale on them, where
+    the bulk's rounded plane plus an f32 correction rounds an entry
+    twice (the card's bar for the halo'd K4 bf16)."""
+    for r in runs["ranks"]:
+        res = r[f"{mesh}/bf16/{op}"]
+        assert res["interior_bitwise"], res
+        assert res["max_abs"] <= 2.0 ** -6 * res["scale"], res
+
+
+def _mesh_shape(mesh: str):
+    from repro_torch.launch.mesh import MeshShape
+    shape, axes = MESHES[mesh]
+    return MeshShape(dict(zip(axes, shape)), axes)
+
+
+def _reckoned(solve: str, mesh: str, st: dict) -> dict:
+    """The dry-run twin's closed forms for one of SOLVES."""
+    from repro_torch.launch import dryrun_wilson as dw
+    kw = SOLVES[solve][0]
+    path = "full" if kw.get("operator") == "full" else "eo"
+    solver = ("mpcg" if kw.get("precision") == "mixed"
+              else {"cgnr": "cg", "pipecg": "pipecg"}[kw.get("solver",
+                                                           "cgnr")])
+    return dw.solve_counts(path, solver, DIMS, _mesh_shape(mesh),
+                           nrhs=kw.get("nrhs", 1),
+                           iterations=st["iterations"], outer=st["outer"])
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_dryrun_counts_equal_mesh_counts(runs, mesh):
+    """The production dry-run's closed forms
+    (``launch/dryrun_wilson.solve_counts``) at this lattice and mesh, for
+    each sharded solve's iteration counts, equal rank 0's ``Mesh.counts``
+    (all-reduces, ppermute calls, spinor and link planes and bytes, the
+    gather and the broadcast) and its K1/K4 launches (plain calls on CPU
+    blocks)."""
+    for solve in _mesh_solves(mesh):
+        st = runs["ranks"][0][f"{mesh}/{solve}"]
+        want = _reckoned(solve, mesh, st)
+        got = runs["port_json"][f"counts/{mesh}/{solve}"]
+        k = runs["port_json"][f"kernels/{mesh}/{solve}"]
+        got = {**{key: got.get(key, 0) for key in want
+                  if not key.startswith("k")},
+               "k1": k["wilson_hop"] + k["wilson_hop_bf16"],
+               "k4": k["wilson_full"], "k4_bf16": k["wilson_full_bf16"]}
+        assert got == want, (solve, got, want)
+
+
+@pytest.mark.parametrize("loop", ["cg", "pipecg"])
+def test_dryrun_collectives_per_iteration_equal_jax_while_body(runs, loop):
+    """One even-odd iteration on the 2x2 mesh (N = 2) as the dry-run
+    reckons it: its all-reduces and spinor collective-permutes (planes:
+    two a sharded direction for each hop block, four blocks a Schur
+    matvec) equal the psums and spinor ppermutes in JAX's while body.
+    The body holds pipecg's residual replacement (two more matvecs) as a
+    branch, counted once, so pipecg's iteration is held with the
+    replacement's planes added.  JAX also permutes a link plane in every
+    block; the port exchanges the links once a solve (none an
+    iteration): reported beside, not equated."""
+    from repro_torch.launch import dryrun_wilson as dw
+    m = _mesh_shape("2x2")
+
+    def counts(k):
+        return dw.solve_counts("eo", loop, DIMS, m, nrhs=2, iterations=k)
+
+    def minus(a, b):
+        return {key: a[key] - b[key] for key in a}
+
+    per = minus(counts(2), counts(1))
+    body = dict(per)
+    if loop == "pipecg":  # the replacement at iteration 25 (rr = 25)
+        body = minus(counts(25), counts(24))
+    jax_perms = runs["jax_json"][f"ppermutes_per_iteration/{loop}"]
+    print(f"{loop}: reckoned an iteration {per}, the body {body}; JAX's "
+          f"while body {jax_perms}")
+    assert [per["all_reduce"]] == runs["jax_json"][
+        f"psums_per_iteration/{loop}"]
+    assert [body["spinor_planes"]] == [p["spinor"] for p in jax_perms]
+    assert per["link_planes"] == 0
+    assert [p["link"] for p in jax_perms] == [body["spinor_planes"] // 2]
 
 
 def test_sharded_cg16_matches_single_device(runs):

@@ -1,5 +1,10 @@
 """Port vs JAX: the full-lattice slice (the full-lattice kernel K4 and the
-``operator="full"`` solve).
+``operator="full"`` solve).  This file and three more hold it:
+``tests/test_torch_full_oracle.py`` (``ops.dslash`` against JAX's
+oracles), ``tests/test_torch_full_algorithm.py`` (K4's emulated
+algorithm at the fixture's shapes and its bf16 pair instance) and
+``tests/test_torch_full_ragged.py`` (the algorithm at odd and ragged
+shapes); they import the fixture, the emulation and the helpers here.
 
 * ``core.wilson``'s full-lattice functions (natural dagger and normal
   operator, the packed split/merge, ``hop_term_packed``,
@@ -140,48 +145,16 @@ def test_dslash_packed_family_matches_jax(fields):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n", [None, 3])
-@pytest.mark.parametrize("flags", FLAGS, ids=lambda f: "-".join(map(str, f)))
-def test_dslash_matches_jax_oracle(fields, flags, n):
-    g5in, g5out, twist = flags
-    up, pp = fields["up"], fields["pp"]
-    pp = pp[0] if n is None else pp
-    kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
-    close(tops.dslash(T(up), T(pp), MASS, **kw),
-          jops.dslash(up, pp, MASS, use_pallas=False, **kw))
-
-
-# (lattice index, N, gamma5_in, gamma5_out, twist): each flag on and off
-PALLAS_CASES = [(0, 1, True, False, 0.0), (0, 3, False, True, 0.25),
-                (0, 1, True, True, -0.25)]
-
-
-@pytest.mark.parametrize("case", PALLAS_CASES, ids=lambda c: "-".join(
-    map(str, c)))
-def test_dslash_matches_pallas_interpret(case):
-    i, n, g5in, g5out, twist = case
-    lat = SHAPES[i]
-    ku, kb = jax.random.split(jax.random.PRNGKey(52))
-    up = np.asarray(jl.pack_gauge(jl.random_gauge(ku, lat)))
-    pp = np.asarray(jnp.stack([jl.pack_spinor(jl.random_spinor(
-        jax.random.fold_in(kb, j), lat)) for j in range(n)]))
-    pp = pp[0] if n == 1 else pp
-    kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
-    # bz given explicitly: the tuning cache's choice for small lattices
-    # is a streaming mode this jax cannot interpret
-    ref = jops.dslash(up, pp, MASS, interpret=True, bz=2, **kw)
-    close(tops.dslash(T(up), T(pp), MASS, **kw), ref)
-
-
 UNIT = (1, 1j, -1, -1j)   # i^k
 
 
-def full_block_tile(i, dims, b, n):
+def full_block_tile(i, dims, b, n, tchunk=None):
     """csrc/wilson_full.cu ``make_tile``: block i's tile (t, z, y-tile):
-    y-tile fastest, then t within a chunk of 4 planes when n > 1 (and
-    4 | T; else 1), then z, then the chunk."""
+    y-tile fastest, then t within a chunk of ``tchunk`` planes (by
+    default ``kernel.full_tchunk``'s rule: 4 when n > 1 and 4 | T, else
+    1), then z, then the chunk."""
     T, Z, Y = dims
-    tchunk = 4 if n > 1 and T % 4 == 0 else 1
+    tchunk = tk.full_tchunk(T, n, tchunk)
     nyb = -(-Y // b)
     rest = i // nyb
     zc = rest // tchunk
@@ -263,7 +236,7 @@ def _widen_half(words, half):
 
 
 def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out,
-                        pair=False):
+                        pair=False, b=None, tchunk=None):
     """csrc/wilson_full.cu step by step: the host's tile plan, the link rows
     each tile stages (once for all N; the Y wrap included) in their slots,
     the loop body's spinor reads (from the field, X and Y wrapped) and link
@@ -274,17 +247,19 @@ def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out,
     the hops' sum scaled by -1/2.  Fields in their storage dtype (f32 or
     bf16), staged as stored, widened where read, outputs rounded once.
     ``pair``: the bf16 pair instance, whose sites read their values as
-    halves of 32-bit words (``full_pair_words``)."""
+    halves of 32-bit words (``full_pair_words``).  ``b``, ``tchunk``: a
+    launch-space tile's rows and block order instead of the plan's."""
     m_hi, m_lo, tw_hi, tw_lo = tk.site_coeffs(mass, twist, gamma5_in,
                                               gamma5_out)
     batched = pp.dim() == 6
     ps = pp if batched else pp[None]
     n_rhs, t_, z_, y_, _, x_ = ps.shape
     dims = (t_, z_, y_, x_)
-    b, _ = tk.full_tile_plan(y_, x_, pp.element_size())
+    if b is None:
+        b, _ = tk.full_tile_plan(y_, x_, pp.element_size())
     assert b > 0
     assert not pair or tk.full_pair(x_, pp.element_size())
-    tiles = [full_block_tile(i, dims[:3], b, n_rhs)      # the block order
+    tiles = [full_block_tile(i, dims[:3], b, n_rhs, tchunk)  # block order
              for i in range(t_ * z_ * -(-y_ // b))]
     lk = torch.zeros(len(tiles), 6 * b + 1, 18, x_, dtype=up.dtype)
     for i, (t, z, yb) in enumerate(tiles):
@@ -341,17 +316,6 @@ def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out,
     packed = torch.view_as_real(out).reshape(out.shape[:5] + (24,))
     packed = packed.permute(0, 1, 2, 3, 5, 4).contiguous().to(pp.dtype)
     return packed if batched else packed[0]
-
-
-@pytest.mark.parametrize("n", [1, 3])
-@pytest.mark.parametrize("flags", FLAGS, ids=lambda f: "-".join(map(str, f)))
-def test_kernel_algorithm_matches_plain_version(fields, flags, n):
-    g5in, g5out, twist = flags
-    up, pp = T(fields["up"]), T(fields["pp"])
-    pp = pp[0] if n == 1 else pp
-    kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
-    close(emulate_wilson_full(up, pp, MASS, **kw),
-          wilson_full_ref(up, pp, MASS, **kw))
 
 
 # (Y, X) -> K4's tile plan (b, ls): 32^3 x 64, the card checks' shapes
@@ -451,27 +415,6 @@ def test_full_staged_rows_cover_every_neighbour(dims):
     assert len(covered) == t_ * z_ * y_ * x_
 
 
-@pytest.mark.parametrize("dims", [(4, 4, 6, 5), (4, 4, 22, 16),
-                                  (3, 5, 7, 32)],
-                         ids=lambda d: "x".join(map(str, d)))
-@pytest.mark.parametrize("flags", FLAGS, ids=lambda f: "-".join(map(str, f)))
-def test_kernel_algorithm_at_odd_and_ragged_shapes(dims, flags):
-    """The algorithm where the plan is least regular: odd X (plain-load
-    staging on the card), Y = 22 against an 8-row tile, odd T, Z and Y with
-    a ragged last tile; batched against single RHS bitwise."""
-    g5in, g5out, twist = flags
-    gen = torch.Generator().manual_seed(61)
-    lat = tl.LatticeShape(*dims)
-    up = pack_gauge(tl.random_gauge(gen, lat))
-    pp = pack_spinor(torch.stack([tl.random_spinor(gen, lat)
-                                  for _ in range(2)]))
-    kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
-    out = emulate_wilson_full(up, pp, MASS, **kw)
-    close(out, wilson_full_ref(up, pp, MASS, **kw))
-    for i in range(2):
-        assert torch.equal(out[i], emulate_wilson_full(up, pp[i], MASS, **kw))
-
-
 def _bf16_within_one_ulp(out, ref):
     """At most 1 bf16 ulp an entry; an entry that cancels below 2^-16 of
     the field's largest is held to the ulp at that floor (the bar of
@@ -502,30 +445,6 @@ def _bf16_fields(dims, n, seed):
     pp = pack_spinor(torch.stack([tl.random_spinor(gen, lat)
                                   for _ in range(n)]), torch.bfloat16)
     return up, pp
-
-
-@pytest.mark.parametrize("n", [1, 3])
-@pytest.mark.parametrize("flags", FLAGS, ids=lambda f: "-".join(map(str, f)))
-def test_pair_algorithm_equals_one_site(flags, n):
-    """The pair instance on bf16 fields at 2x2x4x32 (every row's first and
-    last pair read across the row's ends), Wilson and twisted mass, every
-    gamma5 flag pair, N = 1 and 3."""
-    up, pp = _bf16_fields((2, 2, 4, 32), 3, 63)
-    _full_pair_case(up, pp[0] if n == 1 else pp, flags)
-
-
-@pytest.mark.parametrize("dims", [(3, 5, 7, 32), (2, 2, 12, 32)],
-                         ids=lambda d: "x".join(map(str, d)))
-@pytest.mark.parametrize("flags", [(True, True, 0.25), (False, True, 0.0)],
-                         ids=lambda f: "-".join(map(str, f)))
-def test_pair_algorithm_other_shapes(dims, flags):
-    """Odd T, Z, Y (one 7-row tile), Y = 12 against an 8-row tile (the
-    last one ragged); batched equal to single RHS bitwise."""
-    up, pp = _bf16_fields(dims, 2, 62)
-    out, kw = _full_pair_case(up, pp, flags)
-    for i in range(2):
-        assert torch.equal(out[i], emulate_wilson_full(up, pp[i], MASS,
-                                                       pair=True, **kw))
 
 
 # (Y, X) -> K4's bf16 plan (b, ls): X = 32 runs the pair instance, 256

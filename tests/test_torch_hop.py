@@ -186,7 +186,7 @@ def word_reads(rows, slot, word, half):
 
 def emulate_wilson_hop(u_out, u_nbr, psi, *, parity, gamma5_in, gamma5_out,
                        psi_acc, acc_coeff, hop_coeff, acc_twist, hop_twist,
-                       pair=False):
+                       pair=False, b=None):
     """csrc/wilson_hop.cu step by step: the host's tile plan, the rows each
     tile stages (Y wrap included) in their slots, the compute loop's slots
     and X indices (all (r, j) of a tile at once, as the tile's threads
@@ -195,12 +195,14 @@ def emulate_wilson_hop(u_out, u_nbr, psi, *, parity, gamma5_in, gamma5_out,
     hop's -1/2 folded into the coefficients.  Fields in their storage
     dtype (f32 or bf16), staged as stored, widened where read, outputs
     rounded once.  ``pair``: the bf16 pair instance, whose sites read
-    their values as halves of 32-bit words (``pair_hop_reads``)."""
+    their values as halves of 32-bit words (``pair_hop_reads``).  ``b``:
+    a launch-space tile's rows instead of the plan's."""
     batched = psi.dim() == 6
     psi = psi if batched else psi[None]
     acc = None if psi_acc is None else (psi_acc if batched else psi_acc[None])
     n_rhs, t_, z_, y_, _, xh = psi.shape
-    b, _, _ = tk.hop_tile_plan(y_, xh, psi.element_size())
+    if b is None:
+        b, _, _ = tk.hop_tile_plan(y_, xh, psi.element_size())
     assert b > 0
     assert not pair or tk.hop_pair(xh, psi.element_size())
     fields = {"out": u_out, "nbr": u_nbr}

@@ -1,11 +1,12 @@
 """The remaining Krylov solvers of the port against the JAX package's.
 
-Pipelined CG, BiCGStab, block CG (with its Gram products and
-pseudo-solve) and EigCG deflation (harvest, Ritz basis, Galerkin start),
-each held against its JAX twin on the same numpy inputs: the 4^4 seed-7
-fixture of the solver goldens (``src/repro_torch/data/
-golden_4x4x4x4_seed7.npz``, bitwise the JAX package's generation), tol
-1e-6.  The port runs on the CPU, its ``"kernels"`` backend through the
+Pipelined CG (``tests/test_torch_krylov_pipecg.py``), BiCGStab, block CG
+with its Gram products and pseudo-solve
+(``tests/test_torch_krylov_blockcg.py``) and EigCG deflation (harvest,
+Ritz basis, Galerkin start), each held against its JAX twin on the
+same numpy inputs: the 4^4 seed-7 fixture of the solver goldens
+(``src/repro_torch/data/golden_4x4x4x4_seed7.npz``, bitwise the JAX
+package's generation), tol 1e-6.  The port runs on the CPU, its ``"kernels"`` backend through the
 kernels' plain versions; JAX's ``"pallas"`` backend runs with
 ``interpret=False`` (its CPU lowering, ``kernels/wilson_dslash/xla.py``).
 
@@ -13,7 +14,8 @@ Count rules: at mass 0.1 the port's iterations equal the JAX twins';
 at mass -1.7, where block CG's f32 Gram pseudo-inverse
 gives 71 iterations on one JAX backend and 90 on the other, each count
 lies within 2 of one twin's or between the two.  Solutions agree to 1e-5
-(max-abs error over the max-abs entry).
+(max-abs error over the max-abs entry).  This file holds the fixture and
+the helpers the other two import.
 """
 
 import dataclasses
@@ -32,11 +34,9 @@ from repro.core.operators import dslash_g as jax_dslash_g
 from repro_torch.core import plan as tplan
 from repro_torch.core import solvers
 from repro_torch.core.eo import schur_rhs
-from repro_torch.core.lattice import (fields_from_numpy, pack_gauge,
-                                      pack_spinor)
+from repro_torch.core.lattice import fields_from_numpy
 from repro_torch.core.operators import dslash_g
 from repro_torch.kernels import counts, reset_counts
-from repro_torch.kernels.wilson_dslash import ops as wops
 from repro_torch.launch import solve as cli
 
 GOLDEN = (pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -74,68 +74,6 @@ def _rhs(fx, n):
 
 
 # ---------------------------------------------------------------------------
-# pipelined CG
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("backend", ["kernels", "reference"])
-@pytest.mark.parametrize("operator,n", [("eo-schur", 1), ("eo-schur", 4),
-                                        ("full", 1), ("full", 4)])
-def test_pipecg_matches_jax(fx, backend, operator, n):
-    bt, bj = _rhs(fx, n)
-    nrhs = None if n == 1 else n
-    plan = tplan.SolverPlan(operator=operator, backend=backend,
-                            solver="pipecg", nrhs=nrhs)
-    reset_counts()
-    x, st = tplan.solve(plan, fx["ut"], bt, MASS, tol=TOL, device="cpu")
-    c = counts()
-    xj, sj = jplan.solve(JaxPlan(operator=operator, solver="pipecg",
-                                 nrhs=nrhs, **TWIN[backend]),
-                         fx["u"], bj, MASS, tol=TOL, maxiter=1000)
-    assert bool(torch.atleast_1d(st.verified).all())
-    assert bool((torch.atleast_1d(st.verdict) == solvers.CONVERGED).all())
-    assert rel_err(x, xj) <= 1e-5
-    its = (st.rhs_iterations.tolist() if nrhs else [st.iterations])
-    want = (np.asarray(sj.rhs_iterations).tolist() if nrhs
-            else [int(sj.iterations)])
-    k = st.iterations
-    assert torch.atleast_1d(st.matvecs).tolist() == [k + 1 + 2 * (k // 25)] * n
-    # one fused reduction an iteration: no K2/K3; K1 four a matvec plus
-    # the Schur RHS and the back-substitution, K4 two a matvec plus D^dag b
-    if backend == "kernels":
-        mv = k + 1 + 2 * (k // 25)
-        want_c = ({"wilson_hop": 4 * mv + 4} if operator == "eo-schur"
-                  else {"wilson_full": 2 * mv + 1})
-        got = {name: v["plain_calls"] for name, v in c.items()
-               if v["plain_calls"]}
-        assert got == want_c
-    assert its == want
-
-
-def test_pipecg_residual_replacement_and_fused_dots(fx):
-    """Every 25 iterations the true residual replaces the recursive one
-    (two more matvecs); 0 disables it, and the recurrences drift (the
-    recursive residual converges, x does not); an injected ``fused_dots``
-    is the iteration's one reduction."""
-    up = pack_gauge(fx["ut"])
-    op = lambda v: wops.normal_op(up, v, MASS)  # noqa: E731
-    rhs = wops.dslash_dagger(up, pack_spinor(fx["bt"]), MASS)
-    calls = []
-
-    def fused(r, w):
-        calls.append(1)
-        return torch.stack(((r * r).sum(), (w * r).sum()))
-
-    x, st = solvers.pipecg(op, rhs, tol=TOL, fused_dots=fused)
-    assert st.iterations == 30 and int(st.matvecs) == 33
-    assert len(calls) == st.iterations + 1
-    x0, st0 = solvers.pipecg(op, rhs, tol=TOL, residual_replacement_every=0)
-    assert int(st0.matvecs) == st0.iterations + 1
-    xc, _ = solvers.cg(op, rhs, tol=TOL)
-    assert rel_err(x, xc) <= 1e-5 and rel_err(x0, xc) > 1e-3
-
-
-# ---------------------------------------------------------------------------
 # BiCGStab
 # ---------------------------------------------------------------------------
 
@@ -151,105 +89,6 @@ def test_bicgstab_matches_jax(fx):
     assert rel_err(x, xj) <= 1e-5
     res = dslash_g(fx["ut"], x, MASS) - fx["bt"]
     assert float(res.norm() / fx["bt"].norm()) < 10 * TOL
-
-
-# ---------------------------------------------------------------------------
-# block CG's matrix algebra and solves
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("layout", ["packed", "natural"])
-def test_gram_mix_and_psolve_match_jax(fx, layout):
-    rng = np.random.default_rng(3)
-    if layout == "packed":
-        a = np.asarray(pack_spinor(fx["b16t"][:4]))
-        b = np.asarray(pack_spinor(fx["b16t"][4:8]))
-        coef = rng.standard_normal((4, 4)).astype(np.float32)
-    else:
-        a, b = np.asarray(fx["b16"][:4]), np.asarray(fx["b16"][4:8])
-        coef = (rng.standard_normal((4, 4))
-                + 1j * rng.standard_normal((4, 4))).astype(np.complex64)
-    ta, tb = torch.from_numpy(np.array(a)), torch.from_numpy(np.array(b))
-    g = solvers.gram(ta, tb)
-    gj = jsol.gram(jnp.asarray(a), jnp.asarray(b))
-    assert g.dtype == torch.float32 if layout == "packed" else g.is_complex()
-    assert rel_err(g, gj) <= 1e-5
-    assert rel_err(solvers._mix(ta, torch.from_numpy(coef)),
-                   jsol._mix(jnp.asarray(a), jnp.asarray(coef))) <= 1e-5
-    # a Hermitian PSD Gram with one direction repeated: rank 3 of 4, the
-    # pseudo-solve drops the null direction as JAX's does
-    p = np.concatenate([a[:3], a[:1]])
-    gp = solvers.gram(torch.from_numpy(p), torch.from_numpy(p))
-    gpj = jsol.gram(jnp.asarray(p), jnp.asarray(p))
-    rhs = np.asarray(solvers.gram(torch.from_numpy(p), tb))
-    out = solvers._gram_psolve(gp, torch.from_numpy(rhs))
-    outj = jsol._gram_psolve(gpj, jnp.asarray(rhs))
-    assert bool(torch.isfinite(out).all())
-    assert rel_err(out, outj) <= 1e-5
-
-
-@pytest.mark.parametrize("backend", ["kernels", "reference"])
-@pytest.mark.parametrize("operator", ["eo-schur", "full"])
-def test_blockcg_n4_matches_jax(fx, backend, operator):
-    plan = tplan.SolverPlan(operator=operator, backend=backend,
-                            solver="blockcg", nrhs=4)
-    reset_counts()
-    x, st = tplan.solve(plan, fx["ut"], fx["b16t"][:4], MASS, tol=TOL,
-                        device="cpu")
-    c = counts()
-    xj, sj = jplan.solve(JaxPlan(operator=operator, solver="blockcg", nrhs=4,
-                                 **TWIN[backend]),
-                         fx["u"], fx["b16"][:4], MASS, tol=TOL, maxiter=1000)
-    assert st.iterations == int(sj.iterations)
-    assert st.rhs_iterations.tolist() == np.asarray(
-        sj.rhs_iterations).tolist()
-    assert st.iterations == (14 if operator == "eo-schur" else 27)
-    assert bool(st.verified.all()) and st.matvecs.tolist() == [
-        st.iterations] * 4
-    assert rel_err(x, xj) <= 1e-5
-    if backend == "kernels":
-        k = st.iterations
-        got = {name: v["plain_calls"] for name, v in c.items()
-               if v["plain_calls"]}
-        assert got == ({"wilson_hop": 4 * k + 4} if operator == "eo-schur"
-                       else {"wilson_full": 2 * k + 1})
-
-
-@pytest.fixture(scope="module")
-def blockcg16_twins(fx):
-    """JAX's block CG on the 16-RHS batch at mass -1.7, both backends."""
-    out = {}
-    for name, kw in TWIN.items():
-        _, sj = jplan.solve(JaxPlan(solver="blockcg", nrhs=16, **kw),
-                            fx["u"], fx["b16"], LIGHT, tol=TOL, maxiter=1000)
-        out[name] = (int(sj.iterations),
-                     np.asarray(sj.rhs_iterations).tolist())
-    return out
-
-
-@pytest.mark.parametrize("backend", ["kernels", "reference"])
-def test_blockcg_n16_light_mass(fx, blockcg16_twins, backend):
-    x, st = tplan.solve(tplan.SolverPlan(backend=backend, solver="blockcg",
-                                         nrhs=16),
-                        fx["ut"], fx["b16t"], LIGHT, tol=TOL, device="cpu")
-    loops = [t[0] for t in blockcg16_twins.values()]
-    assert near_or_between(st.iterations, loops), (st.iterations, loops)
-    for i, n in enumerate(st.rhs_iterations.tolist()):
-        assert near_or_between(n, [t[1][i] for t in
-                                   blockcg16_twins.values()])
-    assert bool(st.verified.all())
-    assert bool((st.verdict == solvers.CONVERGED).all())
-
-
-def test_blockcg_requires_full_f32_products(fx):
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        with pytest.raises(RuntimeError, match="TF32"):
-            solvers.blockcg(lambda v: v, torch.ones(2, 3))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    with pytest.raises(ValueError, match="RHS-batch"):
-        solvers.blockcg(lambda v: v, torch.ones(3))
 
 
 # ---------------------------------------------------------------------------
