@@ -10,7 +10,8 @@ operator (``operator="eo-schur"``), and CGNR on the full-lattice normal
 operator (``operator="full"``), each in f32 and in mixed precision
 (``precision="mixed"``: a bf16 inner CG through the kernels' bf16
 instances, f32 reliable updates), and the full lattice's all-bf16 cg16
-(``precision="low"``); then the other Krylov loops on the same kernels:
+(``precision="low"``), and the same on float16 storage (``low=
+"float16"``, the kernels' float16 instances); then the other Krylov loops on the same kernels:
 pipelined CG (``solver="pipecg"``), block CG (``solver="blockcg"``, the
 hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
 ``solve(..., deflation=)``).  Phases:
@@ -38,14 +39,17 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    instances), 4x4x22x16, 4x4x6x5, 2x2x2x348, 2x2x2x464, 2x2x2x928 (in
    place) and misaligned bases, K2 at N = 1 and 3 with a frozen RHS, K3
    gated and ungated on misaligned views; batched equal to single
-   launches bitwise.  K1's even Xh and K4's X = 32 run the Wilson
-   kernels' bf16 pair instances (two sites a thread, each component of
+   launches bitwise.  Then the float16 instances likewise at the same
+   shapes (1 float16 ulp, the floor at 2^-13 of the field's largest
+   entry).  K1's even Xh and K4's X = 32 run the Wilson kernels' pair
+   instances (bf16 and float16: two sites a thread, each component of
    both read as one 32-bit word), other widths and bases 2 bytes off
    4-byte alignment the one-site instances; the pair counts say which
-   ran.  At
-   16^3 x 32 each pair instance is held bitwise against its one-site
-   instance (the same inputs, copied 2 bytes off alignment) for every
-   flag set;
+   ran.  At 16^3 x 32 each pair instance, bf16 and float16, is held
+   bitwise against its one-site instance (the same inputs, copied 2
+   bytes off alignment) for every flag set; K2's and K3's float16
+   narrowing of products from 2^-14 down past 2^-24 (the subnormals) is
+   held bitwise against torch's cast;
 3. goldens: the committed 4^4 seed-7 fixture solved through the kernels
    (even-odd: 14 iterations Wilson, 13 twisted mass mu = 0.25, 14 for
    each of 4 batched RHS; full lattice: 27 in each case), and against
@@ -53,7 +57,11 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    iterations within 2 of JAX's pallas backend's count, outer equal):
    even-odd Wilson and twisted mass 15 / 4, full N = 1 35 / 5 and N = 4
    33, 33, 35, 33 / 5, cg16 27 (unverified by design), each with its
-   launch counts and no plain-version call; then the other Krylov loops
+   launch counts and no plain-version call; the same on float16 storage
+   against JAX's float16 counts (15 / 4, 15 / 4, 33 / 5, 33 x 4 / 5, 27),
+   and the even-odd and full mixed solves of 1e4 b, past float16's range,
+   at JAX's verdict 3 (stagnation) after 0 inner and 50 outer iterations
+   with a finite x; then the other Krylov loops
    (fixture batch ``b_batch16``): at mass 0.1 pipecg even-odd 14 (N = 1
    and 4, 15 matvecs) and full 30 (N = 1 and 4, 33 matvecs), blockcg
    N = 4 even-odd 14 and full 27, equal to the JAX twins' counts; at
@@ -70,8 +78,10 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    with full-lattice launches 2I+1 (2I+2 packed, whose verification
    runs the kernel).  Then mixed precision: even-odd N = 1, full N = 1
    and N = 4, and full cg16 N = 1 (which must converge in bf16 and is
-   unverified by design; its true residual is printed), with the time to
-   a verified solution beside the f32 solve's of the same path.  Then
+   unverified by design; its true residual is printed), and the same four
+   on float16 storage, with the time to a verified solution beside the
+   f32 solve's of the same path (and a float16 solve's beside its bf16
+   twin's).  Then
    the other Krylov loops: even-odd pipecg N = 1 and 4, full pipecg
    N = 1, even-odd blockcg N = 16 beside even-odd CGNR N = 16, and a
    harvest (nev 8, m_max 48, tol 1e-8, verified at 1e-6) followed by a
@@ -80,7 +90,8 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    Each solve has every count set to 0 just before it; it must converge and
    verify with a true relative residual below 10 tol, launch no other
    kernel and call no plain version; every bf16 Wilson launch of these
-   32^3 x 64 solves must run the pair instance;
+   32^3 x 64 solves must run the pair instance, and so must every float16
+   Wilson launch;
 5. timings at the main path's shapes: each kernel's median time over
    CUDA events, one call per event pair (``ms``, which includes the
    wrapper's host latency before the launch) and per call over ten
@@ -88,8 +99,9 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    behind the card's work), held once more against its plain version
    on the same inputs, beside the plain version's time, its bound and,
    for the ungated xpay, one library call computing the same function,
-   timed both ways; the bf16 instances likewise, against their bounds at
-   2 bytes a real (K3 against ``torch.addcmul`` on bf16), the Wilson
+   timed both ways; the bf16 and float16 instances likewise, against
+   their bounds at 2 bytes a real (K3 against ``torch.addcmul`` on bf16
+   and on float16), the Wilson
    kernels' labelled with the instance they ran, beside the pair
    kernels' registers and spills from the compiler's report; the hop
    kernel in f32 once more at N = 16, block CG's width, and the hop,
@@ -133,8 +145,9 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    ranks, else gloo with all four on card 0 and every halo plane and
    partial sum staged through pinned host memory (the transport, the
    device count and ``nvidia-smi -L`` printed).  Each child holds its
-   halo'd K1 (every flag set) and K4 (f32 and bf16) against the block of
-   one global launch, then runs even-odd CGNR N = 1, even-odd pipecg
+   halo'd K1 (every flag set, within HOP_TOL) and K4 (f32, bf16 and
+   float16, reading the neighbours' ghost planes: bitwise) against the
+   block of one global launch, then runs even-odd CGNR N = 1, even-odd pipecg
    N = 4 twisted mass mu = 0.25, full CGNR N = 1 and full mpcg N = 1,
    each with its counts set to 0 just before it: converged, verified on
    rank 0 and the same stats on every rank, iterations within 1 of the
@@ -146,9 +159,8 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    bitwise the one-shot mesh x, and one starved at 7 iterations that
    the parent resumes on one device to a verified x.  Each solve's
    walls, rank 0's host time inside the collectives and each rank's
-   peak memory are printed beside the single-device wall.
-   The halo'd K4 bf16's max-abs against the global launch is printed
-   beside the 0.125 measured before;
+   peak memory are printed beside the single-device wall and the walls
+   measured when K4 corrected its boundary planes afterwards;
 10. the launch space: every candidate tile of K1 and K4
    (``repro_torch.kernels.autotune.candidates``: K1's rows b, K4's b and
    block-order chunk tchunk), f32 and bf16, N = 1 and 4, at the main
@@ -167,8 +179,8 @@ TF32 is off for matrix products before any phase.
 
 Any failure raises; no phase's error is caught.  The last line is the
 JSON object ``{"ok": true, "device": {...}}``; the line before it lists
-the kernels, the bf16 instances as ``<kernel>_bf16`` (with the Wilson
-kernels' instance).  Exits non-zero without printing a result when there is no
+the kernels, the bf16 and float16 instances as ``<kernel>_bf16`` and
+``<kernel>_f16`` (with the Wilson kernels' pair launches).  Exits non-zero without printing a result when there is no
 CUDA device or the port's sources are missing.
 """
 
@@ -204,7 +216,14 @@ HOP_TOL = 1e-5                   # max-abs over max(1, max |plain|): f32 order
 EO_GOLDEN, FULL_GOLDEN = 14, 27  # 4^4 seed-7 Wilson iterations (JAX reference)
 CG_TOL = 1e-5                    # max-abs on fields, relative on norms
 BF16 = torch.bfloat16
-ULP_FLOOR = 2.0 ** -16           # bf16 checks: see bf16_check
+F16 = torch.float16
+# 16-bit storage checks (see narrow_check): the significant bits of each
+# type, and the floor below which an entry is held to the floor's ulp
+# (2^-16 of the field's largest entry for bf16, 2^-13 for float16: the
+# same absolute floor, about 2^-23 of the scale, where two f32 orders of
+# the same sums differ)
+NARROW = {BF16: (8, 2.0 ** -16), F16: (11, 2.0 ** -13)}
+SUFFIX = {torch.float32: "", BF16: "_bf16", F16: "_f16"}
 # 4^4 seed-7 mixed goldens: (name, plan fields, batched, inner per RHS,
 # outer), the inner counts of JAX's pallas backend (its CPU lowering; the
 # reference backend's are 33 / 33 x 4 on the full lattice), held to +-2
@@ -216,6 +235,22 @@ MIXED_GOLDENS = (
     ("full_mixed_n4", dict(operator="full", precision="mixed", nrhs=4), True,
      [33, 33, 35, 33], 5),
     ("full_cg16", dict(operator="full", precision="low"), False, [27], 1))
+# the same goldens on float16 storage (low="float16"): JAX's counts, its
+# reference and pallas backends alike, held to +-2 inner
+F16_GOLDENS = (
+    ("eo_mixed_f16", dict(precision="mixed"), False, [15], 4),
+    ("eo_mixed_tm_f16", dict(precision="mixed",
+                             operator_family="twisted-mass", mu=0.25), False,
+     [15], 4),
+    ("full_mixed_f16", dict(operator="full", precision="mixed"), False, [33],
+     5),
+    ("full_mixed_n4_f16", dict(operator="full", precision="mixed", nrhs=4),
+     True, [33] * 4, 5),
+    ("full_cg16_f16", dict(operator="full", precision="low"), False, [27], 1))
+# b scaled past float16's range: JAX overflows in the first inner matvec
+# and stops at verdict 3 (stagnation) after 0 inner and 50 outer
+# iterations with a finite x, on both its backends; so must the port
+F16_OVERFLOW_SCALE = 1e4
 # 4^4 seed-7 goldens of the other Krylov loops at mass 0.1: (name, plan
 # fields, RHS count, iterations per RHS, matvecs), the JAX twins' counts
 # (reference and pallas backends alike)
@@ -288,36 +323,39 @@ def kernel_ms(fn, prefix: str = "ms") -> dict:
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    if a.dtype == BF16:
+    if a.dtype in NARROW:
         a, b = a.float(), b.float()
     return float((a - b).abs().max())
 
 
-def bf16_check(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
-    """A bf16 instance against its plain version: at most 1 bf16 ulp per
-    entry.  An entry that cancels below ULP_FLOOR of the field's largest
-    entry, where two f32 evaluations of the same sums in another order
-    differ by more than its own ulp, is held to the ulp at that floor.
-    Returns the max-abs error."""
-    check(out.dtype == ref.dtype == BF16, f"{what}: not bf16 ({out.dtype})")
-    bits = [v.contiguous().view(torch.int16).int() for v in (out, ref)]
-    ords = [torch.where(v < 0, -(v & 0x7FFF), v) for v in bits]
+def narrow_check(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    """A bf16 or float16 instance against its plain version: at most 1 ulp
+    of the storage type per entry.  An entry that cancels below the type's
+    floor (NARROW) of the field's largest entry, where two f32 evaluations
+    of the same sums in another order differ by more than its own ulp, is
+    held to the ulp at that floor.  Returns the max-abs error."""
+    check(out.dtype == ref.dtype and out.dtype in NARROW,
+          f"{what}: not one 16-bit storage type ({out.dtype}, {ref.dtype})")
+    bits, floor_frac = NARROW[out.dtype]
+    ints = [v.contiguous().view(torch.int16).int() for v in (out, ref)]
+    ords = [torch.where(v < 0, -(v & 0x7FFF), v) for v in ints]
     a, b = out.double(), ref.double()
-    _, e = torch.frexp(ULP_FLOOR * b.abs().max())
+    _, e = torch.frexp(floor_frac * b.abs().max())
     floor = torch.ldexp(torch.ones((), dtype=torch.float64, device=b.device),
-                        e - 8)
+                        e - bits)
     ulps = (ords[0] - ords[1]).abs()
     ok = (ulps <= 1) | ((a - b).abs() <= floor)
     check(bool(ok.all()), f"{what}: {int((~ok).sum())} entries beyond 1 "
-                          f"bf16 ulp (max {int(ulps.max())} ulps)")
+                          f"{out.dtype} ulp (max {int(ulps.max())} ulps)")
     return float((a - b).abs().max())
 
 
 def agree(out, ref, what: str) -> float:
     """The kernel-against-plain check of the output's dtype: f32 max-abs
-    <= HOP_TOL * max(1, max |plain|), bf16 by :func:`bf16_check`."""
-    if out.dtype == BF16:
-        return bf16_check(out, ref, what)
+    <= HOP_TOL * max(1, max |plain|), bf16 and float16 by
+    :func:`narrow_check`."""
+    if out.dtype in NARROW:
+        return narrow_check(out, ref, what)
     err = max_err(out, ref)
     check(err <= HOP_TOL * scale(ref), f"{what}: max-abs error {err}")
     return err
@@ -360,8 +398,9 @@ def random_packed(gen, dims, n, dtype=torch.float32):
 
 
 def check_hop(dev, gen, dims, dtype=torch.float32) -> float:
-    """K1 for every flag set, N = 1 and 3, against its plain version (f32
-    or bf16 storage); each batched RHS bitwise against its single launch."""
+    """K1 for every flag set, N = 1 and 3, against its plain version (f32,
+    bf16 or float16 storage); each batched RHS bitwise against its single
+    launch."""
     from repro_torch.kernels.wilson_dslash.kernel import wilson_hop
     from repro_torch.kernels.wilson_dslash.ref import wilson_hop_ref
     upe, upo, psi, acc = random_packed(gen, dims, 3, dtype)
@@ -413,16 +452,18 @@ def pair_launches() -> dict:
     return kernels.pair_launches()
 
 
-def check_pairs(dev, gen, dims) -> dict:
-    """The bf16 pair instances of K1 and K4 against their one-site
-    instances, bitwise, for every flag set at N = 3: the pair instance on
-    the fields as allocated, the one-site instance on copies of the
-    spinors 2 bytes off 4-byte alignment; each launch's instance read from
-    the pair counts.  Returns the launches of each instance."""
+def check_pairs(dev, gen, dims, dtype=BF16) -> dict:
+    """The pair instances of K1 and K4 (bf16 or float16 storage) against
+    their one-site instances, bitwise, for every flag set at N = 3: the
+    pair instance on the fields as allocated, the one-site instance on
+    copies of the spinors 2 bytes off 4-byte alignment; each launch's
+    instance read from the pair counts.  Returns the launches of each
+    instance."""
     from repro_torch.core import lattice as tl
     from repro_torch.kernels.wilson_dslash.kernel import (wilson_full,
                                                           wilson_hop)
-    upe, upo, psi, acc = random_packed(gen, dims, 3, BF16)
+    sfx = SUFFIX[dtype]
+    upe, upo, psi, acc = random_packed(gen, dims, 3, dtype)
     psi2, acc2 = off_by_one_float(psi, 2), off_by_one_float(acc, 2)
     ran = {"pair": 0, "one-site": 0}
 
@@ -448,23 +489,23 @@ def check_pairs(dev, gen, dims) -> dict:
                   hop_twist=0.2 if twist else 0.0,
                   acc_coeff=1.7 if has_acc else 0.0,
                   acc_twist=-0.4 if (has_acc and twist) else 0.0)
-        both("wilson_hop_bf16",
+        both("wilson_hop" + sfx,
              lambda: wilson_hop(u_out, u_nbr, psi,
                                 psi_acc=acc if has_acc else None, **kw),
              lambda: wilson_hop(u_out, u_nbr, psi2,
                                 psi_acc=acc2 if has_acc else None, **kw),
-             f"wilson_hop bf16 {dims} {kw} has_acc={has_acc}")
+             f"wilson_hop {dtype} {dims} {kw} has_acc={has_acc}")
     lat = tl.LatticeShape(*dims)
-    up = tl.pack_gauge(tl.random_gauge(gen, lat), BF16)
+    up = tl.pack_gauge(tl.random_gauge(gen, lat), dtype)
     pp = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
-                                     for _ in range(3)]), BF16)
+                                     for _ in range(3)]), dtype)
     pp2 = off_by_one_float(pp, 2)
     for g5in, g5out, twist in itertools.product((False, True),
                                                 (False, True), (0.0, MU)):
         kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
-        both("wilson_full_bf16", lambda: wilson_full(up, pp, MASS, **kw),
+        both("wilson_full" + sfx, lambda: wilson_full(up, pp, MASS, **kw),
              lambda: wilson_full(up, pp2, MASS, **kw),
-             f"wilson_full bf16 {dims} {kw}")
+             f"wilson_full {dtype} {dims} {kw}")
     torch.cuda.synchronize()
     return ran
 
@@ -472,7 +513,7 @@ def check_pairs(dev, gen, dims) -> dict:
 def check_full(dev, gen, dims, misaligned: str = "",
                dtype=torch.float32) -> float:
     """K4 for every gamma5 flag pair with and without twist, N = 1 and 3,
-    against its plain version (f32 or bf16 storage); each batched RHS
+    against its plain version (f32, bf16 or float16 storage); each batched RHS
     bitwise against its single launch.  ``misaligned`` ("psi" or
     "gauge"): that field's base pointer lies 4 bytes off 16-byte
     alignment."""
@@ -580,13 +621,14 @@ def check_xpay_misaligned(dev, gen) -> float:
     return worst
 
 
-def check_cg_bf16(dev, gen) -> tuple[float, float]:
-    """The bf16 instances of K2 and K3: N = 1 and 4 with a frozen RHS, K3
-    gated and ungated, on views 0, 1, 3 and 7 elements off 16-byte
-    alignment (alike, and the fields against each other) at a ragged
-    length and at a half field's; within 1 bf16 ulp of the plain version,
-    the norms (f32, of r' before rounding) 1e-5 relative, frozen lanes and
-    closed gates bitwise, each RHS bitwise equal to its single call."""
+def check_cg_narrow(dev, gen, dtype=BF16) -> tuple[float, float]:
+    """The bf16 (or float16) instances of K2 and K3: N = 1 and 4 with a
+    frozen RHS, K3 gated and ungated, on views 0, 1, 3 and 7 elements off
+    16-byte alignment (alike, and the fields against each other) at a
+    ragged length and at a half field's; within 1 ulp of the plain
+    version, the norms (f32, of r' before rounding) 1e-5 relative, frozen
+    lanes and closed gates bitwise, each RHS bitwise equal to its single
+    call."""
     from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
     from repro_torch.kernels.cg_fused.ref import cg_update_ref, cg_xpay_ref
     worst_u = worst_x = 0.0
@@ -595,49 +637,80 @@ def check_cg_bf16(dev, gen) -> tuple[float, float]:
                                (8 ** 4 * 12, 4, (0, 0)),
                                (8 ** 4 * 12, 1, (1, 5))):
         bufs = [torch.randn(n * length + 16, generator=gen,
-                            device=dev).to(BF16) for _ in range(4)]
+                            device=dev).to(dtype) for _ in range(4)]
         x, r, p, ap = (buf[o:o + n * length].view(n, length)
                        for buf, o in zip(bufs, offsets + offsets))
-        where = f"L={length} N={n} offsets {offsets}"
+        where = f"{dtype} L={length} N={n} offsets {offsets}"
         alpha = torch.linspace(0.3, -0.9, n, device=dev)
         if n > 1:
             alpha[1] = 0.0
         xo, ro, rs = cg_update(alpha, x, r, p, ap)
         xr, rr, rsr = cg_update_ref(alpha, x, r, p, ap)
-        worst_u = max(worst_u, bf16_check(xo, xr, f"cg_update bf16 {where}"),
-                      bf16_check(ro, rr, f"cg_update bf16 {where}"))
+        worst_u = max(worst_u, narrow_check(xo, xr, f"cg_update {where}"),
+                      narrow_check(ro, rr, f"cg_update {where}"))
         rel = float(((rs - rsr).abs() / rsr).max())
         check(rs.dtype == torch.float32 and rel <= CG_TOL,
-              f"cg_update bf16 {where}: norm error {rel}")
+              f"cg_update {where}: norm error {rel}")
         if n > 1:
             check(torch.equal(xo[1], x[1]) and torch.equal(ro[1], r[1]),
-                  f"cg_update bf16 {where}: frozen lane changed")
+                  f"cg_update {where}: frozen lane changed")
         beta = torch.linspace(0.1, 0.9, n, device=dev)
         gate = torch.arange(n, device=dev) % 2 == 0
         outs = {}
         for g in (None, gate):
             po = cg_xpay(beta, r, p, g)
-            worst_x = max(worst_x, bf16_check(po, cg_xpay_ref(beta, r, p, g),
-                                              f"cg_xpay bf16 {where}"))
+            worst_x = max(worst_x, narrow_check(po, cg_xpay_ref(beta, r, p, g),
+                                                f"cg_xpay {where}"))
             if g is not None and n > 1:
                 check(torch.equal(po[1], p[1]),
-                      f"cg_xpay bf16 {where}: closed gate changed p")
+                      f"cg_xpay {where}: closed gate changed p")
             outs[g is None] = po
         for i in range(n):
             sx, sr, srs = cg_update(alpha[i:i + 1], x[i:i + 1], r[i:i + 1],
                                     p[i:i + 1], ap[i:i + 1])
             check(torch.equal(sx[0], xo[i]) and torch.equal(sr[0], ro[i])
                   and torch.equal(srs[0], rs[i]),
-                  f"cg_update bf16 {where}: RHS {i} differs from its single "
+                  f"cg_update {where}: RHS {i} differs from its single "
                   "call")
             for ungated, po in outs.items():
                 single = cg_xpay(beta[i:i + 1], r[i:i + 1], p[i:i + 1],
                                  None if ungated else gate[i:i + 1])
                 check(torch.equal(single[0], po[i]),
-                      f"cg_xpay bf16 {where}: RHS {i} differs from its "
+                      f"cg_xpay {where}: RHS {i} differs from its "
                       "single call")
     torch.cuda.synchronize()
     return worst_u, worst_x
+
+
+def check_f16_narrowing(dev, gen) -> dict:
+    """float16's rounding of small values in the kernels, bitwise against
+    torch's cast: K2's x' = x + a p with x = 0 and K3's p' = r + b p with
+    r = 0 compute the f32 product a p exactly as torch does and narrow it
+    once; with p in [0.5, 2) and a = 1.37 * 2^-14 .. 2^-26 (one RHS each)
+    the products span float16's subnormal range (below 2^-14) down to
+    below its smallest subnormal (2^-24), through the scalar head and tail
+    (``__float2half_rn``) and the 16-byte body (``__floats2half2_rn``) of
+    a ragged RHS.  Returns the count of entries checked and of subnormal
+    and zero results."""
+    from repro_torch.kernels.cg_fused.kernel import cg_update, cg_xpay
+    length, ks = 12345, range(14, 27)
+    a = torch.tensor([1.37 * 2.0 ** -k for k in ks], device=dev)
+    n = len(a)
+    buf = torch.empty(n * length + 8, device=dev).uniform_(
+        0.5, 2.0, generator=gen).to(F16)
+    p = buf[3:3 + n * length].view(n, length)   # 6 bytes off 16
+    zero = torch.zeros(n, length, dtype=F16, device=dev)
+    want = (a[:, None] * p.float()).to(F16)
+    xo, _, _ = cg_update(a, zero, zero, p, p)
+    check(torch.equal(xo, want), "float16 narrowing (K2): "
+          f"{int((xo != want).sum())} entries differ from torch's cast")
+    po = cg_xpay(a, zero, p)
+    check(torch.equal(po, want), "float16 narrowing (K3): "
+          f"{int((po != want).sum())} entries differ from torch's cast")
+    torch.cuda.synchronize()
+    sub = (want != 0) & (want.float().abs() < 2.0 ** -14)
+    return dict(entries=2 * want.numel(), subnormal=int(sub.sum()),
+                zero=int((want == 0).sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -683,22 +756,25 @@ def harvest_counted(plan, u, b, dev, mass, **kw):
 
 def want_launches(plan, st, layout="natural", harvest=False) -> dict:
     """Kernel launches of a solve of k (inner) iterations, o reliable
-    updates and m Krylov matvecs (k, or k + 1 from a deflated start;
+    updates and m Krylov matvecs (the inner ones on the instances of the
+    plan's low storage) (k, or k + 1 from a deflated start;
     pipecg k + 1 + 2 (k // 25); a harvest k + min(nev, k)); every other
     kernel runs 0.  Only single-device CGNR drives the fused CG kernels
     (a mesh solve's loops run plain vector algebra, as JAX's do)."""
     k, o = st.iterations, st.outer_iterations
     mv = int(torch.atleast_1d(st.matvecs).max())
     packed = int(layout == "packed")
+    lo = SUFFIX.get(plan.low_dtype, "") if plan.precision != "single" else ""
     if plan.operator == "full":
         if plan.precision == "mixed":
-            return {"wilson_full_bf16": 2 * k, "wilson_full": 2 * o + 1 + packed}
+            return {"wilson_full" + lo: 2 * k,
+                    "wilson_full": 2 * o + 1 + packed}
         if plan.precision == "low":
-            return {"wilson_full_bf16": 2 * k, "wilson_full": 1 + packed}
+            return {"wilson_full" + lo: 2 * k, "wilson_full": 1 + packed}
         return {"wilson_full": 2 * mv + 1 + packed}
     if plan.precision == "mixed":
-        return {"wilson_hop_bf16": 4 * k, "wilson_hop": 4 * o + 4,
-                "cg_update_bf16": k, "cg_xpay_bf16": k}
+        return {"wilson_hop" + lo: 4 * k, "wilson_hop": 4 * o + 4,
+                "cg_update" + lo: k, "cg_xpay" + lo: k}
     if plan.solver != "cgnr" or harvest or plan.mesh is not None:
         return {"wilson_hop": 4 * mv + 4}
     return {"wilson_hop": 4 * mv + 4, "cg_update": k, "cg_xpay": k}
@@ -787,21 +863,44 @@ def goldens(dev):
         check(err <= 1e-4, f"golden {name}: kernels vs reference backend "
                            f"x differ by {err} (relative)")
         out[name] = its
-    for name, kw, batched, want, outer in MIXED_GOLDENS:
-        plan = SP(**kw)
-        x, st, counts, pairs, _, _ = solve_counted(
-            plan, u, batch if batched else b, dev)
-        its = st.rhs_iterations.tolist() if batched else [st.iterations]
-        check(len(its) == len(want)
-              and all(abs(i - w) <= 2 for i, w in zip(its, want))
-              and st.outer_iterations == outer,
-              f"golden {name}: iterations {its} / {st.outer_iterations} "
-              f"outer, want {want} (+-2) / {outer}")
-        check_solve(name, st, rel_res(st, batch if batched else b, batched),
-                    verified=plan.precision == "mixed")
-        check_launches(name, st, counts, plan)
-        out[name] = dict(inner=its, outer=st.outer_iterations,
-                         pair_launches=pairs)
+    # bf16 storage, then float16: the same loops on each type's instances
+    for table, low in ((MIXED_GOLDENS, "bfloat16"), (F16_GOLDENS, "float16")):
+        for name, kw, batched, want, outer in table:
+            plan = SP(low=low, **kw)
+            x, st, counts, pairs, _, _ = solve_counted(
+                plan, u, batch if batched else b, dev)
+            its = st.rhs_iterations.tolist() if batched else [st.iterations]
+            check(len(its) == len(want)
+                  and all(abs(i - w) <= 2 for i, w in zip(its, want))
+                  and st.outer_iterations == outer,
+                  f"golden {name}: iterations {its} / "
+                  f"{st.outer_iterations} outer, want {want} (+-2) / "
+                  f"{outer}")
+            check_solve(name, st, rel_res(st, batch if batched else b,
+                                          batched),
+                        verified=plan.precision == "mixed")
+            check_launches(name, st, counts, plan)
+            check(bool(torch.isfinite(x).all()),
+                  f"golden {name}: x not finite")
+            out[name] = dict(inner=its, outer=st.outer_iterations,
+                             pair_launches=pairs)
+    # past float16's range: JAX's verdict and counts, a finite x
+    from repro_torch.core import solvers
+    for name, kw in (("eo_mixed_f16_overflow", {}),
+                     ("full_mixed_f16_overflow", dict(operator="full"))):
+        plan = SP(low="float16", precision="mixed", **kw)
+        x, st, counts, _, _, _ = solve_counted(plan, u,
+                                               b * F16_OVERFLOW_SCALE, dev)
+        check(int(st.verdict) == solvers.STAGNATION and st.iterations == 0
+              and st.outer_iterations == 50 and not bool(st.verified)
+              and bool(torch.isfinite(x).all()),
+              f"golden {name}: verdict {int(st.verdict)}, {st.iterations} / "
+              f"{st.outer_iterations}, verified {bool(st.verified)}, want "
+              "verdict 3 (stagnation) after 0 / 50 with a finite x")
+        check(not any(v["plain_calls"] for v in counts.values()),
+              f"golden {name}: a plain version ran")
+        out[name] = dict(verdict=int(st.verdict), inner=st.iterations,
+                         outer=st.outer_iterations)
     out.update(krylov_goldens(dev, u, b, batch16))
     return out
 
@@ -901,7 +1000,17 @@ def main_path(dev):
             ("full_mixed_n4", SP(operator="full", precision="mixed", nrhs=4),
              batch, "natural"),
             ("full_cg16_n1", SP(operator="full", precision="low"), b,
-             "natural")):
+             "natural"),
+            # float16 storage: the same solves on the float16 instances
+            ("eo_mixed_f16_n1", SP(precision="mixed", low="float16"), b,
+             "natural"),
+            ("full_mixed_f16_n1", SP(operator="full", precision="mixed",
+                                     low="float16"), b, "natural"),
+            ("full_mixed_f16_n4", SP(operator="full", precision="mixed",
+                                     low="float16", nrhs=4), batch,
+             "natural"),
+            ("full_cg16_f16_n1", SP(operator="full", precision="low",
+                                    low="float16"), b, "natural")):
         gauge = u
         if layout == "packed":
             gauge, rhs = tl.pack_gauge(u), tl.pack_spinor(rhs)
@@ -933,6 +1042,10 @@ def main_path(dev):
                           ("full_mixed_n1", "full_wilson_n1"),
                           ("full_mixed_n4", "full_wilson_n4"),
                           ("full_cg16_n1", "full_wilson_n1"),
+                          ("eo_mixed_f16_n1", "wilson_n1"),
+                          ("full_mixed_f16_n1", "full_wilson_n1"),
+                          ("full_mixed_f16_n4", "full_wilson_n4"),
+                          ("full_cg16_f16_n1", "full_wilson_n1"),
                           ("eo_pipecg_n1", "wilson_n1"),
                           ("eo_pipecg_n4", "wilson_n4"),
                           ("full_pipecg_n1", "full_wilson_n1"),
@@ -940,10 +1053,16 @@ def main_path(dev):
                           ("eo_harvest_n1", "wilson_n1"),
                           ("eo_deflated_n1", "wilson_n1")):
         m, f = runs[other], runs[single]
+        bf = ""   # a float16 solve beside the same solve on bf16 storage
+        if "_f16" in other:
+            twin = runs[other.replace("_f16", "")]
+            bf = (f", on bf16 storage {twin['wall_s']:.4f} s (iterations "
+                  f"{twin['iterations']} / {twin['outer']} outer against "
+                  f"{m['iterations']} / {m['outer']})")
         log(f"time to solution {other}: {m['wall_s']:.4f} s "
-            f"({'verified' if other != 'full_cg16_n1' else 'unverified'}), "
+            f"({'unverified' if 'cg16' in other else 'verified'}), "
             f"{single} (cgnr, f32) {f['wall_s']:.4f} s, ratio "
-            f"{m['wall_s'] / f['wall_s']:.3f}; peak memory "
+            f"{m['wall_s'] / f['wall_s']:.3f}{bf}; peak memory "
             f"{m['peak_bytes'] / 2**30:.3f} against "
             f"{f['peak_bytes'] / 2**30:.3f} GiB")
     return u, b, batch, batch16, basis, runs
@@ -1020,9 +1139,9 @@ def bound(nbytes: float, flops: float, bw: float) -> dict:
 
 
 def instance_label(dtype, name: str, before: int) -> str:
-    """", pair instance" or ", one-site instance" for a bf16 Wilson call
+    """", pair instance" or ", one-site instance" for a 16-bit Wilson call
     just made (the pair count was ``before``), "" for f32."""
-    if dtype != BF16:
+    if dtype not in NARROW:
         return ""
     ran = pair_launches()[name] - before
     return ", pair instance" if ran else ", one-site instance"
@@ -1063,9 +1182,10 @@ def time_hop(u, b, batch, bw, n, dtype=torch.float32):
     m = MASS + 4.0
     kw = dict(parity=0, gamma5_out=True, psi_acc=pe, acc_coeff=m,
               hop_coeff=-1.0 / m)
-    before = pair_launches()["wilson_hop_bf16"]
+    pname = "wilson_hop" + (SUFFIX[dtype] or "_bf16")
+    before = pair_launches()[pname]
     out = wilson_hop(upe, upo, po, **kw)
-    instance = instance_label(dtype, "wilson_hop_bf16", before)
+    instance = instance_label(dtype, pname, before)
     ref = wilson_hop_ref(upe, upo, po, **kw)
     err = agree(out, ref, f"wilson_hop {dtype} main shape N={n}")
     del out, ref
@@ -1093,9 +1213,10 @@ def time_full(u, b, batch, bw, n, dtype=torch.float32):
     pp = tl.pack_spinor(b if n == 1 else batch, dtype)
     # the normal operator's second launch: D^dag with both gamma5 flags
     kw = dict(gamma5_in=True, gamma5_out=True)
-    before = pair_launches()["wilson_full_bf16"]
+    pname = "wilson_full" + (SUFFIX[dtype] or "_bf16")
+    before = pair_launches()[pname]
     out = wilson_full(up, pp, MASS, **kw)
-    instance = instance_label(dtype, "wilson_full_bf16", before)
+    instance = instance_label(dtype, pname, before)
     ref = wilson_full_ref(up, pp, MASS, **kw)
     err = agree(out, ref, f"wilson_full {dtype} main shape N={n}")
     del out, ref
@@ -1134,10 +1255,10 @@ def time_cg(dev, bw, n, length, dtype=torch.float32):
     xo, ro, rs = cg_update(alpha, x, r, p, ap)
     xr, rr, rsr = cg_update_ref(alpha, x, r, p, ap)
     rel = float(((rs - rsr).abs() / rsr).max())
-    if dtype == BF16:
-        err = max(bf16_check(xo, xr, f"cg_update bf16 main shape N={n}"),
-                  bf16_check(ro, rr, f"cg_update bf16 main shape N={n}"))
-        check(rel <= CG_TOL, f"cg_update bf16 main shape N={n}: norm "
+    if dtype in NARROW:
+        err = max(narrow_check(xo, xr, f"cg_update {dtype} main shape N={n}"),
+                  narrow_check(ro, rr, f"cg_update {dtype} main shape N={n}"))
+        check(rel <= CG_TOL, f"cg_update {dtype} main shape N={n}: norm "
                              f"error {rel}")
     else:
         err = max(max_err(xo, xr), max_err(ro, rr))
@@ -1153,9 +1274,9 @@ def time_cg(dev, bw, n, length, dtype=torch.float32):
     gated = n > 1  # the batched solve passes its gate, the single one none
     g = gate if gated else None
     po = cg_xpay(beta, r, p, g)
-    if dtype == BF16:
-        err = bf16_check(po, cg_xpay_ref(beta, r, p, g),
-                         f"cg_xpay bf16 main shape N={n}")
+    if dtype in NARROW:
+        err = narrow_check(po, cg_xpay_ref(beta, r, p, g),
+                           f"cg_xpay {dtype} main shape N={n}")
     else:
         err = max_err(po, cg_xpay_ref(beta, r, p, g))
         check(err <= CG_TOL, f"cg_xpay main shape N={n}: error {err}")
@@ -1628,11 +1749,17 @@ MESH_SOLVES = (
 MESH_STARVE = 7          # the starved checkpointed run's maxiter
 MESH_PG_TIMEOUT_S = 120  # every collective of the children
 MESH_DEADLINE_S = 900    # the children's join deadline
-# bf16 halo'd against global K4: the boundary planes round twice (the
-# bulk's output, then the correction), so 2 bf16 ulps of the scale
-MESH_BF16_TOL = 2.0 ** -6
-# its max-abs on the card before (0.125, one bf16 ulp at |x| in [16, 32))
+# the halo'd K4 bf16's max-abs against one global launch on the card when
+# it corrected its boundary planes afterwards (0.125, one bf16 ulp at |x|
+# in [16, 32)); it now reads ghost planes and is held bitwise
 MESH_BF16_MAX_ABS_BEFORE = 0.125
+# each mesh solve's wall on the card (seconds, the slowest rank) in the two
+# runs with K4's plane corrections (PERF.md section 6): printed beside
+# this run's
+MESH_WALLS_BEFORE = {"eo_cgnr_n1": (2.2896, 2.2419),
+                     "eo_pipecg_n4_tm": (8.2832, 8.8186),
+                     "full_cgnr_n1": (3.3403, 2.7437),
+                     "full_mpcg_n1": (3.4331, 2.3943)}
 
 
 def mesh_fields(dev):
@@ -1656,8 +1783,10 @@ def sha256(t: torch.Tensor) -> str:
 
 def halo_kernel_checks(mesh, u, b) -> dict:
     """The halo'd K1 and K4 on this rank's block against the block of one
-    global launch: K1 for every flag set of phase 2 (f32), K4 for every
-    gamma5 flag pair with and without twist, f32 and bf16."""
+    global launch: K1 for every flag set of phase 2 (f32, within HOP_TOL:
+    its boundary planes are corrected afterwards), K4 for every gamma5
+    flag pair with and without twist, f32, bf16 and float16, bitwise (it
+    reads the neighbours' ghost planes)."""
     from repro_torch.core import distributed as dist
     from repro_torch.core import lattice as tl
     from repro_torch.kernels.wilson_dslash import ops as wops
@@ -1672,7 +1801,8 @@ def halo_kernel_checks(mesh, u, b) -> dict:
         (po, psi_spec)))
     prev = (dist.link_halos(mesh, sharded, ue),
             dist.link_halos(mesh, sharded, uo))
-    worst = {"wilson_hop": 0.0, "wilson_full": 0.0, "wilson_full_bf16": 0.0}
+    worst = {"wilson_hop": 0.0, "wilson_full": 0.0, "wilson_full_bf16": 0.0,
+             "wilson_full_f16": 0.0}
     for parity, g5in, g5out, has_acc, twist in itertools.product(
             (0, 1), (False, True), (False, True), (False, True),
             (False, True)):
@@ -1696,8 +1826,8 @@ def halo_kernel_checks(mesh, u, b) -> dict:
         worst["wilson_hop"] = max(worst["wilson_hop"], err)
     del upe, upo, pe, po, ue, uo, pel, pol, prev
     up, pp = tl.pack_gauge(u), tl.pack_spinor(b)
-    for dtype, name in ((torch.float32, "wilson_full"),
-                        (BF16, "wilson_full_bf16")):
+    for dtype in (torch.float32, BF16, F16):
+        name = "wilson_full" + SUFFIX[dtype]
         upd, ppd = up.to(dtype), pp.to(dtype)
         upl, ppl = dist.shard_lattice_fields(mesh, upd, ppd)
         prev = dist.link_halos(mesh, sharded, upl)
@@ -1709,9 +1839,9 @@ def halo_kernel_checks(mesh, u, b) -> dict:
             out = dist.dslash_halo(upl, ppl, MASS, mesh, sharded, u_prev=prev,
                                    **kw)
             err = max_err(out, ref)
-            tol = HOP_TOL if dtype == torch.float32 else MESH_BF16_TOL
-            check(out.dtype == dtype and err <= tol * scale(ref),
-                  f"mesh halo {name} {kw}: max-abs error {err}")
+            check(out.dtype == dtype and torch.equal(out, ref),
+                  f"mesh halo {name} {kw}: not bitwise one global launch "
+                  f"(max-abs error {err})")
             worst[name] = max(worst[name], err)
         del upd, ppd, upl, ppl, prev
     torch.cuda.synchronize()
@@ -1874,7 +2004,8 @@ def mesh_phase(dev, card) -> dict:
     gen.manual_seed(9)
     errs = {"wilson_hop": check_hop(dev, gen, local),
             "wilson_full": check_full(dev, gen, local),
-            "wilson_full_bf16": check_full(dev, gen, local, dtype=BF16)}
+            "wilson_full_bf16": check_full(dev, gen, local, dtype=BF16),
+            "wilson_full_f16": check_full(dev, gen, local, dtype=F16)}
     log(f"mesh: kernels at the block shape {local}: " + json.dumps(errs))
     u, b, batch = mesh_fields(dev)
     sha = [sha256(v) for v in (u, b, batch)]
@@ -1954,13 +2085,16 @@ def mesh_phase(dev, card) -> dict:
                 f"planes {coll.get('spinor_planes', 0)} "
                 f"({coll.get('spinor_bytes', 0) / 1e6:.1f} MB sent), link "
                 f"planes {coll['link_planes']}; wall {max(walls):.4f} s "
-                f"(ranks {[f'{w:.4f}' for w in walls]}) against "
+                f"(ranks {[f'{w:.4f}' for w in walls]}; with K4's plane "
+                f"corrections {MESH_WALLS_BEFORE[name][0]} and "
+                f"{MESH_WALLS_BEFORE[name][1]} s) against "
                 f"{one['wall_s']:.4f} s on one device; rank 0's host wall "
                 f"inside collectives "
                 f"{ {k: round(v, 4) for k, v in secs.items() if v} } s; "
                 f"peak {[f'{p:.3f}' for p in peaks]} GiB a rank ({card})")
             out[name] = dict(iterations=mine, outer=st["outer"],
                              single=theirs, x_rel_err=err, walls_s=walls,
+                             walls_before_s=MESH_WALLS_BEFORE[name],
                              single_wall_s=one["wall_s"], peaks_gib=peaks,
                              launches=ranks[0]["solves"][name]["launches"],
                              collectives=coll, collective_s=secs)
@@ -2017,10 +2151,12 @@ def mesh_phase(dev, card) -> dict:
             f" GiB; halo'd kernels against global launches (max-abs) "
             f"{json.dumps(ranks[0]['halo_checks'])}; children "
             f"{out['children_s']:.1f} s ({card})")
-        k4 = max(rk["halo_checks"]["wilson_full_bf16"] for rk in ranks)
-        log(f"mesh: K4 bf16 halo'd against one global launch: max-abs "
-            f"{k4:.6g} over every rank (before: {MESH_BF16_MAX_ABS_BEFORE}) "
-            f"({card})")
+        k4 = {n: max(rk["halo_checks"][n] for rk in ranks)
+              for n in ("wilson_full", "wilson_full_bf16", "wilson_full_f16")}
+        log(f"mesh: K4 halo'd (ghost reads) against one global launch, "
+            f"bitwise in f32, bf16 and float16 on every rank: max-abs "
+            f"{json.dumps(k4)} (bf16 with plane corrections: "
+            f"{MESH_BF16_MAX_ABS_BEFORE}) ({card})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -2197,26 +2333,41 @@ def main() -> int:
     errs["wilson_hop_bf16"] = max(check_hop(dev, gen, dims, BF16) for dims in (
         (8, 8, 8, 8), (4, 6, 8, 16), (4, 4, 4, 4), (4, 4, 6, 6),
         (4, 4, 22, 8), (2, 2, 2, 348), (2, 2, 2, 700)))
-    errs["cg_update_bf16"], errs["cg_xpay_bf16"] = check_cg_bf16(dev, gen)
+    errs["cg_update_bf16"], errs["cg_xpay_bf16"] = check_cg_narrow(dev, gen)
     errs["wilson_full_bf16"] = max(
         [check_full(dev, gen, dims, dtype=BF16) for dims in (
             (8, 8, 8, 8), (4, 4, 8, 32), (4, 4, 22, 16), (4, 4, 6, 5),
             (2, 2, 2, 348), (2, 2, 2, 464), (2, 2, 2, 928))]
         + [check_full(dev, gen, (4, 4, 6, 8), which, BF16)
            for which in ("psi", "gauge")])
-    # the bf16 Wilson checks above: even Xh (K1) and X = 32 (K4) ran the
+    # the float16 instances at the bf16 shapes
+    errs["wilson_hop_f16"] = max(check_hop(dev, gen, dims, F16) for dims in (
+        (8, 8, 8, 8), (4, 6, 8, 16), (4, 4, 4, 4), (4, 4, 6, 6),
+        (4, 4, 22, 8), (2, 2, 2, 348), (2, 2, 2, 700)))
+    errs["cg_update_f16"], errs["cg_xpay_f16"] = check_cg_narrow(dev, gen,
+                                                                 F16)
+    errs["wilson_full_f16"] = max(
+        [check_full(dev, gen, dims, dtype=F16) for dims in (
+            (8, 8, 8, 8), (4, 4, 8, 32), (4, 4, 22, 16), (4, 4, 6, 5),
+            (2, 2, 2, 348), (2, 2, 2, 464), (2, 2, 2, 928))]
+        + [check_full(dev, gen, (4, 4, 6, 8), which, F16)
+           for which in ("psi", "gauge")])
+    # the 16-bit Wilson checks above: even Xh (K1) and X = 32 (K4) ran the
     # pair instances, the other shapes the one-site instances
     c, pairs = kernels.counts(), kernels.pair_launches()
     for name in pairs:
         n = c[name]["launches"]
-        check(0 < pairs[name] < n, f"bf16 checks: {name} ran its pair "
+        check(0 < pairs[name] < n, f"16-bit checks: {name} ran its pair "
                                    f"instance {pairs[name]} of {n} times")
-        log(f"bf16 checks: {name} pair instance {pairs[name]} of {n} "
+        log(f"16-bit checks: {name} pair instance {pairs[name]} of {n} "
             "launches, one-site the rest")
     # each pair instance bitwise against its one-site instance (at 16^3 x
-    # 32 a different rounding would show in a few hundred bf16 entries)
-    log("pair against one-site, bitwise: "
-        + json.dumps(check_pairs(dev, gen, (16, 16, 16, 32))))
+    # 32 a different rounding would show in a few hundred entries)
+    for dtype in (BF16, F16):
+        log(f"pair against one-site, bitwise, {dtype}: "
+            + json.dumps(check_pairs(dev, gen, (16, 16, 16, 32), dtype)))
+    log("float16 narrowing of small values bitwise torch's cast: "
+        + json.dumps(check_f16_narrowing(dev, gen)))
     log("kernels: " + json.dumps({k: {"max_abs_err": v}
                                   for k, v in errs.items()}))
     phase_done(2)
@@ -2229,10 +2380,12 @@ def main() -> int:
     # phase 4: main path
     u, b, batch, batch16, basis, runs = main_path(dev)
     base = ("wilson_hop", "cg_update", "cg_xpay", "wilson_full")
-    names = base + tuple(f"{k}_bf16" for k in base)
+    names = base + tuple(k + sfx for sfx in ("_bf16", "_f16") for k in base)
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in names}
-    pair_total = {k: sum(r["pair_launches"][k] for r in runs.values())
-                  for k in ("wilson_hop_bf16", "wilson_full_bf16")}
+    pair_total = {k + sfx: sum(r["pair_launches"][k + sfx]
+                               for r in runs.values())
+                  for k in ("wilson_hop", "wilson_full")
+                  for sfx in ("_bf16", "_f16")}
     phase_done(4)
 
     # phase 5: timings at the main path's shapes
@@ -2242,10 +2395,12 @@ def main() -> int:
         t = {"wilson_hop": time_hop(u, b, batch, bw, n)}
         t.update(time_cg(dev, bw, n, length))
         t["wilson_full"] = time_full(u, b, batch, bw, n)
-        t["wilson_hop_bf16"] = time_hop(u, b, batch, bw, n, BF16)
-        t.update({f"{k}_bf16": v for k, v in
-                  time_cg(dev, bw, n, length, BF16).items()})
-        t["wilson_full_bf16"] = time_full(u, b, batch, bw, n, BF16)
+        for dtype in (BF16, F16):
+            sfx = SUFFIX[dtype]
+            t["wilson_hop" + sfx] = time_hop(u, b, batch, bw, n, dtype)
+            t.update({k + sfx: v for k, v in
+                      time_cg(dev, bw, n, length, dtype).items()})
+            t["wilson_full" + sfx] = time_full(u, b, batch, bw, n, dtype)
         timings[n] = t
         for k, v in t.items():
             lib = ("none" if v["library_ms"] is None
@@ -2342,7 +2497,7 @@ def main() -> int:
     kernels_line = []
     for name in names:
         t = timings[1][name]
-        kernel = name.removesuffix("_bf16")
+        kernel = name.removesuffix("_bf16").removesuffix("_f16")
         kernels_line.append({
             "name": name, "route": "cuda", "source": sources[kernel],
             "replaces": replaces[kernel], "launches": total[name],

@@ -14,20 +14,20 @@ differ between the versions.
 
 Cases, on the 32^3 x 64 lattice (or ``--dims``), for each storage type
 of ``--dtype``
-(float32, bfloat16): K1 ``wilson_hop`` at N = 1 and 4 (the Schur
+(float32, bfloat16, float16): K1 ``wilson_hop`` at N = 1 and 4 (the Schur
 operator's second launch: parity 0, gamma5_out, the accumulator), K2
 ``cg_update`` at N = 1 and 4, K3 ``cg_xpay`` at N = 1 (no gate, with
 ``torch.addcmul`` timed in each turn) and N = 4 (gated), K4
 ``wilson_full`` at N = 1 and 4 (the normal operator's dagger launch).
 float32: the old result is held against the new one (and K2/K3 against
 the plain version) before anything is timed, and each of ``--turns``
-turns times old, new, new, old.  bfloat16: where the earlier version has
-bf16 instances, the old result is held against the new one bitwise and
-each turn times old, new, new, old; where it has none, the new kernel is
-held against its plain version (at most 1 bf16 ulp, as
-``chip_smoke.py`` holds it) and each turn times it twice.  Each bf16
-Wilson case records the instance it ran (``pair``: two sites a thread,
-or ``one-site``).  Every timing is taken both ways ``chip_smoke.py``
+turns times old, new, new, old.  bfloat16 and float16: where the earlier
+version has instances of the type, the old result is held against the
+new one bitwise and each turn times old, new, new, old; where it has
+none, the new kernel is held against its plain version (at most 1 ulp,
+as ``chip_smoke.py`` holds it) and each turn times it twice.  Each
+16-bit Wilson case records the instance it ran (``pair``: two sites a
+thread, or ``one-site``).  Every timing is taken both ways ``chip_smoke.py``
 times a kernel (``ms``: one call per CUDA event pair;
 ``ms_back_to_back``: ten calls per pair).  With ``--rows`` the current
 K1, with ``--full-rows`` the current K4, is also timed at other tile
@@ -58,7 +58,8 @@ WRAPPERS = {"wilson_hop": "wilson_dslash.kernel",
             "cg_update": "cg_fused.kernel",
             "cg_xpay": "cg_fused.kernel",
             "wilson_full": "wilson_dslash.kernel"}
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
 
 def _ours() -> list[str]:
@@ -182,7 +183,8 @@ def main() -> int:
     ap.add_argument("--full-rows", default="",
                     help="comma-separated K4 tile heights to time as well")
     ap.add_argument("--dtype", default="float32",
-                    help="comma-separated storage types: float32, bfloat16")
+                    help="comma-separated storage types: float32, bfloat16, "
+                         "float16")
     ap.add_argument("--sass", action="store_true",
                     help="also count the Wilson kernels' SASS opcodes")
     ap.add_argument("--dims", default=",".join(map(str, cs.MAIN_DIMS)),
@@ -221,16 +223,16 @@ def main() -> int:
     batch = torch.stack([tl.random_spinor(gen, lat) for _ in range(4)])
 
     def versus(what, k_old, k_new, ref, exact=False):
-        """The old version against the new one (bf16: bitwise), or, where
-        the old version has no instance of the storage type, the plain
-        version (bf16, at most 1 ulp), before timing; returns the case's
+        """The old version against the new one (16-bit storage: bitwise),
+        or, where the old version has no instance of the storage type, the
+        plain version (at most 1 ulp), before timing; returns the case's
         record to fill."""
         new = k_new()
         if k_old is None:
-            return dict(max_abs_err=cs.bf16_check(new, ref(), what))
+            return dict(max_abs_err=cs.narrow_check(new, ref(), what))
         theirs = k_old()
         diff = cs.max_err(theirs, new)
-        exact = exact or new.dtype == torch.bfloat16
+        exact = exact or new.dtype in cs.NARROW
         check(diff <= (0.0 if exact else cs.HOP_TOL * cs.scale(new)),
               f"{what}: old and new differ by {diff}")
         check(not exact or torch.equal(theirs, new),
@@ -238,11 +240,11 @@ def main() -> int:
         return dict(max_abs_diff=diff,
                     bitwise_equal_old=torch.equal(theirs, new))
 
-    def instance(fn, call) -> str:
-        """The instance one bf16 call of a Wilson wrapper runs."""
+    def instance(fn, call, sfx) -> str:
+        """The instance one 16-bit call of a Wilson wrapper runs."""
         build.zero_counts(fn)
         call()
-        return "pair" if fn.launches_bf16_pair else "one-site"
+        return "pair" if getattr(fn, f"launches{sfx}_pair") else "one-site"
 
     # the earlier version's storage types
     old_dtypes = getattr(old["build"], "STORAGE", {torch.float32: 0})
@@ -250,7 +252,7 @@ def main() -> int:
     for dname in dtypes:
         dtype = DTYPES[dname]
         f32 = dtype == torch.float32
-        sfx = "" if f32 else "_bf16"
+        sfx = cs.SUFFIX[dtype]
         has_old = dtype in old_dtypes
         if "wilson_hop" in kernels:
             ue, uo = tl.split_eo_gauge(u)
@@ -276,7 +278,7 @@ def main() -> int:
                 r = versus(f"K1 {dname} N={n}", k_old, k_new,
                            lambda: wilson_hop_ref(upe, upo, po, **kw))
                 if not f32:
-                    r["instance"] = instance(wk.wilson_hop, k_new)
+                    r["instance"] = instance(wk.wilson_hop, k_new, sfx)
                 r.update(turns(k_old, k_new, args.turns))
                 r["plan"] = list(wk.hop_tile_plan(po.shape[-3], po.shape[-1],
                                                   es))
@@ -359,7 +361,7 @@ def main() -> int:
                 r = versus(f"K4 {dname} N={n}", k_old, k_new,
                            lambda: wilson_full_ref(up, pp, cs.MASS, **kw))
                 if not f32:
-                    r["instance"] = instance(wk.wilson_full, k_new)
+                    r["instance"] = instance(wk.wilson_full, k_new, sfx)
                 r.update(turns(k_old, k_new, args.turns))
                 r["plan"] = list(wk.full_tile_plan(pp.shape[-3],
                                                    pp.shape[-1], es))

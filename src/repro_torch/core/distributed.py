@@ -10,13 +10,14 @@ package's ``repro.core.distributed``:
   (default: T over ``data``, Z over ``model`` and Y over ``pod`` when the
   mesh has one).  Each rank owns a contiguous 4D block; X is never
   sharded.
-* ``dslash_halo`` evaluates the bulk stencil on the local block with its
-  local periodic wrap (K4, the full-lattice kernel) and then corrects
-  only the two boundary planes of every sharded direction with halo
-  planes received from the neighbours.  ``parity_hop_halo`` does the same
-  for a parity hop block (K1, the hop kernel).  The corrections are
-  plane-sized plain tensor work (``hop_term_packed`` on one plane), as in
-  the JAX package.
+* ``dslash_halo`` exchanges the two boundary planes of every sharded
+  direction with the neighbours and launches K4 (the full-lattice
+  kernel) once on the local block, reading those ghost planes where a
+  neighbour row wraps across a sharded face: bitwise one launch on the
+  global field.  ``parity_hop_halo`` (K1, the hop kernel) evaluates the
+  bulk with the local periodic wrap and then corrects the two boundary
+  planes of every sharded direction with plane-sized plain tensor work
+  (``hop_term_packed`` on one plane), as the JAX package does.
 * Global reductions inside CG go through injected ``dot``/``norm2`` that
   all-reduce the local partial sums once per reduction; with ``pipecg``
   that is one all-reduce an iteration for the whole batch.
@@ -270,13 +271,14 @@ def _g5(p: Tensor) -> Tensor:
 
 def _hop_plane(u_plane: Tensor, psi_plane: Tensor, mu: int,
                forward: bool) -> Tensor:
-    """``hop_term_packed`` on one (possibly RHS-batched) boundary plane, as
-    an f32 term: the term the bulk's plain version summed, so that a
+    """``hop_term_packed`` on one (possibly RHS-batched) boundary plane of
+    a parity hop block (K1's corrections; K4 reads ghost planes), as an
+    f32 term: the term the bulk's plain version summed, so that a
     correction cancels it.  f32 storage evaluates the term in f64 and
     rounds it once, as the plain full-lattice operator does each of its
-    hop terms (``wilson.dslash_packed``); bf16 storage evaluates it in
-    f32 and keeps it there, as the kernels' bf16 instances sum in f32 and
-    round their output once."""
+    hop terms (``wilson.dslash_packed``); narrow storage evaluates it in
+    f32 and keeps it there, as the kernels' narrow instances sum in f32
+    and round their output once."""
     hop = torch.float64 if psi_plane.dtype == torch.float32 else None
     u32 = u_plane.to(torch.float32)
 
@@ -291,10 +293,10 @@ def _hop_plane(u_plane: Tensor, psi_plane: Tensor, mu: int,
 
 def _corrections(mesh, sharded, u_out, u_nbr, pp, *, gamma5_in, u_prev):
     """Per sharded direction: ``(pax, delta_b, delta_f)``, the corrections
-    of planes 0 and -1 of axis ``pax`` of the bulk's output (hop-only,
-    before any epilogue), from halo planes of ``pp`` exchanged with the
-    neighbours.  ``u_out``/``u_nbr``: the links at the output sites and at
-    the neighbour sites (the same field on the full lattice)."""
+    of planes 0 and -1 of axis ``pax`` of a parity hop block's bulk output
+    (hop-only, before any epilogue), from halo planes of ``pp`` exchanged
+    with the neighbours.  ``u_out``/``u_nbr``: the links at the output
+    sites and at the neighbour sites."""
     batch = pp.dim() - 5  # 0 or 1 leading RHS-batch axes
     out = []
     for mu, (ax, n) in sorted(sharded.items()):
@@ -320,6 +322,25 @@ def _corrections(mesh, sharded, u_out, u_nbr, pp, *, gamma5_in, u_prev):
     return out
 
 
+def _ghosts(mesh, sharded, up, pp, u_prev) -> dict:
+    """``{axis: (psi_prev, psi_next, u_prev)}``: for each sharded
+    direction, the previous rank's last plane of ``pp`` and the next
+    rank's first (one ``ppermute`` of both planes), and U_axis at the
+    previous rank's edge: the ghost planes K4 reads
+    (:func:`repro_torch.kernels.wilson_dslash.kernel.wilson_full`)."""
+    batch = pp.dim() - 5
+    out = {}
+    for mu, (ax, n) in sorted(sharded.items()):
+        if n == 1:
+            continue
+        pax = mu + batch
+        prev, nxt = mesh.ppermute(ax, [(_take(pp, pax, -1), 1),
+                                       (_take(pp, pax, 0), -1)])
+        out[mu] = (prev, nxt, _links_prev(mesh, _take(up[mu], mu, -1), mu,
+                                          ax, u_prev))
+    return out
+
+
 def dslash_halo(up: Tensor, pp: Tensor, mass, mesh: Mesh,
                 sharded: Mapping[int, tuple[str, int]], *,
                 use_kernels: bool = True, twist: float = 0.0,
@@ -327,17 +348,22 @@ def dslash_halo(up: Tensor, pp: Tensor, mass, mesh: Mesh,
                 u_prev: Mapping[int, Tensor] | None = None) -> Tensor:
     """``g5out (D + i twist g5)(g5in psi)`` on a LOCAL block.
 
+    The boundary planes of every sharded direction are exchanged first;
+    then one K4 launch (``ops.dslash``; its plain version on CPU tensors,
+    or directly with ``use_kernels=False``) reads them where a neighbour
+    row wraps across a sharded face.  Each site sums the terms one launch
+    on the global field sums, in the same order, so the gathered blocks
+    are that launch bit for bit.
+
     Args:
       up: local (4, Tl, Zl, Yl, 18, X) packed links.
       pp: local (Tl, Zl, Yl, 24, X) packed spinor, or (N, ...) a batch.
       mesh, sharded: the mesh and ``{lattice axis (0=T, 1=Z, 2=Y):
         (mesh axis name, size)}`` (:func:`lattice_specs`).
-      use_kernels: the bulk through K4 (``ops.dslash``; its plain version
-        on CPU tensors) or K4's plain version directly.
-      twist: the operator family's site-term twist: site-local, so it
-        rides the bulk and leaves the hop-only corrections untouched.
-      gamma5_in/gamma5_out: gamma5 folded into the bulk launch and into
-        the correction planes (no full-field gamma5 pass).
+      use_kernels: K4 through its wrapper, or its plain version directly.
+      twist: the operator family's site-term twist.
+      gamma5_in/gamma5_out: gamma5 folded into the launch (the ghost
+        planes travel as stored; the kernel folds gamma5 on them too).
       u_prev: the link halo planes from :func:`link_halos`, or None to
         exchange them here.
 
@@ -345,15 +371,10 @@ def dslash_halo(up: Tensor, pp: Tensor, mass, mesh: Mesh,
     """
     from repro_torch.kernels.wilson_dslash import ops as wops
 
-    out = wops.dslash(up, pp, mass, twist=twist, gamma5_in=gamma5_in,
-                      gamma5_out=gamma5_out, use_kernels=use_kernels)
-    for pax, delta_b, delta_f in _corrections(
-            mesh, sharded, up, up, pp, gamma5_in=gamma5_in, u_prev=u_prev):
-        if gamma5_out:
-            delta_b, delta_f = _g5(delta_b), _g5(delta_f)
-        out = _add_at(out, pax, 0, delta_b)
-        out = _add_at(out, pax, -1, delta_f)
-    return out
+    halo = _ghosts(mesh, sharded, up, pp, u_prev)
+    return wops.dslash(up, pp, mass, twist=twist, gamma5_in=gamma5_in,
+                       gamma5_out=gamma5_out, use_kernels=use_kernels,
+                       halo=halo)
 
 
 def dslash_dagger_halo(up, pp, mass, mesh, sharded, *,
@@ -380,9 +401,10 @@ def normal_op_halo(up, pp, mass, mesh, sharded, *, use_kernels: bool = True,
 # ---------------------------------------------------------------------------
 #
 # The parity hop blocks roll only T, Z and Y (the x hops stay inside a
-# row, and X is never sharded), so their halo structure is the full
-# lattice's: the bulk with the local wrap, then the two boundary planes of
-# every sharded direction corrected.  The correction hop on a half field
+# row, and X is never sharded), so they need the full lattice's halo
+# planes; K1 reads no ghost planes yet, so the bulk runs with the local
+# wrap and the two boundary planes of every sharded direction are
+# corrected afterwards.  The correction hop on a half field
 # is the same ``hop_term_packed``: at fixed compressed index j the sites
 # (t, z, y, j) and (t +- 1, z, y, j) are neighbours on the full lattice.
 #

@@ -195,14 +195,15 @@ def solve_wilson_eo_mp(u: Tensor, b: Tensor, mass, *, r: float = 1.0,
                        inner_maxiter: int = 200, max_outer: int = 50,
                        low_dtype=torch.bfloat16, backend: str = "kernels",
                        device="cuda") -> tuple[Tensor, solvers.SolveStats]:
-    """Even-odd + mixed precision: a bf16 inner CG on the half-size Schur
-    normal system, f32 reliable updates and back-substitution.
+    """Even-odd + mixed precision: a low-storage inner CG (``low_dtype``:
+    bf16, or float16) on the half-size Schur normal system, f32 reliable
+    updates and back-substitution.
 
     ``backend="kernels"``: the low representation is the packed half
-    field in ``low_dtype`` storage, through the bf16 instances of the hop
-    kernel and the fused CG kernels; links rounded to ``low_dtype`` once.
-    ``backend="reference"``: the bf16 real-pair view of the complex half
-    field.  Forwards to :func:`repro_torch.core.plan.solve` with
+    field in ``low_dtype`` storage, through the instances of that storage
+    of the hop kernel and the fused CG kernels; links rounded to
+    ``low_dtype`` once.  ``backend="reference"``: the low real-pair view
+    of the complex half field.  Forwards to :func:`repro_torch.core.plan.solve` with
     ``SolverPlan(operator="eo-schur", precision="mixed", low=low_dtype)``.
     """
     from repro_torch.core import plan as plan_mod

@@ -9,12 +9,12 @@ for every registered operator family:
 * ``"eo-schur"`` (default) — the paper's solve on the even-odd Schur
   complement (:func:`_parts_eo`): CGNR, pipelined CG (``"pipecg"``) or
   block CG (``"blockcg"``, a batch sharing one Krylov space), or with
-  ``precision="mixed"`` the reliable-update mpcg with a bf16 inner CG
+  ``precision="mixed"`` the reliable-update mpcg with a low inner CG
   (:func:`_parts_eo_mp`, one RHS);
 * ``"full"`` — the same loops on the full-lattice normal operator D^dag D
   (:func:`_parts_full`), in the natural layout or, with
   ``layout="packed"``, on packed real fields in and out; with
-  ``precision="mixed"`` mpcg, with ``"low"`` an all-bf16 CG (cg16, not
+  ``precision="mixed"`` mpcg, with ``"low"`` an all-low CG (cg16, not
   accurate to ``tol``: a measurement rig, verified False by design).
 
 Precisions: ``"single"`` (f32), ``"mixed"`` (bulk iterations in ``low``
@@ -26,7 +26,8 @@ Backends:
   kernels: the parity hop kernel (four launches per Schur normal matvec)
   and, for CGNR, the fused CG vector kernels; or the full-lattice kernel
   (two launches per normal matvec, plain vector algebra as in the JAX
-  package).  ``low`` storage goes through the kernels' bf16 instances.
+  package).  ``low`` storage (bf16 by default, or float16) goes through
+  the kernels' instances of that dtype.
   On CPU tensors each kernel's plain PyTorch version runs instead.
 * ``"reference"`` — the plain operators: natural-layout complex einsums
   for ``"eo-schur"``, the packed einsum operator for ``"full"``.
@@ -84,7 +85,7 @@ _SOLVERS = ("cgnr", "pipecg", "blockcg")
 _PRECISIONS = ("single", "mixed", "low")
 
 # the low storage the kernels have instances for
-_KERNEL_LOW = (torch.bfloat16, torch.float32)
+_KERNEL_LOW = (torch.bfloat16, torch.float16, torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +106,7 @@ class SolverPlan:
         in ``low``, true residuals wide) or "low" (all-low cg16, the full
         operator only).
       low:       the narrow dtype (name or torch dtype) for mixed/low;
-        the kernels backend stores bfloat16 or float32.
+        the kernels backend stores bfloat16, float16 or float32.
       nrhs:      None for one RHS, or N for a masked batch of N.
       mesh/axis_map: None for one device, or a
         :class:`repro_torch.core.distributed.Mesh` (and an optional
@@ -168,8 +169,7 @@ class SolverPlan:
             if self.backend == "kernels" and low not in _KERNEL_LOW:
                 raise NotImplementedError(
                     f"SolverPlan.low={self.low!r}: the kernels store "
-                    "bfloat16 or float32; other narrow storage (float16) "
-                    "is ROADMAP Queue B item 9")
+                    "bfloat16, float16 or float32")
         if self.mesh is not None and not isinstance(self.mesh, dist.Mesh):
             raise TypeError(f"SolverPlan.mesh must be a repro_torch.core."
                             f"distributed.Mesh, got {type(self.mesh)!r}")
@@ -546,8 +546,9 @@ def _parts_eo_mp(plan, u, b, mass, *, tol, inner_tol, inner_maxiter,
     Kernels backend: the low representation is the packed half field in
     ``low`` storage (the kernels read it narrow and compute in f32), the
     links rounded once; casts only at the reliable-update boundary; the
-    inner CG runs on the bf16 hop kernel and the fused CG kernels.
-    Reference backend: the bf16 real-pair view of the complex half field,
+    inner CG runs on the hop kernel's and the fused CG kernels' instances
+    of that storage.  Reference backend: the low real-pair view of the
+    complex half field,
     the links rounded once up front.
     """
     low_dtype = plan.low_dtype
@@ -576,7 +577,7 @@ def _parts_eo_mp(plan, u, b, mass, *, tol, inner_tol, inner_maxiter,
 
         u_e_lo, u_o_lo = round_links(ops.u_e), round_links(ops.u_o)
 
-        def a_low(w):  # bf16 real pairs in and out, wide inside
+        def a_low(w):  # low real pairs in and out, wide inside
             v = real_pair_to_complex(w, high)
             av = schur_normal_op_g(u_e_lo, u_o_lo, v, mass, r=plan.r,
                                    twist=twist)
@@ -694,10 +695,10 @@ def _parts_full_sharded(plan, u, b, mass, *, tol, maxiter, layout,
                         inner_tol, inner_maxiter, max_outer,
                         residual_replacement_every, **_):
     """The full-lattice loops on this rank's block: K4 on the block (two
-    launches a matvec, one for the RHS D^dag b) with halo corrections;
-    CGNR, pipecg (one all-reduce an iteration), mpcg (the inner CG on K4's
-    bf16 instance, the links and their halo planes rounded once) or cg16.
-    One RHS."""
+    launches a matvec, one for the RHS D^dag b) reading the exchanged
+    ghost planes; CGNR, pipecg (one all-reduce an iteration), mpcg (the
+    inner CG on K4's instance of the low storage, the links and their
+    halo planes rounded once) or cg16.  One RHS."""
     _check_full_r(plan)
     mesh = plan.mesh
     packed_in = layout == "packed"

@@ -37,18 +37,22 @@
 //    the split changes no bit and a batched call equals N single calls
 //    bitwise; a closed gate copies p through the same paths.
 //
-// Storage: float32 or bf16 (the mixed-precision solve's inner CG), one
-// type for every field of a call; the scalars, the arithmetic and the
-// reductions are f32 in both.  A bf16 instance widens each element to f32
-// on load, computes as the f32 instance does and rounds once to nearest
-// even on the store; K2 reduces ||r'||^2 from the f32 r' before it is
-// rounded (as the JAX kernels do), with the same two-stage order.  bf16
-// halves the bytes, so both kernels move 16 bytes per access there: 8
-// bf16 in one vector, with the alignment head and tail counted in bf16
-// elements, the scalar path where the fields' alignments differ.  The f32
-// instances are the code above, unchanged.
+// Storage: float32, bf16 or float16 (the mixed-precision solve's inner
+// CG), one type for every field of a call; the scalars, the arithmetic and
+// the reductions are f32 in all three.  A narrow instance widens each
+// element to f32 on load, computes as the f32 instance does and rounds
+// once to nearest even on the store; K2 reduces ||r'||^2 from the f32 r'
+// before it is rounded (as the JAX kernels do), with the same two-stage
+// order.  16-bit storage halves the bytes, so both kernels move 16 bytes
+// per access there: 8 elements in one vector, with the alignment head and
+// tail counted in elements, the scalar path where the fields' alignments
+// differ.  bf16 and float16 run the same code: float16 narrows with
+// __float2half_rn / __floats2half2_rn, which keep subnormals (the inner
+// residual's late entries) and give inf past 65504, as torch's and XLA's
+// casts do.  The f32 instances are the code above, unchanged.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -59,9 +63,11 @@ constexpr int THREADS = 256;
 constexpr long MAX_BLOCKS = 2048;
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 __device__ __forceinline__ float wide(float v) { return v; }
 __device__ __forceinline__ float wide(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float wide(f16 v) { return __half2float(v); }
 
 template <class T>
 __device__ __forceinline__ T narrow(float v);
@@ -70,6 +76,10 @@ __device__ __forceinline__ float narrow<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 narrow<bf16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ f16 narrow<f16>(float v) {
+  return __float2half_rn(v);
 }
 
 // 16 bytes of T: E elements, unpacked to and packed from f32.
@@ -107,6 +117,27 @@ struct Vec<bf16> {
     return v;
   }
 };
+template <>
+struct Vec<f16> {
+  using V = uint4;
+  static constexpr int E = 8;
+  __device__ static void unpack(const V& v, float (&f)[E]) {
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __half22float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+  __device__ static V pack(const float (&f)[E]) {
+    V v;
+    __half2* h = reinterpret_cast<__half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
+    return v;
+  }
+};
 
 __device__ __forceinline__ float block_sum(float v, float* sh) {
   sh[threadIdx.x] = v;
@@ -132,14 +163,15 @@ __device__ __forceinline__ long head_len(const T* p,
   return lead < L ? lead : L;
 }
 
-// K2 on one bf16 RHS: the scalar head and tail, then 8 elements a trip;
-// returns the thread's share of ||r'||^2 (f32, before rounding).
-template <bool ACTIVE>
-__device__ __forceinline__ float update_rhs_bf16(
-    float a, const bf16* __restrict__ x, const bf16* __restrict__ r,
-    const bf16* __restrict__ p, const bf16* __restrict__ ap,
-    bf16* __restrict__ xo, bf16* __restrict__ ro, long L) {
-  using VT = Vec<bf16>;
+// K2 on one RHS of 16-bit storage (bf16 or float16): the scalar head and
+// tail, then 8 elements a trip; returns the thread's share of ||r'||^2
+// (f32, before rounding).
+template <class T, bool ACTIVE>
+__device__ __forceinline__ float update_rhs_narrow(
+    float a, const T* __restrict__ x, const T* __restrict__ r,
+    const T* __restrict__ p, const T* __restrict__ ap, T* __restrict__ xo,
+    T* __restrict__ ro, long L) {
+  using VT = Vec<T>;
   constexpr int E = VT::E;
   const long tid = (long)blockIdx.x * THREADS + threadIdx.x;
   const long nthr = (long)gridDim.x * THREADS;
@@ -154,8 +186,8 @@ __device__ __forceinline__ float update_rhs_bf16(
   auto one = [&](long i) {
     if (ACTIVE) {
       const float rv = fmaf(-a, wide(ap[i]), wide(r[i]));
-      xo[i] = narrow<bf16>(fmaf(a, wide(p[i]), wide(x[i])));
-      ro[i] = narrow<bf16>(rv);
+      xo[i] = narrow<T>(fmaf(a, wide(p[i]), wide(x[i])));
+      ro[i] = narrow<T>(rv);
       acc = fmaf(rv, rv, acc);
     } else {
       const float rv = wide(r[i]);
@@ -166,14 +198,15 @@ __device__ __forceinline__ float update_rhs_bf16(
   };
   for (long i = tid; i < head; i += nthr) one(i);
   for (long i = tail0 + tid; i < L; i += nthr) one(i);
-  const VT::V* __restrict__ x4 = reinterpret_cast<const VT::V*>(x + head);
-  const VT::V* __restrict__ r4 = reinterpret_cast<const VT::V*>(r + head);
-  const VT::V* __restrict__ p4 = reinterpret_cast<const VT::V*>(p + head);
-  const VT::V* __restrict__ a4 = reinterpret_cast<const VT::V*>(ap + head);
-  VT::V* __restrict__ xo4 = reinterpret_cast<VT::V*>(xo + head);
-  VT::V* __restrict__ ro4 = reinterpret_cast<VT::V*>(ro + head);
+  using V = typename VT::V;
+  const V* __restrict__ x4 = reinterpret_cast<const V*>(x + head);
+  const V* __restrict__ r4 = reinterpret_cast<const V*>(r + head);
+  const V* __restrict__ p4 = reinterpret_cast<const V*>(p + head);
+  const V* __restrict__ a4 = reinterpret_cast<const V*>(ap + head);
+  V* __restrict__ xo4 = reinterpret_cast<V*>(xo + head);
+  V* __restrict__ ro4 = reinterpret_cast<V*>(ro + head);
   for (long v = tid; v < nvec; v += nthr) {
-    const VT::V xv = x4[v], rv = r4[v];
+    const V xv = x4[v], rv = r4[v];
     float rf[E];
     VT::unpack(rv, rf);
     if (ACTIVE) {
@@ -211,9 +244,10 @@ cg_update_kernel(const float* __restrict__ alpha, const T* __restrict__ x,
   const long stride = (long)gridDim.x * THREADS;
   float acc = 0.f;
   if constexpr (sizeof(T) != 4) {
-    acc = a != 0.f ? update_rhs_bf16<true>(a, x + base, r + base, p + base,
+    acc = a != 0.f
+              ? update_rhs_narrow<T, true>(a, x + base, r + base, p + base,
                                            ap + base, xo + base, ro + base, L)
-                   : update_rhs_bf16<false>(a, x + base, r + base, p + base,
+              : update_rhs_narrow<T, false>(a, x + base, r + base, p + base,
                                             ap + base, xo + base, ro + base,
                                             L);
   } else if (a != 0.f) {
@@ -364,16 +398,18 @@ const char* error_string(int code) {
 // the caller allocates an (N, cg_update_blocks(L)) float scratch.
 int cg_update_blocks(long L) { return blocks_for(L); }
 
-// storage: 0 float32, 1 bf16 (every field of the call); alpha, partial and
-// rs are float32.
+// storage: 0 float32, 1 bf16, 2 float16 (every field of the call); alpha,
+// partial and rs are float32.
 int cg_update(const float* alpha, const void* x, const void* r,
               const void* p, const void* ap, void* xo, void* ro,
               float* partial, float* rs, int N, long L, int storage,
               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return storage == 1
-             ? update<bf16>(alpha, x, r, p, ap, xo, ro, partial, rs, N, L, s)
-             : update<float>(alpha, x, r, p, ap, xo, ro, partial, rs, N, L, s);
+  if (storage == 1)
+    return update<bf16>(alpha, x, r, p, ap, xo, ro, partial, rs, N, L, s);
+  if (storage == 2)
+    return update<f16>(alpha, x, r, p, ap, xo, ro, partial, rs, N, L, s);
+  return update<float>(alpha, x, r, p, ap, xo, ro, partial, rs, N, L, s);
 }
 
 // gate: null (every RHS updates) or N bytes, nonzero where it updates;
@@ -382,8 +418,9 @@ int cg_xpay(const float* beta, const unsigned char* gate, const void* r,
             const void* p, void* po, int N, long L, int storage,
             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return storage == 1 ? xpay<bf16>(beta, gate, r, p, po, N, L, s)
-                      : xpay<float>(beta, gate, r, p, po, N, L, s);
+  if (storage == 1) return xpay<bf16>(beta, gate, r, p, po, N, L, s);
+  if (storage == 2) return xpay<f16>(beta, gate, r, p, po, N, L, s);
+  return xpay<float>(beta, gate, r, p, po, N, L, s);
 }
 
 }  // extern "C"

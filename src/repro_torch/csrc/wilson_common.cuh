@@ -29,17 +29,23 @@
 // The same tables, written in Python, drive the CPU tests' emulations
 // (kernels/wilson_dslash/kernel.py::hop_spec).
 //
-// Storage: the fields and links are float32 or bf16 (the mixed-precision
-// solve's low operator), one type T per launch.  Every value is widened to
-// f32 where it is read into a register (`wide`), all arithmetic is f32, and
-// an output is rounded once, to nearest even, where it is stored
-// (`narrow`); staged rows stay in T in shared memory.  The bf16 pair
-// instances read two adjacent sites' values of a component as one 32-bit
-// word (`word`, `half`, `store_pair` below).
+// Storage: the fields and links are float32, bf16 or float16 (the
+// mixed-precision solve's low operator), one type T per launch.  Every
+// value is widened to f32 where it is read into a register (`wide`), all
+// arithmetic is f32, and an output is rounded once, to nearest even, where
+// it is stored (`narrow`); staged rows stay in T in shared memory.  float16
+// narrows with the intrinsics __float2half_rn / __floats2half2_rn, which
+// keep subnormals (a late inner solve's residual entries, 1e-5 to 1e-7,
+// lie below float16's smallest normal 6.1e-5) and round to nearest even as
+// XLA's convert and torch's `.to(torch.float16)` do; a value past 65504
+// becomes inf, as there.  The narrow pair instances read two adjacent
+// sites' values of a component as one 32-bit word (`word`, `half`,
+// `store_pair` below).
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 namespace wilson {
 
@@ -47,9 +53,11 @@ constexpr int S = 24;  // packed spinor components per site
 constexpr int G = 18;  // packed link components
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 __device__ __forceinline__ float wide(float v) { return v; }
 __device__ __forceinline__ float wide(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float wide(f16 v) { return __half2float(v); }
 
 template <class T>
 __device__ __forceinline__ T narrow(float v);
@@ -59,36 +67,57 @@ template <>
 __device__ __forceinline__ bf16 narrow<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
+template <>
+__device__ __forceinline__ f16 narrow<f16>(float v) {
+  return __float2half_rn(v);
+}
 
 // One element through the read-only (L1) path, as stored.
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
 __device__ __forceinline__ bf16 ldg(const bf16* p) {
   return __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p)));
 }
+__device__ __forceinline__ f16 ldg(const f16* p) {
+  return __ushort_as_half(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
 
-// The bf16 pair instances of K1 and K4: a thread computes two adjacent sites
-// of a row and reads each component of both as one 32-bit word (p 4-byte
-// aligned), the lower site in the low half.  `half` widens one half of a
-// word, exactly as `wide` widens the element: a byte permute puts the
-// selected half in the high 16 bits of an f32 and zeroes the low ones.
-// Each site then runs the one-site hop code on its values (explicit fmaf
-// and adds, rounded alike in every instance), so with an epilogue that
-// rounds as the one-site kernel's does, a pair instance's outputs equal
-// the one-site instance's bitwise.
+// The pair instances of K1 and K4 (bf16 and float16 storage): a thread
+// computes two adjacent sites of a row and reads each component of both as
+// one 32-bit word (p 4-byte aligned), the lower site in the low half.
+// `half<T>` widens one half of a word, exactly as `wide` widens the
+// element: for bf16 a byte permute puts the selected half in the high 16
+// bits of an f32 and zeroes the low ones; float16 converts the selected
+// half (one instruction where the half is known at compile time).  Each site then runs the one-site
+// hop code on its values (explicit fmaf and adds, rounded alike in every
+// instance), so with an epilogue that rounds as the one-site kernel's does,
+// a pair instance's outputs equal the one-site instance's bitwise.
 constexpr unsigned LO = 0x1044u;  // the low half (the lower site)
 constexpr unsigned HI = 0x3244u;  // the high half
-__device__ __forceinline__ float half(unsigned w, unsigned sel) {
+template <class T>
+__device__ __forceinline__ float half(unsigned w, unsigned sel);
+template <>
+__device__ __forceinline__ float half<bf16>(unsigned w, unsigned sel) {
   return __uint_as_float(__byte_perm(w, 0u, sel));
 }
-__device__ __forceinline__ unsigned word(const bf16* p) {
+template <>
+__device__ __forceinline__ float half<f16>(unsigned w, unsigned sel) {
+  return __half2float(
+      __ushort_as_half((unsigned short)(sel == HI ? w >> 16 : w)));
+}
+template <class T>
+__device__ __forceinline__ unsigned word(const T* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
-__device__ __forceinline__ unsigned ldg_word(const bf16* p) {
+template <class T>
+__device__ __forceinline__ unsigned ldg_word(const T* p) {
   return __ldg(reinterpret_cast<const unsigned*>(p));
 }
 // Two sites' outputs, each rounded once to nearest even, as one word.
 __device__ __forceinline__ void store_pair(bf16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store_pair(f16* p, float v0, float v1) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(v0, v1);
 }
 
 // gamma_mu[row] has one nonzero, i^gamma_k at column gamma_col; mu in

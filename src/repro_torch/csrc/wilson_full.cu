@@ -13,7 +13,7 @@
 // `_dslash_kernel` (launched by `dslash_pallas`), with its double-buffered
 // gauge streaming mode (`_db_gauge_plane`, `_db_scratch`).
 //
-// Layouts (float32 or bf16, one type per launch): psi, out
+// Layouts (float32, bf16 or float16, one type per launch): psi, out
 // [N][T][Z][Y][24][X]; u [4][T][Z][Y][18][X],
 // component index (spin*3+color)*2+reim resp. (row*3+col)*2+reim, X
 // innermost.  Every direction wraps periodically; the X neighbours are
@@ -73,7 +73,22 @@
 //    128-thread block with twice the sites a tile (b = 8) and computes
 //    each site with the one-site code, so its outputs equal the one-site
 //    instance's bitwise.  Other widths and misaligned bases keep the
-//    one-site instance (a shape rule, kernel.py::full_pair).
+//    one-site instance (a shape rule, kernel.py::full_pair);
+//  * float16 storage is bf16's in every respect (the same one-site and
+//    X = 32 pair instances on __half2 words, narrowed once with
+//    __float2half_rn / __floats2half2_rn); its two instances share one
+//    epilogue with the roundings written out (f16_epilogue), so they agree
+//    bitwise whatever FMA contractions nvcc would choose;
+//  * a rank's block of a mesh (core/distributed.py::dslash_halo) is one
+//    launch with ghost planes: for each sharded face (T, Z, Y; X is never
+//    sharded) the neighbours' boundary planes of psi and, for the backward
+//    hop into the block's first plane, U at the previous rank's last
+//    plane.  A neighbour row that wraps across a sharded face is read from
+//    the ghost plane instead of the block's own far plane (nbr_row,
+//    back_link), and nothing else changes, so each site sums the terms of
+//    one launch on the global field in its order: the gathered blocks are
+//    that launch bitwise.  The ghost reads are a template flag (HALO), so
+//    the instances without them are the code they were.
 //  The host (kernels/wilson_dslash/kernel.py::full_tile_plan and
 //  ::full_tchunk) picks b, the shared-memory row stride and the chunk; the
 //  same plan drives the CPU tests' emulation.  Offsets are 64-bit: an N = 4 field at 32^3 x 64 holds
@@ -114,6 +129,24 @@ struct FullArgs {
   float m_hi, m_lo, tw_hi, tw_lo;  // the site term on spins 0,1 and 2,3
 };
 
+// A mesh block's launch (the HALO instances): the ghost planes beside the
+// arguments (null: the axis wraps in the block).  gsp[axis][0] is the
+// previous rank's last psi plane along axis (0 T, 1 Z, 2 Y), gsp[axis][1]
+// the next rank's first, each [N][face rows][24][X]; glk[axis] U_axis at
+// the previous rank's last plane, [face rows][18][X].  A face's rows are
+// the other two of (t, z, y), row-major.  The instances without ghosts
+// take FullArgs alone: a larger parameter block changed how ptxas
+// allocated the pair instance's registers (96 bytes spilled instead of
+// 56) and cost it 10 % on the card.
+template <class ST>
+struct HaloArgs : FullArgs<ST> {
+  const ST* gsp[3][2];
+  const ST* glk[3];
+};
+
+template <class ST, bool HALO>
+using ArgsOf = std::conditional_t<HALO, HaloArgs<ST>, FullArgs<ST>>;
+
 // The tile's geometry.
 struct Tile {
   int t, z, y0, nb, tp, tm, zp, zm;
@@ -132,6 +165,52 @@ template <class ST>
 __device__ __forceinline__ long grow(const FullArgs<ST>& a, int mu, int t,
                                      int z, int y) {
   return ((((long)mu * a.T + t) * a.Z + z) * a.Y + y) * G * a.X;
+}
+
+// The rows of a face of `axis`, and the row of (t, z, y) in it.
+template <class ST>
+__device__ __forceinline__ long face_rows(const FullArgs<ST>& a, int axis) {
+  return axis == 0 ? (long)a.Z * a.Y
+                   : (axis == 1 ? (long)a.T * a.Y : (long)a.T * a.Z);
+}
+template <class ST>
+__device__ __forceinline__ long face_row(const FullArgs<ST>& a, int axis,
+                                         int t, int z, int y) {
+  return axis == 0 ? (long)z * a.Y + y
+                   : (axis == 1 ? (long)t * a.Y + y : (long)t * a.Z + z);
+}
+
+// The psi row of RHS n (p = psi + n * field) that the hop along `axis`
+// (FWD: to +1) from the row (t, z, y) reads, at the neighbour (tn, zn, yn)
+// wrapped in the block; with HALO, the ghost plane's row where the hop
+// crosses a sharded face.
+template <bool HALO, class A, class ST>
+__device__ __forceinline__ const ST* nbr_row(const A& a, const ST* p, int n,
+                                             int axis, bool fwd, int t, int z,
+                                             int y, int tn, int zn, int yn) {
+  if constexpr (HALO) {
+    const int c = axis == 0 ? t : (axis == 1 ? z : y);
+    const int ext = axis == 0 ? a.T : (axis == 1 ? a.Z : a.Y);
+    const ST* g = a.gsp[axis][fwd ? 1 : 0];
+    if (g != nullptr && c == (fwd ? ext - 1 : 0))
+      return g + (n * face_rows(a, axis) + face_row(a, axis, t, z, y)) *
+                     (long)S * a.X;
+  }
+  return p + srow(a, tn, zn, yn);
+}
+
+// U_axis at (tn, zn, yn), the backward neighbour of the row (t, z, y) in
+// the block; with HALO, the ghost plane's row where the hop crosses a
+// sharded face.
+template <bool HALO, class A>
+__device__ __forceinline__ auto back_link(const A& a, int axis, int t, int z,
+                                          int y, int tn, int zn, int yn) {
+  if constexpr (HALO) {
+    const int c = axis == 0 ? t : (axis == 1 ? z : y);
+    if (a.glk[axis] != nullptr && c == 0)
+      return a.glk[axis] + face_row(a, axis, t, z, y) * (long)G * a.X;
+  }
+  return a.u + grow(a, axis, tn, zn, yn);
 }
 
 // The tile of index i: y-tile fastest, then t within a chunk of tchunk
@@ -155,9 +234,10 @@ __device__ __forceinline__ Tile make_tile(const FullArgs<ST>& a, int i) {
 
 // Link row k of the tile, in staging order, and its slot: groups u_t,
 // u_t(t-1), u_z, u_z(z-1), u_x (nb rows each, at g*b + i), then u_y at
-// rows y0-1 .. y0+nb-1 (at 5b + i).
-template <class ST>
-__device__ __forceinline__ const ST* link_src(const FullArgs<ST>& a,
+// rows y0-1 .. y0+nb-1 (at 5b + i); with HALO the backward rows that
+// cross a sharded face come from its ghost plane.
+template <bool HALO, class ST>
+__device__ __forceinline__ const ST* link_src(const ArgsOf<ST, HALO>& a,
                                               const Tile& tl, int k,
                                               int* slot) {
   const int nb = tl.nb;
@@ -166,22 +246,24 @@ __device__ __forceinline__ const ST* link_src(const FullArgs<ST>& a,
     *slot = g * a.rows + i;
     switch (g) {
       case 0: return a.u + grow(a, 0, tl.t, tl.z, y);
-      case 1: return a.u + grow(a, 0, tl.tm, tl.z, y);
+      case 1: return back_link<HALO>(a, 0, tl.t, tl.z, y, tl.tm, tl.z, y);
       case 2: return a.u + grow(a, 1, tl.t, tl.z, y);
-      case 3: return a.u + grow(a, 1, tl.t, tl.zm, y);
+      case 3: return back_link<HALO>(a, 1, tl.t, tl.z, y, tl.t, tl.zm, y);
       default: return a.u + grow(a, 3, tl.t, tl.z, y);
     }
   }
   k -= 5 * nb;
   *slot = 5 * a.rows + k;
-  return a.u + grow(a, 2, tl.t, tl.z, wrap(tl.y0 - 1 + k, a.Y));
+  // the row y0 - 1 + k is the backward Y neighbour of row y0 + k
+  return back_link<HALO>(a, 2, tl.t, tl.z, tl.y0 + k, tl.t, tl.z,
+                         wrap(tl.y0 - 1 + k, a.Y));
 }
 
 // Stage the tile's 6 nb + 1 link rows at sl.  Bulk: the first warp issues
 // the copies, completing on `bar`; plain: every thread loads its share.
 // The caller waits on `bar` or syncs.
-template <class ST>
-__device__ __forceinline__ void stage_links(const FullArgs<ST>& a,
+template <bool HALO, class ST>
+__device__ __forceinline__ void stage_links(const ArgsOf<ST, HALO>& a,
                                             const Tile& tl, ST* sl,
                                             uint64_t* bar) {
   const int nl = 6 * tl.nb + 1, llen = G * a.X;
@@ -192,27 +274,43 @@ __device__ __forceinline__ void stage_links(const FullArgs<ST>& a,
     __syncwarp();
     for (int k = threadIdx.x; k < nl; k += 32) {
       int slot;
-      const ST* src = link_src(a, tl, k, &slot);
+      const ST* src = link_src<HALO, ST>(a, tl, k, &slot);
       bulk_copy(sl + slot * a.ls, src, (uint32_t)(llen * sizeof(ST)), bar);
     }
     return;
   }
   for (int k = 0; k < nl; ++k) {
     int slot;
-    const ST* src = link_src(a, tl, k, &slot);
+    const ST* src = link_src<HALO, ST>(a, tl, k, &slot);
     ST* dst = sl + slot * a.ls;
     for (int e = threadIdx.x; e < llen; e += blockDim.x)
       dst[e] = wilson::ldg(src + e);
   }
 }
 
+// The float16 instances' epilogue for one component pair: the site term
+// m psi + i tw psi and the hops' sum with its -1/2, each operation rounded
+// as written (no contraction left to nvcc), shared by the one-site and pair
+// instances so that they agree bitwise.
+__device__ __forceinline__ void f16_epilogue(float m, float tw, bool twisted,
+                                             float pr, float pi, float hr,
+                                             float hi, float& vr, float& vi) {
+  float nr = __fmul_rn(m, pr), ni = __fmul_rn(m, pi);
+  if (twisted) {
+    nr = __fmaf_rn(-tw, pi, nr);
+    ni = __fmaf_rn(tw, pr, ni);
+  }
+  vr = __fmaf_rn(-0.5f, hr, nr);
+  vi = __fmaf_rn(-0.5f, hi, ni);
+}
+
 // One thread per site of the tile, all N right-hand sides.  Links: the
 // staged rows (STAGED) or the field in place; spinors: through L1.  XC > 0
 // makes X and the unpadded link stride compile time, so every component of
-// a row is an immediate offset.
-template <class ST, bool G5IN, bool G5OUT, bool STAGED, int XC>
+// a row is an immediate offset.  HALO: the ghost reads of a mesh block.
+template <class ST, bool G5IN, bool G5OUT, bool STAGED, int XC, bool HALO>
 __global__ void __launch_bounds__(FULL_THREADS, STAGED && XC > 0 ? 3 : 2)
-wilson_full_kernel(const FullArgs<ST> a) {
+wilson_full_kernel(const ArgsOf<ST, HALO> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = a.rows, X = XC > 0 ? XC : a.X;
   const int ls = XC > 0 ? G * XC : a.ls;
@@ -224,7 +322,7 @@ wilson_full_kernel(const FullArgs<ST> a) {
       if (threadIdx.x == 0) mbar_init(bar);
       __syncthreads();
     }
-    stage_links(a, tl, sl, bar);
+    stage_links<HALO, ST>(a, tl, sl, bar);
     if (a.bulk)
       mbar_wait(bar, 0);
     else
@@ -253,11 +351,11 @@ wilson_full_kernel(const FullArgs<ST> a) {
       if (STAGED) return sl + (g < 5 ? g * b + r : 5 * b + r + g - 5) * ls;
       switch (g) {
         case 0: return a.u + grow(a, 0, tl.t, tl.z, y);
-        case 1: return a.u + grow(a, 0, tl.tm, tl.z, y);
+        case 1: return back_link<HALO>(a, 0, tl.t, tl.z, y, tl.tm, tl.z, y);
         case 2: return a.u + grow(a, 1, tl.t, tl.z, y);
-        case 3: return a.u + grow(a, 1, tl.t, tl.zm, y);
+        case 3: return back_link<HALO>(a, 1, tl.t, tl.z, y, tl.t, tl.zm, y);
         case 4: return a.u + grow(a, 3, tl.t, tl.z, y);
-        case 5: return a.u + grow(a, 2, tl.t, tl.z, ym);
+        case 5: return back_link<HALO>(a, 2, tl.t, tl.z, y, tl.t, tl.z, ym);
         default: return a.u + grow(a, 2, tl.t, tl.z, y);
       }
     };
@@ -269,12 +367,16 @@ wilson_full_kernel(const FullArgs<ST> a) {
       for (int c = 0; c < 3; ++c)
 #pragma unroll
         for (int s = 0; s < 4; ++s) o_r[c][s] = o_i[c][s] = 0.f;
-      hop_site<0, true, G5IN, G5OUT>(o_r, o_i, at(p + srow(a, tl.tp, tl.z, y), x), lk(link(0), x));
-      hop_site<0, false, G5IN, G5OUT>(o_r, o_i, at(p + srow(a, tl.tm, tl.z, y), x), lk(link(1), x));
-      hop_site<1, true, G5IN, G5OUT>(o_r, o_i, at(p + srow(a, tl.t, tl.zp, y), x), lk(link(2), x));
-      hop_site<1, false, G5IN, G5OUT>(o_r, o_i, at(p + srow(a, tl.t, tl.zm, y), x), lk(link(3), x));
-      hop_site<2, true, G5IN, G5OUT>(o_r, o_i, at(p + srow(a, tl.t, tl.z, yp), x), lk(link(6), x));
-      hop_site<2, false, G5IN, G5OUT>(o_r, o_i, at(p + srow(a, tl.t, tl.z, ym), x), lk(link(5), x));
+      // the t, z and y neighbours' rows (ghost rows across sharded faces)
+      auto nbr = [&](int axis, bool fwd, int tn, int zn, int yn) {
+        return nbr_row<HALO>(a, p, n, axis, fwd, tl.t, tl.z, y, tn, zn, yn);
+      };
+      hop_site<0, true, G5IN, G5OUT>(o_r, o_i, at(nbr(0, true, tl.tp, tl.z, y), x), lk(link(0), x));
+      hop_site<0, false, G5IN, G5OUT>(o_r, o_i, at(nbr(0, false, tl.tm, tl.z, y), x), lk(link(1), x));
+      hop_site<1, true, G5IN, G5OUT>(o_r, o_i, at(nbr(1, true, tl.t, tl.zp, y), x), lk(link(2), x));
+      hop_site<1, false, G5IN, G5OUT>(o_r, o_i, at(nbr(1, false, tl.t, tl.zm, y), x), lk(link(3), x));
+      hop_site<2, true, G5IN, G5OUT>(o_r, o_i, at(nbr(2, true, tl.t, tl.z, yp), x), lk(link(6), x));
+      hop_site<2, false, G5IN, G5OUT>(o_r, o_i, at(nbr(2, false, tl.t, tl.z, ym), x), lk(link(5), x));
       hop_site<3, true, G5IN, G5OUT>(o_r, o_i, at(p + here, xp), lk(link(4), x));
       hop_site<3, false, G5IN, G5OUT>(o_r, o_i, at(p + here, xm), lk(link(4), xm));
 
@@ -291,6 +393,14 @@ wilson_full_kernel(const FullArgs<ST> a) {
         for (int c = 0; c < 3; ++c) {
           const int k = (s * 3 + c) * 2;
           const float pr = c0(k), pi = c0(k + 1);
+          if constexpr (std::is_same_v<ST, wilson::f16>) {
+            float vr, vi;
+            f16_epilogue(m, tw, twisted, pr, pi, o_r[c][s], o_i[c][s], vr,
+                         vi);
+            o[k * X] = narrow<ST>(vr);
+            o[(k + 1) * X] = narrow<ST>(vi);
+            continue;
+          }
           float nr = m * pr, ni = m * pi;
           if (twisted) {
             nr -= tw * pi;
@@ -304,7 +414,8 @@ wilson_full_kernel(const FullArgs<ST> a) {
   }
 }
 
-// The bf16 pair instance (X = 32, staged links, 4-byte aligned bases):
+// The pair instance (bf16 or float16, X = 32, staged links, 4-byte aligned
+// bases):
 // one thread per two sites (x, x + 1) of the tile, x even, all N
 // right-hand sides.  Every component of the two sites is one 32-bit word,
 // read once, whose halves feed the one-site hop code (hop_site) once per
@@ -319,13 +430,12 @@ wilson_full_kernel(const FullArgs<ST> a) {
 // value the same code took 255 registers and spilled 256-672 bytes, and
 // at X = 48 ran slower than the one-site instance (PERF.md), so other
 // widths keep that one.
-template <bool G5IN, bool G5OUT>
+template <class ST, bool G5IN, bool G5OUT, bool HALO>
 __global__ void __launch_bounds__(FULL_THREADS, 3)
-wilson_full_pair_kernel(const FullArgs<wilson::bf16> a) {
-  using wilson::bf16;
+wilson_full_pair_kernel(const ArgsOf<ST, HALO> a) {
+  using bf16 = ST;  // the element type, bf16 or float16
   using wilson::HI;
   using wilson::LO;
-  using wilson::half;
   constexpr int X = 32, H = X / 2, ls = G * X;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = a.rows;
@@ -336,7 +446,7 @@ wilson_full_pair_kernel(const FullArgs<wilson::bf16> a) {
     if (threadIdx.x == 0) mbar_init(bar);
     __syncthreads();
   }
-  stage_links(a, tl, sl, bar);
+  stage_links<HALO, ST>(a, tl, sl, bar);
   if (a.bulk)
     mbar_wait(bar, 0);
   else
@@ -347,12 +457,12 @@ wilson_full_pair_kernel(const FullArgs<wilson::bf16> a) {
   // spinors through L1, links from shared memory
   auto at = [](const bf16* row, int xx, unsigned sel) {
     return [row, xx, sel](int k) {
-      return half(wilson::ldg_word(row + xx + k * X), sel);
+      return wilson::half<ST>(wilson::ldg_word(row + xx + k * X), sel);
     };
   };
   auto lk = [](const bf16* row, int xx, unsigned sel) {
     return [row, xx, sel](int k) {
-      return half(wilson::word(row + xx + k * X), sel);
+      return wilson::half<ST>(wilson::word(row + xx + k * X), sel);
     };
   };
   for (int w = threadIdx.x; w < tl.nb * H; w += blockDim.x) {
@@ -376,6 +486,10 @@ wilson_full_pair_kernel(const FullArgs<wilson::bf16> a) {
         for (int c = 0; c < 3; ++c)
 #pragma unroll
           for (int s = 0; s < 4; ++s) o_r[h][c][s] = o_i[h][c][s] = 0.f;
+      // the t, z and y neighbours' rows (ghost rows across sharded faces)
+      auto nbr = [&](int axis, bool fwd, int tn, int zn, int yn) {
+        return nbr_row<HALO>(a, p, n, axis, fwd, tl.t, tl.z, y, tn, zn, yn);
+      };
       // site x + h: the same hops in the same order as the one-site
       // kernel; site 1 reads the words site 0 read
 #pragma unroll
@@ -383,12 +497,12 @@ wilson_full_pair_kernel(const FullArgs<wilson::bf16> a) {
         const unsigned sel = h ? HI : LO;
         const int xf = h ? xp : x, xb = h ? x : xm;  // words of x+h+1, x+h-1
         const unsigned sf = h ? LO : HI, sb = h ? LO : HI;
-        hop_site<0, true, G5IN, G5OUT>(o_r[h], o_i[h], at(p + srow(a, tl.tp, tl.z, y), x, sel), lk(link(0), x, sel));
-        hop_site<0, false, G5IN, G5OUT>(o_r[h], o_i[h], at(p + srow(a, tl.tm, tl.z, y), x, sel), lk(link(1), x, sel));
-        hop_site<1, true, G5IN, G5OUT>(o_r[h], o_i[h], at(p + srow(a, tl.t, tl.zp, y), x, sel), lk(link(2), x, sel));
-        hop_site<1, false, G5IN, G5OUT>(o_r[h], o_i[h], at(p + srow(a, tl.t, tl.zm, y), x, sel), lk(link(3), x, sel));
-        hop_site<2, true, G5IN, G5OUT>(o_r[h], o_i[h], at(p + srow(a, tl.t, tl.z, yp), x, sel), lk(link(6), x, sel));
-        hop_site<2, false, G5IN, G5OUT>(o_r[h], o_i[h], at(p + srow(a, tl.t, tl.z, ym), x, sel), lk(link(5), x, sel));
+        hop_site<0, true, G5IN, G5OUT>(o_r[h], o_i[h], at(nbr(0, true, tl.tp, tl.z, y), x, sel), lk(link(0), x, sel));
+        hop_site<0, false, G5IN, G5OUT>(o_r[h], o_i[h], at(nbr(0, false, tl.tm, tl.z, y), x, sel), lk(link(1), x, sel));
+        hop_site<1, true, G5IN, G5OUT>(o_r[h], o_i[h], at(nbr(1, true, tl.t, tl.zp, y), x, sel), lk(link(2), x, sel));
+        hop_site<1, false, G5IN, G5OUT>(o_r[h], o_i[h], at(nbr(1, false, tl.t, tl.zm, y), x, sel), lk(link(3), x, sel));
+        hop_site<2, true, G5IN, G5OUT>(o_r[h], o_i[h], at(nbr(2, true, tl.t, tl.z, yp), x, sel), lk(link(6), x, sel));
+        hop_site<2, false, G5IN, G5OUT>(o_r[h], o_i[h], at(nbr(2, false, tl.t, tl.z, ym), x, sel), lk(link(5), x, sel));
         hop_site<3, true, G5IN, G5OUT>(o_r[h], o_i[h], at(p + here, xf, sf), lk(link(4), x, sel));
         hop_site<3, false, G5IN, G5OUT>(o_r[h], o_i[h], at(p + here, xb, sb), lk(link(4), xb, sb));
       }
@@ -407,6 +521,11 @@ wilson_full_pair_kernel(const FullArgs<wilson::bf16> a) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const float pr = h ? c1(k) : c0(k), pi = h ? c1(k + 1) : c0(k + 1);
+            if constexpr (std::is_same_v<ST, wilson::f16>) {
+              f16_epilogue(m, tw, twisted, pr, pi, o_r[h][c][s],
+                           o_i[h][c][s], v_r[h], v_i[h]);
+              continue;
+            }
             float nr = m * pr, ni = m * pi;
             if (twisted) {
               nr -= tw * pi;
@@ -435,85 +554,115 @@ cudaError_t run(const A& a, int blocks, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <class ST, bool G5IN, bool G5OUT, bool STAGED, int XC = 0>
-cudaError_t launch(const FullArgs<ST>& a, int blocks, int threads,
+template <class ST, bool HALO, bool G5IN, bool G5OUT, bool STAGED,
+          int XC = 0>
+cudaError_t launch(const ArgsOf<ST, HALO>& a, int blocks, int threads,
                    size_t smem, cudaStream_t s) {
-  return run<wilson_full_kernel<ST, G5IN, G5OUT, STAGED, XC>>(
+  return run<wilson_full_kernel<ST, G5IN, G5OUT, STAGED, XC, HALO>>(
       a, blocks, threads, smem, s);
 }
 
-template <bool G5IN, bool G5OUT>
-cudaError_t launch_pair(const FullArgs<wilson::bf16>& a, int blocks,
-                        int threads, size_t smem, cudaStream_t s) {
-  return run<wilson_full_pair_kernel<G5IN, G5OUT>>(a, blocks, threads, smem,
-                                                   s);
+template <class ST, bool HALO, bool G5IN, bool G5OUT>
+cudaError_t launch_pair(const ArgsOf<ST, HALO>& a, int blocks, int threads,
+                        size_t smem, cudaStream_t s) {
+  return run<wilson_full_pair_kernel<ST, G5IN, G5OUT, HALO>>(a, blocks,
+                                                             threads, smem,
+                                                             s);
+}
+
+// The instance of `key` (bits: g5in, g5out, staged, X = 32; 16 and up: the
+// pair instance, with the g5 bits) with or without the ghost reads.
+template <class ST, bool HALO>
+cudaError_t dispatch(int key, const ArgsOf<ST, HALO>& a, int blocks,
+                     int threads, size_t smem, cudaStream_t s) {
+  if constexpr (sizeof(ST) == 2) {
+    switch (key) {
+      case 16: return launch_pair<ST, HALO, false, false>(a, blocks, threads, smem, s);
+      case 17: return launch_pair<ST, HALO, true, false>(a, blocks, threads, smem, s);
+      case 18: return launch_pair<ST, HALO, false, true>(a, blocks, threads, smem, s);
+      case 19: return launch_pair<ST, HALO, true, true>(a, blocks, threads, smem, s);
+      default: break;
+    }
+  }
+  switch (key) {
+    case 0: return launch<ST, HALO, false, false, false>(a, blocks, threads, smem, s);
+    case 1: return launch<ST, HALO, true, false, false>(a, blocks, threads, smem, s);
+    case 2: return launch<ST, HALO, false, true, false>(a, blocks, threads, smem, s);
+    case 3: return launch<ST, HALO, true, true, false>(a, blocks, threads, smem, s);
+    case 4: return launch<ST, HALO, false, false, true>(a, blocks, threads, smem, s);
+    case 5: return launch<ST, HALO, true, false, true>(a, blocks, threads, smem, s);
+    case 6: return launch<ST, HALO, false, true, true>(a, blocks, threads, smem, s);
+    case 7: return launch<ST, HALO, true, true, true>(a, blocks, threads, smem, s);
+    case 12: return launch<ST, HALO, false, false, true, 32>(a, blocks, threads, smem, s);
+    case 13: return launch<ST, HALO, true, false, true, 32>(a, blocks, threads, smem, s);
+    case 14: return launch<ST, HALO, false, true, true, 32>(a, blocks, threads, smem, s);
+    case 15: return launch<ST, HALO, true, true, true, 32>(a, blocks, threads, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <class ST>
 int full(const void* u, const void* psi, void* out, int T, int Z, int Y,
          int X, int N, int g5in, int g5out, int rows, int ls, int tchunk,
          float m_hi, float m_lo, float tw_hi, float tw_lo, cudaStream_t s,
-         int* pair) {
+         const void* const* ghosts, int* pair) {
   // the block order's t chunks must tile T (make_tile)
   if (tchunk < 1 || T % tchunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool staged = rows > 0;
   const int b = staged ? rows : 1;
-  // bulk copies need 16-byte rows, strides and base (kernel.py::full_bulk)
+  HaloArgs<ST> h{};
+  FullArgs<ST>& a = h;
+  a = FullArgs<ST>{static_cast<const ST*>(u), static_cast<const ST*>(psi),
+                   static_cast<ST*>(out), T, Z, Y, X, N, b, tchunk, ls, 0,
+                   m_hi, m_lo, tw_hi, tw_lo};
+  bool halo = false, ghosts16 = true, ghosts4 = true;
+  for (int i = 0; ghosts != nullptr && i < 9; ++i) {
+    const uintptr_t g = reinterpret_cast<uintptr_t>(ghosts[i]);
+    if (g == 0) continue;
+    halo = true;
+    ghosts4 = ghosts4 && (g & 3u) == 0;
+    if (i < 6) {
+      h.gsp[i / 2][i % 2] = static_cast<const ST*>(ghosts[i]);
+    } else {
+      h.glk[i - 6] = static_cast<const ST*>(ghosts[i]);
+      ghosts16 = ghosts16 && (g & 15u) == 0;  // staged link rows
+    }
+  }
+  // bulk copies need 16-byte rows, strides and bases (kernel.py::full_bulk)
   const bool bulk = staged && ((size_t)G * X * sizeof(ST)) % 16 == 0 &&
                     ((size_t)ls * sizeof(ST)) % 16 == 0 &&
-                    (reinterpret_cast<uintptr_t>(u) & 15u) == 0;
-  const FullArgs<ST> a{static_cast<const ST*>(u), static_cast<const ST*>(psi),
-                       static_cast<ST*>(out), T, Z, Y, X, N, b, tchunk, ls,
-                       bulk ? 1 : 0, m_hi, m_lo, tw_hi, tw_lo};
+                    (reinterpret_cast<uintptr_t>(u) & 15u) == 0 && ghosts16;
+  a.bulk = bulk ? 1 : 0;
   const int blocks = T * Z * ((Y + b - 1) / b);
   int threads = b * X;
   threads = threads < FULL_THREADS ? ((threads + 31) / 32) * 32 : FULL_THREADS;
   // the mbarrier (with slack to 16 bytes) and the 6 b + 1 link rows
   const size_t smem =
       staged ? 16 + (size_t)(6 * b + 1) * ls * sizeof(ST) : 0;
-  cudaError_t err;
   // X = 32 (the 32^3 x 64 lattice's rows, unpadded) has instances of its
   // own with X compile time
   const bool x32 = staged && X == 32 && ls == G * 32;
-  const int key = (g5in ? 1 : 0) | (g5out ? 2 : 0) | (staged ? 4 : 0) |
-                  (x32 ? 8 : 0);
-  // the bf16 pair instance's rule (kernel.py::full_pair): the X = 32
-  // tiles, and every base 4-byte aligned, so that each pair of sites is
-  // one word
+  int key = (g5in ? 1 : 0) | (g5out ? 2 : 0) | (staged ? 4 : 0) |
+            (x32 ? 8 : 0);
+  // the pair instance's rule (kernel.py::full_pair): 16-bit storage, the
+  // X = 32 tiles, and every base 4-byte aligned, so that each pair of
+  // sites is one word
   auto word = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 3u) == 0;
   };
   *pair = 0;
-  if constexpr (std::is_same_v<ST, wilson::bf16>) {
-    if (x32 && word(u) && word(psi) && word(out)) {
-      *pair = 1;
-      threads = b * X / 2;  // a thread per two sites
-      threads = threads < FULL_THREADS ? ((threads + 31) / 32) * 32
-                                       : FULL_THREADS;
-      switch (key & 3) {
-        case 0: err = launch_pair<false, false>(a, blocks, threads, smem, s); break;
-        case 1: err = launch_pair<true, false>(a, blocks, threads, smem, s); break;
-        case 2: err = launch_pair<false, true>(a, blocks, threads, smem, s); break;
-        default: err = launch_pair<true, true>(a, blocks, threads, smem, s); break;
-      }
-      return static_cast<int>(err);
-    }
+  if (sizeof(ST) == 2 && x32 && word(u) && word(psi) && word(out) &&
+      ghosts4) {
+    *pair = 1;
+    key = 16 | (key & 3);
+    threads = b * X / 2;  // a thread per two sites
+    threads = threads < FULL_THREADS ? ((threads + 31) / 32) * 32
+                                     : FULL_THREADS;
   }
-  switch (key) {
-    case 0: err = launch<ST, false, false, false>(a, blocks, threads, smem, s); break;
-    case 1: err = launch<ST, true, false, false>(a, blocks, threads, smem, s); break;
-    case 2: err = launch<ST, false, true, false>(a, blocks, threads, smem, s); break;
-    case 3: err = launch<ST, true, true, false>(a, blocks, threads, smem, s); break;
-    case 4: err = launch<ST, false, false, true>(a, blocks, threads, smem, s); break;
-    case 5: err = launch<ST, true, false, true>(a, blocks, threads, smem, s); break;
-    case 6: err = launch<ST, false, true, true>(a, blocks, threads, smem, s); break;
-    case 7: err = launch<ST, true, true, true>(a, blocks, threads, smem, s); break;
-    case 12: err = launch<ST, false, false, true, 32>(a, blocks, threads, smem, s); break;
-    case 13: err = launch<ST, true, false, true, 32>(a, blocks, threads, smem, s); break;
-    case 14: err = launch<ST, false, true, true, 32>(a, blocks, threads, smem, s); break;
-    default: err = launch<ST, true, true, true, 32>(a, blocks, threads, smem, s); break;
-  }
+  const cudaError_t err =
+      halo ? dispatch<ST, true>(key, h, blocks, threads, smem, s)
+           : dispatch<ST, false>(key, a, blocks, threads, smem, s);
   return static_cast<int>(err);
 }
 
@@ -534,18 +683,28 @@ const char* error_string(int code) {
 // chunks apart and 4 planes a chunk keeps them in L2, else 1, which keeps
 // the z neighbours closer, as N = 1 needs more; PERF.md); (m_hi,
 // m_lo, tw_hi, tw_lo): the folded site term; storage: 0 float32, 1 bf16,
-// for the field and the links.  *pair is set to 1 when the bf16 pair
-// instance ran, else 0.  Returns a cudaError_t code.
+// 2 float16, for the field, the links and the ghost planes.  ghosts: null
+// or nine pointers (null where an axis is not sharded): the psi planes
+// before and after the block along T, Z and Y ([N][face rows][24][X]),
+// then U_t, U_z and U_y at the previous rank's last plane ([face
+// rows][18][X]); see HaloArgs.  *pair is set to 1 when a pair instance
+// (bf16 or float16) ran, else 0.  Returns a cudaError_t code.
 int wilson_full(const void* u, const void* psi, void* out, int T, int Z,
                 int Y, int X, int N, int g5in, int g5out, int rows, int ls,
                 int tchunk, float m_hi, float m_lo, float tw_hi, float tw_lo,
-                int storage, void* stream, int* pair) {
+                int storage, void* stream, const void* const* ghosts,
+                int* pair) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (storage == 1)
     return full<wilson::bf16>(u, psi, out, T, Z, Y, X, N, g5in, g5out, rows,
-                              ls, tchunk, m_hi, m_lo, tw_hi, tw_lo, s, pair);
+                              ls, tchunk, m_hi, m_lo, tw_hi, tw_lo, s, ghosts,
+                              pair);
+  if (storage == 2)
+    return full<wilson::f16>(u, psi, out, T, Z, Y, X, N, g5in, g5out, rows,
+                             ls, tchunk, m_hi, m_lo, tw_hi, tw_lo, s, ghosts,
+                             pair);
   return full<float>(u, psi, out, T, Z, Y, X, N, g5in, g5out, rows, ls,
-                     tchunk, m_hi, m_lo, tw_hi, tw_lo, s, pair);
+                     tchunk, m_hi, m_lo, tw_hi, tw_lo, s, ghosts, pair);
 }
 
 }  // extern "C"

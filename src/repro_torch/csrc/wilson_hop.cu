@@ -10,7 +10,7 @@
 // `_dslash_parity_kernel` (launched by `_dslash_parity_pallas`, which
 // `dslash_eo_pallas` / `dslash_oe_pallas` call with parity 0 / 1).
 //
-// Layouts (float32 or bf16, one type per launch): psi, psi_acc, out
+// Layouts (float32, bf16 or float16, one type per launch): psi, psi_acc, out
 // [N][T][Z][Y][24][Xh]; u_out, u_nbr
 // [4][T][Z][Y][18][Xh], component index (spin*3+color)*2+reim resp.
 // (row*3+col)*2+reim, X innermost.  u_out holds the links at the output
@@ -68,6 +68,12 @@
 //    one-site code and its roundings, so its outputs equal the one-site
 //    instance's bitwise.  Odd Xh and misaligned bases keep the one-site
 //    instance (a shape rule, kernel.py::hop_pair);
+//  * float16 storage is bf16's in every respect: the same one-site and
+//    pair instances on 16-bit elements (__half2 words), widened with
+//    __half2float and narrowed once with __float2half_rn /
+//    __floats2half2_rn (subnormals kept, round to nearest even).  Its two
+//    instances share one written-out epilogue (pair_epilogue), so they
+//    agree bitwise whatever FMA contractions nvcc would choose;
 //  * the Schur axpy and the twisted-mass site term stay in the epilogue,
 //    so the Schur normal operator is four launches of this kernel.
 //  The host (kernels/wilson_dslash/kernel.py::hop_tile_plan) picks b and
@@ -229,6 +235,56 @@ __device__ __forceinline__ void stage(const HopArgs<T>& a, const Tile& tl,
   __syncthreads();
 }
 
+// The one-site kernel's epilogue for spin s of one site, its roundings
+// written out.  That kernel writes nr = hc hr, nr -= hg hi, nr += ac ar,
+// nr -= ag ai (ni alike) and leaves nvcc free to contract a product and a
+// sum into one FMA, and which product it fuses differs between the three
+// code paths it splits the loop body into (no accumulator; accumulator
+// and twist; accumulator, no twist) and between spins.  Written as plain
+// expressions in the pair kernel, whose code paths differ, the same
+// source was contracted otherwise and gave 1-ulp differences.  The FMAs
+// here are those of the one-site bf16 instances as nvcc 12.9 compiles
+// them for sm_90a (read from their PTX and SASS, every instance alike), so
+// a pair rounds each site as the one-site instance does; the tests hold
+// the two instances bitwise equal on the card.  The float16 instances,
+// one-site and pair, both call this function, so they agree whatever
+// nvcc would contract.
+template <class T>
+__device__ __forceinline__ void pair_epilogue(const HopArgs<T>& a,
+                                              int s, float hr, float hi,
+                                              float ar, float ai, float& nr,
+                                              float& ni) {
+  const float g5 = s < 2 ? 1.f : -1.f;
+  const float hg = a.ht * g5;
+  if (!a.acc) {
+    nr = __fmul_rn(a.hc, hr);
+    ni = __fmul_rn(a.hc, hi);
+    if (a.ht != 0.f) {
+      nr = __fmaf_rn(-hg, hi, nr);
+      ni = __fmaf_rn(hg, hr, ni);
+    }
+    return;
+  }
+  if (a.ht != 0.f) {
+    nr = __fmaf_rn(a.hc, hr, -__fmul_rn(hg, hi));
+    ni = s < 2 ? __fmaf_rn(hg, hr, __fmul_rn(a.hc, hi))
+               : __fmaf_rn(a.hc, hi, __fmul_rn(hg, hr));
+    nr = __fmaf_rn(a.ac, ar, nr);
+    ni = __fmaf_rn(a.ac, ai, ni);
+  } else if (s == 0) {
+    nr = __fmaf_rn(a.ac, ar, __fmul_rn(a.hc, hr));
+    ni = __fmaf_rn(a.ac, ai, __fmul_rn(a.hc, hi));
+  } else {
+    nr = __fmaf_rn(a.hc, hr, __fmul_rn(a.ac, ar));
+    ni = __fmaf_rn(a.hc, hi, __fmul_rn(a.ac, ai));
+  }
+  if (a.at != 0.f) {
+    const float ag = a.at * g5;
+    nr = __fmaf_rn(-ag, ai, nr);
+    ni = __fmaf_rn(ag, ar, ni);
+  }
+}
+
 template <class T, bool G5IN, bool G5OUT, bool STAGED>
 __global__ void __launch_bounds__(HOP_THREADS, 2)
 wilson_hop_kernel(const HopArgs<T> a) {
@@ -320,7 +376,13 @@ wilson_hop_kernel(const HopArgs<T> a) {
           ni += hg * hr;
         }
         const int k = (s * 3 + c) * 2;
-        if (a.acc) {
+        if constexpr (std::is_same_v<T, wilson::f16>) {
+          // float16: the pair instance's roundings, written out
+          // (pair_epilogue), so that the two instances agree bitwise
+          const float ar = a.acc ? wide(acc_row[k * xh + j]) : 0.f;
+          const float ai = a.acc ? wide(acc_row[(k + 1) * xh + j]) : 0.f;
+          pair_epilogue(a, s, hr, hi, ar, ai, nr, ni);
+        } else if (a.acc) {
           const float ar = wide(acc_row[k * xh + j]);
           const float ai = wide(acc_row[(k + 1) * xh + j]);
           nr += a.ac * ar;
@@ -339,54 +401,8 @@ wilson_hop_kernel(const HopArgs<T> a) {
   }
 }
 
-// The one-site kernel's epilogue for spin s of one site, its roundings
-// written out.  That kernel writes nr = hc hr, nr -= hg hi, nr += ac ar,
-// nr -= ag ai (ni alike) and leaves nvcc free to contract a product and a
-// sum into one FMA, and which product it fuses differs between the three
-// code paths it splits the loop body into (no accumulator; accumulator
-// and twist; accumulator, no twist) and between spins.  Written as plain
-// expressions in the pair kernel, whose code paths differ, the same
-// source was contracted otherwise and gave 1-ulp differences.  The FMAs
-// here are those of the one-site bf16 instances as nvcc 12.9 compiles
-// them for sm_90a (read from their PTX and SASS, every instance alike), so
-// a pair rounds each site as the one-site instance does; the tests hold
-// the two instances bitwise equal on the card.
-__device__ __forceinline__ void pair_epilogue(const HopArgs<wilson::bf16>& a,
-                                              int s, float hr, float hi,
-                                              float ar, float ai, float& nr,
-                                              float& ni) {
-  const float g5 = s < 2 ? 1.f : -1.f;
-  const float hg = a.ht * g5;
-  if (!a.acc) {
-    nr = __fmul_rn(a.hc, hr);
-    ni = __fmul_rn(a.hc, hi);
-    if (a.ht != 0.f) {
-      nr = __fmaf_rn(-hg, hi, nr);
-      ni = __fmaf_rn(hg, hr, ni);
-    }
-    return;
-  }
-  if (a.ht != 0.f) {
-    nr = __fmaf_rn(a.hc, hr, -__fmul_rn(hg, hi));
-    ni = s < 2 ? __fmaf_rn(hg, hr, __fmul_rn(a.hc, hi))
-               : __fmaf_rn(a.hc, hi, __fmul_rn(hg, hr));
-    nr = __fmaf_rn(a.ac, ar, nr);
-    ni = __fmaf_rn(a.ac, ai, ni);
-  } else if (s == 0) {
-    nr = __fmaf_rn(a.ac, ar, __fmul_rn(a.hc, hr));
-    ni = __fmaf_rn(a.ac, ai, __fmul_rn(a.hc, hi));
-  } else {
-    nr = __fmaf_rn(a.hc, hr, __fmul_rn(a.ac, ar));
-    ni = __fmaf_rn(a.hc, hi, __fmul_rn(a.ac, ai));
-  }
-  if (a.at != 0.f) {
-    const float ag = a.at * g5;
-    nr = __fmaf_rn(-ag, ai, nr);
-    ni = __fmaf_rn(ag, ar, ni);
-  }
-}
-
-// The bf16 pair instance (even Xh, 4-byte aligned bases): a work item is
+// The pair instance (bf16 or float16, even Xh, 4-byte aligned bases): a
+// work item is
 // one output colour of two sites (j, j + 1) of a row, j even.  Every
 // component of the two sites is one 32-bit word of a staged row (or of the
 // field, in place), read once, whose halves feed the one-site hop code
@@ -400,13 +416,11 @@ __device__ __forceinline__ void pair_epilogue(const HopArgs<wilson::bf16>& a,
 // spans, so the word and the half each site takes are selected, not
 // branched on.  The outputs are stored a word at a time.  The staging is
 // the one-site kernel's.
-template <bool G5IN, bool G5OUT, bool STAGED>
+template <class T, bool G5IN, bool G5OUT, bool STAGED>
 __global__ void __launch_bounds__(HOP_THREADS, 2)
-wilson_hop_pair_kernel(const HopArgs<wilson::bf16> a) {
-  using T = wilson::bf16;
+wilson_hop_pair_kernel(const HopArgs<T> a) {
   using wilson::HI;
   using wilson::LO;
-  using wilson::half;
   using wilson::word;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const smem = reinterpret_cast<T*>(smem_raw);
@@ -478,7 +492,7 @@ wilson_hop_pair_kernel(const HopArgs<wilson::bf16> a) {
       // a row's component k, the half `sel` of the word at jj (even)
       auto at = [xh](const T* row, int jj, unsigned sel) {
         return [row, jj, sel, xh](int k) {
-          return half(word(row + k * xh + jj), sel);
+          return wilson::half<T>(word(row + k * xh + jj), sel);
         };
       };
       // site j + h: the same hops in the same order as the one-site
@@ -509,8 +523,8 @@ wilson_hop_pair_kernel(const HopArgs<wilson::bf16> a) {
           float ar = 0.f, ai = 0.f;
           if (a.acc) {
             const unsigned sel = h ? HI : LO;
-            ar = half(word(acc_row + k * xh + j), sel);
-            ai = half(word(acc_row + (k + 1) * xh + j), sel);
+            ar = wilson::half<T>(word(acc_row + k * xh + j), sel);
+            ai = wilson::half<T>(word(acc_row + (k + 1) * xh + j), sel);
           }
           pair_epilogue(a, s, o_r[h][s], o_i[h][s], ar, ai, v_r[h], v_i[h]);
         }
@@ -541,11 +555,12 @@ cudaError_t launch(const HopArgs<T>& a, int blocks, int threads, size_t smem,
                                                         smem, s);
 }
 
-template <bool G5IN, bool G5OUT, bool STAGED>
-cudaError_t launch_pair(const HopArgs<wilson::bf16>& a, int blocks,
-                        int threads, size_t smem, cudaStream_t s) {
-  return run<wilson_hop_pair_kernel<G5IN, G5OUT, STAGED>>(a, blocks, threads,
-                                                          smem, s);
+template <class T, bool G5IN, bool G5OUT, bool STAGED>
+cudaError_t launch_pair(const HopArgs<T>& a, int blocks, int threads,
+                        size_t smem, cudaStream_t s) {
+  return run<wilson_hop_pair_kernel<T, G5IN, G5OUT, STAGED>>(a, blocks,
+                                                             threads, smem,
+                                                             s);
 }
 
 template <class T>
@@ -578,7 +593,7 @@ int hop(const void* u_out, const void* u_nbr, const void* psi,
   cudaError_t err;
   const int key = (g5in ? 1 : 0) | (g5out ? 2 : 0) | (staged ? 4 : 0);
   *pair = 0;
-  if constexpr (std::is_same_v<T, wilson::bf16>) {
+  if constexpr (sizeof(T) == 2) {
     // the pair instance's rule: even Xh (so are the plan's strides) and
     // every base 4-byte aligned, so that each pair of sites is one word
     auto word = [](const void* p) {
@@ -591,14 +606,14 @@ int hop(const void* u_out, const void* u_nbr, const void* psi,
       threads = threads < HOP_THREADS ? ((threads + 31) / 32) * 32
                                       : HOP_THREADS;
       switch (key) {
-        case 0: err = launch_pair<false, false, false>(a, blocks, threads, smem, s); break;
-        case 1: err = launch_pair<true, false, false>(a, blocks, threads, smem, s); break;
-        case 2: err = launch_pair<false, true, false>(a, blocks, threads, smem, s); break;
-        case 3: err = launch_pair<true, true, false>(a, blocks, threads, smem, s); break;
-        case 4: err = launch_pair<false, false, true>(a, blocks, threads, smem, s); break;
-        case 5: err = launch_pair<true, false, true>(a, blocks, threads, smem, s); break;
-        case 6: err = launch_pair<false, true, true>(a, blocks, threads, smem, s); break;
-        default: err = launch_pair<true, true, true>(a, blocks, threads, smem, s); break;
+        case 0: err = launch_pair<T, false, false, false>(a, blocks, threads, smem, s); break;
+        case 1: err = launch_pair<T, true, false, false>(a, blocks, threads, smem, s); break;
+        case 2: err = launch_pair<T, false, true, false>(a, blocks, threads, smem, s); break;
+        case 3: err = launch_pair<T, true, true, false>(a, blocks, threads, smem, s); break;
+        case 4: err = launch_pair<T, false, false, true>(a, blocks, threads, smem, s); break;
+        case 5: err = launch_pair<T, true, false, true>(a, blocks, threads, smem, s); break;
+        case 6: err = launch_pair<T, false, true, true>(a, blocks, threads, smem, s); break;
+        default: err = launch_pair<T, true, true, true>(a, blocks, threads, smem, s); break;
       }
       return static_cast<int>(err);
     }
@@ -627,9 +642,9 @@ const char* error_string(int code) {
 // rows, ls, ss: the tile plan of kernel.py::hop_tile_plan (rows == 0: the
 // rows are read in place, nothing is staged; strides in elements); acc may
 // be null.  hop_coeff and hop_twist are the caller's, the hop's -1/2 is
-// applied here.  storage: 0 float32, 1 bf16, for every field and link.
-// *pair is set to 1 when the bf16 pair instance ran, else 0.  Returns a
-// cudaError_t code.
+// applied here.  storage: 0 float32, 1 bf16, 2 float16, for every field
+// and link.  *pair is set to 1 when a pair instance (bf16 or float16) ran,
+// else 0.  Returns a cudaError_t code.
 int wilson_hop(const void* u_out, const void* u_nbr, const void* psi,
                const void* acc, void* out, int T, int Z, int Y, int Xh,
                int N, int parity, int g5in, int g5out, int rows, int ls,
@@ -640,6 +655,10 @@ int wilson_hop(const void* u_out, const void* u_nbr, const void* psi,
     return hop<wilson::bf16>(u_out, u_nbr, psi, acc, out, T, Z, Y, Xh, N,
                              parity, g5in, g5out, rows, ls, ss, hop_coeff,
                              hop_twist, acc_coeff, acc_twist, s, pair);
+  if (storage == 2)
+    return hop<wilson::f16>(u_out, u_nbr, psi, acc, out, T, Z, Y, Xh, N,
+                            parity, g5in, g5out, rows, ls, ss, hop_coeff,
+                            hop_twist, acc_coeff, acc_twist, s, pair);
   return hop<float>(u_out, u_nbr, psi, acc, out, T, Z, Y, Xh, N, parity, g5in,
                     g5out, rows, ls, ss, hop_coeff, hop_twist, acc_coeff,
                     acc_twist, s, pair);

@@ -2,7 +2,8 @@
 
 K1 ``wilson_hop`` and K4 ``wilson_full`` (:mod:`.wilson_dslash`), K2
 ``cg_update`` and K3 ``cg_xpay`` (:mod:`.cg_fused`); :mod:`.build`
-compiles ``csrc/*.cu``.  Each kernel has a float32 and a bf16 instance.
+compiles ``csrc/*.cu``.  Each kernel has a float32, a bf16 and a float16
+instance.
 Nothing is built or imported from ``nvcc`` until a kernel is launched.
 """
 
@@ -20,20 +21,26 @@ def reset_counts() -> None:
         build.zero_counts(fn)
 
 
+NARROW = ("_bf16", "_f16")   # the narrow instances' count suffixes
+
+
 def pair_launches() -> dict[str, int]:
     """{kernel: n} since the last reset: the launches of the Wilson
-    kernels' bf16 pair instances, a part of their ``<kernel>_bf16``
-    launches (the rest ran the one-site instance)."""
-    return {name + "_bf16": WRAPPERS[name].launches_bf16_pair
-            for name in ("wilson_hop", "wilson_full")}
+    kernels' pair instances, a part of their ``<kernel>_bf16`` and
+    ``<kernel>_f16`` launches (the rest ran the one-site instance)."""
+    return {name + sfx: getattr(WRAPPERS[name], f"launches{sfx}_pair")
+            for name in ("wilson_hop", "wilson_full") for sfx in NARROW}
 
 
 def counts() -> dict[str, dict[str, int]]:
     """{kernel: {"launches": n, "plain_calls": m}} since the last reset,
-    with the bf16 instances as ``<kernel>_bf16``."""
+    with the bf16 and float16 instances as ``<kernel>_bf16`` and
+    ``<kernel>_f16``."""
     out = {}
     for name, fn in WRAPPERS.items():
         out[name] = {"launches": fn.launches, "plain_calls": fn.plain_calls}
-        out[name + "_bf16"] = {"launches": fn.launches_bf16,
-                               "plain_calls": fn.plain_calls_bf16}
+        for sfx in NARROW:
+            out[name + sfx] = {"launches": getattr(fn, "launches" + sfx),
+                               "plain_calls": getattr(fn, "plain_calls"
+                                                      + sfx)}
     return out

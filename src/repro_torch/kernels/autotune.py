@@ -277,7 +277,7 @@ def main(argv=None) -> int:
                         "field), X for wilson_full")
     p.add_argument("--nrhs", type=int, nargs="+", default=[1])
     p.add_argument("--dtype", nargs="+", default=["float32"],
-                   choices=["float32", "bfloat16"])
+                   choices=["float32", "bfloat16", "float16"])
     p.add_argument("--rounds", type=int, default=5)
     p.add_argument("--out", default=None,
                    help="cache JSON (default: REPRO_TORCH_TUNING_CACHE_PATH "

@@ -131,20 +131,28 @@ def check(lib: ctypes.CDLL, rc: int, entry: str) -> None:
 _COUNT_LOCK = threading.Lock()
 
 
+# the count suffix of each narrow storage type's instances
+SUFFIX = {torch.bfloat16: "_bf16", torch.float16: "_f16"}
+
+
 def count(fn, kind: str, dtype, pair: bool = False) -> None:
     """Add one to a wrapper's ``kind`` count ("launches" or
-    "plain_calls"); a call on bf16 storage counts as ``<kind>_bf16``, so
-    a run shows which instance it went through, and a launch of a Wilson
-    kernel's bf16 pair instance (``pair``) in ``launches_bf16_pair`` too."""
-    attr = kind + ("_bf16" if dtype == torch.bfloat16 else "")
+    "plain_calls"); a call on bf16 or float16 storage counts as
+    ``<kind>_bf16`` or ``<kind>_f16``, so a run shows which instance it
+    went through, and a launch of a Wilson kernel's pair instance
+    (``pair``) in ``launches_bf16_pair`` or ``launches_f16_pair`` too."""
+    suffix = SUFFIX.get(dtype, "")
     with _COUNT_LOCK:   # a server's worker thread launches too
+        attr = kind + suffix
         setattr(fn, attr, getattr(fn, attr) + 1)
         if pair:
-            fn.launches_bf16_pair += 1
+            attr = f"launches{suffix}_pair"
+            setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 COUNTS = ("launches", "plain_calls", "launches_bf16", "plain_calls_bf16",
-          "launches_bf16_pair")
+          "launches_bf16_pair", "launches_f16", "plain_calls_f16",
+          "launches_f16_pair")
 
 
 def zero_counts(fn) -> None:
@@ -154,15 +162,15 @@ def zero_counts(fn) -> None:
 
 
 # the kernels' storage types and their codes in the C interfaces
-STORAGE = {torch.float32: 0, torch.bfloat16: 1}
+STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def storage_code(entry: str, tensors) -> int:
     """The one storage dtype of a kernel call's operands, as its C code.
 
-    float32 and bf16 are the kernels' storage types; float16 has no
-    instance yet (ROADMAP Queue B item 9) and raises NotImplementedError,
-    on the CPU too, so the plain versions keep the kernels' contract."""
+    float32, bf16 and float16 are the kernels' storage types; any other
+    (float64, ...) raises NotImplementedError, on the CPU too, so the
+    plain versions keep the kernels' contract."""
     dtype = tensors[0].dtype
     for v in tensors:
         if v.dtype != dtype:
@@ -170,6 +178,5 @@ def storage_code(entry: str, tensors) -> int:
                              f"{v.dtype} and {dtype}")
     if dtype not in STORAGE:
         raise NotImplementedError(
-            f"{entry} stores float32 or bfloat16, got {dtype}; other narrow "
-            "storage (float16) is ROADMAP Queue B item 9")
+            f"{entry} stores float32, bfloat16 or float16, got {dtype}")
     return STORAGE[dtype]

@@ -7,14 +7,16 @@ Pallas kernels ``cg_update_pallas``/``cg_update_batched_pallas`` and K3
 ``repro/kernels/cg_fused/kernel.py``.
 
 Fields are (N, ...) batches, contiguous, streamed as (N, L) with the
-ragged end masked in the kernel, all float32 or all bf16 (the storage of
-the mixed-precision solve's inner CG); scalars and norms are float32.
+ragged end masked in the kernel, all float32, all bf16 or all float16
+(the storage of the mixed-precision solve's inner CG); scalars and norms
+are float32.
 For CPU tensors the wrappers run the plain versions in :mod:`.ref`, and
 only then; for CUDA tensors they launch the kernel or raise.  Each
 wrapper counts ``launches`` (one per call that launched its kernels —
 K2's call is a streaming pass plus a fixed-order partial-sum pass) and
-``plain_calls``; calls on bf16 storage count as ``launches_bf16`` and
-``plain_calls_bf16``.
+``plain_calls``; calls on bf16 or float16 storage count as
+``launches_bf16`` / ``launches_f16`` and ``plain_calls_bf16`` /
+``plain_calls_f16``.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def _check(entry: str, fields, scalars) -> int:
 
 def _empty_aligned_as(v: torch.Tensor) -> torch.Tensor:
     """An empty contiguous tensor shaped like ``v`` whose data starts as far
-    past a 16-byte boundary as ``v``'s does.  K2's bf16 split of an RHS
+    past a 16-byte boundary as ``v``'s does.  K2's 16-bit split of an RHS
     into a scalar head and 16-byte vectors follows its operands' common
     alignment, and so does the order of its norm's partial sums: outputs
     aligned like ``x`` keep RHS n of a batch and the single call on

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the fused CG vector kernels.
 
-Fields are (N, ...) batches with per-RHS (N,) scalars, in float32 or
-bf16 storage: each field is widened to f32, the update is computed in
+Fields are (N, ...) batches with per-RHS (N,) scalars, in float32, bf16
+or float16 storage: each field is widened to f32, the update is computed in
 f32 and rounded once to the field's dtype, and ``||r'||^2`` is reduced
 from the f32 value before that rounding (as the JAX kernels do).  Each
 RHS is reduced on its own, so a batched call equals N single calls bit

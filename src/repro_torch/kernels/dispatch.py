@@ -86,7 +86,8 @@ DEFAULT_TILE = TileConfig()
 
 
 def dtype_name(dtype) -> str:
-    """``"float32"``/``"bfloat16"`` for a torch dtype or its name."""
+    """``"float32"``/``"bfloat16"``/``"float16"`` for a torch dtype or its
+    name."""
     return str(dtype).removeprefix("torch.")
 
 
@@ -152,6 +153,8 @@ def pick_tile(kernel: str, lattice_shape, nrhs: int, dtype) -> TileConfig:
     """A launch's tile: the ``REPRO_TORCH_TILE`` override, else the cache
     entry of ``(kernel, lattice_shape, nrhs, dtype)`` on the CUDA backend,
     else :data:`DEFAULT_TILE` (the heuristics the kernels always ran).
+    A float16 launch without an entry of its own takes the bf16 entry of
+    its problem (the same bytes and instances on 16-bit words).
 
     Resolved once per process for each problem and setting of the three
     variables (the cache file is not read again until
@@ -171,7 +174,11 @@ def _pick(kernel, lattice_shape, nrhs, dtype, forced, enabled, path):
         return parse_tile(forced)
     if enabled in ("0", "off"):
         return DEFAULT_TILE
-    entry = read_tuning_cache(path).get(key)
+    entries = read_tuning_cache(path)
+    entry = entries.get(key)
+    if entry is None and dtype_name(dtype) == "float16":
+        entry = entries.get(cache_key(kernel, BACKEND, lattice_shape, nrhs,
+                                      torch.bfloat16))
     if entry is None:
         return DEFAULT_TILE
     return TileConfig(b=entry.get("b"), tchunk=entry.get("tchunk"))

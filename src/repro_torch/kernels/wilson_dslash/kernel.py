@@ -11,15 +11,17 @@ by :func:`hop_spec`, and the staging helpers of ``csrc/stage.cuh``;
 :func:`hop_tile_plan` and :func:`full_tile_plan` size their shared-memory
 tiles, after the launch space's tile (:mod:`..dispatch`).
 
-Fields and links are float32 or bf16 (the mixed-precision solve's low
-operator), one dtype per call; the kernels compute in f32 and round each
-output once to that dtype.  Each wrapper runs its plain version
+Fields and links are float32, bf16 or float16 (the mixed-precision
+solve's low operator), one dtype per call; the kernels compute in f32 and
+round each output once to that dtype.  Each wrapper runs its plain version
 (:mod:`..ref`) for tensors on the CPU, and only then; for CUDA tensors it
 launches the kernel or raises.
 ``<wrapper>.launches`` counts kernel launches and ``<wrapper>.plain_calls``
-plain-version calls (``launches_bf16`` and ``plain_calls_bf16`` those on
-bf16 storage, ``launches_bf16_pair`` the bf16 launches that ran the pair
-instance, two sites a thread), so a run can show which path it took;
+plain-version calls (``launches_bf16`` / ``launches_f16`` and
+``plain_calls_bf16`` / ``plain_calls_f16`` those on 16-bit storage,
+``launches_bf16_pair`` / ``launches_f16_pair`` the 16-bit launches that
+ran the pair instance, two sites a thread), so a run can show which path
+it took;
 ``<wrapper>.last_tile`` the tile its last launch ran (its ``b``, K4's
 ``tchunk``, and the launch space's pick).
 """
@@ -69,7 +71,7 @@ def hop_spec(mu: int, forward: bool, gamma5_in: bool, gamma5_out: bool):
 # sites (96 threads) is b = 2 at 32^3 x 64, the fastest of b = 1, 2, 3, 4,
 # 5, 8 that scripts/compare_kernels.py timed on the H100 (PERF.md).
 # FULL_TILE_SITES sets K4's: 128 sites (one thread each) is b = 4 at
-# 32^3 x 64.  The bf16 pair instances (two sites a thread, see
+# 32^3 x 64.  The 16-bit pair instances (two sites a thread, see
 # :func:`hop_pair` and :func:`full_pair`) keep the threads and take twice
 # the sites: b = 4 for K1 and 8 for K4 at 32^3 x 64.  These are the
 # defaults; a tile of the launch space (:mod:`..dispatch`) may set b, and
@@ -162,21 +164,24 @@ def _forced_plan(kernel: str, y: int, width: int, b: int, smem_bytes,
 
 
 def hop_pair(xh: int, esize: int) -> bool:
-    """Whether K1 runs its bf16 pair instance, two adjacent sites a thread
-    with each component of both read as one 32-bit word: bf16 storage and
-    an even Xh, given 4-byte aligned bases, as ``csrc/wilson_hop.cu``
+    """Whether K1 runs its pair instance, two adjacent sites a thread with
+    each component of both read as one 32-bit word: 16-bit storage (bf16
+    or float16) and an even Xh, given 4-byte aligned bases, as
+    ``csrc/wilson_hop.cu``
     tests.  Otherwise the one-site instance runs.  The pair instance takes
     every tile the one-site instance does."""
     return esize == 2 and xh % 2 == 0
 
 
 def full_pair(x: int, esize: int) -> bool:
-    """Whether K4 runs its bf16 pair instance: bf16 storage and X = 32,
+    """Whether K4 runs its pair instance: 16-bit storage (bf16 or float16)
+    and X = 32,
     whose compile-time instance holds two sites' sums in three blocks an
     SM (a runtime-X one spilled and lost to the one-site instance at
     X = 48, PERF.md), given 4-byte aligned bases, as
-    ``csrc/wilson_full.cu`` tests.  It stages its links, so it refuses
-    b = 0 (:func:`full_tile_plan`)."""
+    ``csrc/wilson_full.cu`` tests (and 4-byte aligned ghost planes on a
+    mesh block).  It stages its links, so it refuses b = 0
+    (:func:`full_tile_plan`)."""
     return esize == 2 and x == 32
 
 
@@ -198,13 +203,14 @@ def full_tile_plan(y: int, x: int, esize: int = 4,
     the shared-memory stride (elements) of its staged link rows (see
     :func:`_tile_plan`; b == 0: links read in place).  ``b``: a tile's
     rows instead of the heuristic's (ValueError if they do not fit, or if
-    b = 0 meets the bf16 pair instance, which stages its links and would
+    b = 0 meets the 16-bit pair instance, which stages its links and would
     otherwise be swapped for the one-site instance)."""
     if b is not None:
         if b == 0 and full_pair(x, esize):
             raise ValueError(
                 f"wilson_full: b=0 (links read in place) is refused at "
-                f"X={x} in bf16: the pair instance stages its links; legal "
+                f"X={x} in 16-bit storage: the pair instance stages its "
+                "links; legal "
                 f"b values there: 1..{max_rows(y, x, _full_smem, esize)}")
         b, ls, _ = _forced_plan("wilson_full", y, x, b, _full_smem, esize)
         return b, ls
@@ -311,7 +317,7 @@ def wilson_hop(u_out: torch.Tensor, u_nbr: torch.Tensor, psi: torch.Tensor,
     """One parity hop block with the fused epilogue (see
     :func:`..ref.wilson_hop_ref` for the function).  ``psi`` is a packed
     half field (T,Z,Y,24,Xh) or an (N,T,Z,Y,24,Xh) batch; every operand
-    float32, or every operand bf16."""
+    of one storage dtype: float32, bf16 or float16."""
     _check_operands(u_out, u_nbr, psi, psi_acc)
     operands = [u_out, u_nbr, psi] + ([psi_acc] if psi_acc is not None
                                       else [])
@@ -374,7 +380,7 @@ def _full_lib() -> ctypes.CDLL:
     lib = build.library("wilson_full")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.wilson_full.argtypes = ([p, p, p] + [i] * 10 + [f] * 4
-                                + [i, p, ctypes.POINTER(i)])
+                                + [i, p, p, ctypes.POINTER(i)])
     lib.wilson_full.restype = ctypes.c_int
     return lib
 
@@ -392,18 +398,63 @@ def _check_full_operands(up, pp):
     return build.storage_code("wilson_full", (up, pp))
 
 
+def _plane_shape(shape, axis: int) -> tuple:
+    out = list(shape)
+    out[axis] = 1
+    return tuple(out)
+
+
+def _check_halo(up, pp, halo) -> list:
+    """The ghost planes of ``halo`` (see :func:`..ref.wilson_full_ref`)
+    checked against the block, as the C entry's nine pointers: the psi
+    planes before and after the block along T, Z and Y, then U_t, U_z and
+    U_y at the previous rank's last plane (None: the axis is not
+    sharded)."""
+    batch = pp.dim() - 5
+    ptrs = [None] * 9
+    for mu, planes in halo.items():
+        if mu not in (0, 1, 2):
+            raise ValueError(f"wilson_full: halo axis {mu!r}; the sharded "
+                             "axes are 0 (T), 1 (Z) and 2 (Y), X never")
+        prev, nxt, u_prev = planes
+        want = _plane_shape(pp.shape, batch + mu)
+        for name, v, shape in (("psi_prev", prev, want),
+                               ("psi_next", nxt, want),
+                               ("u_prev", u_prev,
+                                _plane_shape(up.shape[1:], mu))):
+            if tuple(v.shape) != shape or v.dtype != pp.dtype:
+                raise ValueError(
+                    f"wilson_full: halo[{mu}] {name} must be {shape} "
+                    f"{pp.dtype}, got {tuple(v.shape)} {v.dtype}")
+            if pp.device.type != "cpu" and (v.device != pp.device
+                                            or not v.is_contiguous()):
+                raise ValueError(f"wilson_full: halo[{mu}] {name} must be "
+                                 f"a contiguous tensor on {pp.device}")
+        ptrs[2 * mu], ptrs[2 * mu + 1] = prev, nxt
+        ptrs[6 + mu] = u_prev
+    return ptrs
+
+
 def wilson_full(up: torch.Tensor, pp: torch.Tensor, mass, *,
                 twist: float = 0.0, gamma5_in: bool = False,
-                gamma5_out: bool = False) -> torch.Tensor:
+                gamma5_out: bool = False, halo=None) -> torch.Tensor:
     """``g5out (D + i twist g5) (g5in psi)`` on the full lattice (see
     :func:`..ref.wilson_full_ref`).  ``pp`` is a packed field
     (T,Z,Y,24,X) or an (N,T,Z,Y,24,X) batch, ``up`` the packed gauge
-    field (4,T,Z,Y,18,X), both float32 or both bf16."""
+    field (4,T,Z,Y,18,X), both of one storage dtype (float32, bf16 or
+    float16).
+
+    ``halo``: for a rank's block of a mesh, ``{axis: (psi_prev, psi_next,
+    u_prev)}`` for each sharded axis (0 T, 1 Z, 2 Y): the ghost planes
+    the kernel reads where a neighbour row wraps across that face, so
+    every site sums what one launch on the global field sums, in its
+    order."""
     storage = _check_full_operands(up, pp)
+    ghosts = _check_halo(up, pp, halo) if halo else [None] * 9
     kw = dict(twist=twist, gamma5_in=gamma5_in, gamma5_out=gamma5_out)
     if pp.device.type == "cpu":
         build.count(wilson_full, "plain_calls", pp.dtype)
-        return wilson_full_ref(up, pp, mass, **kw)
+        return wilson_full_ref(up, pp, mass, halo=halo, **kw)
     for name, v in (("up", up), ("pp", pp)):
         if v.device != pp.device or not v.is_contiguous():
             raise ValueError(f"wilson_full: {name} must be a contiguous "
@@ -416,11 +467,14 @@ def wilson_full(up: torch.Tensor, pp: torch.Tensor, mass, *,
     out = torch.empty_like(pp)
     lib = _full_lib()
     pair = ctypes.c_int(0)
+    ghost_ptrs = (ctypes.c_void_p * 9)(
+        *(None if v is None else v.data_ptr() for v in ghosts))
     rc = lib.wilson_full(
         up.data_ptr(), pp.data_ptr(), out.data_ptr(), t, z, y, x, n,
         int(bool(gamma5_in)), int(bool(gamma5_out)), *plan,
         *site_coeffs(mass, twist, gamma5_in, gamma5_out), storage,
-        torch.cuda.current_stream(pp.device).cuda_stream, ctypes.byref(pair))
+        torch.cuda.current_stream(pp.device).cuda_stream, ghost_ptrs,
+        ctypes.byref(pair))
     build.check(lib, rc, "wilson_full")
     build.count(wilson_full, "launches", pp.dtype, pair.value)
     return out

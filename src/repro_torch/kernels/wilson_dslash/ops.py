@@ -24,10 +24,10 @@ Every entry point takes a spinor with or without a leading RHS axis
 (N, T, Z, Y, 24, X[h]); a batch rides the same launches, so
 ``schur_normal_op`` is four launches and ``normal_op`` two whatever N
 is.  Tensors on the CPU go through the kernel's plain version, CUDA
-tensors through the kernel.  Fields and links are float32, or bf16 for
-the mixed-precision solve's low operator: every launch's output, and so
-every entry point's, is in the input's storage dtype, as in the JAX
-package.
+tensors through the kernel.  Fields and links are float32, or bf16 or
+float16 for the mixed-precision solve's low operator: every launch's
+output, and so every entry point's, is in the input's storage dtype, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,13 +41,15 @@ from repro_torch.kernels.wilson_dslash.ref import (wilson_full_ref,
 
 
 def dslash(up, pp, mass, *, twist: float = 0.0, gamma5_in: bool = False,
-           gamma5_out: bool = False, use_kernels: bool = True
-           ) -> torch.Tensor:
+           gamma5_out: bool = False, use_kernels: bool = True,
+           halo=None) -> torch.Tensor:
     """``g5out (D + i twist g5) (g5in psi)`` on packed full-lattice fields;
-    ``twist`` is the operator family's site-term twist (0 for Wilson)."""
+    ``twist`` is the operator family's site-term twist (0 for Wilson).
+    ``halo``: a mesh block's ghost planes (:func:`..kernel.wilson_full`),
+    read in the same launch."""
     fn = wilson_full if use_kernels else wilson_full_ref
     return fn(up, pp, mass, twist=twist, gamma5_in=gamma5_in,
-              gamma5_out=gamma5_out)
+              gamma5_out=gamma5_out, halo=halo)
 
 
 def dslash_dagger(up, pp, mass, *, twist: float = 0.0,

@@ -72,18 +72,60 @@ def wilson_hop_ref(u_out: torch.Tensor, u_nbr: torch.Tensor,
     return out.to(psi.dtype)
 
 
+def _padded(up: torch.Tensor, pp: torch.Tensor, halo):
+    """``up`` and ``pp`` grown by one plane on either side of every axis
+    (0 T, 1 Z, 2 Y) of ``halo``, holding the received ghost planes there:
+    ``halo[axis] = (psi_prev, psi_next, u_prev)``, the previous rank's
+    last plane of psi, the next rank's first one (each shaped as a plane
+    of ``pp``) and U_axis at the previous rank's last plane (a plane of
+    ``up[axis]``).  The rest of the new planes is zero: no interior site
+    reads it.  Returns the two fields and the index of the interior."""
+    batch = pp.dim() - 5
+    grow = [1 if mu in halo else 0 for mu in range(3)]
+    inner = tuple(slice(g, g + n) for g, n in zip(grow, pp.shape[batch:]))
+    lead = (slice(None),) * batch
+    ps, us = list(pp.shape), list(up.shape)
+    for mu, g in enumerate(grow):
+        ps[batch + mu] += 2 * g
+        us[1 + mu] += 2 * g
+    big, ubig = pp.new_zeros(ps), up.new_zeros(us)
+    big[lead + inner] = pp
+    ubig[(slice(None),) + inner] = up
+    for mu, (prev, nxt, u_prev) in halo.items():
+        face = list(inner)
+        face[mu] = slice(0, 1)
+        big[lead + tuple(face)] = prev
+        ubig[(mu,) + tuple(face)] = u_prev
+        face[mu] = slice(-1, None)
+        big[lead + tuple(face)] = nxt
+    return ubig, big, lead + inner
+
+
 def wilson_full_ref(up: torch.Tensor, pp: torch.Tensor, mass, *,
                     twist: float = 0.0, gamma5_in: bool = False,
-                    gamma5_out: bool = False) -> torch.Tensor:
+                    gamma5_out: bool = False, halo=None) -> torch.Tensor:
     """The full-lattice kernel's function on packed fields (rank 5, or
     rank 6 with a leading RHS axis)::
 
         out = g5out (D_wilson + i twist g5) (g5in psi)
 
     Computed in f32 (f64 for f64 fields) from the widened operands and
-    rounded once to ``pp``'s dtype, as the kernel does.  A batch goes through one RHS at a
-    time, so batched equals looped bitwise.
+    rounded once to ``pp``'s dtype, as the kernel does.  A batch goes
+    through one RHS at a time, so batched equals looped bitwise.
+
+    ``halo``: for a rank's block of a mesh, ``{axis: (psi_prev, psi_next,
+    u_prev)}`` for each sharded axis (0 T, 1 Z, 2 Y; see :func:`_padded`).
+    The block is evaluated padded with those planes and its interior
+    returned, so each boundary site sums the same terms in the same order
+    as one evaluation of the global field: the gathered blocks are that
+    evaluation, bit for bit.
     """
+    if halo:
+        up, pp_in, inner = _padded(up, pp, halo)
+        return wilson_full_ref(up, pp_in, mass, twist=twist,
+                               gamma5_in=gamma5_in,
+                               gamma5_out=gamma5_out)[inner].contiguous()
+
     def one(q):
         if gamma5_in:
             q = apply_gamma5_packed(q)

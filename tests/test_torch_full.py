@@ -517,10 +517,24 @@ def test_wrapper_rejects_bad_operands(fields):
         tk.wilson_full(up, pp[..., :2], MASS)
     with pytest.raises(ValueError, match="rank"):
         tk.wilson_full(up, pp[0, 0], MASS)
-    # bf16 is a storage type of the kernel since mixed precision (A8);
-    # float16 is the ROADMAP row still open
-    with pytest.raises(NotImplementedError, match="Queue B item 9"):
-        tk.wilson_full(up.half(), pp.half(), MASS)
+    # bf16 (mixed precision, A8) and float16 (Queue B item 9) are storage
+    # types of the kernel; float64 is none
+    with pytest.raises(NotImplementedError, match="float16"):
+        tk.wilson_full(up.double(), pp.double(), MASS)
+    assert tk.wilson_full(up.half(), pp.half(), MASS).dtype == torch.float16
+    # a mesh block's ghost planes: one plane of the block along a sharded
+    # axis (T, Z or Y) and U of that axis at the previous rank's edge
+    t_plane = pp.narrow(pp.dim() - 5, 0, 1)
+    u_t = up[0].narrow(0, 0, 1)
+    assert tk.wilson_full(up, pp, MASS, halo={0: (t_plane, t_plane, u_t)}
+                          ).shape == pp.shape
+    with pytest.raises(ValueError, match="halo axis"):
+        tk.wilson_full(up, pp, MASS, halo={3: (t_plane, t_plane, u_t)})
+    with pytest.raises(ValueError, match=r"halo\[1\] psi_prev must be"):
+        tk.wilson_full(up, pp, MASS, halo={1: (t_plane, t_plane, u_t)})
+    with pytest.raises(ValueError, match=r"halo\[0\] u_prev must be"):
+        tk.wilson_full(up, pp, MASS, halo={0: (t_plane, t_plane,
+                                               u_t.half())})
 
 
 # ---------------------------------------------------------------------------
@@ -627,8 +641,12 @@ def test_packed_layout_errors(problem):
         _port(problem, problem["bt"], layout="wire")
     with pytest.raises(ValueError, match="even-odd context"):
         tplan.resolve(tplan.SolverPlan(operator="full"), problem["ut"], MASS)
-    with pytest.raises(NotImplementedError, match="Queue B item 9"):
-        tplan.SolverPlan(operator="full", precision="mixed", low="float16")
+    # the kernels store float32, bf16 and float16 (Queue B item 9, done);
+    # float64 low storage runs on the reference backend only
+    with pytest.raises(NotImplementedError, match="float16"):
+        tplan.SolverPlan(operator="full", precision="mixed", low="float64")
+    assert tplan.SolverPlan(operator="full", precision="mixed",
+                            low="float16").low_dtype == torch.float16
     with pytest.raises(NotImplementedError, match="r=1"):
         _port(problem, problem["bt"], r=0.5)
 

@@ -380,20 +380,27 @@ def test_hop_tile_plan_bf16(yx):
 
 
 def test_pair_launch_counts():
-    """A pair launch counts as a bf16 launch and as a pair launch; a reset
-    zeroes both."""
+    """A pair launch counts as a launch of its storage type's instance
+    (bf16 or float16) and as a pair launch of that type; a reset zeroes
+    both."""
     from repro_torch import kernels
     from repro_torch.kernels import build
     kernels.reset_counts()
     build.count(tk.wilson_hop, "launches", torch.bfloat16, pair=True)
     build.count(tk.wilson_hop, "launches", torch.bfloat16)
     build.count(tk.wilson_full, "launches", torch.bfloat16, pair=True)
+    build.count(tk.wilson_full, "launches", torch.float16, pair=True)
     assert kernels.counts()["wilson_hop_bf16"]["launches"] == 2
+    assert kernels.counts()["wilson_full_f16"]["launches"] == 1
     assert kernels.pair_launches() == {"wilson_hop_bf16": 1,
-                                       "wilson_full_bf16": 1}
+                                       "wilson_hop_f16": 0,
+                                       "wilson_full_bf16": 1,
+                                       "wilson_full_f16": 1}
     kernels.reset_counts()
     assert kernels.pair_launches() == {"wilson_hop_bf16": 0,
-                                       "wilson_full_bf16": 0}
+                                       "wilson_hop_f16": 0,
+                                       "wilson_full_bf16": 0,
+                                       "wilson_full_f16": 0}
 
 
 def _true_reads(dims, t, z, y):
@@ -495,15 +502,16 @@ def test_schur_normal_op_is_four_hops_for_any_n(packed, n, twist):
 
 
 def test_full_lattice_entry_points_name_their_roadmap_item():
-    # the full-lattice kernel stores float32 or bf16 (mixed precision,
-    # ROADMAP A8, done); float16 storage is ROADMAP Queue B item 9
-    up = torch.zeros(4, 4, 4, 4, 18, 4, dtype=torch.float16)
-    pp = torch.zeros(4, 4, 4, 24, 4, dtype=torch.float16)
+    # the full-lattice kernel stores float32, bf16 (mixed precision,
+    # ROADMAP A8) and float16 (ROADMAP Queue B item 9); float64 is none
+    up = torch.zeros(4, 4, 4, 4, 18, 4, dtype=torch.float64)
+    pp = torch.zeros(4, 4, 4, 24, 4, dtype=torch.float64)
     for fn in (tops.dslash, tops.normal_op):
-        with pytest.raises(NotImplementedError, match="Queue B item 9"):
+        with pytest.raises(NotImplementedError, match="float16"):
             fn(up, pp, 0.1)
-    for fn in (tops.dslash, tops.normal_op):   # bf16 in, bf16 out
-        assert fn(up.bfloat16(), pp.bfloat16(), 0.1).dtype == torch.bfloat16
+    for dt in (torch.bfloat16, torch.float16):   # 16 bits in, 16 bits out
+        for fn in (tops.dslash, tops.normal_op):
+            assert fn(up.to(dt), pp.to(dt), 0.1).dtype == dt
     with pytest.raises(ValueError, match="which"):
         tops.hop_block(None, None, None, which="ee")
 

@@ -583,10 +583,10 @@ def test_packed_layout_mixed(problem):
     (dict(precision="low", solver="blockcg", operator="full"), ValueError,
      "reliable-update"),
     (dict(precision="low"), ValueError, "full operator only"),
-    (dict(precision="mixed", low="float16"), NotImplementedError,
-     "Queue B item 9"),
-    (dict(precision="low", operator="full", low="float16"),
-     NotImplementedError, "Queue B item 9"),
+    (dict(precision="mixed", low="float64"), NotImplementedError,
+     "float16"),
+    (dict(precision="low", operator="full", low="float64"),
+     NotImplementedError, "float16"),
     (dict(precision="mixed", low="bf8"), ValueError, "unknown dtype"),
 ])
 def test_plan_rules(kw, err, match):
@@ -598,18 +598,27 @@ def test_plan_rules_that_pass(problem):
     assert tplan.SolverPlan(precision="mixed").low_dtype == torch.bfloat16
     assert tplan.SolverPlan(precision="mixed",
                             low=torch.float32).low_dtype == torch.float32
-    # the reference backend has no storage limit; single ignores ``low``
-    tplan.SolverPlan(precision="mixed", low="float16", backend="reference")
-    tplan.SolverPlan(low="float16")
+    # the kernels store float16 too (Queue B item 9); the reference
+    # backend has no storage limit; single ignores ``low``
+    assert tplan.SolverPlan(precision="mixed",
+                            low="float16").low_dtype == torch.float16
+    assert tplan.SolverPlan(precision="low", operator="full",
+                            low="float16").low_dtype == torch.float16
+    tplan.SolverPlan(precision="mixed", low="float64", backend="reference")
+    tplan.SolverPlan(low="float64")
     with pytest.raises(NotImplementedError, match="batched mixed"):
         tplan.solve(tplan.SolverPlan(precision="mixed", nrhs=2),
                     problem["ut"], problem["batch_t"][:2], MASS,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue B item 9"):
-        tk.wilson_hop(*(torch.zeros(4, 4, 4, 4, 18, 2, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="float16"):
+        tk.wilson_hop(*(torch.zeros(4, 4, 4, 4, 18, 2, dtype=torch.float64)
                         for _ in range(2)),
-                      torch.zeros(4, 4, 4, 24, 2, dtype=torch.float16),
+                      torch.zeros(4, 4, 4, 24, 2, dtype=torch.float64),
                       parity=0)
+    assert tk.wilson_hop(*(torch.zeros(4, 4, 4, 4, 18, 2, dtype=torch.float16)
+                           for _ in range(2)),
+                         torch.zeros(4, 4, 4, 24, 2, dtype=torch.float16),
+                         parity=0).dtype == torch.float16
     with pytest.raises(ValueError, match="one dtype"):
         tk.wilson_full(torch.zeros(4, 4, 4, 4, 18, 4),
                        torch.zeros(4, 4, 4, 24, 4, dtype=torch.bfloat16), MASS)
