@@ -47,7 +47,10 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    4-byte alignment the one-site instances; the pair counts say which
    ran.  At 16^3 x 32 each pair instance, bf16 and float16, is held
    bitwise against its one-site instance (the same inputs, copied 2
-   bytes off alignment) for every flag set; K2's and K3's float16
+   bytes off alignment) for every flag set, and K4's float16 pair
+   instance at N = 1-5 at 16^3 x 32 and 3x5x7x32 likewise, each batched
+   RHS bitwise its single launch and within 1 float16 ulp of the plain
+   version; K2's and K3's float16
    narrowing of products from 2^-14 down past 2^-24 (the subnormals) is
    held bitwise against torch's cast;
 3. goldens: the committed 4^4 seed-7 fixture solved through the kernels
@@ -105,7 +108,8 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    kernels' labelled with the instance they ran, beside the pair
    kernels' registers and spills from the compiler's report; the hop
    kernel in f32 once more at N = 16, block CG's width, and the hop,
-   update and xpay kernels at N = 8, the server's top rung; each Wilson
+   update and xpay kernels at N = 8, the server's top rung, and K4 on
+   float16 storage at N = 8; each Wilson
    timing names the tile it ran (the launch space's pick: the checked-in
    tuning cache's entry, else the default);
 6. one traced single-RHS Wilson solve of each path, the 4-RHS
@@ -457,8 +461,9 @@ def check_pairs(dev, gen, dims, dtype=BF16) -> dict:
     their one-site instances, bitwise, for every flag set at N = 3: the
     pair instance on the fields as allocated, the one-site instance on
     copies of the spinors 2 bytes off 4-byte alignment; each launch's
-    instance read from the pair counts.  Returns the launches of each
-    instance."""
+    instance read from the pair counts (K4 on float16 storage in
+    :func:`check_f16_full` instead, at N = 1-5).  Returns the launches of
+    each instance."""
     from repro_torch.core import lattice as tl
     from repro_torch.kernels.wilson_dslash.kernel import (wilson_full,
                                                           wilson_hop)
@@ -495,6 +500,9 @@ def check_pairs(dev, gen, dims, dtype=BF16) -> dict:
              lambda: wilson_hop(u_out, u_nbr, psi2,
                                 psi_acc=acc2 if has_acc else None, **kw),
              f"wilson_hop {dtype} {dims} {kw} has_acc={has_acc}")
+    if dtype == F16:
+        torch.cuda.synchronize()
+        return ran
     lat = tl.LatticeShape(*dims)
     up = tl.pack_gauge(tl.random_gauge(gen, lat), dtype)
     pp = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
@@ -508,6 +516,57 @@ def check_pairs(dev, gen, dims, dtype=BF16) -> dict:
              f"wilson_full {dtype} {dims} {kw}")
     torch.cuda.synchronize()
     return ran
+
+
+def check_f16_full(dev, gen, dims) -> dict:
+    """K4's float16 pair instance for every gamma5 flag pair with and
+    without twist at N = 1-5: bitwise the one-site instance (the spinors
+    copied 2 bytes off 4-byte alignment), each batched RHS bitwise its
+    single launch, within 1 float16 ulp of the plain version; each
+    launch's instance read from the pair counts.  Returns the launches of
+    each instance and the max-abs error."""
+    from repro_torch.core import lattice as tl
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_full
+    from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
+    lat = tl.LatticeShape(*dims)
+    up = tl.pack_gauge(tl.random_gauge(gen, lat), F16)
+    pp5 = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                      for _ in range(5)]), F16)
+    ran = {"pair": 0, "one-site": 0}
+    worst = 0.0
+
+    def launch(call, want, what):
+        before = pair_launches()["wilson_full_f16"]
+        out = call()
+        got = ("pair" if pair_launches()["wilson_full_f16"] > before
+               else "one-site")
+        check(got == want, f"{what}: the {got} instance ran, want {want}")
+        ran[got] += 1
+        return out
+
+    for g5in, g5out, twist in itertools.product((False, True),
+                                                (False, True), (0.0, MU)):
+        kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
+        singles = [launch(lambda: wilson_full(up, pp5[i], MASS, **kw),
+                          "pair", f"wilson_full f16 {dims} {kw} single")
+                   for i in range(5)]
+        for n in range(1, 6):
+            pp = pp5[0] if n == 1 else pp5[:n].contiguous()
+            what = f"wilson_full f16 {dims} N={n} {kw}"
+            out = launch(lambda: wilson_full(up, pp, MASS, **kw), "pair",
+                         what)
+            one = launch(lambda: wilson_full(up, off_by_one_float(pp, 2),
+                                             MASS, **kw), "one-site", what)
+            check(torch.equal(out, one), f"{what}: differs bitwise from the "
+                                         "one-site instance")
+            for i in range(n if n > 1 else 0):
+                check(torch.equal(out[i], singles[i]),
+                      f"{what}: batched RHS {i} differs from its single "
+                      "launch")
+            worst = max(worst, narrow_check(
+                out, wilson_full_ref(up, pp, MASS, **kw), what))
+    torch.cuda.synchronize()
+    return dict(launches=ran, max_abs_err=worst)
 
 
 def check_full(dev, gen, dims, misaligned: str = "",
@@ -2366,6 +2425,14 @@ def main() -> int:
     for dtype in (BF16, F16):
         log(f"pair against one-site, bitwise, {dtype}: "
             + json.dumps(check_pairs(dev, gen, (16, 16, 16, 32), dtype)))
+    # K4's float16 pair instance at N = 1-5, at 16^3 x 32 and at odd T, Z,
+    # Y (one 7-row tile)
+    f16_full = [check_f16_full(dev, gen, dims)
+                for dims in ((16, 16, 16, 32), (3, 5, 7, 32))]
+    log("K4 float16 pair against one-site and singles, bitwise, N = 1-5: "
+        + json.dumps(f16_full))
+    errs["wilson_full_f16"] = max(errs["wilson_full_f16"],
+                                  *(r["max_abs_err"] for r in f16_full))
     log("float16 narrowing of small values bitwise torch's cast: "
         + json.dumps(check_f16_narrowing(dev, gen)))
     log("kernels: " + json.dumps({k: {"max_abs_err": v}
@@ -2430,6 +2497,7 @@ def main() -> int:
     # K1, K2 and K3 at N = 8, the server's top rung (phase 8)
     n8 = {"wilson_hop": time_hop(u, b, batch16[:8], bw, 8)}
     n8.update(time_cg(dev, bw, 8, length))
+    n8["wilson_full_f16"] = time_full(u, b, batch16[:8], bw, 8, F16)
     for k, v in n8.items():
         log(f"timing {k} {v['shape']}: {v['ms']:.4f} ms (back to back "
             f"{v['ms_back_to_back']:.4f} ms), plain {v['plain_ms']:.4f} ms, "

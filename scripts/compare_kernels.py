@@ -32,8 +32,9 @@ times a kernel (``ms``: one call per CUDA event pair;
 ``ms_back_to_back``: ten calls per pair).  With ``--rows`` the current
 K1, with ``--full-rows`` the current K4, is also timed at other tile
 heights (each storage type, each height checked bitwise against the
-plan's).  Prints the card's name and power limit, then one JSON object
-as its last line.
+plan's).  ``--full-n`` sets K4's right-hand-side counts (default 1,4).
+Prints the card's name and power limit, then one JSON object as its last
+line.
 """
 
 from __future__ import annotations
@@ -189,6 +190,8 @@ def main() -> int:
                     help="also count the Wilson kernels' SASS opcodes")
     ap.add_argument("--dims", default=",".join(map(str, cs.MAIN_DIMS)),
                     help="the lattice T,Z,Y,X (even extents)")
+    ap.add_argument("--full-n", default="1,4",
+                    help="comma-separated right-hand-side counts for K4")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
@@ -209,8 +212,11 @@ def main() -> int:
     check(old["build"].CSRC != build.CSRC, "--old is the current tree")
     dev = torch.device("cuda", 0)
     card = cs.smi()
-    build.build_all()
-    old["build"].build_all()
+    # both trees' nvcc at once, then wait for all of them
+    started = [(bm, name, bm._start(name)) for bm in (build, old["build"])
+               for name in bm.sources()]
+    for bm, name, (target, proc) in started:
+        bm._finish(name, target, proc)
     res = {"card": card, "turns": args.turns, "dims": args.dims,
            "ptxas_old": ptxas(old["build"]), "ptxas_new": ptxas(build)}
     if args.sass:
@@ -352,8 +358,13 @@ def main() -> int:
         if "wilson_full" in kernels:
             up = tl.pack_gauge(u, dtype)
             es = 4 if f32 else 2
-            for n in (1, 4):
-                pp = tl.pack_spinor(b if n == 1 else batch, dtype)
+            for n in map(int, args.full_n.split(",")):
+                # N <= 4: the batch's first N; beyond it fresh RHS
+                rhs = (b[None] if n == 1 else batch[:n] if n <= 4 else
+                       torch.cat([batch] + [tl.random_spinor(gen, lat)[None]
+                                            for _ in range(n - 4)]))
+                pp = tl.pack_spinor(rhs[0] if n == 1 else rhs, dtype)
+                del rhs
                 kw = dict(gamma5_in=True, gamma5_out=True)
                 k_old = ((lambda: old["wilson_full"](up, pp, cs.MASS, **kw))
                          if has_old else None)

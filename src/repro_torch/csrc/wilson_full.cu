@@ -414,23 +414,43 @@ wilson_full_kernel(const ArgsOf<ST, HALO> a) {
   }
 }
 
+// One 32-bit word of shared memory as one load: read through a 16-bit
+// pointer, nvcc splits a link word into a 16-bit load a half.
+template <class T>
+__device__ __forceinline__ unsigned lds_word(const T* p) {
+  unsigned w;
+  asm("ld.shared.b32 %0, [%1];" : "=r"(w) : "r"(stage::smem_u32(p)));
+  return w;
+}
+
 // The pair instance (bf16 or float16, X = 32, staged links, 4-byte aligned
 // bases):
 // one thread per two sites (x, x + 1) of the tile, x even, all N
-// right-hand sides.  Every component of the two sites is one 32-bit word,
-// read once, whose halves feed the one-site hop code (hop_site) once per
-// site; the X hops read the unaligned pairs from the two aligned words
-// around them (the forward neighbours x + 1, x + 2 are the high half of
-// the pair's own word and the low half of the next pair's; the backward
-// ones x - 1, x the high half of the previous pair's and the low half of
-// its own; the backward X link likewise), wrapping at the row's ends.  The
-// outputs are stored a word at a time.  The staging is the one-site
-// kernel's.  Two sites' 48 sums fit three 128-thread blocks an SM only
-// with X compile time (168 registers, 56 bytes spilled); with X a runtime
-// value the same code took 255 registers and spilled 256-672 bytes, and
-// at X = 48 ran slower than the one-site instance (PERF.md), so other
-// widths keep that one.
-template <class ST, bool G5IN, bool G5OUT, bool HALO>
+// right-hand sides, one at a time.  Every component of the two sites is
+// one 32-bit word, read once, whose halves feed the one-site hop code
+// (hop_site) once per site; the X hops read the unaligned pairs from the
+// two aligned words around them (the forward neighbours x + 1, x + 2 are
+// the high half of the pair's own word and the low half of the next
+// pair's; the backward ones x - 1, x the high half of the previous pair's
+// and the low half of its own; the backward X link likewise), wrapping at
+// the row's ends.  With STEP = 2 the loop runs hop by hop over the two
+// sites: each link word is one 32-bit shared load for both (lds_word; the
+// backward X link two), 144 loads where the sites' 16-bit halves were
+// 270.  With STEP = 1 it runs one site's eight hops, then the other's,
+// each link half read where hop_site uses it: the float16 instance at
+// N = 1, where STEP = 2 was 1.7 % slower (and STEP = 1 with each hop's
+// halves read ahead into registers 2.6 %); at N = 2-8 STEP = 2 was 2.7-
+// 5.8 % faster, and bf16 no slower at any N (PERF.md).  Either way each
+// site sums its hops in the one-site order, so the outputs stay bitwise
+// the one-site instance's.  Links widened once for a chunk of RHS, the
+// next RHS's rows prefetched, one site a thread with 16-bit reads and f32
+// links were all slower (PERF.md).  The outputs are stored a word at a
+// time.  The staging is the one-site kernel's.  Two sites' 48 sums fit three 128-thread blocks an
+// SM only with X compile time (168 registers); with X a runtime value the
+// same code took 255 registers and spilled 256-672 bytes, and at X = 48
+// ran slower than the one-site instance (PERF.md), so other widths keep
+// that one.
+template <class ST, bool G5IN, bool G5OUT, bool HALO, int STEP>
 __global__ void __launch_bounds__(FULL_THREADS, 3)
 wilson_full_pair_kernel(const ArgsOf<ST, HALO> a) {
   using bf16 = ST;  // the element type, bf16 or float16
@@ -477,6 +497,10 @@ wilson_full_pair_kernel(const ArgsOf<ST, HALO> a) {
       return sl + (g < 5 ? g * b + r : 5 * b + r + g - 5) * ls;
     };
     const long here = srow(a, tl.t, tl.z, y);
+    // site h's own word and half; the words and halves of its X
+    // neighbours x + h + 1 and x + h - 1
+    const int own[2] = {x, x}, xf[2] = {x, xp}, xb[2] = {xm, x};
+    const unsigned sel[2] = {LO, HI}, sx[2] = {HI, LO};
     for (int n = 0; n < a.N; ++n) {
       const bf16* p = a.psi + n * field;
       float o_r[2][3][4], o_i[2][3][4];
@@ -490,21 +514,57 @@ wilson_full_pair_kernel(const ArgsOf<ST, HALO> a) {
       auto nbr = [&](int axis, bool fwd, int tn, int zn, int yn) {
         return nbr_row<HALO>(a, p, n, axis, fwd, tl.t, tl.z, y, tn, zn, yn);
       };
-      // site x + h: the same hops in the same order as the one-site
-      // kernel; site 1 reads the words site 0 read
+      // one hop for the sites h0 .. h0 + STEP - 1: psi's row `row` at
+      // word psx[h], half pss[h]; the link row `lrow` at lx[h], half
+      // lsel[h]: with STEP = 2 each word one load for both sites (unless
+      // `split`, the backward X link), with STEP = 1 the site's halves
+      // read where hop_site uses them
+      auto hop = [&](auto mu_c, auto fwd_c, int h0, const bf16* row,
+                     const int(&psx)[2], const unsigned(&pss)[2],
+                     const bf16* lrow, const int(&lx)[2],
+                     const unsigned(&lsel)[2], auto split_c) {
+        constexpr int MU = decltype(mu_c)::value;
+        constexpr bool FWD = decltype(fwd_c)::value;
+        if constexpr (STEP == 1) {
+          hop_site<MU, FWD, G5IN, G5OUT>(o_r[h0], o_i[h0],
+                                         at(row, psx[h0], pss[h0]),
+                                         lk(lrow, lx[h0], lsel[h0]));
+        } else {
+          float lv[2][G];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const unsigned sel = h ? HI : LO;
-        const int xf = h ? xp : x, xb = h ? x : xm;  // words of x+h+1, x+h-1
-        const unsigned sf = h ? LO : HI, sb = h ? LO : HI;
-        hop_site<0, true, G5IN, G5OUT>(o_r[h], o_i[h], at(nbr(0, true, tl.tp, tl.z, y), x, sel), lk(link(0), x, sel));
-        hop_site<0, false, G5IN, G5OUT>(o_r[h], o_i[h], at(nbr(0, false, tl.tm, tl.z, y), x, sel), lk(link(1), x, sel));
-        hop_site<1, true, G5IN, G5OUT>(o_r[h], o_i[h], at(nbr(1, true, tl.t, tl.zp, y), x, sel), lk(link(2), x, sel));
-        hop_site<1, false, G5IN, G5OUT>(o_r[h], o_i[h], at(nbr(1, false, tl.t, tl.zm, y), x, sel), lk(link(3), x, sel));
-        hop_site<2, true, G5IN, G5OUT>(o_r[h], o_i[h], at(nbr(2, true, tl.t, tl.z, yp), x, sel), lk(link(6), x, sel));
-        hop_site<2, false, G5IN, G5OUT>(o_r[h], o_i[h], at(nbr(2, false, tl.t, tl.z, ym), x, sel), lk(link(5), x, sel));
-        hop_site<3, true, G5IN, G5OUT>(o_r[h], o_i[h], at(p + here, xf, sf), lk(link(4), x, sel));
-        hop_site<3, false, G5IN, G5OUT>(o_r[h], o_i[h], at(p + here, xb, sb), lk(link(4), xb, sb));
+          for (int k = 0; k < G; ++k) {
+            const unsigned w0 = lds_word(lrow + lx[0] + k * X);
+            const unsigned w1 = decltype(split_c)::value
+                                    ? lds_word(lrow + lx[1] + k * X)
+                                    : w0;
+            lv[0][k] = wilson::half<ST>(w0, lsel[0]);
+            lv[1][k] = wilson::half<ST>(w1, lsel[1]);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            hop_site<MU, FWD, G5IN, G5OUT>(
+                o_r[h], o_i[h], at(row, psx[h], pss[h]),
+                [&lv, h](int k) { return lv[h][k]; });
+        }
+      };
+      using I0 = std::integral_constant<int, 0>;
+      using I1 = std::integral_constant<int, 1>;
+      using I2 = std::integral_constant<int, 2>;
+      using I3 = std::integral_constant<int, 3>;
+      using F = std::true_type;
+      using B = std::false_type;
+      // the one-site kernel's hops in its order, for both sites at once
+      // (STEP = 2) or for one site after the other
+#pragma unroll
+      for (int h0 = 0; h0 < 2; h0 += STEP) {
+        hop(I0{}, F{}, h0, nbr(0, true, tl.tp, tl.z, y), own, sel, link(0), own, sel, B{});
+        hop(I0{}, B{}, h0, nbr(0, false, tl.tm, tl.z, y), own, sel, link(1), own, sel, B{});
+        hop(I1{}, F{}, h0, nbr(1, true, tl.t, tl.zp, y), own, sel, link(2), own, sel, B{});
+        hop(I1{}, B{}, h0, nbr(1, false, tl.t, tl.zm, y), own, sel, link(3), own, sel, B{});
+        hop(I2{}, F{}, h0, nbr(2, true, tl.t, tl.z, yp), own, sel, link(6), own, sel, B{});
+        hop(I2{}, B{}, h0, nbr(2, false, tl.t, tl.z, ym), own, sel, link(5), own, sel, B{});
+        hop(I3{}, F{}, h0, p + here, xf, sx, link(4), own, sel, B{});
+        hop(I3{}, B{}, h0, p + here, xb, sx, link(4), xb, sx, F{});
       }
 
       // epilogue: the one-site kernel's, per site, on the centre's words
@@ -562,19 +622,28 @@ cudaError_t launch(const ArgsOf<ST, HALO>& a, int blocks, int threads,
       a, blocks, threads, smem, s);
 }
 
-template <class ST, bool HALO, bool G5IN, bool G5OUT>
+template <class ST, bool HALO, bool G5IN, bool G5OUT, int STEP = 2>
 cudaError_t launch_pair(const ArgsOf<ST, HALO>& a, int blocks, int threads,
                         size_t smem, cudaStream_t s) {
-  return run<wilson_full_pair_kernel<ST, G5IN, G5OUT, HALO>>(a, blocks,
-                                                             threads, smem,
-                                                             s);
+  return run<wilson_full_pair_kernel<ST, G5IN, G5OUT, HALO, STEP>>(
+      a, blocks, threads, smem, s);
 }
 
 // The instance of `key` (bits: g5in, g5out, staged, X = 32; 16 and up: the
-// pair instance, with the g5 bits) with or without the ghost reads.
+// pair instance, with the g5 bits; 20 and up: float16's at N = 1, STEP =
+// 1) with or without the ghost reads.
 template <class ST, bool HALO>
 cudaError_t dispatch(int key, const ArgsOf<ST, HALO>& a, int blocks,
                      int threads, size_t smem, cudaStream_t s) {
+  if constexpr (std::is_same_v<ST, wilson::f16> && !HALO) {
+    switch (key) {
+      case 20: return launch_pair<ST, HALO, false, false, 1>(a, blocks, threads, smem, s);
+      case 21: return launch_pair<ST, HALO, true, false, 1>(a, blocks, threads, smem, s);
+      case 22: return launch_pair<ST, HALO, false, true, 1>(a, blocks, threads, smem, s);
+      case 23: return launch_pair<ST, HALO, true, true, 1>(a, blocks, threads, smem, s);
+      default: break;
+    }
+  }
   if constexpr (sizeof(ST) == 2) {
     switch (key) {
       case 16: return launch_pair<ST, HALO, false, false>(a, blocks, threads, smem, s);
@@ -656,6 +725,8 @@ int full(const void* u, const void* psi, void* out, int T, int Z, int Y,
       ghosts4) {
     *pair = 1;
     key = 16 | (key & 3);
+    // float16 at N = 1 without ghosts: one site's hops after the other's
+    if (std::is_same_v<ST, wilson::f16> && N == 1 && !halo) key |= 4;
     threads = b * X / 2;  // a thread per two sites
     threads = threads < FULL_THREADS ? ((threads + 31) / 32) * 32
                                      : FULL_THREADS;

@@ -21,6 +21,8 @@ from repro.kernels.cg_fused import ops as jops
 from repro_torch.kernels.cg_fused import kernel as tk
 from repro_torch.kernels.cg_fused import ops as tops
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 SHAPE = (4, 2, 24, 7)   # 1344 reals per RHS: ragged against any block
 
 

@@ -613,6 +613,54 @@ def test_bf16_instance_rule(dev, case):
     assert kernels.pair_launches()[name] == want
 
 
+# K4's float16 pair instance at N = 1-5 for every gamma5 flag set with
+# and without twist: bitwise the float16 one-site instance (a psi base 2
+# bytes off 4-byte alignment runs it), a batched launch bitwise its
+# single launches, and within 1 float16 ulp of the plain version (floor
+# 2^-13 of the field's largest entry)
+F16_ULP_FLOOR = 2.0 ** -13
+
+
+def _f16_within_one_ulp(out, ref):
+    assert out.dtype == ref.dtype == torch.float16
+    bits = [v.contiguous().view(torch.int16).int() for v in (out, ref)]
+    ords = [torch.where(v < 0, -(v & 0x7FFF), v) for v in bits]
+    a, b = out.double(), ref.double()
+    _, e = torch.frexp(F16_ULP_FLOOR * b.abs().max())
+    floor = torch.ldexp(torch.ones((), dtype=torch.float64, device=b.device),
+                        e - 11)
+    ok = ((ords[0] - ords[1]).abs() <= 1) | ((a - b).abs() <= floor)
+    assert bool(ok.all()), float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("dims", PAIR_FULL_SHAPES + [EQUAL_SHAPE],
+                         ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("flags", FULL_FLAGS)
+def test_wilson_full_f16_pair_batches(dev, dims, flags):
+    from repro_torch.kernels.wilson_dslash.kernel import wilson_full
+    from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
+    g5in, g5out, twist = flags
+    kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    lat = tl.LatticeShape(*dims)
+    up = tl.pack_gauge(tl.random_gauge(gen, lat), dtype=torch.float16)
+    pp5 = tl.pack_spinor(torch.stack([tl.random_spinor(gen, lat)
+                                      for _ in range(5)]),
+                         dtype=torch.float16)
+    singles = [wilson_full(up, pp5[i], 0.1, **kw) for i in range(5)]
+    for n in range(1, 6):
+        pp = pp5[:n].contiguous()
+        kernels.reset_counts()
+        out = wilson_full(up, pp, 0.1, **kw)
+        one = wilson_full(up, _off_by(pp, 1), 0.1, **kw)
+        assert kernels.counts()["wilson_full_f16"]["launches"] == 2
+        assert kernels.pair_launches()["wilson_full_f16"] == 1
+        assert torch.equal(out, one), n
+        for i in range(n):
+            assert torch.equal(out[i], singles[i]), (n, i)
+        _f16_within_one_ulp(out, wilson_full_ref(up, pp, 0.1, **kw))
+
+
 # Two gloo ranks sharing card 0, T split over a ``data`` axis at 8x8x8x16:
 # each rank's halo'd K1 (every flag set of chip_smoke.py's phase 2) and
 # K4 (every gamma5 pair with and without twist, f32 and bf16) against the

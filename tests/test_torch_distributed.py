@@ -52,6 +52,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")
 TWINS = ROOT / "src" / "repro_torch" / "data" / "mesh_twins_4x4x4x8_seed20.npz"

@@ -36,6 +36,8 @@ from repro_torch.core import solvers
 from repro_torch.core.lattice import fields_from_numpy
 from repro_torch.serve.chaos import run_and_sigkill
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "src" / "repro_torch" / "data" / "golden_4x4x4x4_seed7.npz"
 MASS, TOL = 0.1, 1e-6

@@ -40,6 +40,7 @@ the slack of f32 sums taken in another order (entries of the normal
 operator reach ~70, where one f32 ulp is ~8e-6).
 """
 
+import functools
 import itertools
 
 import jax
@@ -63,6 +64,8 @@ from repro_torch.kernels.wilson_dslash import kernel as tk
 from repro_torch.kernels.wilson_dslash import ops as tops
 from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
 from repro_torch.launch import solve as cli
+
+import torch_one_thread  # noqa: F401  (one intra-op thread)
 
 MASS, TOL = 0.1, 1e-6
 SHAPES = [jl.LatticeShape(4, 4, 4, 4), jl.LatticeShape(4, 6, 8, 16)]
@@ -226,10 +229,15 @@ def full_pair_words(x_, hop):
     return own, own
 
 
-def _widen_half(words, half):
+def _widen_half(words, half, dtype=torch.bfloat16):
     """``wilson::half``: the half (0 low, 1 high) of 32-bit words of bf16
-    pairs as f32, the selected half in the high 16 bits, zeros below."""
+    pairs as f32, the selected half in the high 16 bits, zeros below; of
+    float16 pairs, the selected half converted."""
     w = words.to(torch.int64) & 0xFFFFFFFF
+    if dtype == torch.float16:
+        bits = torch.where(half == 1, w >> 16, w & 0xFFFF)
+        bits = torch.where(bits >= 2 ** 15, bits - 2 ** 16, bits)
+        return bits.to(torch.int16).view(torch.float16).float()
     bits = torch.where(half == 1, w & 0xFFFF0000, (w & 0xFFFF) << 16)
     bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
     return bits.to(torch.int32).view(torch.float32)
@@ -244,11 +252,16 @@ def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out,
     compile-time projection/reconstruction of ``hop_spec`` (one projection
     per hop for all three colours), the SU(3) product (daggered for
     backward hops) and the epilogue: the site term of ``site_coeffs`` and
-    the hops' sum scaled by -1/2.  Fields in their storage dtype (f32 or
-    bf16), staged as stored, widened where read, outputs rounded once.
-    ``pair``: the bf16 pair instance, whose sites read their values as
-    halves of 32-bit words (``full_pair_words``).  ``b``, ``tchunk``: a
-    launch-space tile's rows and block order instead of the plan's."""
+    the hops' sum scaled by -1/2.  Fields in their storage dtype (f32,
+    bf16 or float16), staged as stored, widened where read, outputs
+    rounded once.  ``pair``: the 16-bit pair instance, whose sites read
+    their values as halves of 32-bit words (``full_pair_words``); the
+    kernel runs hop by hop over its two sites, each link word read once
+    for both (float16 at N = 1: one site's hops, then the other's), and
+    each site's sums keep the one-site order, which this emulation,
+    vectorised over sites and right-hand sides, computes.
+    ``b``, ``tchunk``: a launch-space tile's rows and block order instead
+    of the plan's."""
     m_hi, m_lo, tw_hi, tw_lo = tk.site_coeffs(mass, twist, gamma5_in,
                                               gamma5_out)
     batched = pp.dim() == 6
@@ -279,6 +292,7 @@ def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out,
     x = torch.arange(x_)[None, None, :]
     # rows past a ragged tile's end read wrapped rows and are dropped below
     acc = torch.zeros(n_rhs, len(tiles), b, x_, 4, 3, dtype=torch.complex64)
+    widen = functools.partial(_widen_half, dtype=pp.dtype)
     for (mu, fwd), (st, sz, sy, sx), slot, xl in full_site_reads(
             dims, b, tt, zz, y0, r, x):
         st, sz, sy, sx = torch.broadcast_tensors(st, sz, sy % y_, sx)
@@ -287,10 +301,9 @@ def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out,
         link = lk[ti, slot, xl]                     # (tile, b, X, 3, 3)
         if pair:    # the same values, read as halves of words
             (sw, sh), (lw, lh) = full_pair_words(x_, (mu, fwd))
-            v = _cplx(_widen_half(ps_w[:, st, sz, sy, sw // 2],
-                                  sh[:, None]), (4, 3))
-            link = _cplx(_widen_half(lk_w[ti, slot, lw // 2], lh[:, None]),
-                         (3, 3))
+            v = _cplx(widen(ps_w[:, st, sz, sy, sw // 2], sh[:, None]),
+                      (4, 3))
+            link = _cplx(widen(lk_w[ti, slot, lw // 2], lh[:, None]), (3, 3))
         if not fwd:
             link = link.conj().transpose(-1, -2)
         proj, recon = tk.hop_spec(mu, fwd, gamma5_in, gamma5_out)
@@ -306,8 +319,8 @@ def emulate_wilson_full(up, pp, mass, *, twist, gamma5_in, gamma5_out,
     centre = ps[:, st, sz, sy, sx]
     if pair:        # the pair's own words
         (sw, sh), _ = full_pair_words(x_, (0, True))
-        centre = _cplx(_widen_half(ps_w[:, st, sz, sy, sw // 2],
-                                   sh[:, None]), (4, 3))
+        centre = _cplx(widen(ps_w[:, st, sz, sy, sw // 2], sh[:, None]),
+                       (4, 3))
     res = (m + 1j * tw_s) * centre - 0.5 * acc
     out = torch.empty(n_rhs, t_, z_, y_, x_, 4, 3, dtype=torch.complex64)
     for i, (t, z, yb) in enumerate(tiles):
@@ -415,18 +428,30 @@ def test_full_staged_rows_cover_every_neighbour(dims):
     assert len(covered) == t_ * z_ * y_ * x_
 
 
-def _bf16_within_one_ulp(out, ref):
-    """At most 1 bf16 ulp an entry; an entry that cancels below 2^-16 of
-    the field's largest is held to the ulp at that floor (the bar of
+# the 16-bit storage types' 1-ulp bars: (the floor as a share of the
+# field's largest entry, significant bits)
+ULP_BARS = {torch.bfloat16: (2.0 ** -16, 8), torch.float16: (2.0 ** -13, 11)}
+
+
+def _within_one_ulp(out, ref):
+    """At most 1 ulp of the 16-bit storage type an entry; an entry that
+    cancels below the floor (2^-16 of the field's largest for bf16, 2^-13
+    for float16) is held to the ulp at that floor (the bar of
     tests/test_torch_cuda.py and chip_smoke.py)."""
-    assert out.dtype == ref.dtype == torch.bfloat16
+    assert out.dtype == ref.dtype and out.dtype in ULP_BARS
+    share, digits = ULP_BARS[out.dtype]
     bits = [v.contiguous().view(torch.int16).int() for v in (out, ref)]
     ords = [torch.where(v < 0, -(v & 0x7FFF), v) for v in bits]
     a, b = out.double(), ref.double()
-    _, e = torch.frexp(2.0 ** -16 * b.abs().max())
-    floor = torch.ldexp(torch.ones((), dtype=torch.float64), e - 8)
+    _, e = torch.frexp(share * b.abs().max())
+    floor = torch.ldexp(torch.ones((), dtype=torch.float64), e - digits)
     ok = ((ords[0] - ords[1]).abs() <= 1) | ((a - b).abs() <= floor)
     assert bool(ok.all()), float((a - b).abs().max())
+
+
+def _bf16_within_one_ulp(out, ref):
+    assert out.dtype == torch.bfloat16
+    _within_one_ulp(out, ref)
 
 
 def _full_pair_case(up, pp, flags):
@@ -438,12 +463,12 @@ def _full_pair_case(up, pp, flags):
     return pair, kw
 
 
-def _bf16_fields(dims, n, seed):
+def _bf16_fields(dims, n, seed, dtype=torch.bfloat16):
     gen = torch.Generator().manual_seed(seed)
     lat = tl.LatticeShape(*dims)
-    up = pack_gauge(tl.random_gauge(gen, lat), torch.bfloat16)
+    up = pack_gauge(tl.random_gauge(gen, lat), dtype)
     pp = pack_spinor(torch.stack([tl.random_spinor(gen, lat)
-                                  for _ in range(n)]), torch.bfloat16)
+                                  for _ in range(n)]), dtype)
     return up, pp
 
 

@@ -2,8 +2,11 @@
 card), against its plain version for every flag combination at the
 fixture's shapes and N = 1 and 3; its bf16 pair instance (two sites a
 thread, X = 32) bitwise the one-site emulation and within 1 bf16 ulp of
-the plain version.  Split from ``tests/test_torch_full.py``, whose
-emulation, fixture and helpers these tests share.
+the plain version; the float16 pair instance on batches of right-hand
+sides bitwise the one-site emulation and its single launches and within
+1 float16 ulp of the plain version.  Split from
+``tests/test_torch_full.py``, whose emulation, fixture and helpers these
+tests share.
 """
 
 import pytest
@@ -11,8 +14,10 @@ import torch
 
 from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
 from test_torch_full import (FLAGS, MASS, T, _bf16_fields,  # noqa: F401
-                             _full_pair_case, close, emulate_wilson_full,
-                             fields)
+                             _full_pair_case, _within_one_ulp, close,
+                             emulate_wilson_full, fields)
+
+import torch_one_thread  # noqa: F401  (one intra-op thread)
 
 
 @pytest.mark.parametrize("n", [1, 3])
@@ -48,3 +53,24 @@ def test_pair_algorithm_other_shapes(dims, flags):
     for i in range(2):
         assert torch.equal(out[i], emulate_wilson_full(up, pp[i], MASS,
                                                        pair=True, **kw))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5])
+@pytest.mark.parametrize("dims", [(2, 2, 4, 32), (3, 5, 7, 32)],
+                         ids=lambda d: "x".join(map(str, d)))
+def test_f16_batch_algorithm_equals_pair(dims, n):
+    """The float16 pair instance (each link word read once for both
+    sites) on a batch of N = 1, 2, 3 and 5 right-hand sides at 2x2x4x32
+    and at odd T, Z, Y (one 7-row tile), every gamma5 flag pair with and
+    without twist: bitwise the one-site emulation, each RHS bitwise its
+    single launch, and within 1 float16 ulp of the plain version."""
+    up, pp = _bf16_fields(dims, n, 64, torch.float16)
+    pp = pp[0] if n == 1 else pp
+    for g5in, g5out, twist in FLAGS:
+        kw = dict(twist=twist, gamma5_in=g5in, gamma5_out=g5out)
+        out = emulate_wilson_full(up, pp, MASS, pair=True, **kw)
+        assert torch.equal(out, emulate_wilson_full(up, pp, MASS, **kw))
+        for i in range(n if n > 1 else 0):
+            assert torch.equal(out[i], emulate_wilson_full(
+                up, pp[i], MASS, pair=True, **kw))
+        _within_one_ulp(out, wilson_full_ref(up, pp, MASS, **kw))

@@ -16,6 +16,8 @@ from repro.kernels.wilson_dslash import ops as jops
 from repro_torch.kernels.wilson_dslash import ops as tops
 from test_torch_full import FLAGS, MASS, SHAPES, T, close, fields  # noqa: F401
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 
 @pytest.mark.parametrize("n", [None, 3])
 @pytest.mark.parametrize("flags", FLAGS, ids=lambda f: "-".join(map(str, f)))

@@ -13,6 +13,8 @@ from repro_torch.core.lattice import pack_gauge, pack_spinor
 from repro_torch.kernels.wilson_dslash.ref import wilson_full_ref
 from test_torch_full import FLAGS, MASS, close, emulate_wilson_full
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 
 @pytest.mark.parametrize("dims", [(4, 4, 6, 5), (4, 4, 22, 16),
                                   (3, 5, 7, 32)],

@@ -50,6 +50,8 @@ from repro_torch.kernels.wilson_dslash import kernel as tk
 from repro_torch.kernels.wilson_dslash.ref import (wilson_full_ref,
                                                    wilson_hop_ref)
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 MASS, TOL = 0.1, 1e-6
 F16 = torch.float16
 # below this share of the field's largest entry an entry is held to the

@@ -33,6 +33,8 @@ from repro_torch.kernels.wilson_dslash import kernel as tk
 from repro_torch.kernels.wilson_dslash import ops as tops
 from repro_torch.kernels.wilson_dslash.ref import wilson_hop_ref
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 SHAPES = {"4x4x4x4": jl.LatticeShape(4, 4, 4, 4),
           "4x4x4x8": jl.LatticeShape(4, 4, 4, 8)}
 

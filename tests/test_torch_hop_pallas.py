@@ -21,6 +21,8 @@ from repro.core import lattice as jl
 from repro.kernels.wilson_dslash import ops as jops
 from repro_torch.kernels.wilson_dslash import ops as tops
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 SHAPES = {"4x4x4x4": jl.LatticeShape(4, 4, 4, 4),
           "4x4x4x8": jl.LatticeShape(4, 4, 4, 8)}
 

@@ -39,6 +39,8 @@ from repro_torch.core.operators import dslash_g
 from repro_torch.kernels import counts, reset_counts
 from repro_torch.launch import solve as cli
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 GOLDEN = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "data" / "golden_4x4x4x4_seed7.npz")
 TOL = 1e-6

@@ -20,6 +20,8 @@ from repro_torch.kernels import counts, reset_counts
 from test_torch_krylov import (LIGHT, MASS, TOL, TWIN, fx,  # noqa: F401
                                near_or_between, rel_err)
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 
 @pytest.mark.parametrize("layout", ["packed", "natural"])
 def test_gram_mix_and_psolve_match_jax(fx, layout):

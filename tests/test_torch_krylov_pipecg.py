@@ -18,6 +18,8 @@ from repro_torch.kernels import counts, reset_counts
 from repro_torch.kernels.wilson_dslash import ops as wops
 from test_torch_krylov import MASS, TOL, TWIN, _rhs, fx, rel_err  # noqa: F401
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 
 @pytest.mark.parametrize("backend", ["kernels", "reference"])
 @pytest.mark.parametrize("operator,n", [("eo-schur", 1), ("eo-schur", 4),

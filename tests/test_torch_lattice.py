@@ -22,6 +22,8 @@ import torch
 from repro.core import lattice as jl
 from repro_torch.core import lattice as tl
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "src" / "repro_torch" / "data" / "golden_4x4x4x4_seed7.npz"
 SHAPES = [jl.LatticeShape(4, 4, 4, 4), jl.LatticeShape(4, 4, 4, 8)]

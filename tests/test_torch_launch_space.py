@@ -38,6 +38,8 @@ from test_torch_full import (FLAGS, FULL_BF16_PLANS, FULL_PLANS, MASS,
                              emulate_wilson_full, full_block_tile)
 from test_torch_hop import HOP_BF16_PLANS, emulate_wilson_hop
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 F32, BF16 = torch.float32, torch.bfloat16
 # (Y, Xh) -> K1's f32 plan (b, ls, ss) (tests/test_torch_mixed.py, and
 # the card checks' shapes of chip_smoke.py phase 2)

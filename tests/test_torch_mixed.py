@@ -54,6 +54,8 @@ from repro_torch.kernels.wilson_dslash.ref import (wilson_full_ref,
                                                    wilson_hop_ref)
 from repro_torch.launch import solve as cli
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 MASS, TOL = 0.1, 1e-6
 
 

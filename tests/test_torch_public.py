@@ -34,6 +34,8 @@ from repro_torch.core import solvers as tsol
 from repro_torch.kernels import counts, reset_counts
 from repro_torch.kernels.cg_fused import ops as cg_ops
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 GOLDEN = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "data" / "golden_4x4x4x4_seed7.npz")
 MASS, TOL = 0.1, 1e-6

@@ -19,6 +19,8 @@ from repro.core import lattice as jl
 from repro.kernels.wilson_dslash import ops as jops
 from repro_torch.kernels.wilson_dslash import ops as tops
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 MASS = 0.1
 
 

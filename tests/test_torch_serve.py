@@ -37,6 +37,8 @@ from repro_torch.serve.errors import (RequestFailed, RequestRejected,
 from repro_torch.serve.server import (RequestStats, SolveRequest,
                                       SolveResult, SolverServer)
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 GOLDEN = (pathlib.Path(__file__).resolve().parents[1] / "src"
           / "repro_torch" / "data" / "golden_4x4x4x4_seed7.npz")
 LAT = LatticeShape(2, 4, 2, 8)

@@ -27,6 +27,8 @@ from repro_torch.core.lattice import fields_from_numpy
 from repro_torch.kernels import counts, reset_counts
 from repro_torch.launch import solve as cli
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 MASS, TOL = 0.1, 1e-6
 
 

@@ -20,6 +20,8 @@ from repro_torch.core import lattice as tl
 from repro_torch.core import operators as to
 from repro_torch.core import wilson as tw
 
+import torch_one_thread  # noqa: F401  (one intra-op thread)
+
 SHAPES = [jl.LatticeShape(4, 4, 4, 4), jl.LatticeShape(4, 4, 4, 8)]
 MASS = 0.1
 
