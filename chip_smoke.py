@@ -14,7 +14,8 @@ instances, f32 reliable updates), and the full lattice's all-bf16 cg16
 "float16"``, the kernels' float16 instances); then the other Krylov loops on the same kernels:
 pipelined CG (``solver="pipecg"``), block CG (``solver="blockcg"``, the
 hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
-``solve(..., deflation=)``).  Phases:
+``solve(..., deflation=)``); last, the LM serving path
+(``repro_torch.launch.serve``) for each model family.  Phases:
 
 0. build every kernel (one ``nvcc`` per source, all at once);
 1. banner: the card's name and power limit, and the measured
@@ -174,7 +175,28 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    with ``REPRO_TORCH_TUNING_CACHE=0``, equal counts and bitwise x; the
    production dry-run's six rows (cg, pipecg, mpcg at 128^3 x 256 on
    the 16 x 16 and 2 x 16 x 16 meshes, reckoned, the memory term at
-   phase 1's copy rate).
+   phase 1's copy rate);
+11. the LM serving path (``python -m repro_torch.launch.serve``'s
+   ``main``: batched prefill, then greedy decode; f32, 4 requests, 16
+   generated, random weights from seed 0): glm4-9b at full width and all
+   40 layers, then one model of each other family at full width,
+   qwen2-moe-a2.7b cut to 2 layers, pixtral-12b to 2 layers with its
+   1024 prefix embeddings, recurrentgemma-9b to one (rec, rec, attn)
+   period with a prompt of 2048 + 64 tokens (its 2048-slot ring wraps),
+   rwkv6-1.6b and seamless-m4t-large-v2 whole, each freed before the
+   next.  Each one's logits must be finite and its prefill(S) +
+   decode(1) equal forward(S + 1) at the last position within the CPU
+   tests' bar scaled by the square root of its depth over its smoke
+   config's (the model drawn again from the same seed; a MoE with
+   capacity for every token); it prints prefill ms and tokens/s, decode
+   ms/token, the weight bytes and those a decode step reads with their
+   bound at phase 1's copy rate and at 3.35 TB/s, peak GiB, warm step
+   times, a traced prefill and decode step, and how far a 1e-7 scaling
+   of the embeddings moves its logits.  Then every architecture's smoke
+   config is served on the card and on the CPU with the same weights,
+   every step's logits within the CPU tests' bar.  No hand-written kernel
+   runs in this phase (the JAX package's LM code reaches no Pallas
+   kernel).
    Each phase prints its seconds; the checkpoint, journal and mesh
    directories live under ``build/`` and are removed.
 
@@ -1359,17 +1381,23 @@ def time_cg(dev, bw, n, length, dtype=torch.float32):
 
 
 def profile_solve(plan, u, b, dev, **kw) -> dict:
-    """One traced Wilson solve at full size under ``torch.profiler``:
-    device time by kernel (device-side events only: an operator's row
-    would count its kernels twice) and the card's idle share of the
-    solve's wall time, the profiler's own cost included."""
+    """One traced Wilson solve at full size (:func:`profile_call`)."""
+    from repro_torch.core import plan as plan_mod
+    return profile_call(lambda: plan_mod.solve(plan, u, b, MASS, tol=TOL,
+                                               device=dev, **kw))
+
+
+def profile_call(fn) -> dict:
+    """``fn()`` traced under ``torch.profiler``: device time by kernel
+    (device-side events only: an operator's row would count its kernels
+    twice) and the card's idle share of the call's wall time, the
+    profiler's own cost included."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import plan as plan_mod
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        plan_mod.solve(plan, u, b, MASS, tol=TOL, device=dev, **kw)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -1384,6 +1412,7 @@ def profile_solve(plan, u, b, dev, **kw) -> dict:
     busy = sum(r[0] for r in rows)
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms if rows else None,
+            "launches": sum(r[1] for r in rows),
             "top": [{"ms": ms, "count": n, "name": name}
                     for ms, n, name in rows[:12]]}
 
@@ -2314,6 +2343,262 @@ def launch_space(dev, card: str, bw: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the LM serving path
+# ---------------------------------------------------------------------------
+
+# (architecture, layers kept or None for all, prompt tokens): glm4-9b at
+# full width and depth, and one representative of each other family at
+# full width, cut in depth where noted; 4 requests, 16 generated, f32
+LM_SERVED = (
+    ("glm4-9b", None, 32),
+    ("qwen2-moe-a2.7b", 2, 32),
+    ("pixtral-12b", 2, 32),
+    # one (rec, rec, attn) period; 2048 + 64 prompt tokens wrap the
+    # 2048-slot ring at full width
+    ("recurrentgemma-9b", 3, 2048 + 64),
+    ("rwkv6-1.6b", None, 32),
+    ("seamless-m4t-large-v2", None, 32))
+LM_REQUESTS, LM_GEN = 4, 16
+# logits against a reference, as a fraction of its largest |logit|: the
+# bars of the CPU tests (tests/test_torch_lm_*.py), set at the smoke
+# configs' depths
+LM_BAR = {"hybrid": 1e-4, "ssm": 1e-4}
+LM_ATTN_BAR = 1e-5
+
+
+def lm_bar(cfg, smoke) -> float:
+    """The CPU tests' bar for ``cfg``'s family, scaled by the square root
+    of its decoder depth over its smoke config's: two f32 evaluations of
+    the same layers (other GEMM shapes, so other summation orders) differ
+    by rounding that adds up layer by layer in quadrature.  (The encoder,
+    where there is one, runs the same shapes on both sides.)"""
+    depth = max(1.0, cfg.num_layers / smoke.num_layers)
+    return LM_BAR.get(cfg.family, LM_ATTN_BAR) * depth ** 0.5
+
+
+def lm_decode_read_bytes(cfg, model) -> int:
+    """Weight bytes one decode step reads: every parameter but the
+    encoder's (run once, in prefill) and an untied input table's (one row
+    a request)."""
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters()
+               if not name.startswith(("encoder.", "enc_norm"))
+               and not (name == "embed.tok" and not cfg.tie_embeddings))
+
+
+def lm_no_drop(cfg):
+    """A MoE config whose capacity is the whole group (factor E/k), so
+    forward drops no token; decoding never does."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.padded / cfg.moe.top_k))
+
+
+def lm_decode_vs_forward(cfg, model, batch, nxt, dev) -> tuple[float, float]:
+    """prefill(S) + decode(next token) against forward(S + 1) at the last
+    position: (max-abs error, largest |logit|)."""
+    from repro_torch.models import steps
+    mod = steps.model_module(cfg)
+    toks = batch["tokens"]
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    pre = cfg.num_prefix_embeds
+    s = toks.shape[1]
+    _, caches = mod.prefill(cfg, model, toks, cache_len=pre + s + 1,
+                            **extra)
+    ld, _ = mod.decode_step(cfg, model, nxt, pre + s, caches)
+    full, _ = mod.forward(cfg, model, torch.cat([toks, nxt], dim=1), **extra)
+    full = full[:, -1]
+    del caches
+    # the scale leaves out the masked vocabulary padding (-1e30 on both)
+    return (float((full - ld[:, 0]).abs().max()),
+            float(full[:, :cfg.vocab_size].abs().max()))
+
+
+def lm_sensitivity(cfg, model, batch) -> float:
+    """How far the model itself moves its last-position logits when the
+    embedding table is scaled by 1 + 1e-7 (about one f32 rounding): the
+    relative change, largest |logit| for scale.  Rounding differences
+    between two f32 evaluations grow through the layers at this rate.
+    Changes the model's weights."""
+    from repro_torch.models import steps
+    mod = steps.model_module(cfg)
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    before, _ = mod.forward(cfg, model, batch["tokens"], **extra)
+    before = before[:, -1, :cfg.vocab_size]
+    with torch.no_grad():
+        model.embed.tok.mul_(1 + 1e-7)
+    after, _ = mod.forward(cfg, model, batch["tokens"], **extra)
+    after = after[:, -1, :cfg.vocab_size]
+    return float((after - before).abs().max() / before.abs().max())
+
+
+def lm_smoke_against_cpu(dev) -> dict:
+    """Each architecture's smoke config served on the card and on the CPU
+    with the same weights (drawn on the CPU, copied over) and prompt:
+    prefill and 4 decode steps fed the CPU's greedy tokens, every step's
+    logits within the family's bar of the CPU's largest |logit|."""
+    import copy
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import steps
+    out = {}
+    for arch in configs.all_arch_names():
+        cfg = configs.get_smoke(arch)
+        gen = torch.Generator().manual_seed(0)
+        cpu_model = steps.model_module(cfg).init_params(cfg, gen,
+                                                        device="cpu")
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        pre = cfg.num_prefix_embeds
+        batch = SyntheticLM(cfg, batch=2, seq_len=pre + 20, seed=1,
+                            device="cpu").batch_at(0)
+        worst = 0.0
+        runs = []
+        for model, where in ((cpu_model, "cpu"), (card_model, dev)):
+            b = {k: v.to(where) for k, v in batch.items()}
+            prefill = steps.make_prefill_step(cfg, cache_len=pre + 25,
+                                              compute_dtype=torch.float32)
+            decode = steps.make_decode_step(cfg, compute_dtype=torch.float32)
+            logits, caches = prefill(model, b)
+            steps_logits = [logits[:, -1].cpu()]
+            for i in range(4):
+                tok = (runs[0][i].argmax(-1)[:, None] if runs else
+                       steps_logits[-1].argmax(-1)[:, None]).to(where)
+                _, logits, caches = decode(model, caches, tok, pre + 20 + i)
+                steps_logits.append(logits[:, -1].cpu())
+            runs.append(steps_logits)
+        for ref, got in zip(*runs):
+            scale = float(ref[:, :cfg.vocab_size].abs().max())
+            err = float((got - ref).abs().max())
+            bar = lm_bar(cfg, cfg)
+            check(bool(torch.isfinite(got).all()) and err <= bar * scale,
+                  f"LM smoke {arch}: card logits {err} from the CPU's "
+                  f"(largest |logit| {scale}, bar {bar})")
+            worst = max(worst, err / scale)
+        out[arch] = worst
+        del cpu_model, card_model
+    return out
+
+
+def lm_phase(dev, card: str, bw: float, scale: str = "full") -> dict:
+    """Phase 11: ``repro_torch.launch.serve.main`` on the card for each of
+    LM_SERVED (``scale="smoke"`` rehearses it on smoke configs), each
+    model freed before the next; each one's logits finite and its
+    prefill(S) + decode(1) equal to forward(S + 1) at the last position
+    (the model drawn again from the same seed); then every smoke config's
+    card logits against the CPU's."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.models import steps
+    get = configs.get if scale == "full" else configs.get_smoke
+    out = {"served": {}, "smoke_against_cpu": {}}
+    for arch, layers, prompt in LM_SERVED:
+        cfg = get(arch)
+        full_layers = cfg.num_layers
+        if layers is not None and scale == "full":
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        cut = (f"{cfg.num_layers} of {full_layers} layers"
+               if cfg.num_layers != full_layers else "all layers")
+        if cfg.is_encdec:
+            cut += f", encoder {cfg.encoder_layers} layers"
+        if cfg.num_prefix_embeds:
+            cut += f", {cfg.num_prefix_embeds} prefix embeddings"
+        torch.cuda.empty_cache()
+        res = serve.main(["--arch", arch, "--scale", scale, "--requests",
+                          str(LM_REQUESTS), "--prompt-len", str(prompt),
+                          "--gen", str(LM_GEN), "--device", str(dev)],
+                         cfg=cfg)
+        check(bool(torch.isfinite(res["last_logits"]).all()),
+              f"LM {arch}: non-finite logits")
+        check(tuple(res["tokens"].shape) == (LM_REQUESTS, LM_GEN)
+              and int(res["tokens"].max()) < cfg.vocab_size,
+              f"LM {arch}: tokens {tuple(res['tokens'].shape)}")
+        # the served model again from the same seed, for the check
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = steps.model_module(cfg).init_params(cfg, gen, device=dev)
+        read = lm_decode_read_bytes(cfg, model)
+        batch = SyntheticLM(cfg, batch=LM_REQUESTS,
+                            seq_len=prompt + cfg.num_prefix_embeds, seed=0,
+                            device=str(dev)).batch_at(0)
+        nxt = res["tokens"][:, :1].to(dev)
+        err, big = lm_decode_vs_forward(lm_no_drop(cfg), model, batch, nxt,
+                                        dev)
+        bar = lm_bar(cfg, configs.get_smoke(arch))
+        check(err <= bar * big,
+              f"LM {arch}: prefill + decode {err} from forward (largest "
+              f"|logit| {big}, bar {bar})")
+        # warm steps (median), then the prefill and one decode step traced
+        prefill = steps.make_prefill_step(
+            cfg, cache_len=cfg.num_prefix_embeds + prompt + 1,
+            compute_dtype=torch.float32)
+        decode = steps.make_decode_step(cfg, compute_dtype=torch.float32)
+        _, caches = prefill(model, batch)
+        pos = cfg.num_prefix_embeds + prompt
+
+        def one_decode():
+            decode(model, caches, nxt, pos)
+        warm = {"prefill_ms": time_ms(lambda: prefill(model, batch), 3, 1),
+                "decode_ms": time_ms(one_decode, 5, 1)}
+        traces = {"prefill": profile_call(lambda: prefill(model, batch)),
+                  "decode": profile_call(one_decode)}
+        for what, prof in traces.items():
+            if not prof["top"]:
+                log(f"LM {arch} traced {what}: the profiler recorded no "
+                    "device time (not measured)")
+                continue
+            log(f"LM {arch} traced {what}: wall {prof['wall_ms']:.2f} ms, "
+                f"device busy {prof['device_busy_ms']:.2f} ms, idle share "
+                f"{prof['idle_share']:.3f}, {prof['launches']} kernels")
+            for r in prof["top"][:6]:
+                log(f"  {r['ms']:9.3f} ms  x{r['count']:<5d} {r['name']}")
+        del caches
+        sensitivity = lm_sensitivity(cfg, model, batch)
+        del model, batch
+        torch.cuda.empty_cache()
+        tokens_in = LM_REQUESTS * (prompt + cfg.num_prefix_embeds)
+        row = {
+            "config": cfg.name, "cut": cut, "requests": LM_REQUESTS,
+            "prompt": prompt, "prefix": cfg.num_prefix_embeds,
+            "gen": LM_GEN, "prefill_ms": res["prefill_ms"],
+            "prefill_tokens_per_s": tokens_in / (res["prefill_ms"] * 1e-3),
+            "decode_ms_per_token": res["decode_ms_per_token"],
+            "decode_tokens_per_s": LM_REQUESTS
+            / (res["decode_ms_per_token"] * 1e-3),
+            "weight_bytes": res["weight_bytes"],
+            "decode_read_bytes": read,
+            "decode_bound_ms_measured_bw": read / bw * 1e3,
+            "decode_bound_ms_peak": read / PEAK_BYTES_PER_S * 1e3,
+            "peak_gib": (None if res["peak_bytes"] is None
+                         else res["peak_bytes"] / 2 ** 30),
+            "decode_vs_forward": err / big, "bar": bar,
+            "sensitivity": sensitivity, "warm": warm, "traces": traces}
+        out["served"][arch] = row
+        peak = ("not measured" if row["peak_gib"] is None
+                else f"{row['peak_gib']:.3f} GiB")
+        log(f"LM {arch} ({cfg.name}, {cut}; {LM_REQUESTS} requests, prompt "
+            f"{prompt}, {LM_GEN} generated, f32): prefill "
+            f"{row['prefill_ms']:.2f} ms ({row['prefill_tokens_per_s']:.0f} "
+            f"tokens/s), decode {row['decode_ms_per_token']:.3f} ms/token "
+            f"({row['decode_tokens_per_s']:.1f} tokens/s); weights "
+            f"{row['weight_bytes'] / 1e9:.3f} GB, a decode step reads "
+            f"{read / 1e9:.3f} GB: bound "
+            f"{row['decode_bound_ms_measured_bw']:.3f} ms at the measured "
+            "copy rate, "
+            f"{row['decode_bound_ms_peak']:.3f} ms at 3.35 TB/s; peak "
+            f"{peak}; warm: prefill {warm['prefill_ms']:.2f} ms, decode "
+            f"{warm['decode_ms']:.3f} ms/token; prefill + decode against "
+            f"forward {err:.3e} (largest |logit| {big:.3e}: {err / big:.3e}, "
+            f"bar {bar:.3e}); logits moved {sensitivity:.3e} by a 1e-7 "
+            f"scaling of the embeddings ({card})")
+    out["smoke_against_cpu"] = lm_smoke_against_cpu(dev)
+    log("LM smoke configs, card against CPU (worst error / largest "
+        "|logit|): " + json.dumps(out["smoke_against_cpu"]))
+    return out
+
+
 def main() -> int:
     if "--mesh-rank" in sys.argv:
         i = sys.argv.index
@@ -2553,6 +2838,13 @@ def main() -> int:
     tiles = launch_space(dev, card, bw)
     phase_done(10)
 
+    # phase 11: the LM serving path
+    torch.cuda.empty_cache()
+    log(f"LM phase: {torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} GiB "
+        "still allocated by earlier phases")
+    lm = lm_phase(dev, card, bw)
+    phase_done(11)
+
     replaces = {
         "wilson_hop": "src/repro/kernels/wilson_dslash/kernel.py:684",
         "cg_update": "src/repro/kernels/cg_fused/kernel.py:114",
@@ -2603,6 +2895,7 @@ def main() -> int:
     log("serving: " + json.dumps(served))
     log("mesh: " + json.dumps(meshed))
     log("launch space: " + json.dumps(tiles))
+    log("lm: " + json.dumps(lm))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels_line}))

@@ -1,5 +1,5 @@
 """Workload generation and committed fixtures."""
 
-from repro_torch.data.synthetic import lattice_problem
+from repro_torch.data.synthetic import SyntheticLM, lattice_problem
 
-__all__ = ["lattice_problem"]
+__all__ = ["SyntheticLM", "lattice_problem"]

@@ -1,1 +1,2 @@
-"""Lattice command-line entry points of the port."""
+"""Command-line entry points of the port: the lattice solver's and the LM
+serving launcher's."""
