@@ -162,7 +162,25 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    the link planes exchanged once a solve; rank 0 traces one more
    even-odd CGNR; a checkpointed even-odd CGNR every 5 iterations
    bitwise the one-shot mesh x, and one starved at 7 iterations that
-   the parent resumes on one device to a verified x.  Each solve's
+   the parent resumes on one device to a verified x and the children
+   resume on the 2x2 mesh (``resume_solve`` with the mesh plan, from a
+   copy); ``defended_solve`` on the mesh starved at 7 iterations
+   (attempt 1 restarted and verified); each within 1e-5 of the one-shot
+   mesh x, K1 4m+4 an attempt with no plain call, the same records on
+   every rank.  Then the block entry (``solve(..., blocks=True)`` on each
+   rank's blocks): even-odd and full CGNR N = 1 at 64x32x32x32, x
+   gathered bitwise the global entry's, verified blockwise (the plain
+   natural operator on each block padded with its neighbours' faces);
+   and 64^3x128 (128x64x64x64) even-odd CGNR N = 1 in f32, its u and b
+   drawn from seed 0 by the parent, solved once on one device and
+   written to .npy files from which each child reads its blocks
+   (no child holds a global field: each rank's peak on the card and on
+   the host stays below the global fields' bytes): iterations within 1
+   of the one-device twin, x within 1e-5 of its block, verified
+   blockwise, K1 4I+4 a rank with no plain call, all-reduces 2+2I, the
+   link planes exchanged once, no gather; each rank's peak GiB and wall
+   printed beside the dry-run's reckoned block and global-entry bytes
+   and the reckoned halo bytes a matvec.  Each solve's
    walls, rank 0's host time inside the collectives and each rank's
    peak memory are printed beside the single-device wall and the walls
    measured when K4 corrected its boundary planes afterwards;
@@ -188,13 +206,23 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    decode(1) equal forward(S + 1) at the last position within the CPU
    tests' bar scaled by the square root of its depth over its smoke
    config's (the model drawn again from the same seed; a MoE with
-   capacity for every token); it prints prefill ms and tokens/s, decode
+   capacity for every token), computed in float64 on a float64 copy
+   where its weights fit LM_F64_MAX_BYTES (all but glm4-9b), else in
+   float32 (the float32 error printed beside); it prints prefill ms and
+   tokens/s, decode
    ms/token, the weight bytes and those a decode step reads with their
    bound at phase 1's copy rate and at 3.35 TB/s, peak GiB, warm step
    times, a traced prefill and decode step, and how far a 1e-7 scaling
    of the embeddings moves its logits.  Then every architecture's smoke
    config is served on the card and on the CPU with the same weights,
-   every step's logits within the CPU tests' bar.  No hand-written kernel
+   every step's logits within the CPU tests' bar.  For recurrentgemma
+   and seamless, whose served first token differed between two card
+   runs, the first token's top-2 logit gap is printed beside the spread
+   of three prefills and the argmax of one more under
+   ``torch.use_deterministic_algorithms(True)``; the prompt drawn again
+   three times must equal the served one and the served first tokens
+   the argmax (``torch.multinomial`` drew other prompt tokens on every
+   call on the card; ``SyntheticLM`` now draws by inverse CDF).  No hand-written kernel
    runs in this phase (the JAX package's LM code reaches no Pallas
    kernel).
    Each phase prints its seconds; the checkpoint, journal and mesh
@@ -213,6 +241,7 @@ CUDA device or the port's sources are missing.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -229,6 +258,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
@@ -908,7 +938,6 @@ def check_twin_counts(name, its, want):
 def goldens(dev):
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.lattice import fields_from_numpy
-    import numpy as np
     path = ROOT / "src" / "repro_torch" / "data" / "golden_4x4x4x4_seed7.npz"
     with np.load(path) as f:
         u, b = fields_from_numpy(f["gauge"], f["b"], device=dev)
@@ -1848,6 +1877,13 @@ MESH_WALLS_BEFORE = {"eo_cgnr_n1": (2.2896, 2.2419),
                      "eo_pipecg_n4_tm": (8.2832, 8.8186),
                      "full_cgnr_n1": (3.3403, 2.7437),
                      "full_mpcg_n1": (3.4331, 2.3943)}
+# the solves phase 9 also runs through the block entry at MAIN_DIMS, held
+# bitwise to their global-entry x
+MESH_BLOCK_SOLVES = ("eo_cgnr_n1", "full_cgnr_n1")
+# the block entry's large run: 64^3 x 128 (T, Z, Y, X), even-odd CGNR
+# N = 1 in f32 on the 2x2 mesh; no child holds its global fields (they
+# read their blocks from .npy files by positioned reads)
+BIG_DIMS = (128, 64, 64, 64)
 
 
 def mesh_fields(dev):
@@ -1965,7 +2001,7 @@ def mesh_child(rank: int, d: Path) -> int:
         out["halo_checks"] = halo_kernel_checks(mesh, u, b)
         SP = plan_mod.SolverPlan
         out["solves"] = {}
-        x_eo = None
+        x_eo, x_glob = None, {}
         for name, kw, rhs_name in MESH_SOLVES:
             plan = SP(mesh=mesh, **kw)
             rhs = b if rhs_name == "b" else batch
@@ -1984,6 +2020,8 @@ def mesh_child(rank: int, d: Path) -> int:
                 torch.save(x.cpu(), d / f"{name}.pt")
             if name == "eo_cgnr_n1":
                 x_eo = x
+            if name in MESH_BLOCK_SOLVES:
+                x_glob[name] = x
             del x
         # rank 0 traces one more even-odd CGNR (the others run it untraced)
         plan = SP(mesh=mesh)
@@ -2006,7 +2044,7 @@ def mesh_child(rank: int, d: Path) -> int:
         check(want == {k: v["launches"] for k, v in counts.items()}
               and not any(v["plain_calls"] for v in counts.values()),
               f"mesh rank {rank} checkpointed: launches {counts}, want {want}")
-        del x_eo, x2
+        del x2
         _, st3 = plan_mod.solve(
             plan, u, b, MASS, tol=TOL, maxiter=MESH_STARVE, device=dev,
             checkpoint=plan_mod.CheckpointPolicy(str(d / "ck_starved"), 5,
@@ -2015,10 +2053,206 @@ def mesh_child(rank: int, d: Path) -> int:
             stats=mesh_stats(st2), wall_s=wall, peak_bytes=peak, steps=steps,
             starved=mesh_stats(st3),
             starved_steps=ckpt.valid_steps(str(d / "ck_starved")))
+        out["mesh_resume"] = mesh_resume_child(mesh, d, u, b, x_eo, dev)
+        del x_eo
+        out["block_entry"] = block_entry_child(mesh, u, b, x_glob, out, dev)
+        del u, b, batch, x_glob
+        torch.cuda.empty_cache()
+        out["big"] = big_child(mesh, d, dev)
         (d / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         tdist.destroy_process_group()
     return 0
+
+
+def mesh_resume_child(mesh, d: Path, u, b, x_one, dev) -> dict:
+    """The starved 2x2 checkpoint resumed on the 2x2 mesh
+    (``resume_solve`` with the mesh plan, from a copy of the directory:
+    the parent resumes the original on one device), then
+    ``defended_solve`` starved at MESH_STARVE iterations: attempt 0
+    unverified, attempt 1 restarted and verified.  Each x within 1e-5
+    (relative max-abs) of the one-shot mesh x ``x_one``; K1 4m + 4 a
+    solve of m iterations, no plain call."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import resilience
+    plan = plan_mod.SolverPlan(mesh=mesh)
+    if mesh.rank == 0:
+        shutil.copytree(d / "ck_starved", d / "ck_starved_mesh")
+    mesh.barrier()
+    out = {}
+    (x, st, rec), counts, _, wall, peak = counted(
+        dev, lambda: resilience.resume_solve(
+            plan, u, b, MASS, checkpoint_dir=str(d / "ck_starved_mesh"),
+            tol=TOL, maxiter=1000, device=dev))
+    att = [dataclasses.asdict(a) for a in rec.attempts]
+    want = sum(4 * a["iterations"] + 4 for a in att
+               if "/kernels/" in a["plan_desc"])
+    err = max_err(x, x_one) / scale(x_one)
+    check(rec.resumed_from_step == MESH_STARVE and att[0]["restarted"]
+          and bool(st.verified) and err <= 1e-5,
+          f"mesh rank {mesh.rank} resume on the mesh: from "
+          f"{rec.resumed_from_step}, attempts {att}, x rel err {err}")
+    check(counts["wilson_hop"]["launches"] == want
+          and not any(v["plain_calls"] for v in counts.values()),
+          f"mesh rank {mesh.rank} resume: launches {counts}, want K1 {want}")
+    out["resume"] = dict(step=rec.resumed_from_step, attempts=att,
+                         x_rel_err=err, wall_s=wall, peak_bytes=peak,
+                         k1=want, steps=sorted(os.listdir(
+                             d / "ck_starved_mesh")))
+    del x
+    (x, st, att), counts, _, wall, peak = counted(
+        dev, lambda: resilience.defended_solve(
+            plan, u, b, MASS, tol=TOL, maxiter=MESH_STARVE, device=dev))
+    att = [dataclasses.asdict(a) for a in att]
+    want = sum(4 * a["iterations"] + 4 for a in att
+               if "/kernels/" in a["plan_desc"])
+    err = max_err(x, x_one) / scale(x_one)
+    check(len(att) == 2 and not att[0]["verified"] and att[1]["restarted"]
+          and att[1]["verified"] and bool(st.verified) and err <= 1e-5,
+          f"mesh rank {mesh.rank} defended, starved at {MESH_STARVE}: "
+          f"attempts {att}, x rel err {err}")
+    check(counts["wilson_hop"]["launches"] == want
+          and not any(v["plain_calls"] for v in counts.values()),
+          f"mesh rank {mesh.rank} defended: launches {counts}, want K1 "
+          f"{want}")
+    out["defended"] = dict(attempts=att, x_rel_err=err, wall_s=wall,
+                           peak_bytes=peak, k1=want)
+    return out
+
+
+def block_entry_child(mesh, u, b, x_glob, out, dev) -> dict:
+    """MESH_BLOCK_SOLVES through the block entry (``solve(...,
+    blocks=True)`` on this rank's blocks): x gathered bitwise the global
+    entry's, its counts and the solve's collectives equal to the global
+    entry's (no gather, no broadcast: the verification's one face
+    all-gather and one all-reduce instead), verified blockwise."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import plan as plan_mod
+    res = {}
+    for name, kw, _ in MESH_SOLVES:
+        if name not in MESH_BLOCK_SOLVES:
+            continue
+        plan = plan_mod.SolverPlan(mesh=mesh, **kw)
+        ul, bl = dist.shard_lattice_fields(mesh, u, b, layout="natural")
+        mesh.barrier()
+        before = dict(mesh.counts)
+        xl, st, counts, _, wall, peak = solve_counted(plan, ul, bl, dev,
+                                                      blocks=True)
+        coll = {k: v - before.get(k, 0) for k, v in mesh.counts.items()
+                if v != before.get(k, 0)}
+        x = dist.gather_blocks(mesh, xl, dist.layout_specs(
+            mesh, "natural")[0], b.shape)
+        glob = out["solves"][name]
+        same = {k: coll.get(k) == glob["collectives"].get(k)
+                for k in ("all_reduce", "spinor_planes", "link_planes")}
+        check(torch.equal(x, x_glob[name]) and all(same.values())
+              and coll.get("verify_gather") == 1
+              and "broadcast" not in coll
+              and {k: v["launches"] for k, v in counts.items()}
+              == glob["launches"]
+              and mesh_stats(st)["iterations"] == glob["stats"]["iterations"]
+              and bool(st.verified),
+              f"mesh rank {mesh.rank} block entry {name}: bitwise "
+              f"{torch.equal(x, x_glob[name])}, collectives {coll} against "
+              f"{glob['collectives']}, verified {st.verified}")
+        res[name] = dict(stats=mesh_stats(st), wall_s=wall, peak_bytes=peak,
+                         collectives=coll, bitwise=True, launches={
+                             k: v["launches"] for k, v in counts.items()})
+        del ul, bl, xl, x
+    return res
+
+
+def host_rss() -> int:
+    """This process's resident host bytes now (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def read_npy_block(path: Path, mesh, spec) -> np.ndarray:
+    """This rank's block (``dist.block_slices`` of ``spec``) of a C-order
+    .npy file, read run by run with positioned reads into the block's
+    buffer: the file is never mapped, so the process's resident bytes
+    grow by the block alone (a memory-mapped read of the 2x2 block of
+    BIG_DIMS' u made a child's resident bytes grow by 11.25 GiB)."""
+    from repro_torch.core import distributed as dist
+    with open(path, "rb", buffering=0) as f:
+        version = np.lib.format.read_magic(f)
+        header = {(1, 0): np.lib.format.read_array_header_1_0,
+                  (2, 0): np.lib.format.read_array_header_2_0}[version]
+        shape, fortran, dtype = header(f)
+        check(not fortran, f"{path}: a Fortran-order array")
+        base = f.tell()
+        sl = dist.block_slices(mesh, shape, spec)
+        lo = [s.start or 0 for s in sl]
+        hi = [n if s.stop is None else s.stop for s, n in zip(sl, shape)]
+        out = np.empty([b - a for a, b in zip(lo, hi)], dtype)
+        # the runs are contiguous from the innermost sliced axis on
+        k = max([i for i, n in enumerate(shape) if (lo[i], hi[i]) != (0, n)],
+                default=0)
+        stride = [int(np.prod(shape[i + 1:])) * dtype.itemsize
+                  for i in range(len(shape))]
+        run = (hi[k] - lo[k]) * stride[k]
+        buf = memoryview(out.reshape(-1).view(np.uint8))
+        pos = 0
+        for idx in np.ndindex(*out.shape[:k]):
+            f.seek(base + sum((lo[i] + j) * stride[i]
+                              for i, j in enumerate(idx)) + lo[k] * stride[k])
+            end = pos + run
+            while pos < end:
+                got = f.readinto(buf[pos:end])
+                check(got > 0, f"{path}: short read")
+                pos += got
+    return out
+
+
+def big_child(mesh, d: Path, dev) -> dict:
+    """BIG_DIMS through the block entry: this rank's blocks of u and b
+    read from the parent's .npy files (:func:`read_npy_block`: the rank
+    holds no global field, on the card or in its host memory; its card's
+    peak after the read and its host's resident bytes during it are
+    recorded), even-odd CGNR N = 1 f32 on the kernels, verified
+    blockwise; x's block written to D."""
+    import resource
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import plan as plan_mod
+    psi_spec, gauge_spec, _ = dist.layout_specs(mesh, "natural")
+    torch.cuda.reset_peak_memory_stats(dev)
+    host = {"before": host_rss(), "lifetime_peak_before": resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024}
+    host["read_peak"] = host["before"]
+    t0 = time.perf_counter()
+    blocks = []
+    for name, spec in (("u", gauge_spec), ("b", psi_spec)):
+        blk = read_npy_block(d / f"big_{name}.npy", mesh, spec)
+        host["read_peak"] = max(host["read_peak"], host_rss())
+        blocks.append(torch.from_numpy(blk).to(dev))
+        del blk
+    ul, bl = blocks
+    del blocks
+    host["blocks"] = sum(v.numel() * v.element_size() for v in (ul, bl))
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated(dev)
+    plan = plan_mod.SolverPlan(mesh=mesh)
+    mesh.barrier()
+    before = dict(mesh.counts)
+    before_s = dict(mesh.seconds)
+    xl, st, counts, _, wall, peak = solve_counted(plan, ul, bl, dev,
+                                                  blocks=True)
+    coll = {k: v - before.get(k, 0) for k, v in mesh.counts.items()
+            if v != before.get(k, 0)}
+    secs = {k: v - before_s.get(k, 0.0) for k, v in mesh.seconds.items()
+            if v != before_s.get(k, 0.0)}
+    check_launches(f"mesh big rank {mesh.rank}", st, counts, plan)
+    torch.save(xl.cpu(), d / f"big_x{mesh.rank}.pt")
+    host["after"] = host_rss()
+    host["lifetime_peak"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024
+    return dict(stats=mesh_stats(st), wall_s=wall, peak_bytes=peak,
+                load_peak_bytes=load_peak, load_s=load_s,
+                collectives=coll, collective_s=secs,
+                launches={k: v["launches"] for k, v in counts.items()},
+                block_shapes=[list(ul.shape), list(bl.shape)], host=host)
 
 
 def mesh_stats(st) -> dict:
@@ -2067,6 +2301,176 @@ def run_children(argvs, env, timeout_s: float) -> list[tuple[int, str]]:
     return res
 
 
+def big_twin(dev, tmp: Path) -> dict:
+    """BIG_DIMS on one device: u and b drawn from seed 0 on the card and
+    written to ``tmp`` as .npy files (the children read their blocks of
+    them, :func:`read_npy_block`), then the even-odd CGNR N = 1 solved once,
+    counted: its x kept on the host."""
+    from repro_torch.core import lattice as tl
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.data import lattice_problem
+    plan = plan_mod.SolverPlan()
+    u, b = lattice_problem(tl.LatticeShape(*BIG_DIMS), seed=0, packed=False,
+                           device=dev)
+    t0 = time.perf_counter()
+    for name, v in (("u", u), ("b", b)):
+        np.save(tmp / f"big_{name}.npy", v.cpu().numpy())
+    write_s = time.perf_counter() - t0
+    x, st, counts, _, wall, peak = solve_counted(plan, u, b, dev)
+    check_solve("mesh big single", st, rel_res(st, b, False))
+    check_launches("mesh big single", st, counts, plan)
+    out = dict(x=x.cpu(), stats=mesh_stats(st), wall_s=wall, peak_bytes=peak,
+               write_s=write_s, global_fields_bytes=(
+                   u.numel() * u.element_size() + b.numel() * b.element_size()),
+               launches={k: v["launches"] for k, v in counts.items()})
+    del u, b, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_new_entries(ranks, big, tmp: Path, card) -> dict:
+    """The parent's reading of the children's resume and defended solves
+    on the mesh, the block entry at MAIN_DIMS, and the block entry at
+    BIG_DIMS against its one-device twin ``big``."""
+    import types
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch import dryrun_wilson as dw
+    from repro_torch.launch.mesh import MeshShape
+    out = {}
+    for what in ("resume", "defended"):
+        recs = [rk["mesh_resume"][what] for rk in ranks]
+        check(all(r["attempts"] == recs[0]["attempts"] for r in recs),
+              f"mesh {what}: records differ between ranks")
+        att = recs[0]["attempts"]
+        log(f"mesh {what} on the 2x2 mesh: "
+            + (f"from step {recs[0]['step']}, " if what == "resume" else "")
+            + "attempts " + "; ".join(
+                f"{a['attempt']}: {a['plan_desc']} restarted={a['restarted']}"
+                f" iterations={a['iterations']} verified={a['verified']}"
+                for a in att)
+            + f", the same on every rank; K1 {recs[0]['k1']} a rank, no "
+            f"plain call; x rel err {max(r['x_rel_err'] for r in recs):.2e} "
+            f"against the one-shot mesh x; wall "
+            f"{max(r['wall_s'] for r in recs):.4f} s ({card})")
+        out[f"mesh_{what}"] = dict(
+            attempts=att, x_rel_err=[r["x_rel_err"] for r in recs],
+            walls_s=[r["wall_s"] for r in recs], k1=recs[0]["k1"],
+            step=recs[0].get("step"), steps=recs[0].get("steps"))
+    for name in MESH_BLOCK_SOLVES:
+        recs = [rk["block_entry"][name] for rk in ranks]
+        check(all(r["stats"] == recs[0]["stats"] for r in recs),
+              f"mesh block entry {name}: stats differ between ranks")
+        st = recs[0]["stats"]
+        log(f"mesh block entry {name} at {MAIN_DIMS}: x bitwise the global "
+            f"entry's on every rank, {st['iterations']} iterations, "
+            f"verified blockwise {st['verified']} (true residual^2 "
+            f"{st['true_residual_norm2']}; the global entry's "
+            f"{ranks[0]['solves'][name]['stats']['true_residual_norm2']}), "
+            f"collectives {recs[0]['collectives']}, wall "
+            f"{max(r['wall_s'] for r in recs):.4f} s, peak "
+            f"{[round(r['peak_bytes'] / 2**30, 3) for r in recs]} GiB a rank "
+            f"({card})")
+        out[f"block_entry_{name}"] = dict(
+            stats=st, walls_s=[r["wall_s"] for r in recs],
+            peaks_gib=[r["peak_bytes"] / 2**30 for r in recs],
+            collectives=recs[0]["collectives"])
+    # the block entry at BIG_DIMS
+    bigs = [rk["big"] for rk in ranks]
+    st, one = bigs[0]["stats"], big["stats"]
+    k = st["iterations"]
+    check(all(bk["stats"] == st for bk in bigs),
+          "mesh big: stats differ between ranks")
+    check(all(v == 0 for v in st["verdict"]) and all(st["verified"])
+          and abs(k - one["iterations"]) <= 1,
+          f"mesh big: verdict {st['verdict']}, verified {st['verified']}, "
+          f"iterations {k} against {one['iterations']} on one device")
+    shape = MeshShape(dict(zip(MESH_AXES, MESH_SHAPE)), MESH_AXES)
+    psi_spec = dist.layout_specs(shape, "natural")[0]
+    mem = dw.resident("eo", "cg", BIG_DIMS, shape)
+    log("mesh big, each rank (card peak after the read / the solve's card "
+        "peak / host resident before, at the read's peak, after, lifetime "
+        "peak, GiB): " + "; ".join(
+            f"{r}: {bk['load_peak_bytes'] / 2**30:.3f} / "
+            f"{bk['peak_bytes'] / 2**30:.3f} / "
+            + ", ".join(f"{bk['host'][k] / 2**30:.3f}" for k in (
+                "before", "read_peak", "after", "lifetime_peak"))
+            + f" (blocks {bk['host']['blocks'] / 2**30:.3f})"
+            for r, bk in enumerate(bigs)))
+    errs = []
+    for r, rk in enumerate(ranks):
+        at = types.SimpleNamespace(shape=shape.shape, coords=rk["coords"])
+        want = big["x"][dist.block_slices(at, big["x"].shape, psi_spec)]
+        got = torch.load(tmp / f"big_x{r}.pt")
+        errs.append(max_err(got, want) / scale(big["x"]))
+        coll = bigs[r]["collectives"]
+        check(coll.get("all_reduce") == 2 + 2 * k
+              and coll.get("link_planes") == 4
+              and coll.get("verify_gather") == 1
+              and "all_gather" not in coll and "broadcast" not in coll,
+              f"mesh big rank {r}: collectives {coll}, want {2 + 2 * k} "
+              "all-reduces, 4 link planes, one face all-gather")
+        # the blocks, on the card and on the host while they were read,
+        # stay below the global fields; the solve's working set below
+        # what the global entry needs
+        host = bigs[r]["host"]
+        check(bigs[r]["load_peak_bytes"] < big["global_fields_bytes"]
+              and host["read_peak"] - host["before"]
+              <= host["blocks"] + 2**30
+              and bigs[r]["peak_bytes"] < mem["global_entry"],
+              f"mesh big rank {r}: {bigs[r]['load_peak_bytes']} B on the "
+              f"card after the read, host {host} B, solve peak "
+              f"{bigs[r]['peak_bytes']} B; the global fields "
+              f"{big['global_fields_bytes']} B, the global entry "
+              f"{mem['global_entry']} B")
+    check(max(errs) <= 1e-5, f"mesh big: x blocks differ from the "
+                             f"single-device x by {errs} (relative)")
+    per = dw.solve_counts("eo", "cg", BIG_DIMS, shape, iterations=2)
+    per1 = dw.solve_counts("eo", "cg", BIG_DIMS, shape, iterations=1)
+    halo = per["spinor_bytes"] - per1["spinor_bytes"]
+    coll = bigs[0]["collectives"]
+    log(f"mesh big {BIG_DIMS} (T, Z, Y, X) through the block entry, "
+        f"blocks {bigs[0]['block_shapes']}: {k} iterations (one device "
+        f"{one['iterations']}), verified blockwise, x rel err "
+        f"{max(errs):.2e} against the one-device x; K1 "
+        f"{bigs[0]['launches'].get('wilson_hop')} a rank (4I + 4 = "
+        f"{4 * k + 4}), all-reduces {coll['all_reduce']} (2 + 2I), link "
+        f"planes {coll['link_planes']}, spinor planes "
+        f"{coll.get('spinor_planes')} ({coll.get('spinor_bytes', 0) / 1e6:.1f}"
+        f" MB sent a rank; reckoned {halo / 1e6:.2f} MB a matvec); walls "
+        f"{[round(bk['wall_s'], 4) for bk in bigs]} s against "
+        f"{big['wall_s']:.4f} s on one device; blocks read in "
+        f"{[round(bk['load_s'], 2) for bk in bigs]} s; peak "
+        f"{[round(bk['peak_bytes'] / 2**30, 3) for bk in bigs]} GiB a rank "
+        f"on the card (after reading the blocks "
+        f"{[round(bk['load_peak_bytes'] / 2**30, 3) for bk in bigs]}), host "
+        f"resident at the read's peak "
+        f"{[round(bk['host']['read_peak'] / 2**30, 3) for bk in bigs]} GiB; "
+        f"reckoned: the block entry {mem['block'] / 2**30:.3f} GiB a rank, "
+        f"the global entry {mem['global_entry'] / 2**30:.3f} GiB a rank "
+        f"(global fields {big['global_fields_bytes'] / 2**30:.3f} GiB); "
+        f"one device peak {big['peak_bytes'] / 2**30:.3f} GiB; rank 0's "
+        f"host wall inside collectives "
+        f"{ {n: round(v, 4) for n, v in bigs[0]['collective_s'].items()} } "
+        f"s ({card})")
+    out["big"] = dict(
+        dims=BIG_DIMS, iterations=k, single_iterations=one["iterations"],
+        x_rel_err=errs, walls_s=[bk["wall_s"] for bk in bigs],
+        single_wall_s=big["wall_s"], single_peak_gib=big["peak_bytes"] / 2**30,
+        peaks_gib=[bk["peak_bytes"] / 2**30 for bk in bigs],
+        load_peaks_gib=[bk["load_peak_bytes"] / 2**30 for bk in bigs],
+        host_gib=[{k: v / 2**30 for k, v in bk["host"].items()}
+                  for bk in bigs],
+        load_s=[bk["load_s"] for bk in bigs], collectives=coll,
+        collective_s=bigs[0]["collective_s"],
+        launches=bigs[0]["launches"], reckoned_block_gib=mem["block"] / 2**30,
+        reckoned_global_entry_gib=mem["global_entry"] / 2**30,
+        reckoned_halo_bytes_per_matvec=halo,
+        true_residual_norm2=st["true_residual_norm2"],
+        single_true_residual_norm2=one["true_residual_norm2"])
+    return out
+
+
 def mesh_phase(dev, card) -> dict:
     """Phase 9: the kernel checks at a rank's block shapes, the single-
     device twins, four ranks on a 2x2 mesh (NCCL with a card a rank, else
@@ -2097,6 +2501,8 @@ def mesh_phase(dev, card) -> dict:
     log(f"mesh: kernels at the block shape {local}: " + json.dumps(errs))
     u, b, batch = mesh_fields(dev)
     sha = [sha256(v) for v in (u, b, batch)]
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=ROOT / "build"))
     singles = {}
     for name, kw, rhs_name in MESH_SOLVES:
         plan = SP(**kw)
@@ -2107,11 +2513,20 @@ def mesh_phase(dev, card) -> dict:
         singles[name] = dict(x=x.cpu(), stats=mesh_stats(st), wall_s=wall,
                              peak_bytes=peak)
         del x
-    (ROOT / "build").mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=ROOT / "build"))
+    torch.cuda.empty_cache()
     out = {"transport": transport, "device_count": n_cards,
            "world": MESH_WORLD, "block_kernel_errs": errs}
     try:
+        log(f"mesh big: {BIG_DIMS} (T, Z, Y, X), "
+            f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB free on the disk "
+            f"of {tmp.parent}; this process holds "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB of the card")
+        big = big_twin(dev, tmp)
+        log(f"mesh big single device: {big['stats']['iterations']} "
+            f"iterations, verified {big['stats']['verified']}, wall "
+            f"{big['wall_s']:.4f} s, peak {big['peak_bytes'] / 2**30:.3f} "
+            f"GiB, u and b written in {big['write_s']:.1f} s "
+            f"({big['global_fields_bytes'] / 2**30:.3f} GiB) ({card})")
         (tmp / "mesh.json").write_text(json.dumps(
             {"transport": transport, "device_type": dev.type}))
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -2212,6 +2627,7 @@ def mesh_phase(dev, card) -> dict:
                               wall_s=dur[0]["wall_s"],
                               resumed_from=rec.resumed_from_step,
                               resume_wall_s=wall)
+        out.update(mesh_new_entries(ranks, big, tmp, card))
         out["rank_peak_gib"] = [
             max(s["peak_bytes"] for s in rk["solves"].values()) / 2**30
             for rk in ranks]
@@ -2231,7 +2647,9 @@ def mesh_phase(dev, card) -> dict:
             log("mesh profile eo_cgnr_n1: the profiler recorded no device "
                 "time (not measured)")
         launches = {}
-        for rk_solve in ranks[0]["solves"].values():
+        for rk_solve in (list(ranks[0]["solves"].values())
+                         + list(ranks[0]["block_entry"].values())
+                         + [ranks[0]["big"]]):
             for n, v in rk_solve["launches"].items():
                 launches[n] = launches.get(n, 0) + v
         out["launches"] = launches
@@ -2360,6 +2778,17 @@ LM_SERVED = (
     ("rwkv6-1.6b", None, 32),
     ("seamless-m4t-large-v2", None, 32))
 LM_REQUESTS, LM_GEN = 4, 16
+# the models whose served first token differed between two card runs of
+# the same code: their first token's margin is probed (lm_first_token)
+LM_TIE_PROBE = ("recurrentgemma-9b", "seamless-m4t-large-v2")
+LM_PROBE_RUNS = 3
+# prefill + decode against forward is held in float64 for every served
+# model whose weights fit this size in float64 (all but glm4-9b's 75 GB),
+# else in float32: in float32 the random weights carry a rounding through
+# the layers (rwkv6: 2.3e-6 at 1 layer, 4.7e-4 at 24, the model's own
+# amplification of a 1e-7 input scaling growing alike; float64 3.7e-12;
+# scripts/lm_decode_depth.py), and a cache-path fault shows in either
+LM_F64_MAX_BYTES = 32 * 2**30
 # logits against a reference, as a fraction of its largest |logit|: the
 # bars of the CPU tests (tests/test_torch_lm_*.py), set at the smoke
 # configs' depths
@@ -2396,19 +2825,45 @@ def lm_no_drop(cfg):
         cfg.moe, capacity_factor=cfg.moe.padded / cfg.moe.top_k))
 
 
-def lm_decode_vs_forward(cfg, model, batch, nxt, dev) -> tuple[float, float]:
+@contextlib.contextmanager
+def float64_models():
+    """The LM models' float32 casts and constants made float64 inside the
+    block (``Tensor.float`` keeps a float64 tensor; each model module's
+    ``F32``), restored after: a float64 model then computes in float64
+    throughout."""
+    from repro_torch.models import encdec, layers, moe, recurrent
+    from repro_torch.models import transformer
+    mods = (layers, recurrent, transformer, encdec, moe)
+    narrow, saved = torch.Tensor.float, [m.F32 for m in mods]
+    torch.Tensor.float = lambda self, *a, **k: (
+        self if self.dtype == torch.float64 else narrow(self, *a, **k))
+    for m in mods:
+        m.F32 = torch.float64
+    try:
+        yield
+    finally:
+        torch.Tensor.float = narrow
+        for m, v in zip(mods, saved):
+            m.F32 = v
+
+
+def lm_decode_vs_forward(cfg, model, batch, nxt, dev,
+                         dtype=torch.float32) -> tuple[float, float]:
     """prefill(S) + decode(next token) against forward(S + 1) at the last
-    position: (max-abs error, largest |logit|)."""
+    position, computed in ``dtype`` (float64: a float64 model inside
+    :func:`float64_models`): (max-abs error, largest |logit|)."""
     from repro_torch.models import steps
     mod = steps.model_module(cfg)
     toks = batch["tokens"]
-    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    extra = {k: v.to(dtype) for k, v in batch.items() if k != "tokens"}
     pre = cfg.num_prefix_embeds
     s = toks.shape[1]
     _, caches = mod.prefill(cfg, model, toks, cache_len=pre + s + 1,
-                            **extra)
-    ld, _ = mod.decode_step(cfg, model, nxt, pre + s, caches)
-    full, _ = mod.forward(cfg, model, torch.cat([toks, nxt], dim=1), **extra)
+                            compute_dtype=dtype, **extra)
+    ld, _ = mod.decode_step(cfg, model, nxt, pre + s, caches,
+                            compute_dtype=dtype)
+    full, _ = mod.forward(cfg, model, torch.cat([toks, nxt], dim=1),
+                          compute_dtype=dtype, **extra)
     full = full[:, -1]
     del caches
     # the scale leaves out the masked vocabulary padding (-1e30 on both)
@@ -2481,6 +2936,45 @@ def lm_smoke_against_cpu(dev) -> dict:
     return out
 
 
+def lm_first_token(cfg, prefill, model, batch, served, redraw) -> dict:
+    """The first generated token's margin: the last prompt position's
+    logits (the unpadded vocabulary) from LM_PROBE_RUNS prefills in this
+    process, their run-to-run spread (max-abs against the first), each
+    request's top-2 gap, the argmax against the served first tokens
+    ``served``, and one more prefill under
+    ``torch.use_deterministic_algorithms(True)``.  A gap above the spread
+    by orders of magnitude rules a near-tie out.  ``redraw()`` draws the
+    prompt again: LM_PROBE_RUNS redraws must equal ``batch``."""
+    def first():
+        logits, _ = prefill(model, batch)
+        return logits[:, -1, :cfg.vocab_size].float()
+
+    runs = [first() for _ in range(LM_PROBE_RUNS)]
+    big = float(runs[0].abs().max())
+    spread = max(float((r - runs[0]).abs().max()) for r in runs[1:])
+    top2 = torch.topk(runs[0], 2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det = first()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    same = [all(torch.equal(v, batch[k]) for k, v in redraw().items())
+            for _ in range(LM_PROBE_RUNS)]
+    return dict(largest_logit=big, top2_gaps=gaps, redraws_equal=same,
+                min_gap_rel=min(gaps) / big, spread=spread,
+                spread_rel=spread / big,
+                argmax=runs[0].argmax(-1).tolist(), served=served.tolist(),
+                deterministic_argmax=det.argmax(-1).tolist(),
+                deterministic_max_abs=float((det - runs[0]).abs().max()))
+
+
 def lm_phase(dev, card: str, bw: float, scale: str = "full") -> dict:
     """Phase 11: ``repro_torch.launch.serve.main`` on the card for each of
     LM_SERVED (``scale="smoke"`` rehearses it on smoke configs), each
@@ -2527,9 +3021,11 @@ def lm_phase(dev, card: str, bw: float, scale: str = "full") -> dict:
         err, big = lm_decode_vs_forward(lm_no_drop(cfg), model, batch, nxt,
                                         dev)
         bar = lm_bar(cfg, configs.get_smoke(arch))
-        check(err <= bar * big,
-              f"LM {arch}: prefill + decode {err} from forward (largest "
-              f"|logit| {big}, bar {bar})")
+        wide = 2 * res["weight_bytes"] <= LM_F64_MAX_BYTES
+        if not wide:
+            check(err <= bar * big,
+                  f"LM {arch}: prefill + decode {err} from forward (largest "
+                  f"|logit| {big}, bar {bar}; float32)")
         # warm steps (median), then the prefill and one decode step traced
         prefill = steps.make_prefill_step(
             cfg, cache_len=cfg.num_prefix_embeds + prompt + 1,
@@ -2555,9 +3051,47 @@ def lm_phase(dev, card: str, bw: float, scale: str = "full") -> dict:
             for r in prof["top"][:6]:
                 log(f"  {r['ms']:9.3f} ms  x{r['count']:<5d} {r['name']}")
         del caches
+        probe = None
+        if arch in LM_TIE_PROBE:
+            probe = lm_first_token(
+                cfg, prefill, model, batch, res["tokens"][:, 0],
+                lambda: SyntheticLM(
+                    cfg, batch=LM_REQUESTS,
+                    seq_len=prompt + cfg.num_prefix_embeds, seed=0,
+                    device=str(dev)).batch_at(0))
+            log(f"LM {arch} first token: top-2 gaps {probe['top2_gaps']} "
+                f"(smallest {probe['min_gap_rel']:.3e} of the largest "
+                f"|logit| {probe['largest_logit']:.4f}), spread of "
+                f"{LM_PROBE_RUNS} prefills {probe['spread']:.3e} "
+                f"({probe['spread_rel']:.3e}); argmax {probe['argmax']}, "
+                f"served {probe['served']}, under deterministic algorithms "
+                f"{probe['deterministic_argmax']} (max-abs "
+                f"{probe['deterministic_max_abs']:.3e} from the first "
+                f"prefill); the prompt drawn again equal "
+                f"{probe['redraws_equal']} ({card})")
+            check(all(probe["redraws_equal"])
+                  and probe["served"] == probe["argmax"]
+                  == probe["deterministic_argmax"],
+                  f"LM {arch}: the served first tokens {probe['served']} "
+                  f"are not the prompt's argmax {probe['argmax']}, or the "
+                  f"prompt drawn again differs {probe['redraws_equal']}")
         sensitivity = lm_sensitivity(cfg, model, batch)
-        del model, batch
+        del model
         torch.cuda.empty_cache()
+        err64 = big64 = None
+        if wide:  # the same check on a float64 copy of the model
+            gen.manual_seed(0)
+            model = steps.model_module(cfg).init_params(cfg, gen,
+                                                        device=dev).double()
+            with float64_models():
+                err64, big64 = lm_decode_vs_forward(
+                    lm_no_drop(cfg), model, batch, nxt, dev, torch.float64)
+            del model
+            torch.cuda.empty_cache()
+            check(err64 <= bar * big64,
+                  f"LM {arch}: prefill + decode {err64} from forward in "
+                  f"float64 (largest |logit| {big64}, bar {bar})")
+        del batch
         tokens_in = LM_REQUESTS * (prompt + cfg.num_prefix_embeds)
         row = {
             "config": cfg.name, "cut": cut, "requests": LM_REQUESTS,
@@ -2574,7 +3108,11 @@ def lm_phase(dev, card: str, bw: float, scale: str = "full") -> dict:
             "peak_gib": (None if res["peak_bytes"] is None
                          else res["peak_bytes"] / 2 ** 30),
             "decode_vs_forward": err / big, "bar": bar,
-            "sensitivity": sensitivity, "warm": warm, "traces": traces}
+            "decode_vs_forward_f64": (None if err64 is None
+                                      else err64 / big64),
+            "held_in": "float64" if wide else "float32",
+            "sensitivity": sensitivity, "warm": warm, "traces": traces,
+            "first_token": probe}
         out["served"][arch] = row
         peak = ("not measured" if row["peak_gib"] is None
                 else f"{row['peak_gib']:.3f} GiB")
@@ -2590,8 +3128,10 @@ def lm_phase(dev, card: str, bw: float, scale: str = "full") -> dict:
             f"{row['decode_bound_ms_peak']:.3f} ms at 3.35 TB/s; peak "
             f"{peak}; warm: prefill {warm['prefill_ms']:.2f} ms, decode "
             f"{warm['decode_ms']:.3f} ms/token; prefill + decode against "
-            f"forward {err:.3e} (largest |logit| {big:.3e}: {err / big:.3e}, "
-            f"bar {bar:.3e}); logits moved {sensitivity:.3e} by a 1e-7 "
+            f"forward {err:.3e} (largest |logit| {big:.3e}: {err / big:.3e}"
+            + ("" if err64 is None else
+               f"; in float64 {err64 / big64:.3e}, held to")
+            + f" bar {bar:.3e}); logits moved {sensitivity:.3e} by a 1e-7 "
             f"scaling of the embeddings ({card})")
     out["smoke_against_cpu"] = lm_smoke_against_cpu(dev)
     log("LM smoke configs, card against CPU (worst error / largest "

@@ -124,9 +124,12 @@ def prune_checkpoints(ckpt_dir: str, keep: int) -> None:
                       ignore_errors=True)
 
 
-def _restore_step(ckpt_dir: str, step: int, target_tree, device):
+def _restore_step(ckpt_dir: str, step: int, target_tree, device,
+                  blocks=None):
     """Restore exactly ``step_<step>``; IOError on any corruption
-    (unreadable or tampered manifest, truncated or checksum-failing npz)."""
+    (unreadable or tampered manifest, truncated or checksum-failing npz).
+    ``blocks``: ``{key: slices}``, leaves of which only a block is kept
+    (the target holds the stored, global shape)."""
     path = os.path.join(ckpt_dir, f"step_{int(step):08d}")
     try:
         with open(os.path.join(path, "manifest.json")) as f:
@@ -150,6 +153,8 @@ def _restore_step(ckpt_dir: str, step: int, target_tree, device):
         if tuple(arr.shape) != shape:
             raise ValueError(f"shape mismatch for {key}: "
                              f"{arr.shape} vs {shape}")
+        if blocks and key in blocks:
+            arr = arr[blocks[key]]
         values[key] = torch.from_numpy(np.array(arr)).to(device)
     return _rebuild(target_tree, values)
 
@@ -178,13 +183,17 @@ def restore_checkpoint(ckpt_dir: str, step: int, target_tree,
                   f"in {ckpt_dir}")
 
 
-def restore_latest(ckpt_dir: str, target_tree, device="cpu"):
+def restore_latest(ckpt_dir: str, target_tree, device="cpu", *,
+                   blocks=None):
     """``(step, tree)`` from the newest checkpoint that restores cleanly.
 
     Walks complete steps newest first, skipping any that fail checksum
     verification (with a warning).  Raises FileNotFoundError when the
     directory holds no complete checkpoint at all, IOError when every
-    complete checkpoint is corrupt.
+    complete checkpoint is corrupt.  ``blocks`` (``{key: slices}``, e.g.
+    a mesh rank's :func:`repro_torch.core.distributed.block_slices` of
+    the stored x) keeps only that block of those leaves; the stored
+    format is the same either way.
     """
     steps = valid_steps(ckpt_dir)
     if not steps:
@@ -192,7 +201,7 @@ def restore_latest(ckpt_dir: str, target_tree, device="cpu"):
     last_err: IOError | None = None
     for s in reversed(steps):
         try:
-            return s, _restore_step(ckpt_dir, s, target_tree, device)
+            return s, _restore_step(ckpt_dir, s, target_tree, device, blocks)
         except IOError as e:
             last_err = e
             _warn(f"{e}; falling back to the previous complete step")

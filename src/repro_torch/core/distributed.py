@@ -179,24 +179,33 @@ class Mesh:
         self.counts[kind] += 1
         self.seconds[kind] += time.perf_counter() - t0
 
-    def psum(self, t: Tensor) -> Tensor:
+    def psum(self, t: Tensor, *, kind: str = "all_reduce") -> Tensor:
         """The sum of ``t`` over every rank: one ``all_reduce`` on the world
-        group; every rank gets the same bits."""
+        group; every rank gets the same bits.  ``kind``: the key it is
+        counted under (the verification's own collectives count apart
+        from the solve's)."""
         t0 = time.perf_counter()
         buf = self._send(t)
         tdist.all_reduce(buf)
         out = self._back(buf)
-        self._done("all_reduce", t0)
+        self._done(kind, t0)
         return out
 
-    def all_gather(self, t: Tensor) -> list[Tensor]:
+    def all_gather(self, t: Tensor, *,
+                   kind: str = "all_gather") -> list[Tensor]:
         """``t`` of every rank, in rank order (one ``all_gather``)."""
         t0 = time.perf_counter()
         outs = [self._out(t) for _ in range(self.world_size)]
         tdist.all_gather(outs, self._send(t))
         outs = [self._back(o) for o in outs]
-        self._done("all_gather", t0)
+        self._done(kind, t0)
         return outs
+
+    def rank_at(self, coords: Mapping[str, int]) -> int:
+        """The rank at mesh ``coords`` (each taken modulo its axis)."""
+        return int(np.ravel_multi_index(
+            tuple(int(coords[a]) % self.shape[a] for a in self.axis_names),
+            tuple(self.shape[a] for a in self.axis_names)))
 
     def broadcast(self, t: Tensor, src: int = 0) -> Tensor:
         """Rank ``src``'s ``t`` on every rank (the other ranks pass a tensor
@@ -531,9 +540,30 @@ def lattice_specs(mesh: Mesh, axis_map: Mapping[int, str] | None = None):
     return psi_spec, gauge_spec, sharded
 
 
-def _block_slices(mesh: Mesh, shape, spec, coords) -> tuple[slice, ...]:
-    """The block at mesh ``coords`` of a global field of ``shape`` split by
-    ``spec`` (trailing axes of ``shape``; leading ones are whole)."""
+def layout_specs(mesh: Mesh, layout: str = "packed",
+                 axis_map: Mapping[int, str] | None = None):
+    """:func:`lattice_specs` for fields of ``layout``: ``"packed"``
+    (T, Z, Y, 24, X) and (4, T, Z, Y, 18, X), or ``"natural"`` (T, Z, Y,
+    X, 4, 3) and (4, T, Z, Y, X, 3, 3).  The lattice axes come first in
+    both, so the natural specs are the packed ones with the site's
+    trailing axes whole."""
+    psi_spec, _, sharded = lattice_specs(mesh, axis_map)
+    if layout == "natural":
+        psi_spec = psi_spec[:3] + (None, None, None)
+    elif layout != "packed":
+        raise ValueError(f"layout must be 'natural' or 'packed', "
+                         f"got {layout!r}")
+    return psi_spec, (None,) + psi_spec, sharded
+
+
+def block_slices(mesh: Mesh, shape, spec,
+                 coords: Mapping[str, int] | None = None
+                 ) -> tuple[slice, ...]:
+    """The block at mesh ``coords`` (default: this rank's) of a global
+    field of ``shape`` split by ``spec`` (trailing axes of ``shape``;
+    leading ones are whole).  What a rank reads of a field it never
+    holds whole, e.g. from a memory-mapped file."""
+    coords = mesh.coords if coords is None else coords
     lead = len(shape) - len(spec)
     out = [slice(None)] * lead
     for ax, name in enumerate(spec):
@@ -552,11 +582,31 @@ def _block_slices(mesh: Mesh, shape, spec, coords) -> tuple[slice, ...]:
     return tuple(out)
 
 
+def global_shape(mesh: Mesh, block_shape, spec) -> tuple[int, ...]:
+    """The global field's shape from one block's (the inverse of
+    :func:`block_slices`: every block of a spec has the same shape)."""
+    lead = len(block_shape) - len(spec)
+    return tuple(block_shape[:lead]) + tuple(
+        ext * (1 if name is None else mesh.shape[name])
+        for ext, name in zip(block_shape[lead:], spec))
+
+
+def block_origin(mesh: Mesh, block_shape, spec,
+                 coords: Mapping[str, int] | None = None) -> tuple[int, ...]:
+    """The global index of the block's first entry along each axis of
+    ``spec`` (0 on the whole axes).  The sum of the lattice axes' origins
+    modulo 2 is the block's parity origin: even-odd blocks need it even,
+    so that a block's local row parity is the global one."""
+    coords = mesh.coords if coords is None else coords
+    lead = len(block_shape) - len(spec)
+    return tuple(0 if name is None else coords[name] * ext
+                 for ext, name in zip(block_shape[lead:], spec))
+
+
 def local_block(mesh: Mesh, field: Tensor, spec) -> Tensor:
     """This rank's contiguous block of a global packed field (a leading
     RHS axis, if any, stays whole)."""
-    return field[_block_slices(mesh, field.shape, spec,
-                               mesh.coords)].contiguous()
+    return field[block_slices(mesh, field.shape, spec)].contiguous()
 
 
 def gather_blocks(mesh: Mesh, block: Tensor, spec, global_shape) -> Tensor:
@@ -568,8 +618,78 @@ def gather_blocks(mesh: Mesh, block: Tensor, spec, global_shape) -> Tensor:
     for r, blk in enumerate(mesh.all_gather(block)):
         coords = dict(zip(mesh.axis_names,
                           (int(c) for c in np.unravel_index(r, mesh_shape))))
-        out[_block_slices(mesh, out.shape, spec, coords)] = blk
+        out[block_slices(mesh, out.shape, spec, coords)] = blk
     return out
+
+
+def pad_with_faces(mesh: Mesh, sharded: Mapping[int, tuple[str, int]],
+                   u: Tensor, psi: Tensor):
+    """Natural-layout blocks padded for a plain periodic operator:
+    ``(u_pad, psi_pad, inner)``.
+
+    ``u`` (4, T, Z, Y, X, 3, 3) and ``psi`` (T, Z, Y, X, 4, 3), or (N,
+    ...) a batch, are this rank's blocks.  Every sharded direction mu
+    gains one plane on each side: psi's plane -1 is the previous rank's
+    last mu-plane and plane L its next rank's first, and U_mu's plane -1
+    the previous rank's last (the backward hop's link); the corners and
+    the other links of the pad stay 0, as no interior site reads them.
+    A periodic operator on the padded blocks, indexed by ``inner``,
+    is then the global operator's block.
+
+    The faces travel in one ``all_gather`` of every rank's boundary
+    planes (counted as ``verify_gather``), through none of the solver's
+    halo code (no ``ppermute``, no ``link_halos``): the verification's
+    transport, which a broken halo exchange cannot vouch for."""
+    batch = psi.dim() - 6
+    dirs = [(mu, ax) for mu, (ax, n) in sorted(sharded.items()) if n > 1]
+    faces = []
+    for mu, _ in dirs:
+        a = mu + batch
+        faces += [_take(psi, a, 0), _take(psi, a, -1), _take(u[mu], mu, -1)]
+    shapes = [f.shape for f in faces]
+    flat = torch.cat([torch.view_as_real(f.contiguous()).reshape(-1)
+                      for f in faces]) if faces else None
+    every = mesh.all_gather(flat, kind="verify_gather") if faces else []
+
+    def face(rank: int, i: int) -> Tensor:
+        off = sum(2 * math.prod(s) for s in shapes[:i])
+        n = 2 * math.prod(shapes[i])
+        return torch.view_as_complex(
+            every[rank][off:off + n].reshape(tuple(shapes[i]) + (2,)))
+
+    pad = {mu: psi.shape[mu + batch] for mu, _ in dirs}
+
+    def spans(skip: int, idx) -> list:
+        """Index of a lattice axis: ``idx`` on axis ``skip``, the interior
+        on the other padded axes, whole elsewhere."""
+        out = []
+        for mu in range(3):
+            if mu == skip:
+                out.append(idx)
+            elif mu in pad:
+                out.append(slice(1, pad[mu] + 1))
+            else:
+                out.append(slice(None))
+        return out
+
+    lead = [slice(None)] * batch
+    inner = tuple(spans(-1, None))
+    padded = tuple(n + 2 if mu in pad else n
+                   for mu, n in enumerate(psi.shape[batch:batch + 3]))
+    psi_pad = psi.new_zeros(psi.shape[:batch] + padded
+                            + psi.shape[batch + 3:])
+    u_pad = u.new_zeros((u.shape[0],) + padded + u.shape[4:])
+    psi_pad[tuple(lead) + inner] = psi
+    u_pad[(slice(None),) + inner] = u
+    for i, (mu, ax) in enumerate(dirs):
+        prev = mesh.rank_at({**mesh.coords, ax: mesh.coords[ax] - 1})
+        nxt = mesh.rank_at({**mesh.coords, ax: mesh.coords[ax] + 1})
+        end = pad[mu] + 1
+        psi_pad[tuple(lead + spans(mu, slice(0, 1)))] = face(prev, 3 * i + 1)
+        psi_pad[tuple(lead + spans(mu, slice(end, end + 1)))] = face(nxt,
+                                                                     3 * i)
+        u_pad[mu][tuple(spans(mu, slice(0, 1)))] = face(prev, 3 * i + 2)
+    return u_pad, psi_pad, inner
 
 
 def make_psum_dots(mesh: Mesh, batched: bool = False):
@@ -642,9 +762,13 @@ def solve_wilson(mesh: Mesh, up: Tensor, b: Tensor, mass, *,
 
 
 def shard_lattice_fields(mesh: Mesh, up: Tensor, pp: Tensor,
-                         axis_map: Mapping[int, str] | None = None):
-    """This rank's blocks of the global packed fields, on the mesh's
-    device (JAX's ``device_put`` with the lattice decomposition)."""
-    psi_spec, gauge_spec, _ = lattice_specs(mesh, axis_map)
+                         axis_map: Mapping[int, str] | None = None, *,
+                         layout: str = "packed"):
+    """This rank's blocks of the global fields of ``layout`` (a leading
+    RHS axis of ``pp`` stays whole), on the mesh's device: JAX's
+    ``device_put`` with the lattice decomposition, the slicer of a global
+    field (:func:`block_slices` reads a block of a field never held
+    whole)."""
+    psi_spec, gauge_spec, _ = layout_specs(mesh, layout, axis_map)
     return (local_block(mesh, up.to(mesh.device), gauge_spec),
             local_block(mesh, pp.to(mesh.device), psi_spec))

@@ -40,20 +40,25 @@ snapshots it between them (:func:`loop_program`, :func:`_solve_checkpointed`;
 :mod:`repro_torch.core.resilience` resumes such a run).
 
 A mesh plan (``mesh=``, ``axis_map=``) decomposes the lattice over the
-mesh's ranks: every rank calls :func:`solve` with the same GLOBAL fields,
-slices its own block of the packed fields, and iterates the same loops
-with halo-corrected local operators (K1 or K4 on the block) and
-all-reduced reductions (:mod:`repro_torch.core.distributed`); the result
-is the gathered global x and the same stats on every rank.  The mesh
-rules are the JAX package's: no block CG, even-odd single precision
-only, the full operator single-RHS only (:func:`_parts_full_sharded`,
-:func:`_parts_eo_sharded`).
+mesh's ranks.  Its block entry, ``solve(..., blocks=True)``, takes each
+rank's blocks of u and b (no rank holds a global field), packs them, and
+iterates the same loops with halo-corrected local operators (K1 or K4 on
+the block) and all-reduced reductions
+(:mod:`repro_torch.core.distributed`); the result is this rank's block
+of x and the same stats on every rank.  The global entry (``blocks``
+False) takes the same GLOBAL fields on every rank, slices them, runs the
+block entry and gathers x.  The mesh rules are the JAX package's: no
+block CG, even-odd single precision only, the full operator single-RHS
+only (:func:`_parts_full_sharded`, :func:`_parts_eo_sharded`).
 
 Every solve ends with one verification matvec (:func:`_attach_verification`,
 ``verify=False`` skips it): the natural-layout operator, or for
-``layout="packed"`` the full-lattice kernel; a mesh solve verifies the
-gathered x on rank 0 against the global fields, through no halo code, and
-broadcasts the verdict.
+``layout="packed"`` the full-lattice kernel.  A global-entry mesh solve
+verifies the gathered x on rank 0 against the global fields and
+broadcasts the verdict; a block-entry solve evaluates the natural
+operator on each rank's blocks padded with its neighbours' faces and
+all-reduces the norms (:func:`mesh_true_residual`).  Neither goes
+through halo code.
 """
 
 from __future__ import annotations
@@ -72,7 +77,7 @@ from repro_torch.core.lattice import (complex_to_real_pair, field_dot,
                                       field_norm2, field_norm2_batched,
                                       pack_gauge, pack_spinor,
                                       real_pair_to_complex, resolve_device,
-                                      unpack_spinor)
+                                      unpack_gauge, unpack_spinor)
 from repro_torch.core.operators import (SiteTerm, dslash_g, get_operator,
                                         schur_normal_op_g, unknown_name)
 from repro_torch.core.precision import parse_dtype
@@ -235,6 +240,8 @@ def resolve(plan: SolverPlan, u: Tensor, mass, *,
 # The slack absorbs the gap between the CGNR stopping rule (residual of the
 # normal equations) and the original system's residual.
 VERIFY_FACTOR = 10.0
+# slabs of a block-entry mesh verification (mesh_true_residual)
+VERIFY_SLABS = 8
 
 
 def _attach_verification(plan: SolverPlan, u: Tensor, b: Tensor, mass,
@@ -262,17 +269,22 @@ def _attach_verification(plan: SolverPlan, u: Tensor, b: Tensor, mass,
             ax = apply_d(x)
     r_true = b - ax.to(b.dtype)
     norm2_fn = field_norm2_batched if plan.batched else field_norm2
-    rs_true = norm2_fn(r_true).real
-    bs = norm2_fn(b).real
+    return _gated(stats, norm2_fn(r_true).real, norm2_fn(b).real, tol)
+
+
+def _gated(stats: solvers.SolveStats, rs_true, bs, tol) -> solvers.SolveStats:
+    """``stats`` with the verification's true residual ``rs_true`` and its
+    gate against ``||b||^2 = bs``; a non-finite residual turns the verdict
+    NONFINITE."""
     tol_a = torch.as_tensor(tol, device=rs_true.device).to(rs_true.dtype)
     gate = (VERIFY_FACTOR * tol_a) ** 2 * bs
     finite = torch.isfinite(rs_true)
-    verified = (rs_true <= gate) & finite
     verdict = stats.verdict
     if verdict is not None:
         verdict = torch.where(finite, verdict,
                               torch.full_like(verdict, solvers.NONFINITE))
-    return stats._replace(true_residual_norm2=rs_true, verified=verified,
+    return stats._replace(true_residual_norm2=rs_true,
+                          verified=(rs_true <= gate) & finite,
                           verdict=verdict)
 
 
@@ -303,7 +315,8 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
           residual_replacement_every: int = 25, dot=field_dot,
           norm2=field_norm2, layout: str = "natural", verify: bool = True,
           checkpoint=None, deflation: solvers.DeflationBasis | None = None,
-          device="cuda") -> tuple[Tensor, solvers.SolveStats]:
+          device="cuda", blocks: bool = False
+          ) -> tuple[Tensor, solvers.SolveStats]:
     """Execute a :class:`SolverPlan`.
 
     Args:
@@ -312,7 +325,17 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
         (T,Z,Y,X,4,3); ``layout="packed"`` (the full operator only):
         float32 (4,T,Z,Y,18,X) and (T,Z,Y,24,X).  The RHS has a leading
         N axis when ``plan.nrhs`` is set.  A mesh plan takes the GLOBAL
-        fields on every rank.
+        fields on every rank, or with ``blocks=True`` this rank's blocks.
+      blocks: the mesh's block entry.  ``u`` and ``b`` are this rank's
+        blocks of the global fields (:func:`dist.shard_lattice_fields`'s
+        output, or :func:`dist.block_slices` of a field no rank holds
+        whole) and x comes back as this rank's block, with the same
+        stats on every rank; verification evaluates the plain natural
+        operator on each rank's blocks padded with its neighbours' faces
+        (:func:`mesh_true_residual`).  A snapshot still holds the
+        gathered global x, written by rank 0.  Without ``blocks`` a mesh
+        solve slices the global fields, runs this entry and gathers x
+        (:func:`_solve_global_on_mesh`).
       tol/maxiter: CG stopping rule (relative, per RHS when batched).
       inner_tol/inner_maxiter/max_outer: the mixed precision's inner CG
         stopping rule and its number of reliable updates.
@@ -353,6 +376,9 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
             f"mesh={'set' if plan.mesh is not None else None} "
             f"checkpoint={'set' if checkpoint is not None else None}")
     _check_mesh_plan(plan)
+    if blocks and plan.mesh is None:
+        raise ValueError("solve(..., blocks=True) is the mesh's block "
+                         "entry; the plan has no mesh")
     dev = resolve_device(device if plan.mesh is None else plan.mesh.device)
     u = torch.as_tensor(u, device=dev)
     b = torch.as_tensor(b, device=dev)
@@ -360,6 +386,9 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
               inner_maxiter=inner_maxiter, max_outer=max_outer,
               residual_replacement_every=residual_replacement_every,
               dot=dot, norm2=norm2, layout=layout)
+    if plan.mesh is not None and not blocks:
+        return _solve_global_on_mesh(plan, u, b, mass, verify=verify,
+                                     checkpoint=checkpoint, device=dev, **kw)
     if checkpoint is not None:
         x, stats = _solve_checkpointed(plan, u, b, mass,
                                        checkpoint=checkpoint, **kw)
@@ -373,8 +402,8 @@ def solve(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
     if not verify:
         return x, stats
     if plan.mesh is not None:
-        return x, _attach_verification_mesh(plan, u, b, mass, x, stats, tol,
-                                            layout)
+        return x, _attach_verification_blocks(plan, u, b, mass, x, stats,
+                                              tol, layout)
     return x, _attach_verification(plan, u, b, mass, x, stats, tol,
                                    layout=layout)
 
@@ -459,7 +488,8 @@ def _loop_parts(plan, u, b, mass, *, layout, deflation=None, **kw):
     map of the loop's iterate to the plan's output layout: ``(parts,
     post)``.  :func:`solve` runs the loop to its end, a checkpointed solve
     in segments (:func:`loop_program`); both iterate the same body.  On a
-    mesh the loop runs on this rank's blocks and ``post`` gathers."""
+    mesh ``u`` and ``b`` are this rank's blocks, the loop runs on them and
+    ``post`` returns this rank's block of x."""
     _check_layout(plan, layout)
     _check_batch_shape(plan, b, layout)
     if plan.mesh is not None:
@@ -683,18 +713,34 @@ def _parts_full(plan, u, b, mass, *, tol, maxiter, layout, inner_tol,
 # Mesh paths: halo-corrected local operators, all-reduced reductions
 # ---------------------------------------------------------------------------
 #
-# Every rank holds the global fields, slices its own block of the packed
-# fields, and runs the single-device loops (cg, pipecg, mpcg) on its
-# blocks with the reductions of :func:`dist.make_psum_dots`: every value a
-# loop's host test reads is all-reduced, so the ranks stop together.  The
-# JAX package's sharded loops use plain vector algebra, without the fused
-# CG kernels; so do these.  ``post`` gathers x once, on every rank.
+# The block entry (``solve(..., blocks=True)``): every rank passes its own
+# blocks of u and b, packs them, and runs the single-device loops (cg,
+# pipecg, mpcg) on its blocks with the reductions of
+# :func:`dist.make_psum_dots`: every value a loop's host test reads is
+# all-reduced, so the ranks stop together.  The JAX package's sharded
+# loops use plain vector algebra, without the fused CG kernels; so do
+# these.  ``post`` maps the loop's iterate to this rank's block of x.
+# The global entry (:func:`_solve_global_on_mesh`) slices the global
+# fields, runs the block entry and gathers x.
+
+
+def _mesh_specs(plan: SolverPlan, layout: str):
+    """(psi_spec, gauge_spec, sharded) of a mesh plan's fields."""
+    return dist.layout_specs(plan.mesh, layout, plan.axis_map)
+
+
+def _gather_x(plan: SolverPlan, x_blk: Tensor, layout: str) -> Tensor:
+    """Every rank's block of x assembled into the global x (one
+    all-gather), the same on every rank."""
+    psi_spec = _mesh_specs(plan, layout)[0]
+    return dist.gather_blocks(plan.mesh, x_blk, psi_spec, dist.global_shape(
+        plan.mesh, x_blk.shape, psi_spec))
 
 
 def _parts_full_sharded(plan, u, b, mass, *, tol, maxiter, layout,
                         inner_tol, inner_maxiter, max_outer,
                         residual_replacement_every, **_):
-    """The full-lattice loops on this rank's block: K4 on the block (two
+    """The full-lattice loops on this rank's blocks: K4 on the block (two
     launches a matvec, one for the RHS D^dag b) reading the exchanged
     ghost planes; CGNR, pipecg (one all-reduce an iteration), mpcg (the
     inner CG on K4's instance of the low storage, the links and their
@@ -702,12 +748,9 @@ def _parts_full_sharded(plan, u, b, mass, *, tol, maxiter, layout,
     _check_full_r(plan)
     mesh = plan.mesh
     packed_in = layout == "packed"
-    up = u if packed_in else pack_gauge(u)
-    pp = b if packed_in else pack_spinor(b)
-    psi_spec, gauge_spec, sharded = dist.lattice_specs(mesh, plan.axis_map)
-    up_l = dist.local_block(mesh, up, gauge_spec)
-    b_l = dist.local_block(mesh, pp, psi_spec)
-    del up
+    up_l = u if packed_in else pack_gauge(u)
+    b_l = b if packed_in else pack_spinor(b)
+    _, _, sharded = dist.lattice_specs(mesh, plan.axis_map)
     m = float(mass)
     hkw = dict(use_kernels=plan.backend == "kernels",
                twist=_family_site(plan, mass).twist)
@@ -746,23 +789,15 @@ def _parts_full_sharded(plan, u, b, mass, *, tol, maxiter, layout,
                                      **kw)
 
     def post(x_l, stats):
-        x = dist.gather_blocks(mesh, x_l.to(pp.dtype), psi_spec, pp.shape)
-        return (x if packed_in else unpack_spinor(x, dtype=b.dtype)), stats
+        x_l = x_l.to(b_l.dtype)
+        return (x_l if packed_in else unpack_spinor(x_l, dtype=b.dtype)), stats
 
     return parts, post
 
 
-def _eo_sharded_prep(plan: SolverPlan, u: Tensor, b: Tensor, mass):
-    """Validate a sharded even-odd plan and slice this rank's blocks.
-
-    The global fields are split and packed as on one device (the packed
-    context of :func:`eo_context`, whatever the backend: the sharded
-    stack runs on packed half fields); each rank keeps its block of the
-    packed links and RHS halves.  Returns ``(ctx, (upe, upo, pb_e, pb_o),
-    sharded, psi_spec, half_shape)``, ``half_shape`` the global shape of a
-    packed half RHS.
-    """
-    mesh = plan.mesh
+def _check_eo_sharded(plan: SolverPlan, dims) -> None:
+    """The sharded even-odd rules, before any collective: r = 1, and even
+    local extents over the GLOBAL lattice ``dims`` (T, Z, Y)."""
     if plan.r != 1.0:
         # both backends: the halo corrections, the plain hop blocks and the
         # kernel all assume r=1 here; fail, never answer wrongly
@@ -770,8 +805,7 @@ def _eo_sharded_prep(plan: SolverPlan, u: Tensor, b: Tensor, mass):
             "the sharded parity stack hard-codes r=1 (bulk blocks AND "
             f"boundary corrections); got r={plan.r}. Use the single-device "
             "natural-layout path for r != 1.")
-    psi_spec, gauge_spec, sharded = dist.lattice_specs(mesh, plan.axis_map)
-    dims = b.shape[1:4] if plan.batched else b.shape[:3]
+    _, _, sharded = dist.lattice_specs(plan.mesh, plan.axis_map)
     for mu, (ax, n) in sorted(sharded.items()):
         ext = dims[mu]
         if ext % n or (ext // n) % 2:
@@ -780,15 +814,28 @@ def _eo_sharded_prep(plan: SolverPlan, u: Tensor, b: Tensor, mass):
                 "then have even global parity, so each device's local row "
                 f"offsets equal the global ones); lattice axis {mu} has "
                 f"extent {ext} over {n} '{ax}' shards")
+
+
+def _eo_sharded_prep(plan: SolverPlan, u: Tensor, b: Tensor, mass):
+    """Validate a sharded even-odd plan and split this rank's blocks.
+
+    Even local extents make every block's parity origin even
+    (:func:`dist.block_origin`), so the block's local even-odd split is
+    its block of the global split.  The natural blocks are split and
+    packed as on one device (the packed context of :func:`eo_context`,
+    whatever the backend: the sharded stack runs on packed half fields).
+    Returns ``(ctx, (upe, upo, pb_e, pb_o), sharded)``.
+    """
+    psi_spec = _mesh_specs(plan, "natural")[0]
+    _check_eo_sharded(plan, dist.global_shape(plan.mesh, b.shape, psi_spec)
+                      [-6:-3])
+    assert sum(dist.block_origin(plan.mesh, b.shape, psi_spec)[:3]) % 2 == 0
+    _, _, sharded = dist.lattice_specs(plan.mesh, plan.axis_map)
     ctx = eo_context(u, mass, twist=_family_site(plan, mass).twist,
                      use_kernels=True, batched=plan.batched,
                      out_dtype=b.dtype)
     b_e, b_o = ctx.prepare(b)
-    blocks = (dist.local_block(mesh, ctx.ops.u_e, gauge_spec),
-              dist.local_block(mesh, ctx.ops.u_o, gauge_spec),
-              dist.local_block(mesh, b_e, psi_spec),
-              dist.local_block(mesh, b_o, psi_spec))
-    return ctx, blocks, sharded, psi_spec, tuple(b_e.shape)
+    return ctx, (ctx.ops.u_e, ctx.ops.u_o, b_e, b_o), sharded
 
 
 def _parts_eo_sharded(plan, u, b, mass, *, tol, maxiter,
@@ -800,8 +847,7 @@ def _parts_eo_sharded(plan, u, b, mass, *, tol, maxiter,
     on one device.  The link halo planes are exchanged once, here."""
     mesh = plan.mesh
     batched = plan.batched
-    ctx, (upe, upo, pb_e, pb_o), sharded, psi_spec, half_shape = (
-        _eo_sharded_prep(plan, u, b, mass))
+    ctx, (upe, upo, pb_e, pb_o), sharded = _eo_sharded_prep(plan, u, b, mass)
     site = _family_site(plan, mass)
     hkw = dict(use_kernels=plan.backend == "kernels",
                u_prev=(dist.link_halos(mesh, sharded, upe),
@@ -831,21 +877,47 @@ def _parts_eo_sharded(plan, u, b, mass, *, tol, maxiter,
         parts = solvers.cg_parts(a_hat, rhs, **kw)
 
     def post(x_e, stats):
-        x_o = site.solve(pb_o - d_oe(x_e))
-        both = dist.gather_blocks(mesh, torch.stack([x_e, x_o]), psi_spec,
-                                  (2,) + half_shape)
-        return ctx.finish(both[0], both[1]), stats
+        return ctx.finish(x_e, site.solve(pb_o - d_oe(x_e))), stats
 
     return parts, post
 
 
+def _shard_global(plan: SolverPlan, u: Tensor, b: Tensor, layout: str):
+    """The global entry's slicing: the mesh rules checked on the global
+    shapes (in the JAX package's words), then this rank's blocks
+    (:func:`dist.shard_lattice_fields`)."""
+    _check_batch_shape(plan, b, layout)
+    if plan.operator == "eo-schur":
+        _check_eo_sharded(plan, b.shape[-6:-3])
+    return dist.shard_lattice_fields(plan.mesh, u, b, plan.axis_map,
+                                     layout=layout)
+
+
+def _solve_global_on_mesh(plan: SolverPlan, u: Tensor, b: Tensor, mass, *,
+                          tol, layout, verify, **kw):
+    """The global entry of a mesh plan, a thin wrapper of the block entry:
+    this rank's blocks sliced from the global fields, the block entry run
+    on them, x gathered (one all-gather) and verified on rank 0 against
+    the global fields (:func:`_attach_verification_mesh`)."""
+    u_l, b_l = _shard_global(plan, u, b, layout)
+    x_l, stats = solve(plan, u_l, b_l, mass, tol=tol, layout=layout,
+                       verify=False, blocks=True, **kw)
+    x = _gather_x(plan, x_l, layout)
+    del x_l
+    if not verify:
+        return x, stats
+    return x, _attach_verification_mesh(plan, u, b, mass, x, stats, tol,
+                                        layout)
+
+
 def _attach_verification_mesh(plan: SolverPlan, u, b, mass, x, stats, tol,
                               layout: str) -> solvers.SolveStats:
-    """:func:`_attach_verification` of a mesh solve: rank 0 checks the
-    gathered x against the global fields with the single-device oracle
-    (no halo code, so a broken transport cannot vouch for itself) and
-    broadcasts the true residual, the gate's result and the verdict in
-    one collective; every rank returns the same stats."""
+    """:func:`_attach_verification` of a global-entry mesh solve: rank 0
+    checks the gathered x against the global fields with the
+    single-device oracle (no halo code, so a broken transport cannot
+    vouch for itself) and broadcasts the true residual, the gate's result
+    and the verdict in one collective; every rank returns the same
+    stats."""
     mesh = plan.mesh
     rs, ok, verdict = (stats.residual_norm2.to(torch.float32),
                        torch.zeros_like(stats.converged), stats.verdict)
@@ -858,6 +930,66 @@ def _attach_verification_mesh(plan: SolverPlan, u, b, mass, x, stats, tol,
     return stats._replace(true_residual_norm2=got[0].to(torch.float32),
                           verified=got[1] != 0,
                           verdict=got[2].to(torch.int32))
+
+
+def mesh_true_residual(plan: SolverPlan, u: Tensor, b: Tensor, mass,
+                       x: Tensor, layout: str = "natural"):
+    """The true residual of a block-entry mesh solve: ``(r, rs, bs)``,
+    this rank's block of ``b - D x`` and the all-reduced ``||b - D x||^2``
+    and ``||b||^2`` (per RHS when batched), the same bits on every rank.
+
+    Each rank evaluates the family's plain natural ``dslash_g`` on its
+    blocks padded with one neighbour plane per sharded direction
+    (:func:`dist.pad_with_faces`: one all-gather of boundary planes,
+    none of the solver's halo code, K1 or K4), so a broken halo exchange
+    cannot vouch for itself.  It does so in VERIFY_SLABS slabs along a
+    padded axis (each slab with its two neighbour rows, whose wrap no
+    output row reads), so its temporaries are a slab's, not the block's.
+    The two norms travel in one all-reduce, counted as
+    ``verify_all_reduce``."""
+    mesh = plan.mesh
+    site = _family_site(plan, mass)
+    if layout == "packed":
+        u, b, x = unpack_gauge(u), unpack_spinor(b), unpack_spinor(x)
+    _, _, sharded = dist.lattice_specs(mesh, plan.axis_map)
+    u_pad, x_pad, inner = dist.pad_with_faces(mesh, sharded, u, x)
+    padded = [mu for mu, sl in enumerate(inner) if sl != slice(None)]
+
+    def apply_d(v):
+        if not padded:
+            return dslash_g(u_pad, v, mass, r=plan.r, twist=site.twist)
+        a = padded[0]
+        n = v.shape[a] - 2
+        step = -(-n // VERIFY_SLABS)
+        out = []
+        for lo in range(0, n, step):
+            rows = (slice(None),) * a + (slice(lo, min(n, lo + step) + 2),)
+            keep = list(inner)
+            keep[a] = slice(1, -1)
+            out.append(dslash_g(u_pad[(slice(None),) + rows], v[rows], mass,
+                                r=plan.r, twist=site.twist)[tuple(keep)])
+        return torch.cat(out, dim=a)
+
+    if plan.batched:
+        ax = torch.stack([apply_d(x_pad[n]) for n in range(x.shape[0])])
+    else:
+        ax = apply_d(x_pad)
+    del u_pad, x_pad
+    r = b - ax.to(b.dtype)
+    del ax
+    norm2_fn = field_norm2_batched if plan.batched else field_norm2
+    both = mesh.psum(torch.stack([norm2_fn(r).real, norm2_fn(b).real]),
+                     kind="verify_all_reduce")
+    return r, both[0], both[1]
+
+
+def _attach_verification_blocks(plan: SolverPlan, u, b, mass, x, stats, tol,
+                                layout: str) -> solvers.SolveStats:
+    """:func:`_attach_verification` of a block-entry mesh solve, on no
+    rank's global field: the true residual of :func:`mesh_true_residual`
+    gated as on one device; every rank returns the same stats."""
+    _, rs_true, bs = mesh_true_residual(plan, u, b, mass, x, layout)
+    return _gated(stats, rs_true, bs, tol)
 
 
 # ---------------------------------------------------------------------------
@@ -947,15 +1079,17 @@ def loop_program(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
                  inner_maxiter: int = 200, max_outer: int = 50,
                  residual_replacement_every: int = 25, dot=field_dot,
                  norm2=field_norm2, layout: str = "natural",
-                 device="cuda") -> LoopProgram:
+                 device="cuda", blocks: bool = False) -> LoopProgram:
     """Resolve a plan to its host-steppable :class:`LoopProgram`.
 
     Mirrors :func:`solve`'s dispatch; ``finalize(carry)`` after stepping
     to the end is bitwise the one-shot ``solve``'s result before its
     verification (the same loop body, only the stopping rule differs).
     On a mesh (the even-odd path only) the carry stays on each rank's
-    blocks between segments and ``finalize`` gathers the global x, so a
-    snapshot holds the unsharded iterate.
+    blocks between segments.  With ``blocks=True`` (:func:`solve`'s block
+    entry) u and b are this rank's blocks and ``finalize`` returns this
+    rank's block of x; otherwise they are the global fields, sliced here,
+    and ``finalize`` gathers the global x.
     """
     if plan.solver == "blockcg":
         raise NotImplementedError(
@@ -969,30 +1103,46 @@ def loop_program(plan: SolverPlan, u, b, mass, *, tol: float = 1e-8,
                 "fast path; use operator='eo-schur' (or drop the mesh)")
         _check_mesh_plan(plan)
         device = plan.mesh.device
+    elif blocks:
+        raise ValueError("loop_program(..., blocks=True) takes a mesh plan")
     dev = resolve_device(device)
     u = torch.as_tensor(u, device=dev)
     b = torch.as_tensor(b, device=dev)
-    return _segmented_program(*_loop_parts(
+    gather = plan.mesh is not None and not blocks
+    if gather:
+        u, b = _shard_global(plan, u, b, layout)
+    prog = _segmented_program(*_loop_parts(
         plan, u, b, mass, tol=tol, maxiter=maxiter, inner_tol=inner_tol,
         inner_maxiter=inner_maxiter, max_outer=max_outer,
         residual_replacement_every=residual_replacement_every, dot=dot,
         norm2=norm2, layout=layout))
+    if not gather:
+        return prog
+
+    def finalize(carry):
+        x, stats = prog.finalize(carry)
+        return _gather_x(plan, x, layout), stats
+
+    return prog._replace(finalize=finalize)
 
 
 def _snapshot(checkpoint: CheckpointPolicy, prog: LoopProgram, carry,
-              mesh: dist.Mesh | None = None) -> int:
+              mesh: dist.Mesh | None = None, gather=None) -> int:
     """Write one durable snapshot from a segment-boundary carry.
 
     Stores the plan-layout iterate and the resume contract ``(x,
     iteration, verdict, rhs_mask)`` as host arrays, in the JAX package's
     dtypes (the iteration an int32 scalar), keyed by the iteration count
-    as the step number.  On a mesh every rank finalizes (the gather is a
-    collective), rank 0 writes the unsharded x, and a barrier holds every
-    rank until the step is on disk.  Returns the step written.
+    as the step number.  On a mesh every rank finalizes to its block of x
+    and ``gather`` assembles the global x (a collective), rank 0 writes
+    the unsharded x, and a barrier holds every rank until the step is on
+    disk.  Returns the step written.
     """
     from repro_torch.checkpoint import ckpt
 
     x, stats = prog.finalize(carry)
+    if gather is not None:
+        x = gather(x)
     step = int(stats.iterations)
     if mesh is None or mesh.rank == 0:
         ckpt.save_checkpoint(checkpoint.dir, step, {
@@ -1008,7 +1158,8 @@ def _snapshot(checkpoint: CheckpointPolicy, prog: LoopProgram, carry,
 
 
 def _solve_checkpointed(plan, u, b, mass, *, checkpoint, **kw):
-    """Run a plan's LoopProgram in segments, snapshotting between them.
+    """Run a plan's LoopProgram in segments, snapshotting between them (on
+    a mesh, on this rank's blocks: the block entry's program).
 
     The host loop below is the only durability addition: between two
     snapshots runs the one-shot solve's own loop.  A process killed
@@ -1016,10 +1167,15 @@ def _solve_checkpointed(plan, u, b, mass, *, checkpoint, **kw):
     :func:`repro_torch.core.resilience.resume_solve` picks the run back up
     from the latest valid snapshot.
     """
-    prog = loop_program(plan, u, b, mass, device=b.device, **kw)
+    mesh = plan.mesh
+    prog = loop_program(plan, u, b, mass, device=b.device,
+                        blocks=mesh is not None, **kw)
+    gather = None
+    if mesh is not None:
+        gather = lambda x: _gather_x(plan, x, kw["layout"])  # noqa: E731
     every = int(checkpoint.every_iters)
     carry, cont = prog.start()
     while cont:
         carry, cont = prog.step(carry, prog.counter(carry) + every)
-        _snapshot(checkpoint, prog, carry, plan.mesh)
+        _snapshot(checkpoint, prog, carry, mesh, gather)
     return prog.finalize(carry)

@@ -27,6 +27,16 @@ carrying the per-attempt history.  Success at any rung returns stats
 whose ``verified`` gate passed: ``defended_solve`` never returns an
 unverified solution.  :func:`resume_solve` continues an interrupted
 checkpointed solve from its latest valid snapshot.
+
+Both take a mesh plan, with the global fields on every rank or, with
+``blocks=True``, each rank's blocks (``plan.solve``'s block entry).  The
+ladder then runs on each rank's blocks, the true residual is the mesh
+verification (:func:`repro_torch.core.plan.mesh_true_residual`: the
+plain natural operator on each block padded with its neighbours' faces,
+the norms all-reduced), and every decision reads all-reduced values, so
+every rank walks the same rungs and returns the same records.  The
+backend rung runs the mesh's plain path (the kernels' plain versions on
+the blocks).
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as dist
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.lattice import (field_norm2, field_norm2_batched,
                                       resolve_device)
@@ -122,7 +133,8 @@ def _plan_desc(plan: plan_mod.SolverPlan) -> str:
 def defended_solve(plan: plan_mod.SolverPlan, u, b, mass, *,
                    tol: float = 1e-8, maxiter: int = 1000,
                    policy: RetryPolicy | None = None, x0=None,
-                   checkpoint=None, device="cuda", **solve_kw):
+                   checkpoint=None, device="cuda", blocks: bool = False,
+                   **solve_kw):
     """Run ``plan.solve`` under a retry and escalation ladder.
 
     ``policy=None`` is :func:`default_policy` of ``device``.
@@ -147,25 +159,50 @@ def defended_solve(plan: plan_mod.SolverPlan, u, b, mass, *,
     their iterate is a correction ``d``, not the accumulated solution.
     ``deflation`` (through ``solve_kw``) warm-starts the first attempt
     only, and not under a checkpoint policy.
+
+    A mesh plan runs on its mesh's device.  ``blocks=True``: ``u``, ``b``
+    and ``x0`` are this rank's natural blocks and x comes back as this
+    rank's block; otherwise they are global, sliced here, and x is
+    gathered.  Either way every rank returns the same stats and records.
     """
-    dev = resolve_device(device)
+    mesh = plan.mesh
+    if mesh is not None and not blocks:
+        return _defended_global_on_mesh(
+            plan, u, b, mass, tol=tol, maxiter=maxiter, policy=policy,
+            x0=x0, checkpoint=checkpoint, **solve_kw)
+    if blocks and mesh is None:
+        raise ValueError("defended_solve(..., blocks=True) takes a mesh "
+                         "plan")
+    dev = resolve_device(device if mesh is None else mesh.device)
     policy = default_policy(dev) if policy is None else policy
     ladder = policy.ladder(plan)
     deflation = solve_kw.pop("deflation", None)
+    if mesh is not None:
+        solve_kw["blocks"] = True
     site = plan.site_term(float(mass))
     u = torch.as_tensor(u, device=dev)
     b = torch.as_tensor(b, device=dev)
+    norm2 = field_norm2_batched if plan.batched else field_norm2
 
-    def true_residual(x):
+    def residual(x):
+        """``(b - D x, ||b - D x||^2)``, on a mesh this rank's block and
+        the all-reduced norm."""
+        if mesh is not None:
+            r, rs, _ = plan_mod.mesh_true_residual(plan, u, b, mass, x)
+            return r, rs
+
         def apply_d(v):
             return dslash_g(u, v, mass, r=plan.r, twist=site.twist)
         if plan.batched:
-            return b - torch.stack([apply_d(x[n])
-                                    for n in range(x.shape[0])]).to(b.dtype)
-        return b - apply_d(x).to(b.dtype)
+            r = b - torch.stack([apply_d(x[n])
+                                 for n in range(x.shape[0])]).to(b.dtype)
+        else:
+            r = b - apply_d(x).to(b.dtype)
+        return r, norm2(r).real
 
-    norm2 = field_norm2_batched if plan.batched else field_norm2
     bs = norm2(b).real
+    if mesh is not None:
+        bs = mesh.psum(bs, kind="verify_all_reduce")
     attempts: list[AttemptRecord] = []
     x_acc = None          # accumulated finite iterate (None: start from 0)
     if x0 is not None:
@@ -181,8 +218,7 @@ def defended_solve(plan: plan_mod.SolverPlan, u, b, mass, *,
         restarted = False
         rhs, rhs_tol = b, tol
         if x_acc is not None and policy.restart_from_iterate:
-            r = true_residual(x_acc)
-            rs = norm2(r).real
+            r, rs = residual(x_acc)
             if bool(torch.isfinite(rs).all()):
                 # defect correction: solve D d = r to the remaining
                 # relative tolerance tol ||b|| / ||r|| (capped: the
@@ -208,7 +244,7 @@ def defended_solve(plan: plan_mod.SolverPlan, u, b, mass, *,
         x_try = x if not restarted else x_acc + x
         # verify the accumulated iterate against the original system
         # (the attempt's own stats verified the defect system only)
-        rs_fin = norm2(true_residual(x_try)).real
+        rs_fin = residual(x_try)[1]
         gate = (plan_mod.VERIFY_FACTOR
                 * torch.tensor(tol, dtype=rs_fin.dtype, device=dev)) ** 2 * bs
         ok = (rs_fin <= gate) & torch.isfinite(rs_fin)
@@ -236,6 +272,23 @@ def defended_solve(plan: plan_mod.SolverPlan, u, b, mass, *,
         verdict=last_verdict, attempts=tuple(attempts))
 
 
+def _defended_global_on_mesh(plan, u, b, mass, *, x0, **kw):
+    """:func:`defended_solve`'s global entry on a mesh: this rank's blocks
+    of u, b and ``x0`` sliced from the global fields, the ladder run on
+    them, x gathered."""
+    mesh = plan.mesh
+    b = torch.as_tensor(b, device=mesh.device)
+    u_l, b_l = plan_mod._shard_global(plan, torch.as_tensor(u), b, "natural")
+    x0_l = None
+    if x0 is not None:
+        psi_spec = dist.layout_specs(mesh, "natural", plan.axis_map)[0]
+        x0_l = dist.local_block(mesh, torch.as_tensor(x0, device=mesh.device)
+                                .to(b.dtype), psi_spec)
+    x_l, stats, attempts = defended_solve(plan, u_l, b_l, mass, x0=x0_l,
+                                          blocks=True, **kw)
+    return plan_mod._gather_x(plan, x_l, "natural"), stats, attempts
+
+
 @dataclasses.dataclass(frozen=True)
 class ResumeRecord:
     """How a :func:`resume_solve` picked a run back up."""
@@ -249,7 +302,8 @@ class ResumeRecord:
 def resume_solve(plan: plan_mod.SolverPlan, u, b, mass, *,
                  checkpoint_dir: str, tol: float = 1e-8,
                  maxiter: int = 1000, policy: RetryPolicy | None = None,
-                 missing_ok: bool = False, device="cuda", **solve_kw):
+                 missing_ok: bool = False, device="cuda",
+                 blocks: bool = False, **solve_kw):
     """Continue an interrupted checkpointed solve.
 
     Restores the latest valid checkpoint from ``checkpoint_dir`` (a
@@ -264,17 +318,31 @@ def resume_solve(plan: plan_mod.SolverPlan, u, b, mass, *,
     first segment boundary) into a fresh checkpointed defended solve;
     "every checkpoint is corrupt" stays an error.  Returns ``(x, stats,
     ResumeRecord)``.
+
+    A mesh plan (global fields, or ``blocks=True`` and each rank's
+    blocks): every rank reads the checkpoint, whose x is the unsharded
+    global iterate (a one-device run's, a mesh run's or the JAX
+    package's), and keeps its block of it when given blocks; the ladder
+    runs as :func:`defended_solve` does on a mesh; rank 0 alone banks the
+    gathered result and prunes, and a barrier holds every rank until the
+    step is on disk.
     """
     from repro_torch.checkpoint import ckpt
 
-    dev = resolve_device(device)
+    mesh = plan.mesh
+    dev = resolve_device(device if mesh is None else mesh.device)
     b = torch.as_tensor(b, device=dev)
     vshape = (plan.nrhs,) if plan.batched else ()
+    x_shape, read = tuple(b.shape), None
+    if mesh is not None and blocks:
+        psi_spec = dist.layout_specs(mesh, "natural", plan.axis_map)[0]
+        x_shape = dist.global_shape(mesh, b.shape, psi_spec)
+        read = {"x": dist.block_slices(mesh, x_shape, psi_spec)}
     target = {"iteration": ((), np.int32), "rhs_mask": (vshape, np.bool_),
-              "verdict": (vshape, np.int32),
-              "x": (tuple(b.shape), b.dtype)}
+              "verdict": (vshape, np.int32), "x": (x_shape, b.dtype)}
     try:
-        step, tree = ckpt.restore_latest(checkpoint_dir, target, device=dev)
+        step, tree = ckpt.restore_latest(checkpoint_dir, target, device=dev,
+                                         blocks=read)
     except FileNotFoundError:
         if not missing_ok:
             raise
@@ -287,17 +355,23 @@ def resume_solve(plan: plan_mod.SolverPlan, u, b, mass, *,
         plan, u, b, mass, tol=tol, maxiter=maxiter, policy=policy,
         x0=x0, checkpoint=(None if x0 is not None else
                            plan_mod.CheckpointPolicy(dir=checkpoint_dir)),
-        device=dev, **solve_kw)
+        device=dev, blocks=blocks, **solve_kw)
     # bank the verified accumulated iterate: a crash now resumes from the
     # answer, not from a pre-crash snapshot
     new_iters = ckpt_iters + sum(a.iterations for a in attempts)
-    ckpt.save_checkpoint(checkpoint_dir, new_iters, {
-        "x": x,
-        "iteration": np.asarray(new_iters, np.int32),
-        "verdict": np.zeros(vshape, np.int32),
-        "rhs_mask": np.ones(vshape, np.bool_),
-    })
-    ckpt.prune_checkpoints(checkpoint_dir, 2)
+    x_all = (plan_mod._gather_x(plan, x, "natural")
+             if mesh is not None and blocks else x)
+    if mesh is None or mesh.rank == 0:
+        ckpt.save_checkpoint(checkpoint_dir, new_iters, {
+            "x": x_all,
+            "iteration": np.asarray(new_iters, np.int32),
+            "verdict": np.zeros(vshape, np.int32),
+            "rhs_mask": np.ones(vshape, np.bool_),
+        })
+        ckpt.prune_checkpoints(checkpoint_dir, 2)
+    del x_all
+    if mesh is not None:
+        mesh.barrier()
     return x, stats, ResumeRecord(
         resumed_from_step=step, checkpoint_iterations=ckpt_iters,
         checkpoint_verdict=ckpt_verdict, attempts=attempts)

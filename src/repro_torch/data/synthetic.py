@@ -38,16 +38,23 @@ class SyntheticLM:
         return gen
 
     def _tokens(self, gen, shape):
+        """Token ids of ``shape``.  zipf: the inverse CDF of the unigram
+        law (p_i proportional to (1 + i)^-1.2, its CDF in float64 on the
+        host) at the generator's uniforms.  ``torch.multinomial`` is not
+        used: on a CUDA device it drew other tokens on every call with the
+        same seed (36-57 of 4 x 2112 at a 256000-token vocabulary on an
+        H100; scripts/token_draws.py), so a served prompt was not the
+        prompt a check drew again."""
         v = self.cfg.vocab_size
         if self.mode == "uniform":
             return torch.randint(0, v, shape, generator=gen,
                                  device=gen.device)
-        logits = -1.2 * torch.log1p(torch.arange(v, dtype=torch.float32,
-                                                 device=gen.device))
-        probs = torch.softmax(logits, dim=0)
-        n = int(np.prod(shape))
-        return torch.multinomial(probs, n, replacement=True,
-                                 generator=gen).reshape(shape)
+        logits = -1.2 * np.log1p(np.arange(v, dtype=np.float64))
+        probs = np.exp(logits - logits.max())
+        cdf = torch.from_numpy(np.cumsum(probs / probs.sum())).to(gen.device)
+        u = torch.rand(shape, generator=gen, dtype=torch.float64,
+                       device=gen.device)
+        return torch.searchsorted(cdf, u, right=True).clamp_(max=v - 1)
 
     def batch_at(self, step: int, dtype=torch.float32) -> dict:
         """Batch for a given step index: tokens first, then the family's

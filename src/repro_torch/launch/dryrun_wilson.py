@@ -19,9 +19,11 @@ f32 reliable updates), on the full-lattice path ``solve_wilson`` runs:
   ``Mesh.counts`` (each halo'd launch exchanges two planes a sharded
   direction, in one call), and all-reduces;
 * the link planes, exchanged once a solve;
-* each rank's resident bytes: the loop's blocks, and, beside them, what
-  ``plan.solve``'s input convention (every rank holds the global fields
-  and slices its block) would take.
+* each rank's resident bytes (:func:`resident`): the path's figure is the
+  block entry's (``plan.solve(..., blocks=True)``: the rank's natural
+  blocks of U and b, the packed links and the loop's fields); the global
+  entry's figure, beside it, is the wrapper's cost (every rank also
+  holds the global U and b and the gathered x).
 
 JAX's mesh axis map holds: T over ``data``, Z over ``model``, Y over
 ``pod``.  :func:`solve_counts` gives a whole solve's counts for k
@@ -139,6 +141,40 @@ def solve_counts(path: str, solver: str, dims, mesh, *, nrhs: int = 1,
     return c
 
 
+def resident(path: str, solver: str, dims, mesh, *, nrhs: int = 1,
+             axis_map=None) -> dict:
+    """A rank's resident bytes for one mesh solve, reckoned: ``block``,
+    the block entry's (the caller's natural blocks of U and b, complex64:
+    (4 x 18 + 24 N) x 4 bytes a site; the packed links the loop runs on,
+    f32, and a bf16 copy for mpcg; the loop's fields), and
+    ``global_entry``, the wrapper's (``block`` plus the global U and b
+    every rank holds and the gathered x).  The loop's fields, from the
+    loop bodies of core/solvers.py and the operators' intermediates:
+    full cg 6 (b, x, r, p, Ap and D p), pipecg 8, mpcg 3 in f32 beside
+    the inner CG's 5 in bf16; even-odd (half fields) cg 9 (the RHS
+    halves, the Schur RHS, x, r, p, Ap and the Schur operator's two
+    intermediates), pipecg 11.  Transients (a kernel's output before it
+    replaces its input, the verification's padded blocks) are not
+    counted."""
+    local, _ = block(dims, mesh, axis_map)
+    sites, gsites = math.prod(local), math.prod(dims)
+    natural = sites * (4 * LINK_REALS + nrhs * SPINOR_REALS) * F32
+    links = 4 * sites * LINK_REALS * F32
+    if solver == "mpcg":
+        links += 4 * sites * LINK_REALS * BF16
+    if path == "full":
+        field = sites * SPINOR_REALS * nrhs
+        f32, bf16 = {"cg": (6, 0), "pipecg": (8, 0), "mpcg": (3, 5)}[solver]
+    elif path == "eo":
+        field = sites // 2 * SPINOR_REALS * nrhs
+        f32, bf16 = {"cg": (9, 0), "pipecg": (11, 0)}[solver]
+    else:
+        raise ValueError(f"path must be 'full' or 'eo', got {path!r}")
+    blk = natural + links + field * (F32 * f32 + BF16 * bf16)
+    glob = gsites * (4 * LINK_REALS + 2 * nrhs * SPINOR_REALS) * F32
+    return {"block": int(blk), "global_entry": int(blk + glob)}
+
+
 def _minus(a: dict, b: dict) -> dict:
     return {key: a[key] - b[key] for key in a}
 
@@ -181,14 +217,7 @@ def reckon(solver: str, mesh_kind: str, *, dims=DIMS,
     terms["dominant"] = ("not measured" if terms["memory_s"] is None else
                          max(("compute", "memory"),
                              key=lambda t: terms[f"{t}_s"]))
-    link_f32 = 4 * sites * LINK_REALS * F32
-    links = link_f32 + (link_f32 // 2 if low else 0)
-    # the loop's fields: the RHS, x, r, p, Ap and the operator's
-    # intermediate (cg), pipecg's eight (x r w z q p m and the RHS), and
-    # mpcg's f32 b, x, r beside the inner CG's five in bf16
-    fields_f32 = {"cg": 6, "pipecg": 8, "mpcg": 3}[solver]
-    fields_bf16 = 5 if low else 0
-    resident = links + field * (F32 * fields_f32 + BF16 * fields_bf16)
+    mem = resident("full", solver, dims, mesh)
     gdims = math.prod(dims)
     global_fields = (4 * gdims * LINK_REALS + gdims * SPINOR_REALS) * F32
     lat = "x".join(str(d) for d in dims)
@@ -199,7 +228,8 @@ def reckon(solver: str, mesh_kind: str, *, dims=DIMS,
         "mesh_shape": dict(mesh.shape), "block": list(local),
         "sharded_axes": sorted(split), "nrhs": 1, "rr": RR,
         "per_setup": setup,
-        "per_device_bytes": int(resident),
+        "per_device_bytes": mem["block"],
+        "global_entry_bytes_per_rank": mem["global_entry"],
         "global_fields_bytes_per_rank": int(global_fields),
         "cost_method": ("reckoned per iteration from the port's bytes "
                         "model and the closed forms behind Mesh.counts"),
@@ -241,9 +271,11 @@ def describe(row: dict) -> str:
             f"halo planes {it['spinor_planes']} "
             f"({it['spinor_bytes'] / 1e6:.2f} MB, {it['ppermute']} ppermute "
             f"calls); link planes {row['per_setup']['link_planes']} a "
-            f"solve; resident {row['per_device_bytes'] / 2**30:.2f} GiB "
-            f"(global fields {row['global_fields_bytes_per_rank'] / 2**30:.1f}"
-            " GiB a rank)")
+            f"solve; resident a rank {row['per_device_bytes'] / 2**30:.2f} "
+            f"GiB through the block entry (the path's figure), "
+            f"{row['global_entry_bytes_per_rank'] / 2**30:.1f} GiB through "
+            f"the global entry (the wrapper's: global fields "
+            f"{row['global_fields_bytes_per_rank'] / 2**30:.1f} GiB a rank)")
 
 
 def measure_device() -> tuple[float | None, dict | None]:

@@ -13,6 +13,8 @@
         --checkpoint-dir ckpt --resume
     torchrun --nproc-per-node 4 -m repro_torch.launch.solve --device cpu \
         --mesh debug --parity eo --nrhs 4 --solver pipecg
+    torchrun --nproc-per-node 4 -m repro_torch.launch.solve --device cpu \
+        --mesh debug --parity eo --solver cgnr --checkpoint-dir ckpt --resume
 
 Builds a random SU(3) gauge configuration and source(s) from ``--seed``,
 solves D x = b on the full lattice (``--parity full``, the default) or on
@@ -32,7 +34,9 @@ JAX package's checkpoints included) in a fresh process.  ``--mesh debug``
 runs under ``torchrun --nproc-per-node 4`` on a 2x2 ``data`` x ``model``
 mesh (T and Z sharded; :func:`repro_torch.launch.mesh.make_debug_mesh`:
 NCCL with a card a rank, else gloo); every rank solves the same system
-and rank 0 reports.  The sha256 of
+and rank 0 reports.  ``--resume`` works there too: every rank restores
+the snapshot (one-device and mesh snapshots hold the same unsharded x),
+and rank 0 banks the result.  The sha256 of
 the u and b built from ``--seed`` is printed, so a resumed process shows
 it solves the killed process's system.  Reports iterations,
 matvecs, the true relative residual and the verdict — per right-hand side
@@ -151,9 +155,9 @@ def main(argv=None) -> int:
         p.error("--resume requires --checkpoint-dir")
     if args.deflate > 0 and (args.resume or args.checkpoint_dir):
         p.error("--deflate does not compose with checkpointed solves")
-    if args.mesh != "none" and (args.resume or args.deflate > 0):
-        p.error("--resume and --deflate run on one device (a meshless "
-                "--resume restores a mesh run's snapshots)")
+    if args.mesh != "none" and args.deflate > 0:
+        p.error("--deflate runs on one device (the harvest is "
+                "single-device, as in the JAX package)")
 
     mesh = debug_mesh(args.device) if args.mesh == "debug" else None
     try:

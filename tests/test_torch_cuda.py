@@ -847,3 +847,17 @@ def test_a_pair_instance_tile_is_refused_not_replaced(dev):
     with autotune.forced(TileConfig(b=1)):
         fn()
     assert kernels.pair_launches()["wilson_full_bf16"] == 1
+
+
+def test_synthetic_lm_draws_the_same_prompt_every_time(dev):
+    """The served prompt is SyntheticLM's batch 0: drawn eight times on the
+    card at recurrentgemma's full vocabulary and 4 x 2112 tokens, every
+    draw is the same (``torch.multinomial`` on an H100 drew 36-57 other
+    tokens on every call with the same seed; scripts/token_draws.py)."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    cfg = configs.get("recurrentgemma-9b")
+    draws = [SyntheticLM(cfg, batch=4, seq_len=2112, seed=0,
+                         device=str(dev)).batch_at(0)["tokens"]
+             for _ in range(8)]
+    assert all(torch.equal(d, draws[0]) for d in draws[1:])

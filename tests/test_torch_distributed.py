@@ -32,15 +32,26 @@ sharded loops and raise its mesh rules.  Held here:
 * a checkpointed mesh solve bitwise its one-shot mesh solve, with the
   single-device segmented solve's steps, and a starved mesh run resumed
   on one device to a verified x;
+* the block entry (``solve(..., blocks=True)`` on each rank's blocks):
+  every mesh solve's gathered x bitwise the global entry's on both
+  meshes, the same counts, its blockwise verification within 1e-6 of
+  rank 0's, packed blocks too, and a solve whose halo planes arrive
+  corrupted reported unverified;
+* ``resume_solve`` of the starved checkpoint on both meshes through both
+  entries, and ``defended_solve`` starved on the mesh, with the same
+  records on every rank;
 * ``torchrun --nproc-per-node 4 -m repro_torch.launch.solve --mesh
-  debug`` and that CLI's error outside ``torchrun``.
+  debug``, its ``--resume`` of a mesh run's snapshots, and that CLI's
+  error outside ``torchrun``.
 
 Every process group has a 60 s timeout and every spawn a deadline.  The
 file runs as a script for one rank of the spawn:
 ``python tests/test_torch_distributed.py <rank> <dir>``.
 """
 
+import dataclasses
 import datetime
+import hashlib
 import json
 import os
 import pathlib
@@ -62,8 +73,19 @@ DIMS = (4, 4, 4, 8)                 # T, Z, Y, X
 WORLD = 4
 PG_TIMEOUT = datetime.timedelta(seconds=60)
 DEADLINE_S = 600                    # every spawn's join deadline
+CORRUPT_MAXITER = 40                # the corrupted-halo solve's maxiter
+DEFENDED_STARVE = 8                 # the defended solves' maxiter
 MESHES = {"2x2": ((2, 2), ("data", "model")),
           "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+# the CLI's resume of a mesh run's snapshots under torchrun: the ranks of
+# the spawn run the CLI's system (its defaults: 4x4x4x8, seed 0, mass 0.2)
+# on the 2x2 mesh, checkpointed and starved at 6 iterations, into
+# <dir>/ck_cli; then this resumes it
+CLI_RESUME_ARGV = [sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc-per-node", "4", "-m",
+                   "repro_torch.launch.solve", "--device", "cpu", "--mesh",
+                   "debug", "--parity", "eo", "--solver", "cgnr", "--resume"]
+CLI_MASS, CLI_STARVE = 0.2, 6
 # (solve, plan fields, RHS name) of the satellite list, as
 # scripts/mesh_twins.py runs them
 SOLVES = {"eo_cgnr_n2": (dict(nrhs=2), "bb"),
@@ -413,6 +435,16 @@ def _worker(rank: int, d: pathlib.Path):
                                 maxiter=MAXITER)
     mine["2x2/solve_wilson_cg"] = _stats_json(stw)
     arrays["2x2/solve_wilson_cg"] = xw.numpy()
+    # the block entry on packed blocks (the full operator's wire format)
+    psi_spec = dist.lattice_specs(mesh)[0]
+    xl, st = tplan.solve(tplan.SolverPlan(mesh=mesh, operator="full"),
+                         *dist.shard_lattice_fields(mesh, up, pp), MASS,
+                         tol=TOL, maxiter=MAXITER, layout="packed",
+                         device="cpu", blocks=True)
+    mine["blocks/2x2/packed_full_cgnr"] = dict(
+        stats=_stats_json(st),
+        bitwise=bool(torch.equal(dist.gather_blocks(mesh, xl, psi_spec,
+                                                     pp.shape), xw)))
     arrays["packed/full_cgnr"] = pack_spinor(
         torch.tensor(arrays["2x2/full_cgnr"])).numpy()
     if rank == 0:
@@ -466,6 +498,18 @@ def _worker(rank: int, d: pathlib.Path):
     mine["durable"] = dict(bitwise=bool(torch.equal(x1, x2)),
                            one_shot=_stats_json(s1),
                            segmented=_stats_json(s2))
+    _block_entry_cases(rank, d, meshes, u, rhs_of, arrays, x1, mine)
+    # the CLI's system, checkpointed on the 2x2 mesh and starved, for the
+    # fixture's torchrun --resume
+    from repro_torch.core.lattice import LatticeShape
+    from repro_torch.data import lattice_problem
+    uc, bc = lattice_problem(LatticeShape(*DIMS), seed=0, packed=False,
+                             device="cpu")
+    tplan.solve(plan, uc, bc, CLI_MASS, tol=TOL, maxiter=CLI_STARVE,
+                device="cpu", checkpoint=tplan.CheckpointPolicy(
+                    str(d / "ck_cli"), 5))
+    mine["cli_system_sha"] = [hashlib.sha256(v.numpy().tobytes()).hexdigest()
+                              for v in (uc, bc)]
     if rank == 0:
         tplan.solve(tplan.SolverPlan(), u, b, MASS, tol=TOL,
                     maxiter=MAXITER, device="cpu",
@@ -477,6 +521,99 @@ def _worker(rank: int, d: pathlib.Path):
         (d / "port.json").write_text(json.dumps(out))
     (d / f"rank{rank}.json").write_text(json.dumps(mine))
     tdist.destroy_process_group()
+
+
+def _blocks(mesh, u, b):
+    """This rank's natural-layout blocks of the global u and b."""
+    from repro_torch.core import distributed as dist
+    return dist.shard_lattice_fields(mesh, u, b, layout="natural")
+
+
+def _gather(mesh, x_blk, like):
+    from repro_torch.core import distributed as dist
+    return dist.gather_blocks(mesh, x_blk, dist.layout_specs(mesh,
+                                                             "natural")[0],
+                              like.shape)
+
+
+def _records(attempts) -> list:
+    return [dataclasses.asdict(a) for a in attempts]
+
+
+def _block_entry_cases(rank, d, meshes, u, rhs_of, arrays, x1, mine):
+    """The mesh's block entry, its blockwise verification, and resumed and
+    defended solves on a mesh plan through either entry."""
+    import shutil
+
+    from repro_torch.core import plan as tplan
+    from repro_torch.core import resilience
+
+    b = rhs_of["b"]
+    # every solve through the block entry, against the global entry's x
+    for mname, mesh in meshes.items():
+        for name, (kw, rhs) in _mesh_solves(mname).items():
+            ul, bl = _blocks(mesh, u, rhs_of[rhs])
+            before = dict(mesh.counts)
+            xl, st = tplan.solve(tplan.SolverPlan(mesh=mesh, **kw), ul, bl,
+                                 MASS, tol=TOL, maxiter=MAXITER,
+                                 device="cpu", blocks=True)
+            x = _gather(mesh, xl, rhs_of[rhs])
+            mine[f"blocks/{mname}/{name}"] = dict(
+                bitwise=bool(np.array_equal(x.numpy(),
+                                            arrays[f"{mname}/{name}"])),
+                shapes=[list(v.shape) for v in (ul, bl, xl)],
+                stats=_stats_json(st),
+                counts={k: v - before.get(k, 0)
+                        for k, v in mesh.counts.items()
+                        if v != before.get(k, 0)})
+    # a solve whose halo planes arrive corrupted: the solver's transport
+    # (Mesh.ppermute) scales every spinor plane it receives; the
+    # verification's faces travel by all-gather and are left alone
+    mesh = meshes["2x2"]
+    orig = mesh.ppermute
+
+    def corrupt(axis, sends, *, kind="spinor"):
+        got = orig(axis, sends, kind=kind)
+        return [p * 1.01 for p in got] if kind == "spinor" else got
+
+    ul, bl = _blocks(mesh, u, b)
+    mesh.ppermute = corrupt
+    try:
+        _, st = tplan.solve(tplan.SolverPlan(mesh=mesh), ul, bl, MASS,
+                            tol=TOL, maxiter=CORRUPT_MAXITER, device="cpu",
+                            blocks=True)
+        mine["corrupt"] = _stats_json(st)
+    finally:
+        del mesh.ppermute
+    # the starved 2x2 checkpoint (steps 3 and 6) resumed on either mesh
+    # through either entry, each from its own copy of the directory
+    for mname, mesh in meshes.items():
+        ul, bl = _blocks(mesh, u, b)
+        for entry, args in (("global", (u, b)), ("blocks", (ul, bl))):
+            ck = d / f"ck_resume_{mname}_{entry}"
+            if rank == 0:
+                shutil.copytree(d / "ck_starved", ck)
+            mesh.barrier()
+            x, st, rec = resilience.resume_solve(
+                tplan.SolverPlan(mesh=mesh), *args, MASS,
+                checkpoint_dir=str(ck), tol=TOL, maxiter=MAXITER,
+                device="cpu", blocks=entry == "blocks")
+            if entry == "blocks":
+                x = _gather(mesh, x, b)
+            mine[f"resume/{mname}/{entry}"] = dict(
+                step=rec.resumed_from_step, banked=rec.checkpoint_iterations,
+                attempts=_records(rec.attempts), stats=_stats_json(st),
+                x_rel_err=rel_err(x.numpy(), x1.numpy()),
+                listing=sorted(os.listdir(ck)))
+    # defended through the block entry (the global entry's resumes above
+    # ran it too): the first rung starved, the second restarted
+    mesh = meshes["2x2"]
+    x, st, att = resilience.defended_solve(
+        tplan.SolverPlan(mesh=mesh), *_blocks(mesh, u, b), MASS, tol=TOL,
+        maxiter=DEFENDED_STARVE, device="cpu", blocks=True)
+    mine["defended"] = dict(attempts=_records(att), stats=_stats_json(st),
+                            x_rel_err=rel_err(_gather(mesh, x, b).numpy(),
+                                              x1.numpy()))
 
 
 # ---------------------------------------------------------------------------
@@ -521,6 +658,7 @@ def runs(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
+    ck = d / "ck_cli"
     t0 = time.time()
     procs = {
         **{f"jax_halos_{m}": _start([sys.executable, "-c", _JAX_HALOS,
@@ -534,10 +672,17 @@ def runs(tmp_path_factory):
                             "--mesh", "debug", "--parity", "eo", "--nrhs",
                             "4", "--solver", "pipecg"], env,
                            d / "torchrun.log")}
-    for r in range(WORLD):
-        procs[f"rank{r}"] = _start([sys.executable, __file__, str(r),
-                                    str(d)], env, d / f"rank{r}.log")
-    rcs = _finish(procs, t0 + DEADLINE_S)
+    ranks = {f"rank{r}": _start([sys.executable, __file__, str(r), str(d)],
+                                env, d / f"rank{r}.log")
+             for r in range(WORLD)}
+    rcs = _finish(ranks, t0 + DEADLINE_S)
+    # the ranks wrote the starved CLI run's snapshots: resume them under
+    # torchrun while the JAX subprocesses still run
+    procs.update(ranks, torchrun_resume=_start(
+        CLI_RESUME_ARGV + ["--checkpoint-dir", str(ck)], env,
+        d / "torchrun_resume.log"))
+    rcs.update(_finish({k: v for k, v in procs.items() if k not in ranks},
+                       t0 + DEADLINE_S))
     logs = {n: (d / f"{n}.log").read_text() for n in procs}
     jax_runs = [f"jax_halos_{m}" for m in MESHES]
     for name in jax_runs + [f"rank{r}" for r in range(WORLD)]:
@@ -565,6 +710,10 @@ def runs(tmp_path_factory):
                        for r in range(WORLD)],
                 jax_json=jx_json,
                 torchrun=(rcs["torchrun"], logs["torchrun"]),
+                torchrun_resume=(rcs["torchrun_resume"],
+                                 logs["torchrun_resume"],
+                                 sorted(os.listdir(ck)) if ck.exists()
+                                 else None),
                 seconds=time.time() - t0)
 
 
@@ -834,6 +983,168 @@ def test_torchrun_cli_solves_on_the_debug_mesh(runs):
     assert "mesh={'data': 2, 'model': 2} transport=gloo world=4" in log, log
     assert log.count("[solve] per-RHS verdict:   ") == 1, log
     assert "UNVERIFIED" not in log and "FAIL" not in log, log
+
+
+def test_torchrun_cli_resumes_a_mesh_run(runs):
+    """``--resume --mesh debug`` under torchrun: the CLI's system (the
+    same sha256 as it prints), checkpointed on the 2x2 mesh and starved at
+    6 iterations (snapshots 5 and 6), is resumed by every rank and rank 0
+    reports in the single-device resume's format; the directory ends with
+    the newest snapshot and the banked step."""
+    rc, resumed, listing = runs["torchrun_resume"]
+    assert rc == 0, resumed[-4000:]
+    assert "mesh={'data': 2, 'model': 2} transport=gloo world=4" in resumed
+    u_sha, b_sha = runs["ranks"][0]["cli_system_sha"]
+    assert f"[solve] system: u sha256={u_sha} b sha256={b_sha}" in resumed
+    lines = [ln for ln in resumed.splitlines() if ln.startswith("[solve]")]
+    said = [ln for ln in lines if ln.startswith("[solve] resumed from")]
+    assert said == [f"[solve] resumed from step {CLI_STARVE} ({CLI_STARVE} "
+                    "iterations banked, checkpoint verdict "
+                    "maxiter_exhausted)"], lines
+    attempts = [ln for ln in lines if ln.startswith("[solve] attempt")]
+    assert len(attempts) == 1, lines
+    assert ("restarted=True" in attempts[0]
+            and "verdict=converged verified=True" in attempts[0]), lines
+    assert "[solve] verdict: converged verified=True" in lines, lines
+    assert "FAIL" not in resumed, resumed[-4000:]
+    banked = CLI_STARVE + int(attempts[0].split("iterations=")[1].split()[0])
+    assert listing == [f"step_{CLI_STARVE:08d}", f"step_{banked:08d}"], listing
+
+
+def test_block_plumbing_inverts_the_slicer():
+    """``block_slices`` cut a global field into blocks that
+    ``global_shape`` and ``block_origin`` map back: the blocks tile the
+    field, each from its origin, and an even local extent gives every
+    block an even parity origin (both meshes' specs, both layouts)."""
+    import types
+
+    from repro_torch.core import distributed as dist
+    for shape, axes in MESHES.values():
+        for layout, site in (("natural", (8, 4, 3)), ("packed", (24, 8))):
+            fake = types.SimpleNamespace(shape=dict(zip(axes, shape)),
+                                         axis_names=axes)
+            mesh = types.SimpleNamespace(**vars(fake), coords={})
+            psi_spec, gauge_spec, _ = dist.layout_specs(
+                types.SimpleNamespace(**vars(fake)), layout)
+            field = np.arange(2 * 4 * 4 * 4 * int(np.prod(site))).reshape(
+                (2, 4, 4, 4) + site)
+            seen = np.zeros(field.shape, bool)
+            for c in np.ndindex(*shape):
+                mesh.coords = dict(zip(axes, c))
+                sl = dist.block_slices(mesh, field.shape, psi_spec)
+                blk = field[sl]
+                assert dist.global_shape(mesh, blk.shape,
+                                         psi_spec) == field.shape
+                origin = dist.block_origin(mesh, blk.shape, psi_spec)
+                assert sum(origin[:3]) % 2 == 0
+                assert blk[(0,) * blk.ndim] == field[(0,) + origin]
+                seen[sl] = True
+            assert seen.all()
+            assert gauge_spec == (None,) + psi_spec
+
+
+@pytest.mark.parametrize("mesh,solve", [(m, s) for m in MESHES
+                                        for s in _mesh_solves(m)])
+def test_block_entry_is_bitwise_the_global_entry(runs, mesh, solve):
+    """``solve(..., blocks=True)`` on each rank's blocks (the entry
+    receives block-shaped tensors only): the gathered x bitwise the
+    global entry's, the same counts and collectives of the solve, and
+    its blockwise verification's true residual within 1e-6 (relative) of
+    the global entry's rank-0 verification; the same stats on every
+    rank."""
+    key = f"{mesh}/{solve}"
+    rec = runs["ranks"][0][f"blocks/{key}"]
+    assert all(r[f"blocks/{key}"] == rec for r in runs["ranks"][1:])
+    assert rec["bitwise"]
+    ushape, bshape, xshape = rec["shapes"]
+    glob_b = runs["port"][key].shape
+    n = dict(zip(MESHES[mesh][1], MESHES[mesh][0]))
+    split = [n["data"], n["model"], n.get("pod", 1)]   # T, Z, Y
+    lat = len(glob_b) - 6
+    want = list(glob_b)
+    for mu in range(3):
+        want[lat + mu] //= split[mu]
+    assert bshape == xshape == want
+    assert ushape == [4] + want[lat:lat + 4] + [3, 3]
+    st, glob = dict(rec["stats"]), dict(runs["ranks"][0][key])
+    rs, rs_glob = (np.array(v.pop("true_residual_norm2"))
+                   for v in (st, glob))
+    assert st == glob
+    assert np.all(np.abs(rs - rs_glob) <= 1e-6 * rs_glob), (rs, rs_glob)
+    counts = rec["counts"]
+    solve_counts = runs["port_json"][f"counts/{key}"]
+    for k in ("all_reduce", "spinor_planes", "link_planes", "ppermute"):
+        assert counts.get(k) == solve_counts.get(k), (k, counts)
+    # the block entry gathers nothing: its collectives beyond the solve's
+    # are the verification's one face all-gather and one all-reduce
+    assert "broadcast" not in counts and counts["verify_gather"] == 1
+    assert counts["verify_all_reduce"] == 1
+
+
+def test_block_entry_takes_packed_blocks(runs):
+    """The full operator's block entry on packed blocks
+    (``layout="packed"``): x gathered bitwise the legacy packed
+    ``solve_wilson``'s, the same stats, verified blockwise (the blocks
+    unpacked to the natural layout), its true residual within 1e-6 of the
+    natural global entry's (rank 0's natural oracle; the packed global
+    entry verifies through K4, whose f32 sums put its residual 1e-3
+    apart)."""
+    rec = runs["ranks"][0]["blocks/2x2/packed_full_cgnr"]
+    assert all(r["blocks/2x2/packed_full_cgnr"] == rec
+               for r in runs["ranks"][1:])
+    assert rec["bitwise"]
+    st = dict(rec["stats"])
+    glob = dict(runs["ranks"][0]["2x2/solve_wilson_cg"])
+    rs = np.array(st.pop("true_residual_norm2"))
+    glob.pop("true_residual_norm2")
+    assert st == glob
+    rs_nat = np.array(runs["ranks"][0]["2x2/full_cgnr"]["true_residual_norm2"])
+    assert np.all(np.abs(rs - rs_nat) <= 1e-6 * rs_nat), (rs, rs_nat)
+
+
+def test_corrupted_halo_solve_is_unverified(runs):
+    """The solver's halo transport (``Mesh.ppermute``) scaled every
+    spinor plane it delivered by 1.01: the block entry's loop converged
+    on its own residual, and the blockwise verification, whose faces
+    travel by all-gather, reports it unverified on every rank."""
+    st = runs["ranks"][0]["corrupt"]
+    assert all(r["corrupt"] == st for r in runs["ranks"][1:])
+    assert st["verified"] == [False], st
+    assert st["true_residual_norm2"][0] > 1e4 * TOL ** 2, st
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("entry", ["global", "blocks"])
+def test_mesh_checkpoint_resumes_on_a_mesh(runs, mesh, entry):
+    """The starved 2x2 checkpoint (steps 3 and 6) resumed by
+    ``resume_solve`` with a mesh plan, through either entry: from step 6,
+    one restarted attempt, verified, x within 1e-5 of the one-shot mesh
+    x, the same records on every rank; the directory then holds step 6
+    and the step rank 0 banked, and nothing else."""
+    rec = runs["ranks"][0][f"resume/{mesh}/{entry}"]
+    assert all(r[f"resume/{mesh}/{entry}"] == rec for r in runs["ranks"][1:])
+    assert rec["step"] == 6 and rec["banked"] == 6
+    att = rec["attempts"]
+    assert att[0]["restarted"] and att[-1]["verified"]
+    assert rec["stats"]["verified"] == [True]
+    assert rec["x_rel_err"] <= 1e-5
+    banked = 6 + sum(a["iterations"] for a in att)
+    assert rec["listing"] == ["step_00000006", f"step_{banked:08d}"]
+
+
+def test_defended_solve_on_a_mesh(runs):
+    """``defended_solve`` through the block entry with maxiter too short
+    for the first rung: attempt 0 unverified, attempt 1 a restart on the
+    mesh's plain path (the CPU's default ladder) and verified, x within
+    1e-5 of the one-shot mesh x, the same records on every rank."""
+    rec = runs["ranks"][0]["defended"]
+    assert all(r["defended"] == rec for r in runs["ranks"][1:])
+    a0, a1 = rec["attempts"]
+    assert not a0["restarted"] and not a0["verified"]
+    assert a1["restarted"] and a1["verified"]
+    assert a1["plan_desc"] == "eo-schur/wilson/reference/single"
+    assert rec["stats"]["verified"] == [True]
+    assert rec["x_rel_err"] <= 1e-5
 
 
 def test_cli_mesh_outside_torchrun_is_an_error(capsys, monkeypatch):

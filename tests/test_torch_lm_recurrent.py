@@ -171,6 +171,27 @@ def test_cli_default_device_is_the_card():
         serve.main(["--arch", "rwkv6-1.6b"])
 
 
+def test_synthetic_lm_zipf_tokens_are_the_inverse_cdf_of_uniforms(
+        monkeypatch):
+    """zipf tokens are the inverse CDF of the unigram law (float64, on
+    the host) at the batch generator's uniforms: a counter-based stream
+    that gives the same tokens on every draw on a card too.
+    ``torch.multinomial``, which drew other tokens on every call on a
+    card, is not called."""
+    def refuse(*a, **k):
+        raise AssertionError("torch.multinomial called")
+
+    monkeypatch.setattr(torch, "multinomial", refuse)
+    cfg = tconfigs.get_smoke("glm4-9b")
+    data = SyntheticLM(cfg, batch=3, seq_len=40, seed=5, device="cpu")
+    got = data.batch_at(4)["tokens"]
+    u = torch.rand((3, 40), generator=data._generator(4),
+                   dtype=torch.float64).numpy()
+    p = (1.0 + np.arange(cfg.vocab_size)) ** -1.2
+    want = np.searchsorted(np.cumsum(p / p.sum()), u, side="right")
+    assert np.array_equal(got.numpy(), np.minimum(want, cfg.vocab_size - 1))
+
+
 def test_synthetic_lm_deterministic():
     """Batch i is a pure function of (seed, i): equal on a second draw and
     from a fresh instance, different across steps and seeds; the family's
