@@ -15,7 +15,9 @@ instances, f32 reliable updates), and the full lattice's all-bf16 cg16
 pipelined CG (``solver="pipecg"``), block CG (``solver="blockcg"``, the
 hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
 ``solve(..., deflation=)``); last, the LM serving path
-(``repro_torch.launch.serve``) for each model family.  Phases:
+(``repro_torch.launch.serve``) for each model family and the LM
+training path (``repro_torch.models.steps.make_train_step``,
+``repro_torch.launch.train``).  Phases:
 
 0. build every kernel (one ``nvcc`` per source, all at once);
 1. banner: the card's name and power limit, and the measured
@@ -224,7 +226,21 @@ hop kernel at 16 RHS) and EigCG deflation (``plan.harvest_deflation``,
    the argmax (``torch.multinomial`` drew other prompt tokens on every
    call on the card; ``SyntheticLM`` now draws by inverse CDF).  No hand-written kernel
    runs in this phase (the JAX package's LM code reaches no Pallas
-   kernel).
+   kernel);
+12. LM training on one device (no hand-written kernel either): (a)
+   ``make_train_step`` on glm4-9b at full width, cut to 8 of its 40
+   layers (2.87 B parameters, 45.97 GB of state at 16 bytes a
+   parameter), bf16 compute, batch 2 x 1024 tokens, 6 steps on one
+   repeated batch at lr 1e-5: each step's ms, tokens/s, model-flops
+   share (6 N D, and 8 N D counting remat's second forward, over 989
+   TFLOP/s), peak GiB beside the reckoned state, loss and grad norm;
+   every loss and grad norm finite and the last loss below the first;
+   one warm step traced; (b) every architecture's smoke config, one
+   batch's loss and every gradient leaf in f32 on the card against the
+   CPU on the same weights, within the CPU tests' bars; (c)
+   ``launch/train.py`` on glm4-9b's smoke config, 6 steps against 3
+   resumed from a checkpoint (``--resume auto``) for 3 more, under
+   deterministic algorithms: bitwise; (d) the phase's seconds.
    Each phase prints its seconds; the checkpoint, journal and mesh
    directories live under ``build/`` and are removed.
 
@@ -3139,6 +3155,225 @@ def lm_phase(dev, card: str, bw: float, scale: str = "full") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: LM training on one device
+# ---------------------------------------------------------------------------
+
+# (a): glm4-9b at full width, 8 of its 40 layers (the whole model's 9.40 B
+# parameters at 16 bytes each, 150 GB, do not fit one card), bf16 compute,
+# batch 2 x 1024 tokens, 6 steps on one repeated batch at the constant
+# schedule (warmup_cosine's scale is 0 at step 0).  lr 1e-5: at 1e-4
+# Adam's first, sign-like steps overshoot at this width and the loss
+# swings 12.60 -> 22.42 -> 16.36 -> 17.89 -> 11.07 -> 16.85, the same in
+# f32 and bf16 compute; at 1e-5 it falls every step (12.60 -> 4.14;
+# scripts/lm_train_lr.py on an H100)
+LM_TRAIN_ARCH, LM_TRAIN_LAYERS = "glm4-9b", 8
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 1024, 6
+LM_TRAIN_LR = 1e-5
+# bytes of train state a parameter: f32 master, f32 m and v, a bf16
+# compute copy and its bf16 gradient
+LM_TRAIN_STATE_BYTES = 16
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet, 700 W)
+
+
+def lm_grads(cfg, model, batch, compute_dtype=torch.float32):
+    """(loss, {name: gradient}) as ``make_train_step`` takes them: with
+    respect to ``cast_compute``'s copy."""
+    from repro_torch.models import steps
+    cmodel = steps.cast_compute(cfg, model, compute_dtype)
+    loss, _ = steps.loss_fn(cfg, cmodel, batch, compute_dtype)
+    names, leaves = zip(*cmodel.named_parameters())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def lm_train_full_width(dev, card: str, scale: str = "full") -> dict:
+    """(a): steps of ``make_train_step`` on glm4-9b at full width, cut to
+    LM_TRAIN_LAYERS layers: per step its ms, tokens/s, model-flops share,
+    peak memory, loss and grad norm; then one warm step traced.
+    ``scale="smoke"`` rehearses it on the smoke config."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import steps
+    from repro_torch.optim import AdamWConfig
+    full = (configs.get if scale == "full" else configs.get_smoke)(
+        LM_TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LM_TRAIN_LAYERS)
+    opt = AdamWConfig(lr=LM_TRAIN_LR)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = steps.init_train_state(cfg, gen, opt, device=dev)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    reckoned = LM_TRAIN_STATE_BYTES * n_params
+    batch = SyntheticLM(cfg, batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                        seed=0, device=str(dev)).batch_at(0)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    step = steps.make_train_step(cfg, opt, compute_dtype=BF16)
+    log(f"LM train: {cfg.name} at full width, {LM_TRAIN_LAYERS} of "
+        f"{full.num_layers} layers, {n_params / 1e9:.4f} B parameters; "
+        f"state reckoned {reckoned / 1e9:.2f} GB ({reckoned / 2 ** 30:.2f} "
+        f"GiB) at {LM_TRAIN_STATE_BYTES} B a parameter; batch "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, bf16 compute ({card})")
+    rows = []
+    for i in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        flops6 = 6 * n_params * tokens
+        row = {"step": i, "ms": ms, "tokens_per_s": tokens / (ms * 1e-3),
+               "mfu_6nd": flops6 / (ms * 1e-3) / PEAK_BF16_FLOPS,
+               "mfu_8nd_remat": flops6 * 8 / 6 / (ms * 1e-3)
+               / PEAK_BF16_FLOPS,
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        rows.append(row)
+        log(f"LM train step {i}{' (warm)' if i else ' (first)'}: "
+            f"{ms:.2f} ms, {row['tokens_per_s']:.1f} tokens/s, model-flops "
+            f"share {row['mfu_6nd']:.4f} (6 N D; {row['mfu_8nd_remat']:.4f} "
+            f"counting remat's second forward, 8 N D) of 989 TFLOP/s bf16; "
+            f"peak {row['peak_gib']:.3f} GiB against the state's reckoned "
+            f"{reckoned / 2 ** 30:.2f} GiB; loss {row['loss']:.6f}, grad "
+            f"norm {row['grad_norm']:.6f} ({card})")
+    for r in rows:
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+              f"LM train step {r['step']}: loss {r['loss']}, grad norm "
+              f"{r['grad_norm']}")
+    check(rows[-1]["loss"] < rows[0]["loss"],
+          f"LM train: the loss did not fall ({rows[0]['loss']} -> "
+          f"{rows[-1]['loss']})")
+    prof = profile_call(lambda: step(state, batch))
+    if prof["top"]:
+        log(f"LM train traced warm step: wall {prof['wall_ms']:.2f} ms, "
+            f"device busy {prof['device_busy_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.3f}, {prof['launches']} kernels")
+        for r in prof["top"][:8]:
+            log(f"  {r['ms']:9.3f} ms  x{r['count']:<5d} {r['name']}")
+    else:
+        log("LM train traced warm step: the profiler recorded no device "
+            "time (not measured)")
+    warm = [r["ms"] for r in rows[1:]]
+    out = {"config": cfg.name, "layers": LM_TRAIN_LAYERS,
+           "of_layers": full.num_layers, "params": n_params,
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+           "state_reckoned_bytes": reckoned, "steps": rows,
+           "warm_ms_median": statistics.median(warm),
+           "trace": prof}
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_smoke_against_cpu(dev) -> dict:
+    """(b): every architecture's smoke config, one batch's loss and every
+    gradient leaf in f32 on the card against the CPU on the same weights
+    (drawn on the CPU, copied over), within the CPU tests' bars: bar x
+    max(the leaf's largest |g|, 1e-3 x the tree's largest |g|)."""
+    import copy
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import steps
+    out = {}
+    for arch in configs.all_arch_names():
+        cfg = configs.get_smoke(arch)
+        gen = torch.Generator().manual_seed(0)
+        cpu_model = steps.model_module(cfg).init_params(cfg, gen,
+                                                        device="cpu")
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        batch = SyntheticLM(cfg, batch=2, seq_len=cfg.num_prefix_embeds + 24,
+                            seed=1, device="cpu").batch_at(0)
+        loss_c, g_c = lm_grads(cfg, cpu_model, batch)
+        loss_d, g_d = lm_grads(cfg, card_model,
+                               {k: v.to(dev) for k, v in batch.items()})
+        bar = lm_bar(cfg, cfg)
+        big = max(float(g.abs().max()) for g in g_c.values())
+        worst = 0.0
+        for name, g in g_c.items():
+            scale = max(float(g.abs().max()), 1e-3 * big)
+            err = float((g_d[name].cpu() - g).abs().max())
+            check(err <= bar * scale,
+                  f"LM train smoke {arch}: gradient {name} on the card "
+                  f"{err} from the CPU's (scale {scale}, bar {bar})")
+            worst = max(worst, err / scale)
+        check(abs(loss_d - loss_c) <= bar * abs(loss_c),
+              f"LM train smoke {arch}: loss {loss_d} on the card, {loss_c} "
+              "on the CPU")
+        out[arch] = {"loss_rel": abs(loss_d - loss_c) / abs(loss_c),
+                     "worst_grad_rel": worst, "bar": bar}
+        del cpu_model, card_model, g_c, g_d
+    return out
+
+
+def lm_train_resume(dev, card: str) -> dict:
+    """(c): ``launch/train.py`` on the card, glm4-9b's smoke config: 6
+    steps uninterrupted (checkpoints at 3 and 6), then a fresh process
+    state resumed from the step-3 checkpoint to step 6 with ``--resume
+    auto``, under ``torch.use_deterministic_algorithms(True)``: the two
+    step-6 states' largest difference (held to 0: bitwise)."""
+    from repro_torch.launch import train
+    root = ROOT / "build" / "lm_train_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    whole, resumed = root / "whole", root / "resumed"
+    argv = ["--arch", LM_TRAIN_ARCH, "--scale", "smoke", "--steps", "6",
+            "--ckpt-every", "3", "--log-every", "1", "--device", str(dev)]
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        train.main(argv + ["--ckpt-dir", str(whole)])
+        resumed.mkdir(parents=True)
+        shutil.copytree(whole / "step_00000003", resumed / "step_00000003")
+        train.main(argv + ["--ckpt-dir", str(resumed), "--resume", "auto"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    diffs = {}
+    with np.load(whole / "step_00000006" / "arrays.npz") as a, \
+            np.load(resumed / "step_00000006" / "arrays.npz") as b:
+        check(sorted(a.files) == sorted(b.files), "LM train resume: keys")
+        for k in a.files:
+            x, y = a[k], b[k]
+            if x.dtype.kind == "V":      # bf16 moments: compare as bits
+                same = x.tobytes() == y.tobytes()
+                diffs[k] = 0.0 if same else float("inf")
+            else:
+                diffs[k] = float(np.abs(x.astype(np.float64)
+                                        - y.astype(np.float64)).max())
+    shutil.rmtree(root, ignore_errors=True)
+    params = {k: v for k, v in diffs.items() if k.startswith("params")}
+    worst = max(diffs.values())
+    log(f"LM train resume on the card ({LM_TRAIN_ARCH} smoke, 3 + 3 steps "
+        f"against 6, deterministic algorithms): largest parameter "
+        f"difference {max(params.values()):.3e}, largest state difference "
+        f"{worst:.3e} over {len(diffs)} leaves ({card})")
+    check(worst == 0.0, f"LM train resume: the resumed state differs from "
+                        f"the uninterrupted one by {worst}")
+    return {"largest_param_diff": max(params.values()),
+            "largest_state_diff": worst, "leaves": len(diffs)}
+
+
+def lm_train_phase(dev, card: str, scale: str = "full") -> dict:
+    """Phase 12: (a) glm4-9b full width at a cut depth (``scale="smoke"``
+    rehearses it on the smoke config), (b) the ten smoke configs'
+    gradients on the card against the CPU, (c) a resumed run bitwise an
+    uninterrupted one; (d) the phase's seconds."""
+    t0 = time.perf_counter()
+    out = {"full_width": lm_train_full_width(dev, card, scale),
+           "smoke_against_cpu": lm_train_smoke_against_cpu(dev)}
+    log("LM train smoke configs, card against CPU (loss and worst gradient "
+        "error / scale): " + json.dumps(out["smoke_against_cpu"]))
+    out["resume"] = lm_train_resume(dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"LM train phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if "--mesh-rank" in sys.argv:
         i = sys.argv.index
@@ -3385,6 +3620,13 @@ def main() -> int:
     lm = lm_phase(dev, card, bw)
     phase_done(11)
 
+    # phase 12: LM training on one device
+    torch.cuda.empty_cache()
+    log(f"LM train phase: {torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} "
+        "GiB still allocated by earlier phases")
+    lm_train = lm_train_phase(dev, card)
+    phase_done(12)
+
     replaces = {
         "wilson_hop": "src/repro/kernels/wilson_dslash/kernel.py:684",
         "cg_update": "src/repro/kernels/cg_fused/kernel.py:114",
@@ -3436,6 +3678,7 @@ def main() -> int:
     log("mesh: " + json.dumps(meshed))
     log("launch space: " + json.dumps(tiles))
     log("lm: " + json.dumps(lm))
+    log("lm train: " + json.dumps(lm_train))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels_line}))

@@ -1,1 +1,2 @@
-"""Durable checkpoints of solves (the JAX package's on-disk format)."""
+"""Durable checkpoints of solves and train states (the JAX package's
+on-disk format)."""

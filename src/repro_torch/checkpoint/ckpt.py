@@ -11,10 +11,13 @@ by ``§``), and the manifest holds the same keys (``step``, ``sha256``,
 restores in the other, so the port can resume a solve the JAX package
 checkpointed, and the reverse.
 
-A tree is a nest of dicts (keys sorted, as JAX flattens them) over
-leaves: torch tensors, numpy arrays or scalars on save; on restore, a
-``(shape, dtype)`` pair or anything with a ``shape``, which stands where
-the JAX package takes a ``ShapeDtypeStruct``.
+A tree is a nest of dicts (keys sorted, as JAX flattens them) and lists
+or tuples (keyed by index, as JAX keys a sequence) over leaves: torch
+tensors, numpy arrays or scalars on save; on restore, a ``(shape,
+dtype)`` pair or anything with a ``shape``, which stands where the JAX
+package takes a ``ShapeDtypeStruct``.  A bf16 leaf is stored as JAX
+stores one, as 2-byte void entries (``np.savez`` of an ml_dtypes array
+loads back as ``|V2``), and restores as bf16 bitwise.
 """
 
 from __future__ import annotations
@@ -37,11 +40,20 @@ def _warn(msg: str) -> None:
     print(f"[ckpt] {msg}", file=sys.stderr)
 
 
+def _is_tuple_pair(tree) -> bool:
+    """A ``(shape, dtype)`` restore spec, a leaf though it is a tuple."""
+    return (isinstance(tree, tuple) and len(tree) == 2
+            and isinstance(tree[0], (tuple, list, torch.Size)))
+
+
 def _leaves(tree, path=()):
     """(key, leaf) pairs in the JAX package's flattening order."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)) and not _is_tuple_pair(tree):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (str(i),))
     else:
         yield _SEP.join(path), tree
 
@@ -51,13 +63,32 @@ def _rebuild(tree, values: dict, path=()):
     if isinstance(tree, dict):
         return {k: _rebuild(tree[k], values, path + (str(k),))
                 for k in tree}
+    if isinstance(tree, (list, tuple)) and not _is_tuple_pair(tree):
+        return type(tree)(_rebuild(v, values, path + (str(i),))
+                          for i, v in enumerate(tree))
     return values[_SEP.join(path)]
 
 
-def _host(leaf) -> np.ndarray:
+def host_array(leaf) -> np.ndarray:
+    """A leaf as the numpy array a checkpoint stores: a bf16 tensor as
+    2-byte void entries, the form JAX's bf16 arrays take in a file."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def from_host(arr) -> torch.Tensor:
+    """A stored array (or a JAX leaf as numpy) as a tensor on the CPU: 2-byte
+    void entries and ml_dtypes bfloat16 (which numpy lacks) as bf16."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
+                                        and arr.dtype.itemsize == 2):
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
 
 
 def _process_count() -> int:
@@ -69,7 +100,7 @@ def _process_count() -> int:
 def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
     """Atomically write ``tree`` as step_<step>. Returns the final path."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    arrays = {key: _host(leaf) for key, leaf in _leaves(tree)}
+    arrays = {key: host_array(leaf) for key, leaf in _leaves(tree)}
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
         npz = os.path.join(tmp, "arrays.npz")
@@ -155,7 +186,7 @@ def _restore_step(ckpt_dir: str, step: int, target_tree, device,
                              f"{arr.shape} vs {shape}")
         if blocks and key in blocks:
             arr = arr[blocks[key]]
-        values[key] = torch.from_numpy(np.array(arr)).to(device)
+        values[key] = from_host(arr).to(device)
     return _rebuild(target_tree, values)
 
 

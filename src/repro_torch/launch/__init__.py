@@ -1,2 +1,2 @@
 """Command-line entry points of the port: the lattice solver's and the LM
-serving launcher's."""
+serving and training launchers'."""

@@ -1,11 +1,16 @@
-"""Weights carried across from the JAX package.
+"""Weights and train states carried across from and to the JAX package.
 
 :func:`params_from_jax` takes a JAX parameter pytree as numpy arrays
 (``jax.tree.map(np.asarray, params)``: nested dicts and lists) and returns
-the port's model holding the same weights.  JAX stacks each segment's (or
-the encoder's and decoder's) layers over a leading depth axis; the port
-keeps one module per layer, so each such leaf is unstacked here.  Nothing
-of JAX is imported: the tree is plain numpy.
+the port's model holding the same weights; :func:`params_to_jax` is its
+inverse.  JAX stacks each segment's (or the encoder's and decoder's)
+layers over a leading depth axis; the port keeps one module per layer, so
+each such leaf is unstacked on the way in and stacked on the way out.
+:func:`train_state_from_jax` / :func:`train_state_to_jax` do the same for
+a train state, ``{"params", "opt": {"step", "m", "v"}}``, whose moments
+mirror the parameters.  Nothing of JAX is imported: the trees are plain
+numpy (a bf16 leaf as ml_dtypes bfloat16 or as the 2-byte void entries a
+checkpoint stores).
 """
 
 from __future__ import annotations
@@ -13,18 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import from_host, host_array
 from repro_torch.core.lattice import resolve_device
-from repro_torch.models import steps as S
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
-
-
-def _tensor(a) -> torch.Tensor:
-    """numpy -> torch, bfloat16 (ml_dtypes, which numpy lacks) included."""
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a, copy=True))
 
 
 def jax_path(cfg: ModelConfig, name: str) -> tuple[tuple, int | None]:
@@ -40,33 +38,131 @@ def jax_path(cfg: ModelConfig, name: str) -> tuple[tuple, int | None]:
     return tuple(parts), None
 
 
+def _leaf(tree, cfg: ModelConfig, name: str) -> torch.Tensor:
+    """The port tensor of parameter ``name`` in JAX tree ``tree`` (numpy
+    or tensor leaves), on the CPU."""
+    path, idx = jax_path(cfg, name)
+    node = tree
+    for key in path:
+        node = node[key]
+    if isinstance(node, torch.Tensor):
+        return node if idx is None else node[idx]
+    return from_host(node if idx is None else np.asarray(node)[idx])
+
+
 def params_from_jax(cfg: ModelConfig, tree, *, device="cuda"):
     """The port's model (``steps.model_module(cfg)``'s form) holding the
-    weights of JAX parameter tree ``tree`` (numpy leaves), on ``device``.
-    Each parameter takes its leaf's dtype (JAX's ``init_params`` with
-    16-bit weights leaves its output projections in f32).  Raises if a
-    shape differs or a JAX leaf is left over."""
+    weights of JAX parameter tree ``tree`` (numpy or tensor leaves), on
+    ``device``.  Each parameter takes its leaf's dtype (JAX's
+    ``init_params`` with 16-bit weights leaves its output projections in
+    f32).  Raises if a shape differs or a JAX leaf is left over."""
     device = resolve_device(device)
-    dtype = _tensor(tree["embed"]["tok"][:1]).dtype
-    model = S.model_module(cfg).init_params(cfg, None, dtype=dtype,
-                                            device=device)
+    dtype = _leaf(tree, cfg, "embed.tok").dtype
+    module = ED if cfg.is_encdec else TF
+    model = module.init_params(cfg, None, dtype=dtype, device=device)
     used = set()
     for name, p in model.named_parameters():
-        path, idx = jax_path(cfg, name)
-        node = tree
-        for key in path:
-            node = node[key]
-        used.add(path)
-        t = _tensor(node if idx is None else np.asarray(node)[idx])
+        t = _leaf(tree, cfg, name)
+        used.add(jax_path(cfg, name)[0])
         if t.shape != p.shape:
-            raise ValueError(f"{name} <- {'/'.join(map(str, path))}: JAX "
-                             f"{tuple(t.shape)}, port {tuple(p.shape)}")
+            path = "/".join(map(str, jax_path(cfg, name)[0]))
+            raise ValueError(f"{name} <- {path}: JAX {tuple(t.shape)}, port "
+                             f"{tuple(p.shape)}")
         p.data = t.to(device)
     leaves = set(_paths(tree))
     if leaves != used:
         raise ValueError(f"JAX leaves without a port parameter: "
                          f"{sorted(leaves - used)}")
     return model
+
+
+def _jax_tree(cfg: ModelConfig, named, leaf):
+    """JAX's tree over the port's ``(name, tensor)`` pairs: each JAX leaf
+    is ``leaf(tensors, stacked)``, ``tensors`` the port tensors JAX stacks
+    there in depth order (``stacked``), or the one tensor of an unstacked
+    leaf in a list.  Segments are a list, as in JAX."""
+    parts: dict = {}
+    for name, t in named:
+        path, idx = jax_path(cfg, name)
+        parts.setdefault(path, {})[idx] = t
+    tree: dict = {}
+    for path, byidx in parts.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        stacked = None not in byidx
+        node[path[-1]] = leaf([byidx[i] for i in sorted(byidx)]
+                              if stacked else [byidx[None]], stacked)
+    return _lists(tree)
+
+
+def _lists(node):
+    """Dicts keyed 0..n-1 (the segment indices) as lists."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return [out[i] for i in range(len(out))]
+    return out
+
+
+def _host_leaf(ts, stacked):
+    arrs = [host_array(t) for t in ts]
+    return np.stack(arrs) if stacked else arrs[0]
+
+
+def _shape_leaf(ts, stacked):
+    shape = tuple(ts[0].shape)
+    return ((len(ts), *shape) if stacked else shape, ts[0].dtype)
+
+
+def params_to_jax(cfg: ModelConfig, named) -> dict:
+    """JAX's parameter tree (numpy leaves; bf16 as 2-byte void entries)
+    from the port's ``(name, tensor)`` pairs: ``model.named_parameters()``,
+    or a gradient or moment dict's items."""
+    return _jax_tree(cfg, named, _host_leaf)
+
+
+def _train_state_tree(cfg: ModelConfig, state: dict, leaf) -> dict:
+    opt = state["opt"]
+    return {"params": _jax_tree(cfg, state["params"].named_parameters(),
+                                leaf),
+            "opt": {"step": leaf([opt["step"]], False),
+                    "m": _jax_tree(cfg, opt["m"].items(), leaf),
+                    "v": _jax_tree(cfg, opt["v"].items(), leaf)}}
+
+
+def train_state_to_jax(cfg: ModelConfig, state: dict) -> dict:
+    """The port's train state (``steps.init_train_state``'s form) as JAX's
+    ``{"params", "opt": {"step", "m", "v"}}`` with numpy leaves: what
+    ``checkpoint.save_checkpoint`` writes in the JAX package's keys."""
+    return _train_state_tree(cfg, state, _host_leaf)
+
+
+def train_state_shapes(cfg: ModelConfig, state: dict) -> dict:
+    """:func:`train_state_to_jax`'s tree with ``(shape, dtype)`` leaves:
+    the target ``checkpoint.restore_checkpoint`` takes."""
+    return _train_state_tree(cfg, state, _shape_leaf)
+
+
+def train_state_from_jax(cfg: ModelConfig, tree: dict, *,
+                         device="cuda") -> dict:
+    """The port's train state from JAX's (numpy or tensor leaves, as JAX's
+    ``init_train_state`` or a restored checkpoint gives it), on
+    ``device``."""
+    device = resolve_device(device)
+    model = params_from_jax(cfg, tree["params"], device=device)
+    opt = tree["opt"]
+    step = opt["step"]
+    step = (step if isinstance(step, torch.Tensor)
+            else from_host(step)).to(device=device, dtype=torch.int32)
+    names = [name for name, _ in model.named_parameters()]
+    return {"params": model,
+            "opt": {"step": step,
+                    "m": {n: _leaf(opt["m"], cfg, n).to(device)
+                          for n in names},
+                    "v": {n: _leaf(opt["v"], cfg, n).to(device)
+                          for n in names}}}
 
 
 def _paths(tree, prefix=()):

@@ -5,7 +5,9 @@ pre-computed frame embeddings (B, Se, d).  The decoder is a causal
 transformer with per-layer cross attention over the encoder output;
 decoding carries a self-attention KV cache per layer plus the
 prefill-computed cross-attention K/V.  JAX scans the stacked layers; the
-port loops over ``encoder`` and ``decoder`` module lists.
+port loops over ``encoder`` and ``decoder`` module lists, and checkpoints
+each layer while training where JAX remats the scan's body
+(:func:`layers.remat`).
 """
 
 from __future__ import annotations
@@ -70,33 +72,48 @@ def encode(cfg: ModelConfig, model: L.Params, frames: torch.Tensor,
            compute_dtype=torch.float32) -> torch.Tensor:
     """frames: (B, Se, d) stub frontend embeddings -> encoder output."""
     h = frames.to(compute_dtype)
+    body = L.remat(cfg, model, _enc_layer)
     for lp in model.encoder:
-        a, _ = B.attn_apply(lp.attn, L.rms_norm(h, lp.ln1), cfg, pos0=0,
-                            window=0, cache=None, causal=False)
-        h = h + a
-        h = h + L.mlp_apply(lp.mlp, L.rms_norm(h, lp.ln2), cfg.mlp)
+        h = body(cfg, lp, h)
     return L.rms_norm(h, model.enc_norm)
+
+
+def _enc_layer(cfg, lp, h):
+    a, _ = B.attn_apply(lp.attn, L.rms_norm(h, lp.ln1), cfg, pos0=0,
+                        window=0, cache=None, causal=False)
+    h = h + a
+    return h + L.mlp_apply(lp.mlp, L.rms_norm(h, lp.ln2), cfg.mlp)
 
 
 # ---------------------------------------------------------------------------
 # Decoder
 # ---------------------------------------------------------------------------
 
+def _dec_layer(cfg, lp, h, *, pos0, enc_out, sc, cc, update_cache: bool):
+    a, nsc = B.attn_apply(lp.attn, L.rms_norm(h, lp.ln1), cfg, pos0=pos0,
+                          window=0, cache=sc, update_cache=update_cache)
+    h = h + a
+    x, ncc = B.cross_attn_apply(lp.xattn, L.rms_norm(h, lp.lnx), enc_out,
+                                cfg, cache=cc, update_cache=update_cache)
+    h = h + x
+    h = h + L.mlp_apply(lp.mlp, L.rms_norm(h, lp.ln2), cfg.mlp)
+    return h, nsc, ncc
+
+
 def _dec_stack(cfg, model, h, *, pos0, enc_out, self_caches, cross_caches,
                update_cache: bool):
+    if self_caches is None and not update_cache:  # the training forward
+        body = L.remat(cfg, model, _dec_layer)
+        for lp in model.decoder:
+            h, _, _ = body(cfg, lp, h, pos0=pos0, enc_out=enc_out, sc=None,
+                           cc=None, update_cache=False)
+        return h, None
     new_self, new_cross = [], []
     for i, lp in enumerate(model.decoder):
-        sc = self_caches[i] if self_caches is not None else None
         cc = cross_caches[i] if cross_caches is not None else None
-        a, nsc = B.attn_apply(lp.attn, L.rms_norm(h, lp.ln1), cfg,
-                              pos0=pos0, window=0, cache=sc,
-                              update_cache=update_cache)
-        h = h + a
-        x, ncc = B.cross_attn_apply(lp.xattn, L.rms_norm(h, lp.lnx),
-                                    enc_out, cfg, cache=cc,
-                                    update_cache=update_cache)
-        h = h + x
-        h = h + L.mlp_apply(lp.mlp, L.rms_norm(h, lp.ln2), cfg.mlp)
+        h, nsc, ncc = _dec_layer(cfg, lp, h, pos0=pos0, enc_out=enc_out,
+                                 sc=self_caches[i], cc=cc,
+                                 update_cache=update_cache)
         new_self.append(nsc)
         new_cross.append(ncc)
     return h, ((new_self, new_cross) if update_cache else None)

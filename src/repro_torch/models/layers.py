@@ -1,8 +1,8 @@
 """Shared neural-net layers: RMSNorm, RoPE, online-softmax attention
 (full / sliding-window / cross), MLP variants, embeddings (PyTorch).
 
-The forward half of the JAX package's ``models/layers.py``, function for
-function.  Conventions kept from it:
+The JAX package's ``models/layers.py``, function for function.
+Conventions kept from it:
 
   * activations keep the compute dtype; every contraction accumulates in
     f32 and is cast back (:func:`dot`).  Products of two 16-bit values are
@@ -12,17 +12,21 @@ function.  Conventions kept from it:
     over chunks where JAX scans): O(seq) memory for the scores.  It is the
     plain version a later Hopper attention kernel will be held against.
 
-The backward (JAX's ``_flash_bwd``) belongs to the training slice.
-Parameters live in ``nn.Module`` containers whose attribute names are the
-JAX parameter dict's keys (``wq``, ``wg``, ``tok`` ...); the functions
-take such a module where JAX takes the dict.
+The attention's backward is JAX's ``_flash_bwd`` (a ``custom_vjp``
+there) as a ``torch.autograd.Function``: it recomputes the scores chunk
+by chunk from the saved output and logsumexp.  Parameters live in
+``nn.Module`` containers whose attribute names are the JAX parameter
+dict's keys (``wq``, ``wg``, ``tok`` ...); the functions take such a
+module where JAX takes the dict.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 F32 = torch.float32
@@ -40,7 +44,8 @@ class Params(nn.Module):
 
 
 def _empty(shape, dtype, device) -> nn.Parameter:
-    # frozen: serving never takes gradients
+    # frozen: serving takes no gradients, and training takes them with
+    # respect to a compute copy (steps.cast_compute), never these tensors
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -72,6 +77,19 @@ def full(shape, value: float, device) -> nn.Parameter:
     with torch.no_grad():
         t.fill_(value)
     return t
+
+
+def remat(cfg, model: Params, fn):
+    """``fn`` under ``torch.utils.checkpoint`` (its activations recomputed
+    in the backward, as JAX wraps a segment's body in
+    ``jax.checkpoint(..., nothing_saveable)``) when ``cfg.remat`` and
+    gradients are being taken of ``model``'s parameters; ``fn`` itself
+    otherwise, so serving, whose parameters are frozen, never recomputes."""
+    if cfg.remat and torch.is_grad_enabled() and \
+            model.final_norm.requires_grad:
+        return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                                 use_reentrant=False)
+    return fn
 
 
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -111,7 +129,8 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Attention: online softmax over KV chunks (forward only)
+# Attention: online softmax over KV chunks, with a backward that saves only
+# (q, k, v, out, logsumexp) and recomputes the scores chunk by chunk
 # ---------------------------------------------------------------------------
 
 def _mask_for(pj, q_pos, causal: bool, window: int):
@@ -124,17 +143,19 @@ def _mask_for(pj, q_pos, causal: bool, window: int):
 
 
 def _flash_fwd_inner(qg, k, v, q_pos, kv_pos, causal, window, chunk):
-    """Online softmax over ``chunk``-sized KV blocks; returns the f32
-    output (b, hkv, g, sq, hd) and the logsumexp (b, hkv, g, sq)."""
+    """Online softmax over ``chunk``-sized KV blocks; returns the output
+    (b, hkv, g, sq, hd) and the logsumexp (b, hkv, g, sq), both in f32
+    (float64 for float64 inputs)."""
     b, sq, hkv, g, hd = qg.shape
+    acc_t = torch.promote_types(qg.dtype, F32)
     scale = 1.0 / math.sqrt(hd)
-    q32 = qg.float()
-    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=F32, device=qg.device)
-    denom = torch.zeros((b, hkv, g, sq), dtype=F32, device=qg.device)
-    acc = torch.zeros((b, hkv, g, sq, hd), dtype=F32, device=qg.device)
+    q32 = qg.to(acc_t)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=acc_t, device=qg.device)
+    denom = torch.zeros((b, hkv, g, sq), dtype=acc_t, device=qg.device)
+    acc = torch.zeros((b, hkv, g, sq, hd), dtype=acc_t, device=qg.device)
     for j in range(0, k.shape[1], chunk):
         kj, vj, pj = k[:, j:j + chunk], v[:, j:j + chunk], kv_pos[j:j + chunk]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", q32, kj.float()) * scale
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q32, kj.to(acc_t)) * scale
         valid = _mask_for(pj, q_pos, causal, window)[None, None, None]
         s = torch.where(valid, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -142,13 +163,63 @@ def _flash_fwd_inner(qg, k, v, q_pos, kv_pos, causal, window, chunk):
         p = torch.exp(s - m_new[..., None])
         p = torch.where(valid, p, 0.0)
         denom = denom * corr + p.sum(dim=-1)
-        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(k.dtype).float(),
-                          vj.float())
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(k.dtype).to(acc_t),
+                          vj.to(acc_t))
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp(denom, min=1e-30)[..., None]
     lse = m + torch.log(torch.clamp(denom, min=1e-30))
     return out, lse
+
+
+def _flash_bwd(qg, k, v, q_pos, kv_pos, out, lse, dout, causal, window,
+               chunk):
+    """JAX's ``_flash_bwd`` on one device: the probabilities of each KV
+    chunk recomputed from the saved logsumexp, dq summed over the chunks,
+    dk and dv written chunk by chunk.  Returns (dq, dk, dv) in the input
+    dtypes."""
+    acc_t = out.dtype
+    scale = 1.0 / math.sqrt(qg.shape[-1])
+    q32 = qg.to(acc_t)
+    dout = dout.to(acc_t)
+    delta = torch.sum(dout * out, dim=-1)               # (b, hkv, g, sq)
+    dq = torch.zeros(qg.shape, dtype=acc_t, device=qg.device)
+    dk, dv = [], []
+    for j in range(0, k.shape[1], chunk):
+        kj = k[:, j:j + chunk].to(acc_t)
+        vj = v[:, j:j + chunk].to(acc_t)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q32, kj) * scale
+        valid = _mask_for(kv_pos[j:j + chunk], q_pos, causal,
+                          window)[None, None, None]
+        p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+        dv.append(torch.einsum("bhgqk,bhgqd->bkhd", p, dout))
+        dp = torch.einsum("bhgqd,bkhd->bhgqk", dout, vj)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, kj)
+        dk.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, q32))
+    return (dq.to(qg.dtype), torch.cat(dk, dim=1).to(k.dtype),
+            torch.cat(dv, dim=1).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The chunked attention with JAX's custom VJP: the forward is
+    :func:`_flash_fwd_inner`, the backward :func:`_flash_bwd`.  Autograd
+    through the forward loop would keep every chunk's scores alive."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, q_pos, kv_pos, causal, window, chunk):
+        out, lse = _flash_fwd_inner(qg, k, v, q_pos, kv_pos, causal, window,
+                                    chunk)
+        ctx.save_for_backward(qg, k, v, q_pos, kv_pos, out, lse)
+        ctx.args = (causal, window, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qg, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(qg, k, v, q_pos, kv_pos, out, lse, dout,
+                                *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -176,7 +247,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
-    out, _ = _flash_fwd_inner(qg, k, v, q_pos, kv_pos, causal, window, chunk)
+    out = _Flash.apply(qg, k, v, q_pos, kv_pos, causal, window, chunk)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd)
     return out.to(q.dtype)
 

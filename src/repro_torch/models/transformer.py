@@ -7,7 +7,10 @@ maximal runs of a repeating block pattern, plus a tail).  JAX stacks each
 segment's parameters over depth and runs it as one ``lax.scan``
 (``scan_ctl.py::maybe_scan``); the port keeps one module per layer, in
 the same order (segment by segment, pattern position fastest), and runs a
-Python loop over them.  ``scan_ctl.py`` has no counterpart here.
+Python loop over them.  ``scan_ctl.py`` has no counterpart here.  Where
+JAX remats a training segment's body (``cfg.remat``, no caches), the
+port checkpoints each pattern period, one scan step's layers
+(:func:`layers.remat`).
 
 API (plain functions; a model is the ``nn.Module`` that holds the
 parameters, where JAX passes a pytree):
@@ -164,13 +167,38 @@ def init_caches(cfg: ModelConfig, batch: int, length: int,
             for kind, *_ in layer_slots(cfg)]
 
 
+def _periods(cfg: ModelConfig, model: L.Params) -> list[list[L.Params]]:
+    """The layers grouped as JAX's scan steps: one repeat of a segment's
+    pattern (one layer of a uniform stack, ``len(cfg.block_pattern)`` of
+    the hybrid's, fewer in its tail segment)."""
+    groups: dict = {}
+    for (_, si, c, _), bp in zip(layer_slots(cfg), model.layers):
+        groups.setdefault((si, c), []).append(bp)
+    return list(groups.values())
+
+
+def _period(cfg: ModelConfig, blocks: list, h, aux):
+    """One scan step of the cache-free forward (positions from 0): the
+    blocks of one pattern period, their load-balance losses added to
+    ``aux``."""
+    for bp in blocks:
+        h, _, a = _block_apply(bp, h, cfg, pos0=0, cache=None,
+                               update_cache=False)
+        aux = aux + a
+    return h, aux
+
+
 def _run_layers(cfg: ModelConfig, model: L.Params, h, *, pos0, caches,
                 update_cache: bool):
-    new_caches = []
     aux_total = torch.zeros((), dtype=F32, device=h.device)
+    if caches is None:  # the cache-free forward: a period is the remat unit
+        body = L.remat(cfg, model, _period)
+        for blocks in _periods(cfg, model):
+            h, aux_total = body(cfg, blocks, h, aux_total)
+        return h, None, aux_total
+    new_caches = []
     for i, bp in enumerate(model.layers):
-        c = caches[i] if caches is not None else None
-        h, nc, a = _block_apply(bp, h, cfg, pos0=pos0, cache=c,
+        h, nc, a = _block_apply(bp, h, cfg, pos0=pos0, cache=caches[i],
                                 update_cache=update_cache)
         new_caches.append(nc)
         aux_total = aux_total + a
