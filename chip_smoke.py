@@ -240,7 +240,20 @@ training path (``repro_torch.models.steps.make_train_step``,
    CPU on the same weights, within the CPU tests' bars; (c)
    ``launch/train.py`` on glm4-9b's smoke config, 6 steps against 3
    resumed from a checkpoint (``--resume auto``) for 3 more, under
-   deterministic algorithms: bitwise; (d) the phase's seconds.
+   deterministic algorithms: bitwise; (d) the phase's seconds;
+13. data-parallel LM training on a 2x2 mesh (``make_train_step(...,
+   mesh=)``; no hand-written kernel): glm4-9b at full width cut to 1
+   layer, bf16 compute, phase 12's batch and learning rate, 3 steps,
+   first on one device (the reference), then in four children of
+   ``chip_smoke.py --lm-mesh-rank R --lm-mesh-dir D`` (NCCL with a card
+   a rank, else gloo on card 0): the state sharded as JAX's
+   ``state_specs`` say, the rows over ``data``, bf16 gradients summed
+   over ``data``; each step's global loss and grad norm within 2 bf16
+   ulps of the one-device step's, every rank's step-1 master blocks
+   within the gradient bar carried through Adam's first update, the loss
+   falling; glm4-9b's smoke config trained 2 steps on the mesh, its mesh
+   checkpoint restored on one device bitwise every rank's blocks; step ms, tokens/s, gradient bytes reduced, rank 0's
+   seconds in collectives and each rank's peak beside the reckoning.
    Each phase prints its seconds; the checkpoint, journal and mesh
    directories live under ``build/`` and are removed.
 
@@ -3374,11 +3387,432 @@ def lm_train_phase(dev, card: str, scale: str = "full") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: data-parallel LM training on a 2x2 mesh
+# ---------------------------------------------------------------------------
+
+# glm4-9b at full width, cut to LM_MESH_LAYERS layer(s) so that four ranks
+# fit one card (the reckoning: ``lm_mesh_reckoning``, PERF.md section 6),
+# bf16 compute, phase 12's global batch (2 x 1024 tokens, one row a data
+# shard), its learning rate, LM_MESH_STEPS steps on one repeated batch.
+# The mesh checkpoint is held on glm4-9b's smoke config
+# (LM_MESH_CKPT_STEPS steps, batch 4 x 32): the full-width state's
+# (17.35 GB) took 80.4 s to write and 50.6 s to restore on an H100
+# (PERF.md section 6), past the phase's budget
+LM_MESH_LAYERS, LM_MESH_STEPS, LM_MESH_CKPT_STEPS = 1, 3, 2
+LM_MESH_SHAPE, LM_MESH_AXES = (2, 2), ("data", "model")
+LM_MESH_WORLD = 4
+LM_MESH_PG_TIMEOUT_S = 300   # every collective of the children
+LM_MESH_DEADLINE_S = 600     # the children's join deadline
+# the bf16 bar: 2 bf16 ulps (2^-7) of the one-device value, relative, for
+# the loss and the gradient norm (tests/test_torch_lm_parallel.py holds the
+# reduced gradients within 2 ulps of each leaf's largest |g|)
+LM_MESH_BF16_BAR = 2.0 ** -7
+ADAM_B1, ADAM_EPS = 0.9, 1e-8
+
+
+def lm_mesh_config(scale: str):
+    from repro_torch import configs
+    full = (configs.get if scale == "full" else configs.get_smoke)(
+        LM_TRAIN_ARCH)
+    return full, dataclasses.replace(full, num_layers=LM_MESH_LAYERS)
+
+
+def lm_mesh_batch(cfg, dev):
+    from repro_torch.data import SyntheticLM
+    return SyntheticLM(cfg, batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                       seed=0, device=str(dev)).batch_at(0)
+
+
+def lm_mesh_ckpt_config():
+    from repro_torch import configs
+    return configs.get_smoke(LM_TRAIN_ARCH)
+
+
+def lm_mesh_ckpt_batch(cfg, dev, i: int):
+    from repro_torch.data import SyntheticLM
+    return SyntheticLM(cfg, batch=4, seq_len=32, seed=0,
+                       device=str(dev)).batch_at(i)
+
+
+def lm_mesh_reckoning(n_params: int, out_rows: int, d_model: int) -> dict:
+    """Bytes a rank holds at its peak, reckoned from the shapes: its
+    block of the f32 master, m and v (12 B a parameter over 4 ranks), the
+    gathered bf16 compute copy and its bf16 gradients (2 B a parameter
+    each), the logits GEMM's f32 copy of ``embed.out`` and the f32
+    gradient of it (4 B each an entry), and the f32 logits of its 1024
+    tokens with their log-softmax and gradient (3 x 4 B each)."""
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ // LM_MESH_SHAPE[0]
+    parts = {"state_block": 12 * n_params // LM_MESH_WORLD,
+             "compute_copy": 2 * n_params, "grads": 2 * n_params,
+             "out_f32_copy_and_grad": 2 * 4 * out_rows * d_model,
+             "logits": 3 * 4 * tokens * out_rows}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def lm_mesh_child(rank: int, d: Path) -> int:
+    """One rank of phase 13 (``chip_smoke.py --lm-mesh-rank R
+    --lm-mesh-dir D``): the train state on the 2x2 mesh drawn from the
+    one-device run's seed, LM_MESH_STEPS steps of ``make_train_step(...,
+    mesh=)`` on the one-device run's batch, after step 1 its master blocks
+    against the one-device master's (``D/ref/<name>.npy``); then glm4-9b's
+    smoke config trained LM_MESH_CKPT_STEPS steps on the same mesh, a
+    mesh checkpoint of it and the sha256 of its blocks; writes
+    ``rank<R>.json``."""
+    import datetime
+    import hashlib
+    import torch.distributed as tdist
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import distributed as dist
+    from repro_torch.models import convert, steps
+    from repro_torch.optim import AdamWConfig
+    cfg_json = json.loads((d / "mesh.json").read_text())
+    transport = cfg_json["transport"]
+    cuda = cfg_json["device_type"] == "cuda"
+    dev = torch.device("cuda", rank if transport == "nccl" else 0) \
+        if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    timeout = datetime.timedelta(seconds=LM_MESH_PG_TIMEOUT_S)
+    tdist.init_process_group(transport, init_method=f"file://{d}/rendezvous",
+                             rank=rank, world_size=LM_MESH_WORLD,
+                             timeout=timeout)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    try:
+        mesh = dist.Mesh(LM_MESH_SHAPE, LM_MESH_AXES, device=dev,
+                         transport=transport, timeout=timeout)
+        _, cfg = lm_mesh_config(cfg_json["scale"])
+        opt = AdamWConfig(lr=LM_TRAIN_LR)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        state = steps.init_train_state(cfg, gen, opt, device=dev, mesh=mesh)
+        sync()
+        out = {"coords": mesh.coords, "init_s": time.perf_counter() - t0}
+        if cuda:
+            out["init_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.empty_cache()   # the whole draw, for the other ranks
+            torch.cuda.reset_peak_memory_stats(dev)
+        batch = lm_mesh_batch(cfg, dev)
+        specs = steps.state_specs(cfg, state)["params"]
+        step = steps.make_train_step(cfg, opt, mesh=mesh, compute_dtype=BF16)
+        rows = []
+        for i in range(LM_MESH_STEPS):
+            before = (dict(mesh.counts), dict(mesh.seconds),
+                      dict(mesh.nbytes))
+            mesh.barrier()
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            rows.append({
+                "step": i, "ms": ms, "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "counts": {k: v - before[0].get(k, 0)
+                           for k, v in mesh.counts.items()},
+                "seconds": {k: v - before[1].get(k, 0.0)
+                            for k, v in mesh.seconds.items()},
+                "nbytes": {k: v - before[2].get(k, 0)
+                           for k, v in mesh.nbytes.items()},
+                "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                               if cuda else None)})
+            if i == 0:
+                out["after_step1"] = lm_mesh_against_reference(
+                    mesh, state, specs, d / "ref")
+        out["steps"] = rows
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                             if cuda else None)
+        out["totals"] = {"counts": dict(mesh.counts),
+                         "seconds": dict(mesh.seconds),
+                         "nbytes": dict(mesh.nbytes)}
+        del state, step, batch, m
+        if cuda:
+            torch.cuda.empty_cache()
+        # a mesh checkpoint (whole arrays, rank 0 writes) of the smoke
+        # config trained on the same mesh
+        cfg = lm_mesh_ckpt_config()
+        gen.manual_seed(0)
+        state = steps.init_train_state(cfg, gen, opt, device=dev, mesh=mesh)
+        step = steps.make_train_step(cfg, opt, mesh=mesh, compute_dtype=BF16)
+        for i in range(LM_MESH_CKPT_STEPS):
+            state, _ = step(state, lm_mesh_ckpt_batch(cfg, dev, i))
+        t0 = time.perf_counter()
+        jspecs = convert.train_state_specs_to_jax(
+            cfg, steps.state_specs(cfg, state))
+        ckpt.save_checkpoint(str(d / "ck"), LM_MESH_CKPT_STEPS,
+                             convert.train_state_tree(cfg, state), mesh=mesh,
+                             specs=jspecs)
+        out["ckpt_s"] = time.perf_counter() - t0
+        out["sha"] = {}
+        for part, tree in (("params", dict(state["params"]
+                                           .named_parameters())),
+                           ("m", state["opt"]["m"]), ("v", state["opt"]["v"])):
+            for name, t in tree.items():
+                h = hashlib.sha256(t.detach().cpu().contiguous().view(
+                    torch.uint8).numpy())
+                out["sha"][f"{part}/{name}"] = h.hexdigest()
+        (d / f"rank{rank}.json").write_text(json.dumps(out))
+        del state
+        mesh.barrier()
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def lm_mesh_against_reference(mesh, state, specs, ref: Path) -> dict:
+    """After step 1: this rank's master blocks against the same blocks of
+    the one-device master (read from ``ref/<name>.npy``).  Both started
+    from the same bits, so a difference is the update's: Adam's first step
+    moves an entry by lr (g / (|g| + eps) + wd p), and a gradient entry
+    within delta of the one-device one moves it at most lr eps delta /
+    (|g| - delta + eps)^2 (at most 2 lr) further, delta the bf16 bar
+    (LM_MESH_BF16_BAR) x max(the leaf's largest |g|, 1e-3 x the tree's);
+    the f32 rounding of the update and of p adds lr 1e-5 + 2^-22 |p|.  g is
+    this rank's block of the reduced, clipped gradient, m / (1 - b1)."""
+    from repro_torch.parallel import sharding as shd
+    names = list(specs)
+    grads = {n: state["opt"]["m"][n].float() / (1 - ADAM_B1) for n in names}
+    local = torch.tensor([float(grads[n].abs().max()) for n in names],
+                         dtype=torch.float32, device=mesh.device)
+    gmax = torch.stack(mesh.all_gather(local, kind="check_gather")).amax(0)
+    gbig = float(gmax.max())
+    master = dict(state["params"].named_parameters())
+    worst, moved, entries = 0.0, 0.0, 0
+    lr = LM_TRAIN_LR
+    for i, n in enumerate(names):
+        arr = np.load(ref / f"{n}.npy", mmap_mode="r")
+        sl = shd.block_slices(mesh, specs[n], arr.shape)
+        want = torch.from_numpy(np.ascontiguousarray(arr[sl])).to(
+            mesh.device)
+        g = grads[n]
+        delta = LM_MESH_BF16_BAR * max(float(gmax[i]), 1e-3 * gbig)
+        room = torch.clamp(ADAM_EPS * delta / (torch.clamp(
+            g.abs() - delta, min=0.0) + ADAM_EPS) ** 2, max=2.0)
+        allowed = lr * (room + 1e-5) + 2.0 ** -22 * want.abs()
+        err = (master[n].detach() - want).abs()
+        worst = max(worst, float((err / allowed).max()))
+        moved = max(moved, float(err.max()) / lr)
+        entries += err.numel()
+        del arr, want, g, room, allowed, err
+    return {"worst_over_allowed": worst, "largest_diff_over_lr": moved,
+            "entries": entries}
+
+
+def lm_mesh_phase(dev, card: str, scale: str = "full") -> dict:
+    """Phase 13: the one-device reference (LM_MESH_STEPS steps of
+    ``make_train_step`` on the whole batch, its step-1 master written
+    under build/), then four ranks on a 2x2 mesh (NCCL with a card a rank,
+    else gloo on card 0), each step's global loss and grad norm within
+    the bf16 bar of the one-device step's, the step-1 master blocks within
+    the carried bar, the loss falling, and the mesh's checkpoint of
+    glm4-9b's smoke config restored onto one device bitwise every rank's
+    blocks.  ``scale="smoke"`` with ``dev`` the CPU rehearses it."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch import kernels
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import convert, steps
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import sharding as shd
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    launches_before = kernels.counts()
+    full, cfg = lm_mesh_config(scale)
+    opt = AdamWConfig(lr=LM_TRAIN_LR)
+    n_cards = torch.cuda.device_count() if cuda else 0
+    transport = "nccl" if n_cards >= LM_MESH_WORLD else "gloo"
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_",
+                                dir=ROOT / "build"))
+    try:
+        # the one-device reference
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        state = steps.init_train_state(cfg, gen, opt, device=dev)
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        reck = lm_mesh_reckoning(n_params,
+                                 state["params"].embed.out.shape[0],
+                                 cfg.d_model)
+        log(f"LM mesh train: {cfg.name} at full width, {LM_MESH_LAYERS} of "
+            f"{full.num_layers} layers, {n_params / 1e9:.4f} B parameters, "
+            f"on a {LM_MESH_SHAPE} {LM_MESH_AXES} mesh of {LM_MESH_WORLD} "
+            f"ranks, transport {transport} ({n_cards} cards); batch "
+            f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, bf16 compute, lr "
+            f"{LM_TRAIN_LR}; a rank's peak reckoned "
+            f"{reck['total'] / 2 ** 30:.2f} GiB ("
+            + ", ".join(f"{k} {v / 2 ** 30:.2f}" for k, v in reck.items()
+                        if k != "total") + f" GiB) ({card})")
+        log("LM mesh train: this path launches none of K1-K4 (the LM "
+            "layers are plain torch)")
+        batch = lm_mesh_batch(cfg, dev)
+        step = steps.make_train_step(cfg, opt, compute_dtype=BF16)
+        one = []
+        for i in range(LM_MESH_STEPS):
+            if cuda:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            one.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"])})
+            if i == 0:
+                (tmp / "ref").mkdir()
+                for name, p in state["params"].named_parameters():
+                    np.save(tmp / "ref" / f"{name}.npy",
+                            p.detach().cpu().numpy())
+        log("LM mesh train one-device reference: " + json.dumps(one))
+        del state, batch, step, m
+        if cuda:
+            torch.cuda.empty_cache()
+        # the ranks
+        (tmp / "mesh.json").write_text(json.dumps(
+            {"transport": transport, "device_type": dev.type,
+             "scale": scale}))
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        res = run_children(
+            [[sys.executable, str(ROOT / "chip_smoke.py"), "--lm-mesh-rank",
+              str(r), "--lm-mesh-dir", str(tmp)]
+             for r in range(LM_MESH_WORLD)], env, LM_MESH_DEADLINE_S)
+        children_s = time.perf_counter() - t0
+        for r, (rc, text) in enumerate(res):
+            check(rc == 0, f"LM mesh rank {r} failed (rc {rc}):\n"
+                           f"{text[-6000:]}")
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(LM_MESH_WORLD)]
+        # every rank's metrics the same, and the one-device step's
+        for r, rk in enumerate(ranks):
+            for i, row in enumerate(rk["steps"]):
+                for key in ("loss", "grad_norm"):
+                    w = one[i][key]
+                    check(row[key] == ranks[0]["steps"][i][key],
+                          f"LM mesh step {i} rank {r}: {key} {row[key]} "
+                          f"against rank 0's {ranks[0]['steps'][i][key]}")
+                    check(abs(row[key] - w) <= LM_MESH_BF16_BAR * abs(w),
+                          f"LM mesh step {i}: {key} {row[key]} against the "
+                          f"one-device {w} (bar {LM_MESH_BF16_BAR})")
+            ok = rk["after_step1"]
+            check(ok["worst_over_allowed"] <= 1.0,
+                  f"LM mesh rank {r}: step-1 master blocks off the "
+                  f"one-device master: {ok}")
+        losses = [row["loss"] for row in ranks[0]["steps"]]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"LM mesh train: the loss did not fall: {losses}")
+        # the mesh checkpoint onto one device, bitwise every rank's blocks
+        t0 = time.perf_counter()
+        ck_cfg = lm_mesh_ckpt_config()
+        skel = steps.init_train_state(ck_cfg, None, opt, device="meta")
+        tree = ckpt.restore_checkpoint(
+            str(tmp / "ck"), LM_MESH_CKPT_STEPS,
+            convert.train_state_shapes(ck_cfg, skel), device=dev)
+        restored = convert.train_state_from_jax(ck_cfg, tree, device=dev)
+        del tree
+        restore_s = time.perf_counter() - t0
+        check(int(restored["opt"]["step"]) == LM_MESH_CKPT_STEPS,
+              "LM mesh checkpoint: step")
+        specs = steps.state_specs(ck_cfg, restored)["params"]
+        shape = MeshShape(dict(zip(LM_MESH_AXES, LM_MESH_SHAPE)),
+                          LM_MESH_AXES)
+        whole = {f"params/{n}": p.detach()
+                 for n, p in restored["params"].named_parameters()}
+        for part in ("m", "v"):
+            whole.update({f"{part}/{n}": t
+                          for n, t in restored["opt"][part].items()})
+
+        def digest(job):
+            key, coords = job
+            t = whole[key]
+            blk = t[shd.block_slices(shape, specs[key.split("/", 1)[1]],
+                                     t.shape, coords)]
+            return hashlib.sha256(blk.cpu().contiguous().view(
+                torch.uint8).numpy()).hexdigest()
+
+        t0 = time.perf_counter()
+        jobs = [(key, rk["coords"]) for rk in ranks for key in whole]
+        with ThreadPoolExecutor(8) as pool:
+            got = list(pool.map(digest, jobs))
+        hash_s = time.perf_counter() - t0
+        want = [rk["sha"][key] for rk in ranks for key in whole]
+        bad = [j[0] for j, a, b in zip(jobs, got, want) if a != b]
+        check(not bad and len(want) == len(got),
+              f"LM mesh checkpoint restored on one device differs from the "
+              f"ranks' blocks at {bad[:8]}")
+        del restored, whole
+        if cuda:
+            torch.cuda.empty_cache()
+        check(kernels.counts() == launches_before,
+              "LM mesh train launched a kernel of K1-K4")
+        tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+        r0 = ranks[0]["steps"]
+        for i, row in enumerate(r0):
+            grad = {k.split("/", 1)[1]: v for k, v in row["nbytes"].items()
+                    if k.startswith("grad_all_reduce/")}
+            log(f"LM mesh step {i}{' (warm)' if i else ' (first)'}: rank 0 "
+                f"{row['ms']:.2f} ms (ranks "
+                + ", ".join(f"{rk['steps'][i]['ms']:.2f}" for rk in ranks)
+                + f"), {tokens / (row['ms'] * 1e-3):.1f} tokens/s; loss "
+                f"{row['loss']:.6f} (one device {one[i]['loss']:.6f}), grad "
+                f"norm {row['grad_norm']:.6f} ({one[i]['grad_norm']:.6f}); "
+                f"gradient bytes all-reduced by rank 0 {grad}, gathered "
+                f"{row['nbytes'].get('leaf_gather/bfloat16', 0)} bf16 bytes; "
+                "rank 0's seconds in collectives "
+                + json.dumps({k: round(v, 4) for k, v in
+                              row["seconds"].items()})
+                + f"; rank 0's peak {(row['peak_bytes'] or 0) / 2 ** 30:.3f} "
+                f"GiB ({card})")
+        gib = [((rk["peak_bytes"] or 0) / 2 ** 30,
+                (rk.get("init_peak_bytes") or 0) / 2 ** 30) for rk in ranks]
+        log("LM mesh ranks' peaks: "
+            + ", ".join(f"rank {r} {p:.3f} GiB (init {i:.3f})"
+                        for r, (p, i) in enumerate(gib))
+            + f" against the reckoned {reck['total'] / 2 ** 30:.2f} GiB ("
+            f"{card})")
+        log(f"LM mesh step-1 master blocks against the one-device master: "
+            + json.dumps([rk["after_step1"] for rk in ranks]))
+        seconds = time.perf_counter() - t_phase
+        log(f"LM mesh checkpoint ({ck_cfg.name}, {LM_MESH_CKPT_STEPS} steps "
+            f"on the mesh): written in {ranks[0]['ckpt_s']:.2f} s (gathers "
+            f"and rank 0's write), restored on one device in "
+            f"{restore_s:.2f} s, {len(jobs)} blocks bitwise ({hash_s:.2f} s "
+            f"hashing); ranks' state set-up "
+            + ", ".join(f"{rk['init_s']:.1f}" for rk in ranks)
+            + f" s; children {children_s:.1f} s; phase 13 {seconds:.1f} s "
+            f"({card})")
+        warm = [row["ms"] for row in r0[1:]]
+        return {"config": cfg.name, "layers": LM_MESH_LAYERS,
+                "params": n_params, "transport": transport,
+                "reckoned_rank_bytes": reck, "one_device": one,
+                "ranks": [{k: rk[k] for k in ("coords", "steps",
+                                              "after_step1", "ckpt_s",
+                                              "peak_bytes", "init_s",
+                                              "totals")}
+                          for rk in ranks],
+                "warm_ms_median": statistics.median(warm) if warm else None,
+                "restore_s": restore_s, "hash_s": hash_s,
+                "children_s": children_s, "seconds": seconds}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if "--mesh-rank" in sys.argv:
         i = sys.argv.index
         return mesh_child(int(sys.argv[i("--mesh-rank") + 1]),
                           Path(sys.argv[i("--mesh-dir") + 1]))
+    if "--lm-mesh-rank" in sys.argv:
+        i = sys.argv.index
+        return lm_mesh_child(int(sys.argv[i("--lm-mesh-rank") + 1]),
+                             Path(sys.argv[i("--lm-mesh-dir") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
@@ -3627,6 +4061,14 @@ def main() -> int:
     lm_train = lm_train_phase(dev, card)
     phase_done(12)
 
+    # phase 13: data-parallel LM training on a 2x2 mesh
+    torch.cuda.empty_cache()
+    log(f"LM mesh train phase: "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} GiB still "
+        "allocated by earlier phases")
+    lm_mesh = lm_mesh_phase(dev, card)
+    phase_done(13)
+
     replaces = {
         "wilson_hop": "src/repro/kernels/wilson_dslash/kernel.py:684",
         "cg_update": "src/repro/kernels/cg_fused/kernel.py:114",
@@ -3679,6 +4121,7 @@ def main() -> int:
     log("launch space: " + json.dumps(tiles))
     log("lm: " + json.dumps(lm))
     log("lm train: " + json.dumps(lm_train))
+    log("lm mesh train: " + json.dumps(lm_mesh))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels_line}))

@@ -9,5 +9,8 @@ LM scaffold's serving half: ``models`` (configuration, layers,
 attention blocks with KV caches, MoE, RG-LRU and RWKV-6, the
 decoder-only and encoder-decoder models, the prefill / decode steps and
 ``convert.params_from_jax``) and ``configs`` (the ten architectures'
-hyperparameters), served by ``launch.serve``.
+hyperparameters), served by ``launch.serve``; and its training half:
+``optim`` (AdamW, the schedule), the train steps of ``models.steps`` on
+one device or data-parallel on a mesh, ``parallel`` (the JAX package's
+sharding rules and the blocks they place), trained by ``launch.train``.
 """

@@ -18,6 +18,15 @@ dtype)`` pair or anything with a ``shape``, which stands where the JAX
 package takes a ``ShapeDtypeStruct``.  A bf16 leaf is stored as JAX
 stores one, as 2-byte void entries (``np.savez`` of an ml_dtypes array
 loads back as ``|V2``), and restores as bf16 bitwise.
+
+Elastic (the JAX launcher's restore re-shards on load): a state sharded
+over a mesh is saved as whole arrays, so it restores onto any mesh or
+onto one device.  ``save_checkpoint(..., mesh=, specs=)`` gathers each
+leaf from its blocks (every rank takes part), rank 0 writes, and every
+rank waits at a barrier; ``restore_checkpoint(..., mesh=, specs=)``
+reads the whole leaves and keeps this rank's blocks.  ``specs`` is a
+tree of the data tree's structure whose leaves are spec tuples
+(``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ import tempfile
 
 import numpy as np
 import torch
+
+from repro_torch.parallel import sharding as shd
 
 _SEP = "§"
 
@@ -56,6 +67,22 @@ def _leaves(tree, path=()):
             yield from _leaves(v, path + (str(i),))
     else:
         yield _SEP.join(path), tree
+
+
+def _specs(specs, path=()) -> dict:
+    """``{key: spec}`` of a specs tree: dicts and lists are nodes, tuples
+    the specs."""
+    if isinstance(specs, dict):
+        out = {}
+        for k in specs:
+            out.update(_specs(specs[k], path + (str(k),)))
+        return out
+    if isinstance(specs, list):
+        out = {}
+        for i, v in enumerate(specs):
+            out.update(_specs(v, path + (str(i),)))
+        return out
+    return {_SEP.join(path): tuple(specs)}
 
 
 def _rebuild(tree, values: dict, path=()):
@@ -97,16 +124,44 @@ def _process_count() -> int:
     return 1
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
-    """Atomically write ``tree`` as step_<step>. Returns the final path."""
+def save_checkpoint(ckpt_dir: str, step: int, tree, *, mesh=None,
+                    specs=None) -> str:
+    """Atomically write ``tree`` as step_<step>. Returns the final path.
+
+    With ``mesh``, ``tree`` holds this rank's blocks (``specs``: their
+    specs) and every rank calls this together: each leaf is gathered
+    whole (``sharding.unshard_leaf``), rank 0 writes the whole arrays,
+    and every rank returns after a barrier."""
+    final = os.path.join(ckpt_dir, f"step_{int(step):08d}")
+    if mesh is None:
+        _write(ckpt_dir, final, step,
+               {key: host_array(leaf) for key, leaf in _leaves(tree)})
+        return final
+    spec = _specs(specs)
+    arrays = {}
+    for key, leaf in _leaves(tree):
+        whole = shd.unshard_leaf(mesh, leaf, spec[key], kind="ckpt_gather")
+        if mesh.rank == 0:
+            arrays[key] = host_array(whole)
+        del whole
+    if mesh.rank == 0:
+        _write(ckpt_dir, final, step, arrays)
+    del arrays
+    mesh.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, arrays: dict) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
-    arrays = {key: host_array(leaf) for key, leaf in _leaves(tree)}
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
         npz = os.path.join(tmp, "arrays.npz")
         np.savez(npz, **arrays)
+        sha = hashlib.sha256()
         with open(npz, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()
+            for chunk in iter(lambda: f.read(1 << 26), b""):
+                sha.update(chunk)
+        digest = sha.hexdigest()
         # the manifest's keys are the JAX package's, its process count
         # included, so either package reads the other's checkpoints
         manifest = {"step": int(step), "sha256": digest,
@@ -114,11 +169,9 @@ def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
                     "jax_process_count": _process_count()}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=1)
-        final = os.path.join(ckpt_dir, f"step_{int(step):08d}")
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)
-        return final
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
@@ -191,7 +244,7 @@ def _restore_step(ckpt_dir: str, step: int, target_tree, device,
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, target_tree,
-                       device="cpu"):
+                       device="cpu", *, mesh=None, specs=None):
     """Restore into the structure of ``target_tree`` (shapes must match),
     as tensors on ``device``.
 
@@ -199,12 +252,26 @@ def restore_checkpoint(ckpt_dir: str, step: int, target_tree,
     truncated or unreadable), the restore falls back to the previous
     complete step instead of raising.  Raises IOError only when no step
     at or below ``step`` restores cleanly.
+
+    With ``mesh``, ``target_tree`` holds this rank's block shapes and
+    ``specs`` their specs: each stored (whole) leaf must have the global
+    shape they imply, and only this rank's block of it is kept.
     """
+    blocks = None
+    if mesh is not None:
+        spec = _specs(specs)
+        shapes = {key: shd.global_shape(mesh, spec[key], tuple(
+            leaf.shape if hasattr(leaf, "shape") else leaf[0]))
+            for key, leaf in _leaves(target_tree)}
+        blocks = {key: shd.block_slices(mesh, spec[key], shape)
+                  for key, shape in shapes.items()}
+        target_tree = _rebuild(target_tree, {
+            key: (shape, None) for key, shape in shapes.items()})
     candidates = [s for s in valid_steps(ckpt_dir) if s <= int(step)]
     last_err: IOError | None = None
     for s in sorted(candidates, reverse=True):
         try:
-            return _restore_step(ckpt_dir, s, target_tree, device)
+            return _restore_step(ckpt_dir, s, target_tree, device, blocks)
         except IOError as e:
             last_err = e
             _warn(f"{e}; falling back to the previous complete step")

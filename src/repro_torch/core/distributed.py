@@ -70,9 +70,18 @@ class Mesh:
     and the transport.  ``counts`` tallies the collectives: ``all_reduce``,
     ``ppermute`` calls, ``<kind>_planes``/``<kind>_bytes`` sent by them
     (``kind`` "spinor" or "link"), ``all_gather``, ``broadcast``,
-    ``barrier``; ``seconds`` the host's wall time inside each kind of
-    collective (staging copies included, so also the wait for the card's
-    queued work that a copy to the host implies).
+    ``barrier``, and the kinds callers name (the data-parallel trainer's
+    ``leaf_gather``, ``grad_all_reduce``, ...); ``seconds`` the host's
+    wall time inside each kind of collective (staging copies included, so
+    also the wait for the card's queued work that a copy to the host
+    implies); ``nbytes`` the bytes each ``psum`` and ``all_gather``
+    passed in, keyed ``<kind>/<dtype>`` (the dtype the collective moved).
+
+    ``psum`` and ``all_gather`` act on the world group, or with ``axes``
+    on the ranks that share this rank's coordinates on every other axis
+    (one subgroup for each such set of axes, made at its first use: every
+    rank makes its collectives in the same order, so every rank makes the
+    same subgroups together).
 
     Every rank constructs the mesh with the same arguments (the subgroups
     are created collectively).  ``timeout`` bounds every collective of the
@@ -109,15 +118,20 @@ class Mesh:
         self.device = torch.device(device)
         self.transport = transport
         self._staged = transport == "gloo" and self.device.type == "cuda"
+        self._timeout = timeout
         self._groups = {}
+        self._lines = {}
         ranks = np.arange(world).reshape(shape)
         for i, name in enumerate(axis_names):
             for line in np.moveaxis(ranks, i, -1).reshape(-1, shape[i]):
                 group = tdist.new_group(line.tolist(), timeout=timeout)
                 if self.rank in line:
                     self._groups[name] = group
+                    self._lines[(name,)] = line.tolist()
+        self._lines[axis_names] = list(range(world))
         self.counts = collections.Counter()
         self.seconds = collections.Counter()
+        self.nbytes = collections.Counter()
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "
@@ -179,25 +193,80 @@ class Mesh:
         self.counts[kind] += 1
         self.seconds[kind] += time.perf_counter() - t0
 
-    def psum(self, t: Tensor, *, kind: str = "all_reduce") -> Tensor:
-        """The sum of ``t`` over every rank: one ``all_reduce`` on the world
-        group; every rank gets the same bits.  ``kind``: the key it is
-        counted under (the verification's own collectives count apart
-        from the solve's)."""
+    def _axes(self, axes) -> tuple:
+        """``axes`` (None: every axis) in the mesh's order."""
+        if axes is None:
+            return self.axis_names
+        unknown = set(axes) - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"Mesh: no axis {sorted(unknown)} in "
+                             f"{self.axis_names}")
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def axes_ranks(self, axes=None) -> list[int]:
+        """The ranks that share this rank's coordinates on every axis but
+        ``axes``, ascending (row-major over ``axes``): the members of the
+        group a collective over ``axes`` runs on, in its order."""
+        axes = self._axes(axes)
+        if axes not in self._lines:
+            self._group(axes)
+        return self._lines[axes]
+
+    def _group(self, axes: tuple):
+        """The process group over ``axes`` (None: the world group)."""
+        if axes == self.axis_names:
+            return None
+        if len(axes) == 1:
+            return self._groups[axes[0]]
+        if axes not in self._groups:
+            shape = tuple(self.shape[a] for a in self.axis_names)
+            keep = [self.axis_names.index(a) for a in axes]
+            ranks = np.moveaxis(np.arange(self.world_size).reshape(shape),
+                                keep, list(range(-len(keep), 0)))
+            for line in ranks.reshape(-1, math.prod(shape[i] for i in keep)):
+                group = tdist.new_group(sorted(line.tolist()),
+                                        timeout=self._timeout)
+                if self.rank in line:
+                    self._groups[axes] = group
+                    self._lines[axes] = sorted(line.tolist())
+        return self._groups[axes]
+
+    def coords_of(self, rank: int) -> dict:
+        """The mesh coordinates of ``rank``."""
+        return dict(zip(self.axis_names, (int(c) for c in np.unravel_index(
+            rank, tuple(self.shape[a] for a in self.axis_names)))))
+
+    def _tally(self, kind: str, t: Tensor) -> None:
+        self.nbytes[f"{kind}/{str(t.dtype).removeprefix('torch.')}"] += \
+            t.numel() * t.element_size()
+
+    def psum(self, t: Tensor, *, kind: str = "all_reduce",
+             axes=None) -> Tensor:
+        """The sum of ``t`` over every rank (one ``all_reduce`` on the
+        world group), or with ``axes`` over the ranks of this rank's group
+        on those axes; every rank of the group gets the same bits, summed
+        in ``t``'s dtype.  ``kind``: the key it is counted under (the
+        verification's own collectives count apart from the solve's)."""
         t0 = time.perf_counter()
+        group = None if axes is None else self._group(self._axes(axes))
         buf = self._send(t)
-        tdist.all_reduce(buf)
+        tdist.all_reduce(buf, group=group)
         out = self._back(buf)
+        self._tally(kind, t)
         self._done(kind, t0)
         return out
 
-    def all_gather(self, t: Tensor, *,
-                   kind: str = "all_gather") -> list[Tensor]:
-        """``t`` of every rank, in rank order (one ``all_gather``)."""
+    def all_gather(self, t: Tensor, *, kind: str = "all_gather",
+                   axes=None) -> list[Tensor]:
+        """``t`` of every rank, in rank order (one ``all_gather``), or with
+        ``axes`` of the ranks :meth:`axes_ranks` lists, in that order."""
         t0 = time.perf_counter()
-        outs = [self._out(t) for _ in range(self.world_size)]
-        tdist.all_gather(outs, self._send(t))
+        group = None if axes is None else self._group(self._axes(axes))
+        n = self.world_size if axes is None else len(self.axes_ranks(axes))
+        outs = [self._out(t) for _ in range(n)]
+        tdist.all_gather(outs, self._send(t), group=group)
         outs = [self._back(o) for o in outs]
+        self._tally(kind, t)
         self._done(kind, t0)
         return outs
 

@@ -1,6 +1,7 @@
-"""Meshes for the port's multi-device solves.
+"""Meshes for the port's multi-device solves and data-parallel training.
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.solve --mesh debug ...
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh debug ...
 
 :func:`make_debug_mesh` is the counterpart of the JAX package's
 ``repro.launch.mesh.make_debug_mesh``: a :class:`Mesh` over the ranks of

@@ -11,6 +11,14 @@ a train state, ``{"params", "opt": {"step", "m", "v"}}``, whose moments
 mirror the parameters.  Nothing of JAX is imported: the trees are plain
 numpy (a bf16 leaf as ml_dtypes bfloat16 or as the 2-byte void entries a
 checkpoint stores).
+
+On a mesh a train state holds this rank's block of every leaf
+(``steps.init_train_state(..., mesh=)``): :func:`param_spec` gives a
+parameter's spec at the port's (unstacked) ndim, :func:`train_state_tree`
+and :func:`train_state_specs_to_jax` the blocks and their specs in JAX's
+tree (what ``checkpoint.save_checkpoint(..., mesh=)`` unshards), and
+:func:`train_state_from_jax` with ``mesh=`` takes a tree of blocks (what
+``checkpoint.restore_checkpoint(..., mesh=)`` returns).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from repro_torch.core.lattice import resolve_device
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding as shd
 
 
 def jax_path(cfg: ModelConfig, name: str) -> tuple[tuple, int | None]:
@@ -38,6 +47,20 @@ def jax_path(cfg: ModelConfig, name: str) -> tuple[tuple, int | None]:
     return tuple(parts), None
 
 
+def param_spec(cfg: ModelConfig, name: str, ndim: int) -> tuple:
+    """The spec of the port's parameter ``name`` (of ``ndim`` dims, one
+    layer's): JAX's ``spec_for`` at its JAX path and stacked ndim, less
+    the stacked depth dim (which JAX's rules never shard)."""
+    path, idx = jax_path(cfg, name)
+    spec = shd.spec_for(tuple(map(str, path)), ndim + (idx is not None))
+    if idx is not None and spec:
+        if spec[0] is not None:
+            raise ValueError(f"{name}: JAX's rule {spec} shards the depth "
+                             "dim, which the port does not stack")
+        return spec[1:]
+    return spec
+
+
 def _leaf(tree, cfg: ModelConfig, name: str) -> torch.Tensor:
     """The port tensor of parameter ``name`` in JAX tree ``tree`` (numpy
     or tensor leaves), on the CPU."""
@@ -50,12 +73,13 @@ def _leaf(tree, cfg: ModelConfig, name: str) -> torch.Tensor:
     return from_host(node if idx is None else np.asarray(node)[idx])
 
 
-def params_from_jax(cfg: ModelConfig, tree, *, device="cuda"):
+def params_from_jax(cfg: ModelConfig, tree, *, device="cuda", mesh=None):
     """The port's model (``steps.model_module(cfg)``'s form) holding the
     weights of JAX parameter tree ``tree`` (numpy or tensor leaves), on
     ``device``.  Each parameter takes its leaf's dtype (JAX's
     ``init_params`` with 16-bit weights leaves its output projections in
-    f32).  Raises if a shape differs or a JAX leaf is left over."""
+    f32).  With ``mesh``, ``tree`` holds this rank's blocks and so does
+    the model.  Raises if a shape differs or a JAX leaf is left over."""
     device = resolve_device(device)
     dtype = _leaf(tree, cfg, "embed.tok").dtype
     module = ED if cfg.is_encdec else TF
@@ -64,10 +88,12 @@ def params_from_jax(cfg: ModelConfig, tree, *, device="cuda"):
     for name, p in model.named_parameters():
         t = _leaf(tree, cfg, name)
         used.add(jax_path(cfg, name)[0])
-        if t.shape != p.shape:
+        want = p.shape if mesh is None else torch.Size(shd.block_shape(
+            mesh, param_spec(cfg, name, p.ndim), p.shape))
+        if t.shape != want:
             path = "/".join(map(str, jax_path(cfg, name)[0]))
             raise ValueError(f"{name} <- {path}: JAX {tuple(t.shape)}, port "
-                             f"{tuple(p.shape)}")
+                             f"{tuple(want)}")
         p.data = t.to(device)
     leaves = set(_paths(tree))
     if leaves != used:
@@ -111,6 +137,15 @@ def _host_leaf(ts, stacked):
     return np.stack(arrs) if stacked else arrs[0]
 
 
+def _tensor_leaf(ts, stacked):
+    return torch.stack(ts) if stacked else ts[0]
+
+
+def _spec_leaf(specs, stacked):
+    spec = specs[0]
+    return (None, *spec) if stacked and spec else spec
+
+
 def _shape_leaf(ts, stacked):
     shape = tuple(ts[0].shape)
     return ((len(ts), *shape) if stacked else shape, ts[0].dtype)
@@ -139,6 +174,25 @@ def train_state_to_jax(cfg: ModelConfig, state: dict) -> dict:
     return _train_state_tree(cfg, state, _host_leaf)
 
 
+def train_state_tree(cfg: ModelConfig, state: dict) -> dict:
+    """:func:`train_state_to_jax`'s tree with the state's tensors as
+    leaves, on their device (a stacked leaf: the layers' tensors stacked):
+    on a mesh, this rank's blocks."""
+    return _train_state_tree(cfg, state, _tensor_leaf)
+
+
+def train_state_specs_to_jax(cfg: ModelConfig, specs: dict) -> dict:
+    """``steps.state_specs``'s specs (keyed by the port's parameter
+    names) in JAX's tree, a stacked leaf's with its depth dim: JAX's
+    ``state_specs`` of the same state."""
+    return {"params": _jax_tree(cfg, specs["params"].items(), _spec_leaf),
+            "opt": {"step": specs["opt"]["step"],
+                    "m": _jax_tree(cfg, specs["opt"]["m"].items(),
+                                   _spec_leaf),
+                    "v": _jax_tree(cfg, specs["opt"]["v"].items(),
+                                   _spec_leaf)}}
+
+
 def train_state_shapes(cfg: ModelConfig, state: dict) -> dict:
     """:func:`train_state_to_jax`'s tree with ``(shape, dtype)`` leaves:
     the target ``checkpoint.restore_checkpoint`` takes."""
@@ -146,12 +200,12 @@ def train_state_shapes(cfg: ModelConfig, state: dict) -> dict:
 
 
 def train_state_from_jax(cfg: ModelConfig, tree: dict, *,
-                         device="cuda") -> dict:
+                         device="cuda", mesh=None) -> dict:
     """The port's train state from JAX's (numpy or tensor leaves, as JAX's
     ``init_train_state`` or a restored checkpoint gives it), on
-    ``device``."""
+    ``device``; with ``mesh``, from a tree of this rank's blocks."""
     device = resolve_device(device)
-    model = params_from_jax(cfg, tree["params"], device=device)
+    model = params_from_jax(cfg, tree["params"], device=device, mesh=mesh)
     opt = tree["opt"]
     step = opt["step"]
     step = (step if isinstance(step, torch.Tensor)

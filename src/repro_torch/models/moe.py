@@ -4,8 +4,9 @@ expert (qwen2-moe style) (PyTorch).
 
 ``num_experts_padded`` rounds the expert count up (e.g. qwen2's 60 -> 64,
 so the experts divide the JAX package's ``model`` mesh axis); pads are
-masked out of routing.  On one device there is no expert parallelism and
-no all-to-all: the expert buffers are plain tensors.
+masked out of routing.  There is no expert parallelism and no all-to-all:
+the expert buffers are plain tensors, on a mesh too (the JAX package's
+``constrain_experts`` is ROADMAP item 18).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding as shd
 
 F32 = torch.float32
 
@@ -44,10 +46,27 @@ def moe_apply(p: L.Params, x: torch.Tensor, cfg: ModelConfig):
     stripped slot ``e * cap`` and contribute nothing.
 
     Returns (out, aux) with aux = {"load_balance_loss": scalar}.
+
+    On a mesh whose step splits the batch rows over ranks
+    (``sharding.data_parallel()``), ``x`` holds this rank's rows and the
+    loss is this rank's share of the global batch's: the routed fractions
+    f_e come from the counts summed over the batch axes (an all-reduce),
+    the mean probabilities from this rank's own probabilities over the
+    global position count, so the shares of the ranks of a group sum to
+    the global loss and each share's gradient is its rows' part of the
+    global gradient.  The single global group of
+    ``moe_dispatch_shard=False`` is not reproduced across ranks: that
+    case raises ``ValueError`` naming the flag.
     """
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.padded, m.top_k
+    mesh, dp = shd.data_parallel()
+    if mesh is not None and not cfg.moe_dispatch_shard:
+        raise ValueError(
+            "moe_dispatch_shard=False takes one capacity group over the "
+            f"whole batch; its rows are split over the mesh axes {dp}, so "
+            "set moe_dispatch_shard=True or do not split the batch")
     if cfg.moe_dispatch_shard:
         g, sg = b, s                       # one capacity group per sequence
     else:
@@ -110,7 +129,14 @@ def moe_apply(p: L.Params, x: torch.Tensor, cfg: ModelConfig):
             gate[..., None].to(x.dtype)
 
     # GShard load-balance aux loss: E * sum_e f_e * P_e
-    f = cnt.float().mean(dim=(0, 1))       # fraction routed
-    pbar = probs.mean(dim=(0, 1))
+    if mesh is None:
+        f = cnt.float().mean(dim=(0, 1))       # fraction routed
+        pbar = probs.mean(dim=(0, 1))
+    else:  # this rank's share of the global batch's loss
+        shards = math.prod(mesh.shape[a] for a in dp)
+        n = g * sg * shards
+        f = mesh.psum(cnt.sum(dim=(0, 1)), axes=dp,
+                      kind="moe_all_reduce").float() / n
+        pbar = probs.sum(dim=(0, 1)) / n
     lb = m.num_experts * torch.sum(f * pbar)
     return yt.reshape(b, s, d), {"load_balance_loss": lb}

@@ -1,20 +1,34 @@
-"""Train / prefill / decode step factories: the JAX package's
-``models/steps.py`` on one device.
+"""Train / prefill / decode step factories and sharding-spec builders:
+the JAX package's ``models/steps.py``.
 
 Precision follows the JAX package's two-type discipline: f32 master
 weights, a compute copy of the matmul weights in ``compute_dtype`` whose
 gradients are taken (bf16 gradients with bf16 compute), f32 loss and
-optimizer math, the m/v moment dtype per config.  On one device there is
-no mesh: the steps call the model's functions directly, and the sharding
-specs and data-parallel gradient reduction of JAX's factories are not
-ported (ROADMAP item 17).  ``compute_dtype`` defaults to bf16 as in JAX's
-factories; the serving CLI passes f32.
+optimizer math, the m/v moment dtype per config.  ``compute_dtype``
+defaults to bf16 as in JAX's factories; the serving CLI passes f32.
+
+With a mesh (``make_train_step(..., mesh=)``, ROADMAP item 17) the train
+state and the batch are laid out as JAX's ``state_specs`` and
+``batch_specs`` say: every f32 master, m and v leaf is split over
+``data`` (FSDP) and ``model``, the batch rows over (``pod``, ``data``).
+A step casts the master blocks to the compute dtype and gathers them
+into a whole compute model, runs forward and backward on this rank's
+rows, sums the gradients over the batch axes in their own dtype (bf16
+with bf16 compute: JAX's compressed gradient all-reduce), keeps its
+block of each, and runs AdamW on the blocks with the global clip.
+Compute along ``model`` stays replicated: the ranks that share a
+``data`` coordinate compute the same rows, which gives the numbers of
+JAX's partitioned program.  Tensor-parallel, sequence and
+expert-parallel compute, and gathering a layer at a time instead of the
+whole model, are ROADMAP item 18; ``cache_specs`` waits for the LM
+dry-run (item 14(c)), its only consumer.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 
 import torch
 from torch import nn
@@ -24,6 +38,7 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.parallel import sharding as shd
 
 F32 = torch.float32
 
@@ -43,9 +58,14 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return torch.mean(logz - gold)
 
 
-def loss_fn(cfg: ModelConfig, model, batch, compute_dtype) -> tuple:
+def loss_fn(cfg: ModelConfig, model, batch, compute_dtype, *,
+            shards: int = 1) -> tuple:
     """(next-token cross-entropy + 0.01 x the MoE load-balance loss, aux);
-    a vlm's prefix positions are cut from the logits first."""
+    a vlm's prefix positions are cut from the logits first.  With
+    ``shards`` > 1, ``batch`` is one of that many equal row shards of the
+    global batch and the loss this rank's share of the global one: the
+    cross-entropy's mean over its rows divided by ``shards`` (its sum over
+    the global count) plus the MoE's share (``moe.moe_apply``)."""
     tokens = batch["tokens"]
     if cfg.is_encdec:
         logits, aux = ED.forward(cfg, model, tokens, frames=batch["frames"],
@@ -57,6 +77,8 @@ def loss_fn(cfg: ModelConfig, model, batch, compute_dtype) -> tuple:
         if cfg.num_prefix_embeds:   # loss only over the text region
             logits = logits[:, cfg.num_prefix_embeds:]
     loss = _xent(logits[:, :-1], tokens[:, 1:])
+    if shards != 1:
+        loss = loss / shards
     loss = loss + 0.01 * aux["load_balance_loss"]
     return loss, aux
 
@@ -65,36 +87,25 @@ def loss_fn(cfg: ModelConfig, model, batch, compute_dtype) -> tuple:
 # Train step
 # ---------------------------------------------------------------------------
 
-# The JAX package's sharding rules (``parallel/sharding.py::_NAME_RULES``),
-# which decide there which leaves are matmul weights: the leaf names the
-# rules know, with the number of trailing dims each rule spans; a leaf
-# with fewer dims than its rule is replicated, so not a weight.  MoE
-# expert tensors have rules of their own (``moe/<name>``).
-_WEIGHT_RULE_DIMS = {
-    "wq": 2, "wk": 2, "wv": 2, "wo": 2, "wu": 2, "wg": 2, "wd": 2,
-    "tok": 2, "out": 2, "router": 2, "moe/wg": 3, "moe/wu": 3, "moe/wd": 3,
-    "wr": 2, "ck": 2, "cv": 2, "cr": 2, "wx": 2, "conv": 2}
-
-
 def is_matmul_weight(path: tuple, ndim: int) -> bool:
     """Whether JAX's ``shd.spec_for(path, ndim) != P()``: the leaf at JAX
     tree path ``path`` (strings), of ``ndim`` dims as JAX stacks it, is
-    one its sharding rules recognise."""
-    name = path[-1]
-    in_moe = any("moe" in p for p in path[:-1]) and "shared" not in path
-    key = f"moe/{name}" if in_moe and f"moe/{name}" in _WEIGHT_RULE_DIMS \
-        else name
-    dims = _WEIGHT_RULE_DIMS.get(key)
-    return dims is not None and ndim >= dims
+    one its sharding rules recognise (``parallel/sharding.py``, the table
+    that also lays the leaf out on a mesh)."""
+    return shd.spec_for(path, ndim) != ()
 
 
-def cast_compute(cfg: ModelConfig, model, compute_dtype):
+def cast_compute(cfg: ModelConfig, model, compute_dtype, *, mesh=None,
+                 specs: dict | None = None):
     """The model one step differentiates: a copy of ``model`` whose matmul
     weights (:func:`is_matmul_weight` at the leaf's JAX path and stacked
     ndim, f32 leaves only) are cast to ``compute_dtype`` and whose other
     leaves (norm scales, gates, decays) share the master's f32 storage.
     Every parameter of the copy is a new leaf that takes gradients, so a
-    bf16 weight's gradient is bf16 and a norm scale's f32, as in JAX."""
+    bf16 weight's gradient is bf16 and a norm scale's f32, as in JAX.
+    With ``mesh``, ``model`` holds this rank's blocks (``specs``: the
+    parameters' specs): each is cast, then gathered into the whole leaf
+    (the gathers move compute-dtype bytes); a replicated leaf is whole."""
     memo = {}
     for name, p in model.named_parameters():
         path, idx = convert.jax_path(cfg, name)
@@ -102,21 +113,78 @@ def cast_compute(cfg: ModelConfig, model, compute_dtype):
         if p.dtype == F32 and is_matmul_weight(
                 tuple(map(str, path)), p.ndim + (idx is not None)):
             t = t.to(compute_dtype)
+        if mesh is not None:
+            t = shd.unshard_leaf(mesh, t, specs[name])
         memo[id(p)] = nn.Parameter(t)
     # deepcopy takes each memo entry in place of the parameter it names,
     # and copies the containers (and each block's ``kind``) around them
     return copy.deepcopy(model, memo)
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
+def mesh_grads(cfg: ModelConfig, model, batch, compute_dtype, mesh,
+               specs: dict) -> tuple:
+    """``(loss, load_balance_loss, {name: gradient})`` of the global
+    ``batch`` (every rank passes the same one) on ``mesh``: the loss and
+    load-balance loss the global values, the gradients whole on every
+    rank.  ``model`` holds this rank's blocks (``specs``).
+
+    The rows are split as :func:`batch_specs` says; each rank runs
+    :func:`loss_fn` for its share on :func:`cast_compute`'s gathered copy
+    and sums its gradients over the batch axes (``Mesh.psum``, counted as
+    ``grad_all_reduce``), each in its own dtype.  A batch that the batch
+    axes do not divide is not split: every rank computes the whole batch
+    and nothing is reduced."""
+    dp = dp_axes_for(mesh, batch["tokens"].shape[0])
+    shards = math.prod(mesh.shape[a] for a in dp) if dp else 1
+    if shards == 1:
+        dp = None
+    bspecs = batch_specs(cfg, batch, mesh)
+    local = {k: shd.shard_leaf(mesh, v, bspecs[k]) for k, v in batch.items()}
+    cmodel = cast_compute(cfg, model, compute_dtype, mesh=mesh, specs=specs)
+    with shd.set_mesh(mesh, dp_axes=dp):
+        loss, aux = loss_fn(cfg, cmodel, local, compute_dtype, shards=shards)
+        names, leaves = zip(*cmodel.named_parameters())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    del cmodel, leaves
+    grads = dict(zip(names, grads))
+    sums = torch.stack([loss.detach(), aux["load_balance_loss"].detach()])
+    if dp is not None:
+        for name in names:
+            grads[name] = mesh.psum(grads[name], axes=dp,
+                                    kind="grad_all_reduce")
+        sums = mesh.psum(sums, axes=dp, kind="metric_all_reduce")
+    return sums[0], sums[1], grads
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, mesh=None,
                     compute_dtype=torch.bfloat16, lr_schedule=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``: gradients
     of :func:`loss_fn` with respect to :func:`cast_compute`'s copy, then
     one AdamW update of the f32 master (``lr_schedule(step)`` scales the
     rate; 1 when None).  The state is updated in place and returned;
     the metrics are 0-d tensors (``loss``, ``grad_norm``,
-    ``load_balance_loss``, ``step``), read without a host sync."""
+    ``load_balance_loss``, ``step``), read without a host sync.
+
+    With ``mesh`` the state is :func:`init_train_state`'s on that mesh
+    (this rank's blocks), every rank passes the same global batch, the
+    gradients are :func:`mesh_grads`' and each rank updates its blocks;
+    the metrics are the global values, the same on every rank."""
     schedule = lr_schedule or (lambda s: 1.0)
+
+    def mesh_step(state, batch):
+        model = state["params"]
+        specs = state_specs(cfg, state)["params"]
+        loss, lb, grads = mesh_grads(cfg, model, batch, compute_dtype, mesh,
+                                     specs)
+        blocks = {name: shd.shard_leaf(mesh, grads.pop(name), specs[name])
+                  for name in list(grads)}
+        _, opt, gnorm = adamw_update(
+            dict(model.named_parameters()), blocks, state["opt"], opt_cfg,
+            lr_scale=schedule(state["opt"]["step"]), mesh=mesh, specs=specs)
+        metrics = {"loss": loss, "grad_norm": gnorm,
+                   "load_balance_loss": lb, "step": opt["step"]}
+        return {"params": model, "opt": opt}, metrics
 
     def train_step(state, batch):
         model = state["params"]
@@ -134,20 +202,66 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                    "step": opt["step"]}
         return {"params": model, "opt": opt}, metrics
 
-    return train_step
+    return train_step if mesh is None else mesh_step
 
 
 def init_train_state(cfg: ModelConfig, gen: torch.Generator | None,
                      opt_cfg: AdamWConfig, param_dtype=F32,
-                     device="cuda") -> dict:
+                     device="cuda", mesh=None) -> dict:
     """``{"params": model, "opt": {"step", "m", "v"}}``: the model drawn
     from ``gen`` on ``device`` (f32 master weights), the moments in
-    ``cfg.opt_state_dtype``, keyed by parameter name."""
+    ``cfg.opt_state_dtype``, keyed by parameter name.  With ``mesh``
+    every rank draws the whole model from the same ``gen`` (the weights
+    of the one-device run) and keeps its block of each parameter
+    (:func:`state_specs`); its moments are blocks too."""
     params = model_module(cfg).init_params(cfg, gen, dtype=param_dtype,
                                            device=device)
+    if mesh is not None:
+        for name, p in params.named_parameters():
+            p.data = shd.shard_leaf(mesh, p.data,
+                                    convert.param_spec(cfg, name, p.ndim))
     opt_cfg = dataclasses.replace(opt_cfg, moment_dtype=cfg.opt_state_dtype)
     return {"params": params,
             "opt": adamw_init(dict(params.named_parameters()), opt_cfg)}
+
+
+# ---------------------------------------------------------------------------
+# Sharding specs (tuples: ``parallel/sharding.py``)
+# ---------------------------------------------------------------------------
+
+def state_specs(cfg: ModelConfig, state) -> dict:
+    """Specs of a train state's leaves, keyed by the port's parameter
+    names (``convert.param_spec``: JAX's rule at the leaf's JAX path and
+    stacked ndim); m and v mirror the parameters, the step is replicated.
+    ``convert.train_state_specs_to_jax`` gives them in JAX's tree, where
+    they equal JAX's ``state_specs``."""
+    params = {name: convert.param_spec(cfg, name, p.ndim)
+              for name, p in state["params"].named_parameters()}
+    return {"params": params,
+            "opt": {"step": (), "m": dict(params), "v": dict(params)}}
+
+
+def dp_axes_for(mesh, batch: int):
+    """(pod, data) when the batch divides them, else the largest prefix."""
+    dp = shd.batch_axes(mesh)
+    if dp is None:
+        return None
+    total = 1
+    for ax in dp:
+        total *= mesh.shape[ax]
+    if batch % total == 0:
+        return dp
+    # try data alone (e.g. multi-pod with batch < pods*data)
+    if batch % mesh.shape["data"] == 0:
+        return ("data",)
+    return None
+
+
+def batch_specs(cfg: ModelConfig, batch: dict, mesh) -> dict:
+    """Each batch leaf's spec: its rows over :func:`dp_axes_for`."""
+    return {k: (shd.entry(dp_axes_for(mesh, v.shape[0])),
+                *([None] * (v.dim() - 1)))
+            for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------

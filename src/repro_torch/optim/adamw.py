@@ -14,6 +14,10 @@ update writes the master weights and the moments in place, leaf by leaf:
 an f32 copy of the whole model (or of one concatenated gradient) would
 not fit beside a full-width model's state on one card, so only one
 leaf's f32 temporaries live at a time.
+
+On a mesh the trees hold each rank's blocks (``steps.state_specs``):
+AdamW is elementwise, so it runs on the blocks as they are; only the
+clip's global norm needs the mesh (:func:`global_norm`).
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.parallel import sharding as shd
 
 F32 = torch.float32
 
@@ -54,6 +60,23 @@ def _global_norm(grads: dict) -> torch.Tensor:
     return torch.sqrt(gn2)
 
 
+def global_norm(grads: dict, mesh=None, specs: dict | None = None):
+    """The f32 norm of a gradient tree.  With ``mesh``, ``grads`` holds
+    this rank's blocks (``specs``: each leaf's spec) and the norm is the
+    whole tree's, the same on every rank: a leaf counts once, whatever
+    its spec, because only the ranks at coordinate 0 of every axis its
+    spec leaves whole add their block's squares before the all-reduce."""
+    if mesh is None:
+        return _global_norm(grads)
+    gn2 = torch.zeros((), dtype=F32, device=mesh.device)
+    for k, g in grads.items():
+        named = shd.spec_axes(mesh, specs[k])
+        if all(mesh.coords[a] == 0 for a in mesh.axis_names
+               if a not in named):
+            gn2 = gn2 + torch.sum(torch.square(g.to(F32)))
+    return torch.sqrt(mesh.psum(gn2, kind="norm_all_reduce"))
+
+
 def clip_by_global_norm(grads: dict, max_norm: float):
     """(grads scaled so their global f32 norm is at most ``max_norm``, each
     rounded back to its own dtype; the norm before clipping)."""
@@ -69,15 +92,17 @@ def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, opt_state: dict,
-                 cfg: AdamWConfig, lr_scale=1.0):
+                 cfg: AdamWConfig, lr_scale=1.0, *, mesh=None,
+                 specs: dict | None = None):
     """One AdamW step: global-norm clip, bias correction from the step
     count, decoupled weight decay on the f32 master.  ``params``: the f32
     master tensors; ``grads``: any dtype, same keys.  Writes ``params``
     and the moments in place and returns ``(params, opt_state,
-    grad_norm)``."""
+    grad_norm)``.  On a mesh every tree holds this rank's blocks and
+    ``specs`` their specs (:func:`global_norm`)."""
     step = opt_state["step"] + 1
     t = step.to(F32)
-    gnorm = _global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     bc1 = 1.0 - torch.tensor(cfg.b1, dtype=F32, device=t.device) ** t
     bc2 = 1.0 - torch.tensor(cfg.b2, dtype=F32, device=t.device) ** t

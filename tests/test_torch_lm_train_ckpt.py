@@ -255,10 +255,14 @@ def test_cli_sigterm_then_resume_is_bitwise_uninterrupted():
             assert want[k].tobytes() == got[k].tobytes(), k
 
 
-def test_cli_refuses_a_mesh_and_defaults_to_the_card():
-    """``--mesh`` other than ``none`` names ROADMAP item 17; without
-    ``--device`` the CLI asks for the card, which is not here."""
-    with pytest.raises(NotImplementedError, match="item 17"):
+def test_cli_refuses_a_mesh_and_defaults_to_the_card(monkeypatch):
+    """``--mesh debug`` outside a ``torchrun`` job is refused, naming
+    torchrun (the mesh is its ranks; tests/test_torch_lm_parallel.py runs
+    it under torchrun); without ``--device`` the CLI asks for the card,
+    which is not here."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         train_cli.main(["--arch", "glm4-9b", "--mesh", "debug",
                         "--device", "cpu"])
     if not torch.cuda.is_available():
