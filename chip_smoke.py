@@ -253,7 +253,24 @@ training path (``repro_torch.models.steps.make_train_step``,
    within the gradient bar carried through Adam's first update, the loss
    falling; glm4-9b's smoke config trained 2 steps on the mesh, its mesh
    checkpoint restored on one device bitwise every rank's blocks; step ms, tokens/s, gradient bytes reduced, rank 0's
-   seconds in collectives and each rank's peak beside the reckoning.
+   seconds in collectives and each rank's peak beside the reckoning and
+   beside the rank's peak traced on the meta device, with what that peak
+   holds;
+14. the LM dry-run held against the card (``launch/dryrun.py::measure``
+   on the meta device, in this process; no hand-written kernel): phase
+   11's glm4-9b serving, phase 12's train step and a phase 13 rank traced
+   (the rank with ``launch/mesh.py::RecordingMesh``), and the dry-run
+   cell glm4-9b decode_32k on ``pod`` as ``launch/specs.py`` builds it
+   (bf16 serving weights with f32 output projections, the rank's 8 rows
+   and 32768-slot caches), its arguments then made on the card and the
+   step run; the traced matmul flops of each equal to
+   ``FlopCounterMode``'s count of one more untimed call on the card; the
+   recording mesh's bytes a step equal to every rank's ``Mesh.nbytes``
+   every step; every measured wall at or above its bound (the traced
+   flops at the H100's peak for their dtype, the traced bytes at phase
+   1's copy rate); each traced peak within 10 % of the measured one
+   (``max_memory_allocated`` less what was allocated before); the card's
+   ``total_memory`` and CUDA context, the dry-run's ``fits`` limit.
    Each phase prints its seconds; the checkpoint, journal and mesh
    directories live under ``build/`` and are removed.
 
@@ -272,6 +289,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -3028,7 +3046,12 @@ def lm_phase(dev, card: str, bw: float, scale: str = "full") -> dict:
             cut += f", encoder {cfg.encoder_layers} layers"
         if cfg.num_prefix_embeds:
             cut += f", {cfg.num_prefix_embeds} prefix embeddings"
+        # what earlier phases still hold, inside the run's measured peak
+        # (their cyclic garbage collected first: a collection during the
+        # run would free it after this reading)
+        gc.collect()
         torch.cuda.empty_cache()
+        allocated_before = torch.cuda.memory_allocated(dev)
         res = serve.main(["--arch", arch, "--scale", scale, "--requests",
                           str(LM_REQUESTS), "--prompt-len", str(prompt),
                           "--gen", str(LM_GEN), "--device", str(dev)],
@@ -3067,6 +3090,10 @@ def lm_phase(dev, card: str, bw: float, scale: str = "full") -> dict:
             decode(model, caches, nxt, pos)
         warm = {"prefill_ms": time_ms(lambda: prefill(model, batch), 3, 1),
                 "decode_ms": time_ms(one_decode, 5, 1)}
+        if arch == LM_DRY_ARCH:  # phase 14's counts: one more of each
+            warm["flops_counted"] = {"prefill": counted_flops(
+                lambda: prefill(model, batch)),
+                "decode": counted_flops(one_decode)}
         traces = {"prefill": profile_call(lambda: prefill(model, batch)),
                   "decode": profile_call(one_decode)}
         for what, prof in traces.items():
@@ -3136,6 +3163,7 @@ def lm_phase(dev, card: str, bw: float, scale: str = "full") -> dict:
             "decode_bound_ms_peak": read / PEAK_BYTES_PER_S * 1e3,
             "peak_gib": (None if res["peak_bytes"] is None
                          else res["peak_bytes"] / 2 ** 30),
+            "allocated_before": allocated_before,
             "decode_vs_forward": err / big, "bar": bar,
             "decode_vs_forward_f64": (None if err64 is None
                                       else err64 / big64),
@@ -3216,6 +3244,9 @@ def lm_train_full_width(dev, card: str, scale: str = "full") -> dict:
     opt = AdamWConfig(lr=LM_TRAIN_LR)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    # what earlier phases still hold, inside the steps' measured peaks
+    gc.collect()
+    allocated_before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     state = steps.init_train_state(cfg, gen, opt, device=dev)
     n_params = sum(p.numel() for p in state["params"].parameters())
@@ -3268,9 +3299,12 @@ def lm_train_full_width(dev, card: str, scale: str = "full") -> dict:
     else:
         log("LM train traced warm step: the profiler recorded no device "
             "time (not measured)")
+    flops_counted = counted_flops(lambda: step(state, batch))
     warm = [r["ms"] for r in rows[1:]]
     out = {"config": cfg.name, "layers": LM_TRAIN_LAYERS,
            "of_layers": full.num_layers, "params": n_params,
+           "flops_counted": flops_counted,
+           "allocated_before": allocated_before,
            "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
            "state_reckoned_bytes": reckoned, "steps": rows,
            "warm_ms_median": statistics.median(warm),
@@ -3532,6 +3566,11 @@ def lm_mesh_child(rank: int, d: Path) -> int:
         out["totals"] = {"counts": dict(mesh.counts),
                          "seconds": dict(mesh.seconds),
                          "nbytes": dict(mesh.nbytes)}
+        # phase 14's count: one more step, untimed
+        t0 = time.perf_counter()
+        out["flops_counted"] = counted_flops(lambda: step(state, batch))
+        sync()
+        out["counted_step_s"] = time.perf_counter() - t0
         del state, step, batch, m
         if cuda:
             torch.cuda.empty_cache()
@@ -3777,6 +3816,15 @@ def lm_mesh_phase(dev, card: str, scale: str = "full") -> dict:
                         for r, (p, i) in enumerate(gib))
             + f" against the reckoned {reck['total'] / 2 ** 30:.2f} GiB ("
             f"{card})")
+        traced = lm_mesh_traced(cfg, ranks[0]["coords"])
+        log(f"LM mesh rank traced on the meta device "
+            f"(launch/dryrun.py::measure): peak "
+            f"{traced['peak_bytes'] / 2 ** 30:.3f} GiB, holding "
+            + ", ".join(f"{k} {v / 2 ** 30:.3f}" for k, v in
+                        list(traced["peak_holds"].items())[:10])
+            + f" GiB; the reckoning {reck['total'] / 2 ** 30:.2f} GiB ("
+            + ", ".join(f"{k} {v / 2 ** 30:.2f}" for k, v in reck.items()
+                        if k != "total") + f" GiB) ({card})")
         log(f"LM mesh step-1 master blocks against the one-device master: "
             + json.dumps([rk["after_step1"] for rk in ranks]))
         seconds = time.perf_counter() - t_phase
@@ -3795,13 +3843,304 @@ def lm_mesh_phase(dev, card: str, scale: str = "full") -> dict:
                 "ranks": [{k: rk[k] for k in ("coords", "steps",
                                               "after_step1", "ckpt_s",
                                               "peak_bytes", "init_s",
-                                              "totals")}
+                                              "totals", "flops_counted",
+                                              "counted_step_s")}
                           for rk in ranks],
                 "warm_ms_median": statistics.median(warm) if warm else None,
                 "restore_s": restore_s, "hash_s": hash_s,
-                "children_s": children_s, "seconds": seconds}
+                "children_s": children_s, "seconds": seconds,
+                "traced": traced}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the LM dry-run held against the card
+# ---------------------------------------------------------------------------
+
+# phase 11's model whose serving the dry-run traces, and the dry-run cell
+# run on the card as launch/specs.py builds it
+LM_DRY_ARCH, LM_DRY_SHAPE = "glm4-9b", "decode_32k"
+# a traced peak against the card's max_memory_allocated (less what earlier
+# phases still held): the share of the measured peak they may differ by
+LM_DRY_PEAK_TOL = 0.10
+
+
+def counted_flops(fn) -> int:
+    """``fn()``'s flops by ``torch.utils.flop_counter.FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    return int(fc.get_total_flops())
+
+
+def lm_serve_traced(cfg, prompt: int) -> dict:
+    """Phase 11's f32 serving of ``cfg``, each program traced by
+    ``launch/dryrun.py::measure`` on the meta device: ``run``, the served
+    run of ``launch/serve.py`` (a prefill of the LM_REQUESTS x ``prompt``
+    batch into caches of ``prompt`` + LM_GEN slots, then LM_GEN - 1
+    greedy decode steps); ``prefill`` and ``decode``, phase 11's warm
+    steps (caches of ``prompt`` + 1 slots)."""
+    from repro_torch.launch.dryrun import measure
+    from repro_torch.models import steps
+    f32 = torch.float32
+    model = steps.model_module(cfg).init_params(cfg, None, device="meta")
+    batch = {"tokens": torch.empty((LM_REQUESTS, prompt), dtype=torch.int64,
+                                   device="meta")}
+
+    def served(model, batch):
+        prefill = steps.make_prefill_step(cfg, cache_len=prompt + LM_GEN,
+                                          compute_dtype=f32)
+        decode = steps.make_decode_step(cfg, compute_dtype=f32)
+        logits, caches = prefill(model, batch)
+        toks = [torch.argmax(logits[:, -1], dim=-1)[:, None]]
+        for i in range(LM_GEN - 1):
+            tok, _, caches = decode(model, caches, toks[-1], prompt + i)
+            toks.append(tok)
+        return torch.cat(toks, dim=1)
+
+    prefill = steps.make_prefill_step(cfg, cache_len=prompt + 1,
+                                      compute_dtype=f32)
+    decode = steps.make_decode_step(cfg, compute_dtype=f32)
+    _, caches = prefill(model, batch)   # the warm decode's caches
+    tokens = torch.empty((LM_REQUESTS, 1), dtype=torch.int64, device="meta")
+    return {"run": measure(served, {"model": model, "batch": batch}),
+            "prefill": measure(prefill, {"model": model, "batch": batch}),
+            "decode": measure(decode, {"model": model, "caches": caches,
+                                       "tokens": tokens, "pos": prompt})}
+
+
+def lm_train_traced(cfg, mesh=None) -> dict:
+    """Phase 12's (``mesh`` None) or a phase 13 rank's train step, traced
+    by ``launch/dryrun.py::measure`` on the meta device: the state (this
+    rank's blocks on a mesh) and the LM_TRAIN_BATCH x LM_TRAIN_SEQ batch
+    live from the start, one step, with the collectives the recording
+    mesh tallied."""
+    from repro_torch.launch.dryrun import measure
+    from repro_torch.models import steps
+    from repro_torch.optim import AdamWConfig
+    opt = AdamWConfig(lr=LM_TRAIN_LR)
+    state = steps.init_train_state(cfg, None, opt, device="meta", mesh=mesh)
+    batch = {"tokens": torch.empty((LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+                                   dtype=torch.int64, device="meta")}
+    step = steps.make_train_step(cfg, opt, mesh=mesh, compute_dtype=BF16)
+    return measure(step, {"state": state, "batch": batch}, mesh)
+
+
+def lm_mesh_traced(cfg, coords: dict) -> dict:
+    """A phase 13 rank (at ``coords`` of the 2x2 mesh) traced on the meta
+    device with a recording mesh (``launch/mesh.py::RecordingMesh``)."""
+    from repro_torch.launch.mesh import MeshShape, RecordingMesh
+    mesh = RecordingMesh(MeshShape(dict(zip(LM_MESH_AXES, LM_MESH_SHAPE)),
+                                   LM_MESH_AXES), coords)
+    return lm_train_traced(cfg, mesh)
+
+
+def _on_card(obj, dev, gen, vocab: int):
+    """A dry-run cell's meta-device arguments made on ``dev``: a module's
+    parameters drawn N(0, 0.02^2) from ``gen`` in their dtypes, token ids
+    uniform below ``vocab``, every other tensor (the caches) zero; in
+    nested containers; anything else as it is."""
+    if isinstance(obj, torch.nn.Module):
+        obj = obj.to_empty(device=dev)
+        with torch.no_grad():
+            for p in obj.parameters():
+                p.normal_(0.0, 0.02, generator=gen)
+        return obj
+    if isinstance(obj, dict):
+        return {k: (torch.randint(vocab, v.shape, device=dev, generator=gen)
+                    if k == "tokens" else _on_card(v, dev, gen, vocab))
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_on_card(v, dev, gen, vocab) for v in obj)
+    if isinstance(obj, torch.Tensor):
+        return torch.zeros(obj.shape, dtype=obj.dtype, device=dev)
+    return obj
+
+
+def lm_dry_cell(dev, arch: str, shape_name: str) -> dict:
+    """The dry-run cell ``arch`` x ``shape_name`` on ``pod``, as the rank
+    at coordinates 0 runs it (``launch/specs.py::input_specs``: for
+    serving, ``serving_params``' bf16 weights with f32 output
+    projections, this rank's rows and caches): traced by
+    ``launch/dryrun.py::measure`` on the meta device, then the same
+    arguments made on the card from seed 0 (:func:`_on_card`) and the
+    step run once for the peak (``max_memory_allocated`` less what was
+    allocated before), once under ``FlopCounterMode``, then timed."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import RecordingMesh, make_production_mesh
+    mesh = RecordingMesh(make_production_mesh())
+    fn, kwargs, _ = specs.input_specs(arch, shape_name, mesh)
+    traced = dryrun.measure(fn, kwargs, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    card = _on_card(kwargs, dev, gen, configs.get(arch).vocab_size)
+    fn(**card)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    reserved = torch.cuda.max_memory_reserved(dev)
+    counted = counted_flops(lambda: fn(**card))
+    ms = time_ms(lambda: fn(**card), 3, 1)
+    del card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"traced": traced, "measured_ms": ms, "counted": counted,
+            "peak": peak, "before": before, "reserved": reserved}
+
+
+def _bound_ms(span: dict, bw: float) -> dict:
+    """The roofline bound of a traced span at copy rate ``bw``: its
+    matmul flops at the H100's peak for their dtype, its bytes at ``bw``,
+    the larger."""
+    from repro_torch.launch.dryrun import compute_seconds
+    compute_ms = compute_seconds(span["flops_by_dtype"]) * 1e3
+    memory_ms = span["bytes"] / bw * 1e3
+    return {"compute_ms": compute_ms, "memory_ms": memory_ms,
+            "bound_ms": max(compute_ms, memory_ms),
+            "bound_by": "operations" if compute_ms >= memory_ms else "bytes"}
+
+
+def dryrun_phase(dev, card: str, bw: float, lm: dict, lm_train: dict,
+                 lm_mesh: dict) -> dict:
+    """Phase 14: the LM dry-run's measure (``launch/dryrun.py::measure``
+    on the meta device, in this process) of the three configurations
+    phases 11-13 ran, and of one dry-run cell as ``launch/specs.py``
+    builds it (glm4-9b decode_32k on ``pod``: bf16 serving), held against
+    the card: the traced matmul flops equal to ``FlopCounterMode``'s count
+    of one more untimed step on the card; the recording mesh's bytes
+    equal to a phase 13 rank's ``Mesh.nbytes`` every step; every measured
+    wall at or above its roofline bound at phase 1's copy rate; each
+    traced peak within LM_DRY_PEAK_TOL of the card's
+    ``max_memory_allocated``.  It also prints what the dry-run's ``fits``
+    holds a peak against: the card's ``total_memory`` and its CUDA
+    context.  It launches none of K1-K4."""
+    from repro_torch import configs, kernels
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    launches_before = kernels.counts()
+    free, total = torch.cuda.mem_get_info(dev)
+    context = total - free - torch.cuda.memory_reserved(dev)
+    total_memory = torch.cuda.get_device_properties(dev).total_memory
+    log(f"dry run: total_memory {total_memory} bytes (the dry-run's "
+        f"{dryrun.HBM_BYTES}: equal {total_memory == dryrun.HBM_BYTES}); "
+        f"the CUDA context holds {context} bytes of it (mem_get_info: total "
+        f"{total}, free {free}, less torch's reserve "
+        f"{torch.cuda.memory_reserved(dev)}; within the dry-run's "
+        f"{dryrun.CONTEXT_BYTES}: {context <= dryrun.CONTEXT_BYTES}) "
+        f"({card})")
+    serve_cfg = configs.get(LM_DRY_ARCH)
+    served = lm["served"][LM_DRY_ARCH]
+    prompt = served["prompt"]
+    rows = {}
+
+    def held(name, measured_ms, span, counted, measured_peak, peak,
+             before=0):
+        """One row: ``measured_peak`` (max_memory_allocated) less
+        ``before``, what was allocated before the run, is the run's
+        own."""
+        b = _bound_ms(span, bw)
+        if measured_peak:
+            measured_peak -= before
+        row = {"measured_ms": measured_ms, **b,
+               "traced_flops": int(span["flops"]), "counted_flops": counted,
+               "traced_bytes": int(span["bytes"]),
+               "measured_peak_bytes": measured_peak,
+               "held_before_bytes": before,
+               "traced_peak_bytes": peak["peak_bytes"],
+               "peak_holds": dict(list(peak["peak_holds"].items())[:8])}
+        if measured_peak:
+            row["peak_ratio"] = peak["peak_bytes"] / measured_peak
+        rows[name] = row
+        check(row["traced_flops"] == counted,
+              f"dry run {name}: traced flops {row['traced_flops']} against "
+              f"FlopCounterMode's {counted} on the card")
+        check(measured_ms >= b["bound_ms"],
+              f"dry run {name}: measured {measured_ms:.3f} ms under its "
+              f"bound {b['bound_ms']:.3f} ms")
+        check(not measured_peak
+              or abs(row["peak_ratio"] - 1.0) <= LM_DRY_PEAK_TOL,
+              f"dry run {name}: traced peak {peak['peak_bytes']} bytes "
+              f"against the measured {measured_peak}")
+        peak_txt = "not measured" if not measured_peak else (
+            f"{measured_peak / 2 ** 30:.3f} GiB measured (less "
+            f"{before / 2 ** 30:.3f} GiB allocated before), traced "
+            f"{peak['peak_bytes'] / 2 ** 30:.3f} GiB (ratio "
+            f"{row['peak_ratio']:.4f})")
+        log(f"dry run {name}: measured {measured_ms:.3f} ms >= bound "
+            f"{b['bound_ms']:.3f} ms (compute {b['compute_ms']:.3f} ms at "
+            f"the H100's f32/bf16 peaks, memory {b['memory_ms']:.3f} ms of "
+            f"{span['bytes'] / 1e9:.3f} GB at {bw / 1e9:.1f} GB/s); flops "
+            f"traced {row['traced_flops']} = counted {counted}; peak "
+            f"{peak_txt}, holding "
+            + ", ".join(f"{k} {v / 2 ** 30:.3f}" for k, v in
+                        list(peak["peak_holds"].items())[:6])
+            + f" GiB ({card})")
+
+    # phase 11: glm4-9b served whole in f32 (the peak: launch/serve.py's
+    # run; the counts and walls: phase 11's warm prefill and decode)
+    tr11 = lm_serve_traced(serve_cfg, prompt)
+    peak_11 = (None if served["peak_gib"] is None
+               else served["peak_gib"] * 2 ** 30)
+    fc = served["warm"]["flops_counted"]
+    for what in ("prefill", "decode"):
+        held(f"phase 11 {LM_DRY_ARCH} {what}", served["warm"][f"{what}_ms"],
+             tr11[what], fc[what], peak_11, tr11["run"],
+             served["allocated_before"])
+
+    # phase 12: the 8-layer train step on one device
+    tcfg = dataclasses.replace(configs.get(LM_TRAIN_ARCH),
+                               num_layers=LM_TRAIN_LAYERS)
+    tr12 = lm_train_traced(tcfg)
+    fw = lm_train["full_width"]
+    peaks = [r["peak_gib"] for r in fw["steps"] if r["peak_gib"]]
+    held(f"phase 12 {LM_TRAIN_ARCH} {LM_TRAIN_LAYERS} layers train step",
+         fw["warm_ms_median"], tr12, fw["flops_counted"],
+         max(peaks) * 2 ** 30 if peaks else None, tr12,
+         fw["allocated_before"])
+
+    # phase 13: a rank of the 2x2 mesh
+    tr13 = lm_mesh["traced"]
+    want = tr13["collectives"]["nbytes"]
+    ranks = lm_mesh["ranks"]
+    counted = {rk["flops_counted"] for rk in ranks}
+    check(len(counted) == 1, f"phase 13 ranks counted different flops "
+                             f"{counted}")
+    for r, rk in enumerate(ranks):
+        for i, st in enumerate(rk["steps"]):
+            got = {k: v for k, v in st["nbytes"].items() if v}
+            check(got == want,
+                  f"dry run: phase 13 rank {r} step {i} moved {got}, the "
+                  f"recording mesh {want}")
+    log("dry run: the recording mesh's bytes a step equal every phase 13 "
+        "rank's Mesh.nbytes every step: " + json.dumps(want) + f" ({card})")
+    peaks = [rk["peak_bytes"] for rk in ranks if rk["peak_bytes"]]
+    r0 = [st["ms"] for st in ranks[0]["steps"][1:]]
+    held(f"phase 13 rank ({LM_MESH_LAYERS} layer, 2x2) train step",
+         statistics.median(r0), tr13, counted.pop(),
+         max(peaks) if peaks else None, tr13)
+
+    # a dry-run cell as launch/specs.py builds it: bf16 serving
+    cell = lm_dry_cell(dev, LM_DRY_ARCH, LM_DRY_SHAPE)
+    held(f"cell {LM_DRY_ARCH} {LM_DRY_SHAPE} pod (bf16, f32 output "
+         "projections)", cell["measured_ms"], cell["traced"],
+         cell["counted"], cell["peak"], cell["traced"], cell["before"])
+    log(f"dry run cell {LM_DRY_ARCH} {LM_DRY_SHAPE}: the allocator reserved "
+        f"{cell['reserved'] / 2 ** 30:.3f} GiB at most for "
+        f"{cell['peak'] / 2 ** 30:.3f} GiB allocated ({card})")
+    check(kernels.counts() == launches_before,
+          "the dry run launched a kernel of K1-K4")
+    seconds = time.perf_counter() - t0
+    log(f"dry run: phase 14 launched none of K1-K4 (the LM layers are "
+        f"plain torch); {seconds:.1f} s ({card})")
+    return {"rows": rows, "seconds": seconds,
+            "total_memory": total_memory, "context_bytes": context,
+            "cell_reserved_bytes": cell["reserved"],
+            "mesh_counted_step_s": [rk["counted_step_s"] for rk in ranks]}
 
 
 def main() -> int:
@@ -4069,6 +4408,10 @@ def main() -> int:
     lm_mesh = lm_mesh_phase(dev, card)
     phase_done(13)
 
+    # phase 14: the LM dry-run held against phases 11-13
+    dry = dryrun_phase(dev, card, bw, lm, lm_train, lm_mesh)
+    phase_done(14)
+
     replaces = {
         "wilson_hop": "src/repro/kernels/wilson_dslash/kernel.py:684",
         "cg_update": "src/repro/kernels/cg_fused/kernel.py:114",
@@ -4122,6 +4465,7 @@ def main() -> int:
     log("lm: " + json.dumps(lm))
     log("lm train: " + json.dumps(lm_train))
     log("lm mesh train: " + json.dumps(lm_mesh))
+    log("lm dry run: " + json.dumps(dry))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels_line}))

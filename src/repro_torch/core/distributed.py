@@ -59,7 +59,40 @@ _LAT_AXIS_NAMES = {0: "T", 1: "Z", 2: "Y"}
 TRANSPORTS = ("gloo", "nccl")
 
 
-class Mesh:
+class MeshAxes:
+    """A mesh's axes seen from one rank: what :class:`Mesh` and the
+    dry-run's ``launch/mesh.py::RecordingMesh`` share.  A subclass sets
+    ``axis_names``, ``shape`` (axis -> size, ranks row-major over the
+    axes) and ``nbytes`` (a ``Counter``)."""
+
+    def _axes(self, axes) -> tuple:
+        """``axes`` (None: every axis) in the mesh's order."""
+        if axes is None:
+            return self.axis_names
+        unknown = set(axes) - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"{type(self).__name__}: no axis "
+                             f"{sorted(unknown)} in {self.axis_names}")
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def rank_at(self, coords: Mapping[str, int]) -> int:
+        """The rank at mesh ``coords`` (each taken modulo its axis)."""
+        return int(np.ravel_multi_index(
+            tuple(int(coords[a]) % self.shape[a] for a in self.axis_names),
+            tuple(self.shape[a] for a in self.axis_names)))
+
+    def coords_of(self, rank: int) -> dict:
+        """The mesh coordinates of ``rank``."""
+        return dict(zip(self.axis_names, (int(c) for c in np.unravel_index(
+            rank, tuple(self.shape[a] for a in self.axis_names)))))
+
+    def _tally(self, kind: str, t: Tensor) -> None:
+        """``t``'s bytes under ``nbytes["<kind>/<dtype>"]``."""
+        self.nbytes[f"{kind}/{str(t.dtype).removeprefix('torch.')}"] += \
+            t.numel() * t.element_size()
+
+
+class Mesh(MeshAxes):
     """A device mesh over the ranks of the default process group.
 
     ``shape``/``axis_names``: the mesh axes, ranks laid out row-major over
@@ -193,16 +226,6 @@ class Mesh:
         self.counts[kind] += 1
         self.seconds[kind] += time.perf_counter() - t0
 
-    def _axes(self, axes) -> tuple:
-        """``axes`` (None: every axis) in the mesh's order."""
-        if axes is None:
-            return self.axis_names
-        unknown = set(axes) - set(self.axis_names)
-        if unknown:
-            raise ValueError(f"Mesh: no axis {sorted(unknown)} in "
-                             f"{self.axis_names}")
-        return tuple(a for a in self.axis_names if a in axes)
-
     def axes_ranks(self, axes=None) -> list[int]:
         """The ranks that share this rank's coordinates on every axis but
         ``axes``, ascending (row-major over ``axes``): the members of the
@@ -230,15 +253,6 @@ class Mesh:
                     self._groups[axes] = group
                     self._lines[axes] = sorted(line.tolist())
         return self._groups[axes]
-
-    def coords_of(self, rank: int) -> dict:
-        """The mesh coordinates of ``rank``."""
-        return dict(zip(self.axis_names, (int(c) for c in np.unravel_index(
-            rank, tuple(self.shape[a] for a in self.axis_names)))))
-
-    def _tally(self, kind: str, t: Tensor) -> None:
-        self.nbytes[f"{kind}/{str(t.dtype).removeprefix('torch.')}"] += \
-            t.numel() * t.element_size()
 
     def psum(self, t: Tensor, *, kind: str = "all_reduce",
              axes=None) -> Tensor:
@@ -269,12 +283,6 @@ class Mesh:
         self._tally(kind, t)
         self._done(kind, t0)
         return outs
-
-    def rank_at(self, coords: Mapping[str, int]) -> int:
-        """The rank at mesh ``coords`` (each taken modulo its axis)."""
-        return int(np.ravel_multi_index(
-            tuple(int(coords[a]) % self.shape[a] for a in self.axis_names),
-            tuple(self.shape[a] for a in self.axis_names)))
 
     def broadcast(self, t: Tensor, src: int = 0) -> Tensor:
         """Rank ``src``'s ``t`` on every rank (the other ranks pass a tensor

@@ -8,21 +8,27 @@
 this job.  :func:`make_production_mesh` is the counterpart of its
 ``make_production_mesh``: the paper-scale meshes (16 x 16 over ``data``
 and ``model``, or two of them on a leading ``pod`` axis) as a shape
-only, with no ranks and no process group, for the production dry-run
-(:mod:`repro_torch.launch.dryrun_wilson`).
+only, with no ranks and no process group, for the production dry-runs
+(:mod:`repro_torch.launch.dryrun_wilson`, :mod:`repro_torch.launch.dryrun`).
+:class:`RecordingMesh` is such a shape with one rank's coordinates whose
+collectives move nothing and are tallied as :class:`Mesh` tallies them:
+the LM dry-run runs the port's mesh training step on it, on the meta
+device, for a 256- or 512-rank mesh in one process.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import math
 import os
 
+import numpy as np
 import torch
 import torch.distributed as tdist
 
-from repro_torch.core.distributed import Mesh
+from repro_torch.core.distributed import Mesh, MeshAxes
 from repro_torch.core.lattice import resolve_device
 
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
@@ -39,6 +45,66 @@ class MeshShape:
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+
+class RecordingMesh(MeshAxes):
+    """A mesh of ``shape`` seen from the rank at ``coords`` (default: all
+    0), with no process group, on the meta device: what
+    ``make_train_step(..., mesh=)`` reads of a
+    :class:`~repro_torch.core.distributed.Mesh` (``axis_names``,
+    ``shape``, ``coords``, ``device``, ``axes_ranks``, ``coords_of``,
+    ``psum``, ``all_gather``) for a trace of one rank's step.  The
+    coordinate math and the byte tally are ``Mesh``'s own
+    (:class:`~repro_torch.core.distributed.MeshAxes`).
+
+    ``psum`` returns a copy of its input, and ``all_gather`` one copy of
+    its input per rank of the group: the buffers the transport would
+    fill, with no values exchanged (on the meta device there are none).
+    Each call is counted as ``Mesh`` counts it: ``counts[kind]`` calls and
+    ``nbytes["<kind>/<dtype>"]`` the bytes passed in; ``jax_kinds`` maps
+    each kind to the collective's name in XLA's HLO (``all-reduce``,
+    ``all-gather``)."""
+
+    def __init__(self, shape: MeshShape, coords: dict | None = None):
+        self.axis_names = tuple(shape.axis_names)
+        self.shape = dict(shape.shape)
+        self.world_size = shape.size
+        self.coords = {a: int((coords or {}).get(a, 0))
+                       for a in self.axis_names}
+        self.rank = self.rank_at(self.coords)
+        self.device = torch.device("meta")
+        self.counts = collections.Counter()
+        self.nbytes = collections.Counter()
+        self.jax_kinds = {}
+        self._lines = {}
+
+    def axes_ranks(self, axes=None) -> list[int]:
+        """The ranks that share this rank's coordinates on every axis but
+        ``axes``, ascending: the group a collective over ``axes`` runs
+        on."""
+        axes = self._axes(axes)
+        if axes not in self._lines:
+            self._lines[axes] = sorted(
+                self.rank_at({**self.coords, **dict(zip(axes, idx))})
+                for idx in np.ndindex(*(self.shape[a] for a in axes)))
+        return self._lines[axes]
+
+    def _record(self, kind: str, jax_kind: str, t: torch.Tensor) -> None:
+        self.counts[kind] += 1
+        self._tally(kind, t)
+        self.jax_kinds[kind] = jax_kind
+
+    def psum(self, t: torch.Tensor, *, kind: str = "all_reduce",
+             axes=None) -> torch.Tensor:
+        self._axes(axes)
+        self._record(kind, "all-reduce", t)
+        return t.clone()
+
+    def all_gather(self, t: torch.Tensor, *, kind: str = "all_gather",
+                   axes=None) -> list[torch.Tensor]:
+        n = len(self.axes_ranks(axes))
+        self._record(kind, "all-gather", t)
+        return [t.clone() for _ in range(n)]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

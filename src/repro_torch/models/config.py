@@ -7,7 +7,8 @@ vlm / audio); family-specific fields default to None/0 and are validated in
 ``repro_torch/configs/<arch>.py``.  The sharding and memory knobs are kept
 so a configuration reads the same in both packages; on one device only
 ``moe_dispatch_shard`` changes what is computed (the MoE capacity groups).
-The dry-run's ``ShapeConfig``/``SHAPES`` are not ported yet.
+``ShapeConfig``/``SHAPES`` are the dry-run's input-shape cells
+(``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -165,3 +166,20 @@ class ModelConfig:
             pat = self.block_pattern
             return [pat[i % len(pat)] for i in range(self.num_layers)]
         return ["attn"] * self.num_layers
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell: what gets traced in the dry-run."""
+    name: str
+    kind: Literal["train", "prefill", "decode"]
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}

@@ -158,6 +158,13 @@ def params_to_jax(cfg: ModelConfig, named) -> dict:
     return _jax_tree(cfg, named, _host_leaf)
 
 
+def param_shapes(cfg: ModelConfig, named) -> dict:
+    """JAX's parameter tree with ``(shape, dtype)`` leaves (a stacked
+    leaf's shape with its depth dim) from the port's ``(name, tensor)``
+    pairs."""
+    return _jax_tree(cfg, named, _shape_leaf)
+
+
 def _train_state_tree(cfg: ModelConfig, state: dict, leaf) -> dict:
     opt = state["opt"]
     return {"params": _jax_tree(cfg, state["params"].named_parameters(),

@@ -151,6 +151,22 @@ def prefill(cfg: ModelConfig, model: L.Params, tokens, *, frames,
     return L.logits_out(model.embed, h, cfg.vocab_size), caches
 
 
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int, enc_len: int,
+                dtype=torch.float32, device="cuda") -> tuple:
+    """``(self_kv, cross_kv)`` as :func:`prefill` returns them, empty: one
+    dict a decoder layer each, the self-attention K/V of ``cache_len``
+    slots and the cross-attention K/V of ``enc_len`` encoder positions
+    (the dry-run's decode input; JAX's ``encdec.init_caches``)."""
+    device = resolve_device(device)
+    self_c = [B.make_kv_cache(cfg, batch, cache_len, dtype, device=device)
+              for _ in range(cfg.num_layers)]
+    shape = (batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+    cross_c = [{"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+               for _ in range(cfg.num_layers)]
+    return self_c, cross_c
+
+
 def decode_step(cfg: ModelConfig, model: L.Params, tokens, pos: int, caches,
                 *, compute_dtype=torch.float32):
     self_c, cross_c = caches

@@ -20,8 +20,9 @@ Compute along ``model`` stays replicated: the ranks that share a
 ``data`` coordinate compute the same rows, which gives the numbers of
 JAX's partitioned program.  Tensor-parallel, sequence and
 expert-parallel compute, and gathering a layer at a time instead of the
-whole model, are ROADMAP item 18; ``cache_specs`` waits for the LM
-dry-run (item 14(c)), its only consumer.
+whole model, are ROADMAP item 18.  ``cache_specs`` gives the decode
+caches' specs JAX would place (the dry-run's record, ``launch/specs.py``);
+the port's serving steps take no mesh and hold whole caches.
 """
 
 from __future__ import annotations
@@ -262,6 +263,47 @@ def batch_specs(cfg: ModelConfig, batch: dict, mesh) -> dict:
     return {k: (shd.entry(dp_axes_for(mesh, v.shape[0])),
                 *([None] * (v.dim() - 1)))
             for k, v in batch.items()}
+
+
+def _cache_spec(cfg: ModelConfig, mesh, name: str, shape) -> tuple:
+    """JAX's ``cache_specs`` rule for the cache leaf ``name`` of stacked
+    ``shape`` (L, B, ...)."""
+    tp_size = mesh.shape[shd.TP]
+    nd = len(shape)
+    if nd < 2:
+        return (None,) * nd
+    dp = shd.entry(dp_axes_for(mesh, shape[1]))      # (L, B, ...) layout
+    if name in ("k", "v") and nd == 5:               # (L, B, S, Hkv, hd)
+        heads, seq = shape[3], shape[2]
+        if heads % tp_size == 0:
+            return (None, dp, None, shd.TP, None)
+        if cfg.kv_seq_shard and seq % tp_size == 0:
+            return (None, dp, shd.TP, None, None)    # sequence-sharded
+        return (None, dp, None, None, None)
+    if name == "S" and nd == 5:                      # (L, B, nh, dk, dv)
+        tp = shd.TP if shape[2] % tp_size == 0 else None
+        return (None, dp, tp, None, None)
+    if name == "pos":
+        return (None,) * nd
+    return (None, dp, *([None] * (nd - 2)))          # tm_x/cm_x/h/conv
+
+
+def cache_specs(cfg: ModelConfig, caches, mesh):
+    """Specs of the decode caches (``init_caches``' form: a list of
+    per-layer dicts, or an encoder-decoder's ``(self_kv, cross_kv)`` pair
+    of such lists), keyed like them: JAX's ``cache_specs`` rule (batch
+    over the batch axes, KV heads over ``model`` when they divide it, else
+    the sequence when ``cfg.kv_seq_shard``; RWKV state heads over
+    ``model``) at the leaf's stacked ndim (L, B, ...), less the depth dim,
+    as ``convert.param_spec`` takes a parameter's."""
+    def per_layer(layers):
+        n = len(layers)
+        return [{k: _cache_spec(cfg, mesh, k, (n, *v.shape))[1:]
+                 for k, v in c.items()} for c in layers]
+
+    if cfg.is_encdec:
+        return tuple(per_layer(part) for part in caches)
+    return per_layer(caches)
 
 
 # ---------------------------------------------------------------------------

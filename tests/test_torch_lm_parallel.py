@@ -32,6 +32,9 @@ the same ranks: 2x2 (``data``, ``model``), 4x1 and 2x1x2 (``pod``,
 * (f) a 2x2 checkpoint restored onto the 4x1 mesh and onto one device
   bitwise, and a JAX-written checkpoint restored onto the 2x2 mesh
   bitwise;
+* (h) the LM dry-run's recording mesh (``launch/mesh.py::RecordingMesh``,
+  tests/test_torch_lm_dryrun.py) tallies the calls and bytes by kind and
+  dtype of (e)'s first two steps exactly as each rank's gloo mesh did;
 * (g) ``torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh
   debug --device cpu`` for 4 steps, and its step-2 checkpoint resumed
   bitwise the uninterrupted run; a run whose rank 2 alone gets SIGTERM
@@ -209,9 +212,18 @@ def _worker(rank: int, d: pathlib.Path):
     step = S.make_train_step(cfg, opt, mesh=mesh, compute_dtype=torch.float32)
     data = SyntheticLM(cfg, batch=4, seq_len=32, device="cpu")
     losses = []
+    before = (dict(mesh.counts), dict(mesh.nbytes))
     for i in range(LEARN_STEPS):
         state, m = step(state, data.batch_at(i))
         losses.append(float(m["loss"]))
+        if i == 1:    # (h) what the first two steps' collectives moved
+            out["two_steps"] = {
+                "counts": {k: v - before[0].get(k, 0)
+                           for k, v in mesh.counts.items()
+                           if v - before[0].get(k, 0)},
+                "nbytes": {k: v - before[1].get(k, 0)
+                           for k, v in mesh.nbytes.items()
+                           if v - before[1].get(k, 0)}}
     out["learns"] = losses
 
     # (f) elastic: the 2x2 state checkpointed, restored onto 4x1; a
@@ -836,6 +848,34 @@ def test_sharded_train_step_learns(runs):
     assert all(rk["learns"] == losses for rk in runs["ranks"][1:])
     assert len(losses) == LEARN_STEPS and np.isfinite(losses).all()
     assert losses[-1] < losses[0], losses
+
+
+def test_recording_mesh_counts_as_gloo(runs):
+    """(h) glm4-9b's smoke config, (e)'s state and first two batches on
+    the meta device and a recording 2x2 mesh at each rank's coordinates:
+    the collectives' calls and bytes by kind and dtype equal what the
+    rank's gloo mesh counted."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import MeshShape, RecordingMesh
+    from repro_torch.models import steps as S
+    from repro_torch.optim import AdamWConfig
+    cfg = configs.get_smoke("glm4-9b")
+    opt = AdamWConfig(lr=1e-3)
+    shape, axes = MESHES["2x2"]
+    data = SyntheticLM(cfg, batch=4, seq_len=32, device="cpu")
+    for r, rk in enumerate(runs["ranks"]):
+        mesh = RecordingMesh(MeshShape(dict(zip(axes, shape)), axes),
+                             rk["coords"]["2x2"])
+        state = S.init_train_state(cfg, None, opt, device="meta", mesh=mesh)
+        step = S.make_train_step(cfg, opt, mesh=mesh,
+                                 compute_dtype=torch.float32)
+        for i in range(2):
+            state, _ = step(state, {k: torch.empty_like(v, device="meta")
+                                    for k, v in data.batch_at(i).items()})
+        assert dict(mesh.counts) == rk["two_steps"]["counts"], r
+        assert dict(mesh.nbytes) == rk["two_steps"]["nbytes"], r
+    assert rk["two_steps"]["nbytes"]["grad_all_reduce/float32"] > 0
 
 
 def test_elastic_restore_across_meshes(runs):
