@@ -247,8 +247,9 @@ training path (``repro_torch.models.steps.make_train_step``,
    first on one device (the reference), then in four children of
    ``chip_smoke.py --lm-mesh-rank R --lm-mesh-dir D`` (NCCL with a card
    a rank, else gloo on card 0): the state sharded as JAX's
-   ``state_specs`` say, the rows over ``data``, bf16 gradients summed
-   over ``data``; each step's global loss and grad norm within 2 bf16
+   ``state_specs`` say, the rows over ``data``, tensor-parallel over
+   ``model`` with the layer's blocks gathered over ``data`` before use,
+   the bf16 gradients reduce-scattered over ``data``; each step's global loss and grad norm within 2 bf16
    ulps of the one-device step's, every rank's step-1 master blocks
    within the gradient bar carried through Adam's first update, the loss
    falling; glm4-9b's smoke config trained 2 steps on the mesh, its mesh
@@ -256,17 +257,30 @@ training path (``repro_torch.models.steps.make_train_step``,
    seconds in collectives and each rank's peak beside the reckoning and
    beside the rank's peak traced on the meta device, with what that peak
    holds;
+15. (run before 14) tensor-parallel LM training and serving on the 2x2
+   mesh (``parallel/tp.py``; no hand-written kernel): glm4-9b at full
+   width, first on one device (the references), then in four children of
+   ``chip_smoke.py --lm-tp-rank R --lm-tp-dir D``: 4 layers trained in
+   bf16 on phase 12's batch for 3 steps (KV heads, MLP columns and the
+   vocabulary over ``model``, one layer gathered over ``data`` at a
+   time), each step's loss and grad norm within 2^-7 of one device's;
+   8 layers served in f32, a prefill of 4 x 32 tokens and 4 greedy
+   decode steps, every rank's tokens its rows of one device's and its
+   logits within 1e-5 of their largest |logit|; step, prefill and decode
+   ms, bytes by kind and dtype, rank 0's seconds in each collective,
+   each rank's peaks beside the reckoning;
 14. the LM dry-run held against the card (``launch/dryrun.py::measure``
    on the meta device, in this process; no hand-written kernel): phase
-   11's glm4-9b serving, phase 12's train step and a phase 13 rank traced
-   (the rank with ``launch/mesh.py::RecordingMesh``), and the dry-run
+   11's glm4-9b serving, phase 12's train step, a phase 13 rank and a
+   phase 15 rank's train step, prefill and decode traced (the ranks with
+   ``launch/mesh.py::RecordingMesh``), and the dry-run
    cell glm4-9b decode_32k on ``pod`` as ``launch/specs.py`` builds it
    (bf16 serving weights with f32 output projections, the rank's 8 rows
    and 32768-slot caches), its arguments then made on the card and the
    step run; the traced matmul flops of each equal to
    ``FlopCounterMode``'s count of one more untimed call on the card; the
-   recording mesh's bytes a step equal to every rank's ``Mesh.nbytes``
-   every step; every measured wall at or above its bound (the traced
+   recording mesh's bytes a call equal to every rank's ``Mesh.nbytes``
+   every call; every measured wall at or above its bound (the traced
    flops at the H100's peak for their dtype, the traced bytes at phase
    1's copy rate); each traced peak within 10 % of the measured one
    (``max_memory_allocated`` less what was allocated before); the card's
@@ -292,6 +306,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import os
 import shutil
 import signal
@@ -3426,7 +3441,7 @@ def lm_train_phase(dev, card: str, scale: str = "full") -> dict:
 # ---------------------------------------------------------------------------
 
 # glm4-9b at full width, cut to LM_MESH_LAYERS layer(s) so that four ranks
-# fit one card (the reckoning: ``lm_mesh_reckoning``, PERF.md section 6),
+# fit one card (the reckoning: ``lm_rank_reckoning``, PERF.md section 6),
 # bf16 compute, phase 12's global batch (2 x 1024 tokens, one row a data
 # shard), its learning rate, LM_MESH_STEPS steps on one repeated batch.
 # The mesh checkpoint is held on glm4-9b's smoke config
@@ -3467,22 +3482,6 @@ def lm_mesh_ckpt_batch(cfg, dev, i: int):
     from repro_torch.data import SyntheticLM
     return SyntheticLM(cfg, batch=4, seq_len=32, seed=0,
                        device=str(dev)).batch_at(i)
-
-
-def lm_mesh_reckoning(n_params: int, out_rows: int, d_model: int) -> dict:
-    """Bytes a rank holds at its peak, reckoned from the shapes: its
-    block of the f32 master, m and v (12 B a parameter over 4 ranks), the
-    gathered bf16 compute copy and its bf16 gradients (2 B a parameter
-    each), the logits GEMM's f32 copy of ``embed.out`` and the f32
-    gradient of it (4 B each an entry), and the f32 logits of its 1024
-    tokens with their log-softmax and gradient (3 x 4 B each)."""
-    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ // LM_MESH_SHAPE[0]
-    parts = {"state_block": 12 * n_params // LM_MESH_WORLD,
-             "compute_copy": 2 * n_params, "grads": 2 * n_params,
-             "out_f32_copy_and_grad": 2 * 4 * out_rows * d_model,
-             "logits": 3 * 4 * tokens * out_rows}
-    parts["total"] = sum(parts.values())
-    return parts
 
 
 def lm_mesh_child(rank: int, d: Path) -> int:
@@ -3542,6 +3541,8 @@ def lm_mesh_child(rank: int, d: Path) -> int:
                       dict(mesh.nbytes))
             mesh.barrier()
             sync()
+            if cuda:   # the step's own peak (not the check after step 1)
+                torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
             state, m = step(state, batch)
             sync()
@@ -3561,7 +3562,7 @@ def lm_mesh_child(rank: int, d: Path) -> int:
                 out["after_step1"] = lm_mesh_against_reference(
                     mesh, state, specs, d / "ref")
         out["steps"] = rows
-        out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+        out["peak_bytes"] = (max(r["peak_bytes"] for r in rows)
                              if cuda else None)
         out["totals"] = {"counts": dict(mesh.counts),
                          "seconds": dict(mesh.seconds),
@@ -3677,9 +3678,7 @@ def lm_mesh_phase(dev, card: str, scale: str = "full") -> dict:
         gen.manual_seed(0)
         state = steps.init_train_state(cfg, gen, opt, device=dev)
         n_params = sum(p.numel() for p in state["params"].parameters())
-        reck = lm_mesh_reckoning(n_params,
-                                 state["params"].embed.out.shape[0],
-                                 cfg.d_model)
+        reck = lm_rank_reckoning(cfg, n_params)
         log(f"LM mesh train: {cfg.name} at full width, {LM_MESH_LAYERS} of "
             f"{full.num_layers} layers, {n_params / 1e9:.4f} B parameters, "
             f"on a {LM_MESH_SHAPE} {LM_MESH_AXES} mesh of {LM_MESH_WORLD} "
@@ -3794,16 +3793,19 @@ def lm_mesh_phase(dev, card: str, scale: str = "full") -> dict:
         tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
         r0 = ranks[0]["steps"]
         for i, row in enumerate(r0):
-            grad = {k.split("/", 1)[1]: v for k, v in row["nbytes"].items()
-                    if k.startswith("grad_all_reduce/")}
+            grad = {k: v for k, v in row["nbytes"].items()
+                    if k.startswith("grad_") and v}
             log(f"LM mesh step {i}{' (warm)' if i else ' (first)'}: rank 0 "
                 f"{row['ms']:.2f} ms (ranks "
                 + ", ".join(f"{rk['steps'][i]['ms']:.2f}" for rk in ranks)
                 + f"), {tokens / (row['ms'] * 1e-3):.1f} tokens/s; loss "
                 f"{row['loss']:.6f} (one device {one[i]['loss']:.6f}), grad "
                 f"norm {row['grad_norm']:.6f} ({one[i]['grad_norm']:.6f}); "
-                f"gradient bytes all-reduced by rank 0 {grad}, gathered "
-                f"{row['nbytes'].get('leaf_gather/bfloat16', 0)} bf16 bytes; "
+                f"gradient bytes reduced by rank 0 {grad}, parameters "
+                f"gathered {row['nbytes'].get('param_gather/bfloat16', 0)} "
+                f"bf16 bytes, tensor-parallel all-reduces "
+                + json.dumps({k: v for k, v in row["nbytes"].items()
+                              if k.startswith("tp_") and v}) + "; "
                 "rank 0's seconds in collectives "
                 + json.dumps({k: round(v, 4) for k, v in
                               row["seconds"].items()})
@@ -3852,6 +3854,427 @@ def lm_mesh_phase(dev, card: str, scale: str = "full") -> dict:
                 "traced": traced}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: tensor-parallel LM training and serving on a 2x2 mesh
+# ---------------------------------------------------------------------------
+
+# glm4-9b at full width on the 2x2 (data, model) mesh, the attention's KV
+# heads, the MLP's hidden columns and the vocabulary split over ``model``,
+# each layer's blocks gathered over ``data`` just before use: training
+# (bf16 compute, phase 12's batch and learning rate) cut to LM_TP_LAYERS
+# layers, enough that one layer at a time shows in a rank's peak (0.67 GiB
+# a layer traced; four ranks on one card hold the whole f32 draw of each
+# during set-up); serving (f32, a prefill of LM_REQUESTS x LM_TP_PROMPT
+# tokens and LM_TP_DECODE greedy decode steps) cut to LM_TP_SERVE_LAYERS
+# layers
+LM_TP_LAYERS, LM_TP_STEPS = 4, 3
+LM_TP_SERVE_LAYERS, LM_TP_PROMPT, LM_TP_DECODE = 8, 32, 4
+
+
+def lm_tp_configs(scale: str):
+    from repro_torch import configs
+    full = (configs.get if scale == "full" else configs.get_smoke)(
+        LM_TRAIN_ARCH)
+    return (dataclasses.replace(full, num_layers=LM_TP_LAYERS),
+            dataclasses.replace(full, num_layers=LM_TP_SERVE_LAYERS))
+
+
+def lm_tp_prompt(cfg, dev):
+    from repro_torch.data import SyntheticLM
+    return SyntheticLM(cfg, batch=LM_REQUESTS, seq_len=LM_TP_PROMPT, seed=0,
+                       device=str(dev)).batch_at(0)
+
+
+def lm_rank_reckoning(cfg, n_params: int) -> dict:
+    """Bytes a 2x2 rank of the tensor-parallel train step holds at its
+    peak, reckoned from the shapes as the trace finds it (in the backward
+    of the logits): its block of the f32 master, m and v (12 B a
+    parameter over 4 ranks) and of the bf16 compute copy (2 B), the f32
+    copy of its gathered vocabulary rows of ``embed.out`` and their f32
+    gradient (4 B each an entry), and one f32 logits-sized tensor of its
+    1024 tokens' vocabulary columns."""
+    world = math.prod(LM_MESH_SHAPE)
+    rows = cfg.padded_vocab // LM_MESH_SHAPE[1]
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ // LM_MESH_SHAPE[0]
+    parts = {"state_block": 12 * n_params // world,
+             "compute_block": 2 * n_params // world,
+             "out_f32_copy_and_grad": 2 * 4 * rows * cfg.d_model,
+             "logits": 4 * tokens * rows}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def _mark(mesh) -> tuple:
+    return dict(mesh.counts), dict(mesh.seconds), dict(mesh.nbytes)
+
+
+def _since(mesh, before) -> dict:
+    return {"counts": {k: v - before[0].get(k, 0)
+                       for k, v in mesh.counts.items()
+                       if v - before[0].get(k, 0)},
+            "seconds": {k: v - before[1].get(k, 0.0)
+                        for k, v in mesh.seconds.items()
+                        if v - before[1].get(k, 0.0)},
+            "nbytes": {k: v - before[2].get(k, 0)
+                       for k, v in mesh.nbytes.items()
+                       if v - before[2].get(k, 0)}}
+
+
+def lm_tp_child(rank: int, d: Path) -> int:
+    """One rank of phase 15 (``chip_smoke.py --lm-tp-rank R --lm-tp-dir
+    D``): LM_TP_STEPS tensor-parallel train steps of the state drawn from
+    the one-device run's seed, then the f32 serving model's blocks, a
+    prefill of this rank's rows and LM_TP_DECODE decode steps; each call
+    timed, its collectives, peak and ``FlopCounterMode`` count of one
+    more untimed call; writes ``rank<R>.json`` and this rank's tokens and
+    logits (``serve<R>.npz``)."""
+    import datetime
+    import torch.distributed as tdist
+    from repro_torch.core import distributed as dist
+    from repro_torch.models import steps
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import tp
+    spec = json.loads((d / "mesh.json").read_text())
+    transport, cuda = spec["transport"], spec["device_type"] == "cuda"
+    dev = torch.device("cuda", rank if transport == "nccl" else 0) \
+        if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    timeout = datetime.timedelta(seconds=LM_MESH_PG_TIMEOUT_S)
+    tdist.init_process_group(transport, init_method=f"file://{d}/rendezvous",
+                             rank=rank, world_size=LM_MESH_WORLD,
+                             timeout=timeout)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def fresh_peak():
+        sync()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if cuda else None
+
+    try:
+        mesh = dist.Mesh(LM_MESH_SHAPE, LM_MESH_AXES, device=dev,
+                         transport=transport, timeout=timeout)
+        cfg, scfg = lm_tp_configs(spec["scale"])
+        opt = AdamWConfig(lr=LM_TRAIN_LR)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        state = steps.init_train_state(cfg, gen, opt, device=dev, mesh=mesh)
+        out = {"coords": mesh.coords}
+        fresh_peak()
+        batch = lm_mesh_batch(cfg, dev)
+        step = steps.make_train_step(cfg, opt, mesh=mesh, compute_dtype=BF16)
+        rows = []
+        for i in range(LM_TP_STEPS):
+            mesh.barrier()
+            before = _mark(mesh)
+            sync()
+            t0 = time.perf_counter()
+            tp.CASES.clear()
+            state, m = step(state, batch)
+            sync()
+            rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "cases": dict(tp.CASES), **_since(mesh, before)})
+        out["train"] = {"steps": rows, "peak_bytes": peak(),
+                        "flops_counted": counted_flops(
+                            lambda: step(state, batch))}
+        del state, step, batch, m
+        mesh.barrier()
+        # serving: the f32 model drawn whole from the seed, this rank's
+        # blocks kept
+        gen.manual_seed(0)
+        model = steps.shard_model(scfg, steps.model_module(scfg).init_params(
+            scfg, gen, device=dev), mesh)
+        local = steps.local_batch(scfg, lm_tp_prompt(scfg, dev), mesh)
+        f32 = torch.float32
+        prefill = steps.make_prefill_step(
+            scfg, cache_len=LM_TP_PROMPT + LM_TP_DECODE + 1, mesh=mesh,
+            compute_dtype=f32)
+        decode = steps.make_decode_step(scfg, mesh=mesh, compute_dtype=f32)
+        fresh_peak()
+        mesh.barrier()
+        before = _mark(mesh)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, caches = prefill(model, local)
+        sync()
+        serve = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+                 "prefill": _since(mesh, before),
+                 "prefill_peak_bytes": peak()}
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        toks, lgs = [tok], [logits]
+        fresh_peak()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        per_step = []
+        with torch.no_grad():
+            for i in range(LM_TP_DECODE):
+                before = _mark(mesh)
+                tok, logits, caches = decode(model, caches, tok,
+                                             LM_TP_PROMPT + i)
+                per_step.append(_since(mesh, before))
+                toks.append(tok)
+                lgs.append(logits)
+        sync()
+        serve.update(decode_ms_per_token=(time.perf_counter() - t0) * 1e3
+                     / LM_TP_DECODE, decode=per_step,
+                     decode_peak_bytes=peak())
+        with torch.no_grad():
+            serve["prefill_flops_counted"] = counted_flops(
+                lambda: prefill(model, local))
+            serve["decode_flops_counted"] = counted_flops(
+                lambda: decode(model, caches, tok, LM_TP_PROMPT +
+                               LM_TP_DECODE - 1))
+        out["serve"] = serve
+        np.savez(d / f"serve{rank}.npz",
+                 tokens=torch.cat(toks, 1).cpu().numpy(),
+                 logits=torch.cat(lgs, 1).cpu().numpy())
+        (d / f"rank{rank}.json").write_text(json.dumps(out))
+        del model, caches
+        mesh.barrier()
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def lm_tp_serve_traced(cfg, coords: dict) -> dict:
+    """A phase 15 rank's f32 prefill and decode step traced on the meta
+    device (``launch/dryrun.py::measure``) with a recording 2x2 mesh at
+    ``coords`` (one for each): this rank's blocks and rows, the decode's
+    caches those a prefill made."""
+    from repro_torch.launch.dryrun import measure
+    from repro_torch.models import steps
+    f32 = torch.float32
+    out = {}
+    for what in ("prefill", "decode"):
+        m = lm_tp_mesh(coords)
+        model = steps.shard_model(cfg, steps.model_module(cfg).init_params(
+            cfg, None, device="meta"), m)
+        batch = steps.local_batch(cfg, {"tokens": torch.empty(
+            (LM_REQUESTS, LM_TP_PROMPT), dtype=torch.int64,
+            device="meta")}, m)
+        prefill = steps.make_prefill_step(
+            cfg, cache_len=LM_TP_PROMPT + LM_TP_DECODE + 1, mesh=m,
+            compute_dtype=f32)
+        with torch.no_grad():
+            if what == "prefill":
+                out[what] = measure(prefill, {"model": model,
+                                              "batch": batch}, m)
+                continue
+            _, caches = prefill(model, batch)
+            decode = steps.make_decode_step(cfg, mesh=m, compute_dtype=f32)
+            tokens = torch.empty((batch["tokens"].shape[0], 1),
+                                 dtype=torch.int64, device="meta")
+            out[what] = measure(decode, {"model": model, "caches": caches,
+                                         "tokens": tokens,
+                                         "pos": LM_TP_PROMPT}, m)
+    return out
+
+
+def lm_tp_phase(dev, card: str, scale: str = "full") -> dict:
+    """Phase 15: glm4-9b at full width, tensor-parallel over ``model`` on
+    the 2x2 mesh with one layer gathered over ``data`` at a time, against
+    one device.  First the one-device references on this process: the
+    LM_TP_LAYERS-layer bf16 train step (LM_TP_STEPS steps) and the
+    LM_TP_SERVE_LAYERS-layer f32 prefill and decode; then four children
+    (NCCL with a card a rank, else gloo on card 0) run the same on the
+    mesh from the same seed.  Each step's loss and grad norm within 2^-7
+    of the one-device step's, the same on every rank, KV heads over
+    ``model`` in every attention; every rank's tokens its rows of the
+    one-device tokens and its logits within 1e-5 of their largest
+    |logit|.  ``scale="smoke"`` with ``dev`` the CPU rehearses it."""
+    from repro_torch import kernels
+    from repro_torch.models import steps
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.launch.mesh import MeshShape
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    launches_before = kernels.counts()
+    cfg, scfg = lm_tp_configs(scale)
+    opt = AdamWConfig(lr=LM_TRAIN_LR)
+    n_cards = torch.cuda.device_count() if cuda else 0
+    transport = "nccl" if n_cards >= LM_MESH_WORLD else "gloo"
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_tp_",
+                                dir=ROOT / "build"))
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    try:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        state = steps.init_train_state(cfg, gen, opt, device=dev)
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        reck = lm_rank_reckoning(cfg, n_params)
+        log(f"LM TP: {cfg.name} at full width on a {LM_MESH_SHAPE} "
+            f"{LM_MESH_AXES} mesh of {LM_MESH_WORLD} ranks, transport "
+            f"{transport} ({n_cards} cards): training {LM_TP_LAYERS} "
+            f"layers ({n_params / 1e9:.4f} B parameters, bf16 compute, batch "
+            f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, lr {LM_TRAIN_LR}, "
+            f"{LM_TP_STEPS} steps), serving {LM_TP_SERVE_LAYERS} layers in "
+            f"f32 ({LM_REQUESTS} x {LM_TP_PROMPT} prompt, {LM_TP_DECODE} "
+            f"decode steps); a training rank's peak reckoned "
+            f"{reck['total'] / 2 ** 30:.3f} GiB ("
+            + ", ".join(f"{k} {v / 2 ** 30:.3f}" for k, v in reck.items()
+                        if k != "total") + f" GiB) ({card})")
+        batch = lm_mesh_batch(cfg, dev)
+        step = steps.make_train_step(cfg, opt, compute_dtype=BF16)
+        one = []
+        for _ in range(LM_TP_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync()
+            one.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"])})
+        log("LM TP one-device train reference: " + json.dumps(one))
+        del state, batch, step, m
+        gen.manual_seed(0)
+        model = steps.model_module(scfg).init_params(scfg, gen, device=dev)
+        prompt = lm_tp_prompt(scfg, dev)
+        f32 = torch.float32
+        prefill = steps.make_prefill_step(
+            scfg, cache_len=LM_TP_PROMPT + LM_TP_DECODE + 1,
+            compute_dtype=f32)
+        decode = steps.make_decode_step(scfg, compute_dtype=f32)
+        with torch.no_grad():
+            logits, caches = prefill(model, prompt)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            toks, lgs = [tok], [logits]
+            for i in range(LM_TP_DECODE):
+                tok, logits, caches = decode(model, caches, tok,
+                                             LM_TP_PROMPT + i)
+                toks.append(tok)
+                lgs.append(logits)
+        ref_tokens = torch.cat(toks, 1).cpu().numpy()
+        ref_logits = torch.cat(lgs, 1).cpu().numpy()
+        del model, caches, logits, lgs, toks, prompt
+        if cuda:
+            torch.cuda.empty_cache()
+        (tmp / "mesh.json").write_text(json.dumps(
+            {"transport": transport, "device_type": dev.type,
+             "scale": scale}))
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        res = run_children(
+            [[sys.executable, str(ROOT / "chip_smoke.py"), "--lm-tp-rank",
+              str(r), "--lm-tp-dir", str(tmp)]
+             for r in range(LM_MESH_WORLD)], env, LM_MESH_DEADLINE_S)
+        children_s = time.perf_counter() - t0
+        for r, (rc, text) in enumerate(res):
+            check(rc == 0, f"LM TP rank {r} failed (rc {rc}):\n"
+                           f"{text[-6000:]}")
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(LM_MESH_WORLD)]
+        for r, rk in enumerate(ranks):
+            for i, row in enumerate(rk["train"]["steps"]):
+                check(row["cases"] == {"kv": 2 * LM_TP_LAYERS},
+                      f"LM TP rank {r} step {i}: attention cases "
+                      f"{row['cases']}")
+                for key in ("loss", "grad_norm"):
+                    w = one[i][key]
+                    check(row[key] == ranks[0]["train"]["steps"][i][key],
+                          f"LM TP step {i} rank {r}: {key} differs from "
+                          "rank 0's")
+                    check(abs(row[key] - w) <= LM_MESH_BF16_BAR * abs(w),
+                          f"LM TP step {i}: {key} {row[key]} against the "
+                          f"one-device {w} (bar {LM_MESH_BF16_BAR})")
+        shape = {"data": LM_MESH_SHAPE[0], "model": LM_MESH_SHAPE[1]}
+        v = scfg.vocab_size
+        worst = 0.0
+        for r, rk in enumerate(ranks):
+            with np.load(tmp / f"serve{r}.npz") as f:
+                got_t, got_l = f["tokens"], f["logits"]
+            dp = steps.dp_axes_for(MeshShape(shape, LM_MESH_AXES),
+                                   LM_REQUESTS)
+            n = LM_REQUESTS // math.prod(shape[a] for a in dp)
+            i0 = rk["coords"]["data"] * n
+            want_t, want_l = ref_tokens[i0:i0 + n], ref_logits[i0:i0 + n]
+            check(np.array_equal(got_t, want_t),
+                  f"LM TP rank {r}: tokens {got_t.tolist()} against the "
+                  f"one-device {want_t.tolist()}")
+            top = float(np.abs(want_l[..., :v]).max())
+            err = float(np.abs(got_l[..., :v].astype(np.float64)
+                               - want_l[..., :v]).max()) / top
+            worst = max(worst, err)
+            check(err <= LM_ATTN_BAR,
+                  f"LM TP rank {r}: logits {err} of the largest |logit| "
+                  f"off the one-device ones (bar {LM_ATTN_BAR})")
+        check(kernels.counts() == launches_before,
+              "LM TP launched a kernel of K1-K4")
+        tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+        r0 = ranks[0]
+        for i, row in enumerate(r0["train"]["steps"]):
+            log(f"LM TP train step {i}{' (warm)' if i else ' (first)'}: "
+                f"rank 0 {row['ms']:.2f} ms (ranks "
+                + ", ".join(f"{rk['train']['steps'][i]['ms']:.2f}"
+                            for rk in ranks)
+                + f"), {tokens / (row['ms'] * 1e-3):.1f} tokens/s; loss "
+                f"{row['loss']:.6f} (one device {one[i]['loss']:.6f}, "
+                f"{one[i]['ms']:.2f} ms), grad norm {row['grad_norm']:.6f} "
+                f"({one[i]['grad_norm']:.6f}); rank 0's bytes "
+                + json.dumps(row["nbytes"]) + "; its seconds in collectives "
+                + json.dumps({k: round(s, 4) for k, s in
+                              row["seconds"].items()}) + f" ({card})")
+        sv = r0["serve"]
+        log(f"LM TP serving ({LM_TP_SERVE_LAYERS} layers, f32): prefill "
+            f"{sv['prefill_ms']:.2f} ms (ranks "
+            + ", ".join(f"{rk['serve']['prefill_ms']:.2f}" for rk in ranks)
+            + f"), decode {sv['decode_ms_per_token']:.2f} ms/token (ranks "
+            + ", ".join(f"{rk['serve']['decode_ms_per_token']:.2f}"
+                        for rk in ranks)
+            + f"); tokens equal the one-device ones on every rank, logits "
+            f"within {worst:.3e} of their largest |logit|; rank 0's prefill "
+            f"bytes " + json.dumps(sv["prefill"]["nbytes"]) + ", seconds "
+            + json.dumps({k: round(s, 4) for k, s in
+                          sv["prefill"]["seconds"].items()})
+            + "; a decode step's bytes " + json.dumps(sv["decode"][0][
+                "nbytes"]) + f" ({card})")
+        gib = 2 ** 30
+        log("LM TP ranks' peaks: train "
+            + ", ".join(f"{(rk['train']['peak_bytes'] or 0) / gib:.3f}"
+                        for rk in ranks)
+            + f" GiB against the reckoned {reck['total'] / gib:.3f} GiB; "
+            "prefill "
+            + ", ".join(f"{(rk['serve']['prefill_peak_bytes'] or 0) / gib:.3f}"
+                        for rk in ranks)
+            + ", decode "
+            + ", ".join(f"{(rk['serve']['decode_peak_bytes'] or 0) / gib:.3f}"
+                        for rk in ranks) + f" GiB ({card})")
+        traced = {"train": lm_train_traced(cfg, lm_tp_mesh(
+            ranks[0]["coords"])), **lm_tp_serve_traced(scfg,
+                                                        ranks[0]["coords"])}
+        seconds = time.perf_counter() - t_phase
+        log(f"LM TP: children {children_s:.1f} s; phase 15 {seconds:.1f} s "
+            f"({card})")
+        return {"config": cfg.name, "layers": LM_TP_LAYERS,
+                "serve_layers": LM_TP_SERVE_LAYERS, "params": n_params,
+                "transport": transport, "reckoned_rank_bytes": reck,
+                "one_device": one, "ranks": ranks, "traced": traced,
+                "logits_worst": worst, "children_s": children_s,
+                "seconds": seconds}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def lm_tp_mesh(coords: dict):
+    from repro_torch.launch.mesh import MeshShape, RecordingMesh
+    return RecordingMesh(MeshShape(dict(zip(LM_MESH_AXES, LM_MESH_SHAPE)),
+                                   LM_MESH_AXES), coords)
 
 
 # ---------------------------------------------------------------------------
@@ -3930,10 +4353,7 @@ def lm_train_traced(cfg, mesh=None) -> dict:
 def lm_mesh_traced(cfg, coords: dict) -> dict:
     """A phase 13 rank (at ``coords`` of the 2x2 mesh) traced on the meta
     device with a recording mesh (``launch/mesh.py::RecordingMesh``)."""
-    from repro_torch.launch.mesh import MeshShape, RecordingMesh
-    mesh = RecordingMesh(MeshShape(dict(zip(LM_MESH_AXES, LM_MESH_SHAPE)),
-                                   LM_MESH_AXES), coords)
-    return lm_train_traced(cfg, mesh)
+    return lm_train_traced(cfg, lm_tp_mesh(coords))
 
 
 def _on_card(obj, dev, gen, vocab: int):
@@ -4006,10 +4426,11 @@ def _bound_ms(span: dict, bw: float) -> dict:
 
 
 def dryrun_phase(dev, card: str, bw: float, lm: dict, lm_train: dict,
-                 lm_mesh: dict) -> dict:
+                 lm_mesh: dict, lm_tp: dict) -> dict:
     """Phase 14: the LM dry-run's measure (``launch/dryrun.py::measure``
-    on the meta device, in this process) of the three configurations
-    phases 11-13 ran, and of one dry-run cell as ``launch/specs.py``
+    on the meta device, in this process) of the configurations phases
+    11-13 and 15 ran (phase 15's train step, prefill and decode step of a
+    rank), and of one dry-run cell as ``launch/specs.py``
     builds it (glm4-9b decode_32k on ``pod``: bf16 serving), held against
     the card: the traced matmul flops equal to ``FlopCounterMode``'s count
     of one more untimed step on the card; the recording mesh's bytes
@@ -4124,6 +4545,48 @@ def dryrun_phase(dev, card: str, bw: float, lm: dict, lm_train: dict,
          statistics.median(r0), tr13, counted.pop(),
          max(peaks) if peaks else None, tr13)
 
+    # phase 15: a rank of the tensor-parallel 2x2 mesh, its train step,
+    # prefill and decode step; every rank's bytes each call against the
+    # recording mesh's
+    tr15, ranks15 = lm_tp["traced"], lm_tp["ranks"]
+    calls = {"train": [st["nbytes"] for rk in ranks15
+                       for st in rk["train"]["steps"]],
+             "prefill": [rk["serve"]["prefill"]["nbytes"] for rk in ranks15],
+             "decode": [st["nbytes"] for rk in ranks15
+                        for st in rk["serve"]["decode"]]}
+    for what, seen in calls.items():
+        want = tr15[what]["collectives"]["nbytes"]
+        bad = [got for got in seen if got != want]
+        check(not bad, f"dry run: a phase 15 rank's {what} moved {bad[:1]}, "
+                       f"the recording mesh {want}")
+        log(f"dry run: the recording mesh's bytes of a phase 15 {what} call "
+            f"equal every rank's Mesh.nbytes of every call: "
+            + json.dumps(want) + f" ({card})")
+    gib = {what: max((rk[part][key] for rk in ranks15
+                      if rk[part][key]), default=None)
+           for what, part, key in (("train", "train", "peak_bytes"),
+                                   ("prefill", "serve", "prefill_peak_bytes"),
+                                   ("decode", "serve", "decode_peak_bytes"))}
+    counted = {what: {rk[part][key] for rk in ranks15}
+               for what, part, key in (
+                   ("train", "train", "flops_counted"),
+                   ("prefill", "serve", "prefill_flops_counted"),
+                   ("decode", "serve", "decode_flops_counted"))}
+    for what, c in counted.items():
+        check(len(c) == 1, f"phase 15 ranks counted different {what} flops "
+                           f"{c}")
+    sv = ranks15[0]["serve"]
+    held(f"phase 15 rank ({LM_TP_LAYERS} layers, 2x2, TP) train step",
+         statistics.median(st["ms"] for st in
+                           ranks15[0]["train"]["steps"][1:]),
+         tr15["train"], counted["train"].pop(), gib["train"], tr15["train"])
+    held(f"phase 15 rank ({LM_TP_SERVE_LAYERS} layers, 2x2, TP) f32 prefill",
+         sv["prefill_ms"], tr15["prefill"], counted["prefill"].pop(),
+         gib["prefill"], tr15["prefill"])
+    held(f"phase 15 rank ({LM_TP_SERVE_LAYERS} layers, 2x2, TP) f32 decode "
+         "step", sv["decode_ms_per_token"], tr15["decode"],
+         counted["decode"].pop(), gib["decode"], tr15["decode"])
+
     # a dry-run cell as launch/specs.py builds it: bf16 serving
     cell = lm_dry_cell(dev, LM_DRY_ARCH, LM_DRY_SHAPE)
     held(f"cell {LM_DRY_ARCH} {LM_DRY_SHAPE} pod (bf16, f32 output "
@@ -4152,6 +4615,10 @@ def main() -> int:
         i = sys.argv.index
         return lm_mesh_child(int(sys.argv[i("--lm-mesh-rank") + 1]),
                              Path(sys.argv[i("--lm-mesh-dir") + 1]))
+    if "--lm-tp-rank" in sys.argv:
+        i = sys.argv.index
+        return lm_tp_child(int(sys.argv[i("--lm-tp-rank") + 1]),
+                           Path(sys.argv[i("--lm-tp-dir") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
@@ -4408,8 +4875,16 @@ def main() -> int:
     lm_mesh = lm_mesh_phase(dev, card)
     phase_done(13)
 
-    # phase 14: the LM dry-run held against phases 11-13
-    dry = dryrun_phase(dev, card, bw, lm, lm_train, lm_mesh)
+    # phase 15: tensor-parallel LM training and serving on a 2x2 mesh (run
+    # before phase 14, which holds its steps too)
+    torch.cuda.empty_cache()
+    log(f"LM TP phase: {torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} "
+        "GiB still allocated by earlier phases")
+    lm_tp = lm_tp_phase(dev, card)
+    phase_done(15)
+
+    # phase 14: the LM dry-run held against phases 11-13 and 15
+    dry = dryrun_phase(dev, card, bw, lm, lm_train, lm_mesh, lm_tp)
     phase_done(14)
 
     replaces = {

@@ -57,6 +57,7 @@ Tensor = torch.Tensor
 _LAT_AXIS_NAMES = {0: "T", 1: "Z", 2: "Y"}
 
 TRANSPORTS = ("gloo", "nccl")
+_REDUCE_OPS = {"sum": tdist.ReduceOp.SUM, "max": tdist.ReduceOp.MAX}
 
 
 class MeshAxes:
@@ -104,17 +105,18 @@ class Mesh(MeshAxes):
     ``ppermute`` calls, ``<kind>_planes``/``<kind>_bytes`` sent by them
     (``kind`` "spinor" or "link"), ``all_gather``, ``broadcast``,
     ``barrier``, and the kinds callers name (the data-parallel trainer's
-    ``leaf_gather``, ``grad_all_reduce``, ...); ``seconds`` the host's
+    ``param_gather``, ``grad_reduce_scatter``, ...); ``seconds`` the host's
     wall time inside each kind of collective (staging copies included, so
     also the wait for the card's queued work that a copy to the host
     implies); ``nbytes`` the bytes each ``psum`` and ``all_gather``
-    passed in, keyed ``<kind>/<dtype>`` (the dtype the collective moved).
+    passed in, keyed ``<kind>/<dtype>`` (the dtype the collective moved);
+    ``reduce_scatter`` is counted as ``psum`` is.
 
-    ``psum`` and ``all_gather`` act on the world group, or with ``axes``
-    on the ranks that share this rank's coordinates on every other axis
-    (one subgroup for each such set of axes, made at its first use: every
-    rank makes its collectives in the same order, so every rank makes the
-    same subgroups together).
+    ``psum``, ``all_gather`` and ``reduce_scatter`` act on the world
+    group, or with ``axes`` on the ranks that share this rank's
+    coordinates on every other axis (one subgroup for each such set of
+    axes, made at its first use: every rank makes its collectives in the
+    same order, so every rank makes the same subgroups together).
 
     Every rank constructs the mesh with the same arguments (the subgroups
     are created collectively).  ``timeout`` bounds every collective of the
@@ -255,16 +257,17 @@ class Mesh(MeshAxes):
         return self._groups[axes]
 
     def psum(self, t: Tensor, *, kind: str = "all_reduce",
-             axes=None) -> Tensor:
+             axes=None, op: str = "sum") -> Tensor:
         """The sum of ``t`` over every rank (one ``all_reduce`` on the
         world group), or with ``axes`` over the ranks of this rank's group
         on those axes; every rank of the group gets the same bits, summed
-        in ``t``'s dtype.  ``kind``: the key it is counted under (the
-        verification's own collectives count apart from the solve's)."""
+        in ``t``'s dtype (``op="max"``: the largest entry instead).
+        ``kind``: the key it is counted under (the verification's own
+        collectives count apart from the solve's)."""
         t0 = time.perf_counter()
         group = None if axes is None else self._group(self._axes(axes))
         buf = self._send(t)
-        tdist.all_reduce(buf, group=group)
+        tdist.all_reduce(buf, op=_REDUCE_OPS[op], group=group)
         out = self._back(buf)
         self._tally(kind, t)
         self._done(kind, t0)
@@ -283,6 +286,26 @@ class Mesh(MeshAxes):
         self._tally(kind, t)
         self._done(kind, t0)
         return outs
+
+    def reduce_scatter(self, t: Tensor, *, axes, dim: int = 0,
+                       kind: str = "reduce_scatter") -> Tensor:
+        """This rank's part of the sum of ``t`` over the ranks of its group
+        on ``axes``: ``t`` cut along ``dim`` into as many equal parts as
+        the group has ranks, in :meth:`axes_ranks`' order, and part i
+        summed over the group in ``t``'s dtype on its i-th rank (one
+        ``reduce_scatter``).  Counted, like :meth:`psum`, with the bytes
+        of ``t``."""
+        t0 = time.perf_counter()
+        group = self._group(self._axes(axes))
+        ranks = self.axes_ranks(axes)
+        parts = [self._send(c) for c in
+                 torch.chunk(t, len(ranks), dim=dim)]
+        buf = self._out(parts[0])
+        tdist.reduce_scatter(buf, parts, group=group)
+        out = self._back(buf)
+        self._tally(kind, t)
+        self._done(kind, t0)
+        return out
 
     def broadcast(self, t: Tensor, src: int = 0) -> Tensor:
         """Rank ``src``'s ``t`` on every rank (the other ranks pass a tensor

@@ -82,6 +82,8 @@ HBM_SOURCE = ("total_memory of an NVIDIA H100 80GB HBM3 (chip_smoke.py "
 # the traced live bytes
 MARGINAL_BYTES = 4 * 2 ** 30
 ALLOC_ROUND = 512     # the CUDA caching allocator's size granularity
+# the label of the parameters a layer gathered (``parallel/tp.py``)
+GATHERED = "param_gather"
 
 # ops that allocate without reading or writing data
 _NO_DATA = {"empty", "empty_like", "empty_strided", "new_empty",
@@ -164,6 +166,19 @@ class Trace(TorchDispatchMode):
             self.peak = self.live
             self.peak_holds = {k: v for k, v in self.by_label.items() if v}
 
+    def label(self, t: torch.Tensor, label: str) -> None:
+        """Count the storage of ``t``, already live, under ``label`` from
+        now on (and in the peak's holdings when it made the peak)."""
+        held = self._held.get(id(t.untyped_storage()))
+        if held is None or held[2] == label:
+            return
+        ref, n, old = held
+        self._held[id(t.untyped_storage())] = (ref, n, label)
+        self.by_label[old] -= n
+        self.by_label[label] += n
+        if self.live == self.peak:
+            self.peak_holds = {k: v for k, v in self.by_label.items() if v}
+
     def register(self, obj, label: str) -> None:
         """Count the storages of ``obj``'s tensors (a module's parameters,
         nested containers) as live under ``label``."""
@@ -227,14 +242,20 @@ def measure(fn, kwargs: dict, mesh=None) -> dict:
     registered first) and return its counts: ``flops`` (total and
     ``flops_by_dtype``), ``bytes``, the collectives the recording ``mesh``
     tallied in the call (none without one), ``peak_bytes`` with
-    ``peak_holds``, ``arg_bytes`` and ``trace_s``."""
+    ``peak_holds`` (the parameters the layers gathered under
+    :data:`GATHERED`), ``arg_bytes`` and ``trace_s``."""
     before = (dict(mesh.counts), dict(mesh.nbytes)) if mesh else ({}, {})
+    from repro_torch.parallel import tp
     tr = Trace()
     _register_args(tr, kwargs)
     arg_bytes = tr.live
     t0 = time.perf_counter()
-    with tr:
-        out = fn(**kwargs)
+    tp.gathered_hook = functools.partial(tr.label, label=GATHERED)
+    try:
+        with tr:
+            out = fn(**kwargs)
+    finally:
+        tp.gathered_hook = None
     seconds = time.perf_counter() - t0
     del out
     coll = collectives(mesh, *before)
@@ -324,8 +345,13 @@ def model_flops(cfg, shape) -> float:
 
 
 def program(kind: str) -> str:
-    return ("data-parallel, model axis replicated" if kind == "train"
-            else "replicated serving")
+    if kind == "train":
+        return ("tensor-parallel over model (attention, dense MLP, "
+                "vocabulary-parallel embedding, logits and loss), "
+                "data-parallel over the batch axes, one layer gathered over "
+                "data at a time")
+    return ("tensor-parallel serving over model, one layer gathered over "
+            "data at a time")
 
 
 def storage(kind: str) -> str:
@@ -334,10 +360,15 @@ def storage(kind: str) -> str:
         return ("f32 master, m and v: this rank's blocks (state_specs); "
                 "batch: the global batch passed in, this rank's rows taken "
                 "by the step (batch_specs); bf16 compute copy and its "
-                "gradients: whole on every rank")
-    return ("bf16 parameters: whole on every rank (state_specs not "
-            "applied); batch and caches: this rank's rows (dp_axes_for), "
-            "heads and sequence whole (cache_specs not applied)")
+                "gradients: this rank's blocks, one layer's blocks gathered "
+                "over data at a time; MoE experts and router, RG-LRU, RWKV "
+                "and cross-attention weights gathered whole along model in "
+                "their layer; no sequence sharded (seq_shard not read)")
+    return ("bf16 parameters: this rank's blocks (state_specs), one "
+            "layer's gathered over data at a time; batch and caches: this "
+            "rank's rows (dp_axes_for), KV heads over model where they "
+            "divide it (held_cache_specs), the sequence whole "
+            "(kv_seq_shard not read)")
 
 
 def _distinct_specs(cfg, specs: dict) -> dict:

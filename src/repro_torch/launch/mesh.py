@@ -53,17 +53,19 @@ class RecordingMesh(MeshAxes):
     ``make_train_step(..., mesh=)`` reads of a
     :class:`~repro_torch.core.distributed.Mesh` (``axis_names``,
     ``shape``, ``coords``, ``device``, ``axes_ranks``, ``coords_of``,
-    ``psum``, ``all_gather``) for a trace of one rank's step.  The
+    ``psum``, ``all_gather``, ``reduce_scatter``) for a trace of one
+    rank's step.  The
     coordinate math and the byte tally are ``Mesh``'s own
     (:class:`~repro_torch.core.distributed.MeshAxes`).
 
-    ``psum`` returns a copy of its input, and ``all_gather`` one copy of
-    its input per rank of the group: the buffers the transport would
-    fill, with no values exchanged (on the meta device there are none).
+    ``psum`` returns a copy of its input, ``all_gather`` one copy of its
+    input per rank of the group and ``reduce_scatter`` a copy of this
+    rank's part: the buffers the transport would fill, with no values
+    exchanged (on the meta device there are none).
     Each call is counted as ``Mesh`` counts it: ``counts[kind]`` calls and
     ``nbytes["<kind>/<dtype>"]`` the bytes passed in; ``jax_kinds`` maps
     each kind to the collective's name in XLA's HLO (``all-reduce``,
-    ``all-gather``)."""
+    ``all-gather``, ``reduce-scatter``)."""
 
     def __init__(self, shape: MeshShape, coords: dict | None = None):
         self.axis_names = tuple(shape.axis_names)
@@ -95,7 +97,7 @@ class RecordingMesh(MeshAxes):
         self.jax_kinds[kind] = jax_kind
 
     def psum(self, t: torch.Tensor, *, kind: str = "all_reduce",
-             axes=None) -> torch.Tensor:
+             axes=None, op: str = "sum") -> torch.Tensor:
         self._axes(axes)
         self._record(kind, "all-reduce", t)
         return t.clone()
@@ -105,6 +107,13 @@ class RecordingMesh(MeshAxes):
         n = len(self.axes_ranks(axes))
         self._record(kind, "all-gather", t)
         return [t.clone() for _ in range(n)]
+
+    def reduce_scatter(self, t: torch.Tensor, *, axes, dim: int = 0,
+                       kind: str = "reduce_scatter") -> torch.Tensor:
+        ranks = self.axes_ranks(axes)
+        self._record(kind, "reduce-scatter", t)
+        return torch.chunk(t, len(ranks), dim=dim)[
+            ranks.index(self.rank)].clone()
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

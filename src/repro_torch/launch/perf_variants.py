@@ -11,8 +11,8 @@ record lands in ``experiments/dryrun_torch/perf/<tag>.json`` with the
 dry-run cell's terms (``launch/dryrun.py::run_cell`` on the overridden
 config) and ``reads``: whether the port's program reads each override.
 ``remat`` is read (``layers.remat``).  ``seq_shard`` and ``kv_seq_shard``
-are not (the port's steps shard no sequence before ROADMAP item 18), so
-those variants trace the baseline's program.  ``moe_dispatch_shard=False``
+are not (the port's steps shard no sequence before ROADMAP item 18 part
+2), so those variants trace the baseline's program.  ``moe_dispatch_shard=False``
 with a batch split over the mesh raises in ``models/moe.py`` (one capacity
 group over the whole batch is not reproduced across ranks): the record's
 status is ``refused``, with the message.
@@ -53,9 +53,11 @@ RUNS = {"h1": H1, "h2": H2, "h4": H4, "h5": H5}
 # whether the port's program reads each override
 READS = {
     "remat": "read: layers.remat checkpoints each pattern period",
-    "seq_shard": "not read: the port shards no sequence (ROADMAP item 18)",
-    "kv_seq_shard": "not read: the port's serving holds whole caches "
-                    "(ROADMAP item 18)",
+    "seq_shard": "not read: the port shards no sequence (ROADMAP item 18 "
+                 "part 2)",
+    "kv_seq_shard": "not read: the port's serving holds a cache whole "
+                    "along model where its KV heads do not divide it "
+                    "(ROADMAP item 18 part 2)",
     "moe_dispatch_shard": "read: models/moe.py's capacity groups; False "
                           "with a split batch raises",
 }

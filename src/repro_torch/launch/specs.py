@@ -8,18 +8,19 @@ argument on the meta device (shapes and dtypes, no storage).  ``mesh`` is
 a :class:`~repro_torch.launch.mesh.RecordingMesh`, so a 256- or 512-rank
 mesh runs in one process.  ``specs`` holds the port's ``state_specs``,
 ``batch_specs`` and ``cache_specs`` of the arguments: what JAX would
-place.
+place (and ``held_caches``: the caches' specs as the port holds them).
 
 What the port runs (the dry-run record's ``program`` and ``storage``):
 
 * train: ``make_train_step(cfg, opt, mesh=, compute_dtype=bf16)`` on this
   rank's blocks of the f32 state (``init_train_state(..., mesh=)``, laid
   out as ``state_specs`` say) and the global batch, whose rows the step
-  splits over the batch axes; compute along ``model`` is replicated
-  (ROADMAP item 18);
-* prefill and decode: the port's serving steps take no mesh, so every
-  rank holds the whole bf16 model and serves its rows of the batch
-  (``dp_axes_for``) with whole caches for those rows, with no collective.
+  splits over the batch axes: tensor-parallel over ``model``, each layer
+  gathered over ``data`` before use (``parallel/tp.py``);
+* prefill and decode: ``make_prefill_step``/``make_decode_step(...,
+  mesh=)`` on this rank's blocks of the bf16 parameters, its rows of the
+  batch (``dp_axes_for``) and caches of its rows and, where the KV heads
+  divide ``model``, its heads (``steps.held_cache_specs``).
 
 JAX's ``init_params(..., bfloat16)`` leaves its output projections in
 f32 (each is drawn in bf16, then scaled by a float64 NumPy std, which
@@ -39,6 +40,7 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import steps as S
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.optim import AdamWConfig
+from repro_torch.parallel import sharding as shd
 
 BF16 = torch.bfloat16
 META = "meta"
@@ -133,16 +135,17 @@ def input_specs(arch: str, shape_name: str, mesh,
             "state": S.state_specs(cfg, state),
             "batch": S.batch_specs(cfg, batch, mesh)}
 
-    # serving: the bf16 inference copy, whole on every rank
+    # serving: this rank's blocks of the bf16 inference copy
     params = serving_params(cfg)
     p_spec = S.state_specs(cfg, {"params": params})["params"]
+    S.shard_model(cfg, params, mesh)
 
     if shape.kind == "prefill":
         batch = _batch_struct(cfg, shape, seq=shape.seq_len,
                               batch=shape.global_batch, dtype=BF16)
         rows = rows_for(mesh, shape.global_batch)
         local = {k: v[:rows] for k, v in batch.items()}
-        fn = S.make_prefill_step(cfg, cache_len=shape.seq_len,
+        fn = S.make_prefill_step(cfg, cache_len=shape.seq_len, mesh=mesh,
                                  compute_dtype=BF16)
 
         def prefill_step(params, batch):
@@ -153,11 +156,12 @@ def input_specs(arch: str, shape_name: str, mesh,
 
     if shape.kind == "decode":
         rows = rows_for(mesh, shape.global_batch)
-        caches = init_caches(cfg, shape, rows)
+        with shd.set_mesh(mesh):      # this rank's KV heads
+            caches = init_caches(cfg, shape, rows)
         tokens = torch.empty((rows, 1), dtype=torch.int64, device=META)
         # the whole cache attended: every slot is read whatever pos is
         pos = shape.seq_len - 1
-        fn = S.make_decode_step(cfg, compute_dtype=BF16)
+        fn = S.make_decode_step(cfg, mesh=mesh, compute_dtype=BF16)
 
         def decode_step(params, caches, tokens, pos):
             return fn(params, caches, tokens, pos)
@@ -168,6 +172,7 @@ def input_specs(arch: str, shape_name: str, mesh,
         return decode_step, {"params": params, "caches": caches,
                              "tokens": tokens, "pos": pos}, {
             "params": p_spec, "caches": S.cache_specs(cfg, glob, mesh),
+            "held_caches": S.held_cache_specs(cfg, glob, mesh),
             "tokens": S.batch_specs(cfg, {"tokens": whole}, mesh)["tokens"],
             "pos": ()}
 

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import tp
 
 
 # ---------------------------------------------------------------------------
@@ -35,10 +36,13 @@ def attn_init(gen, cfg: ModelConfig, dtype, device) -> L.Params:
 def make_kv_cache(cfg: ModelConfig, batch: int, length: int, dtype,
                   ring: bool = False, device="cuda") -> dict:
     """Empty per-layer KV cache. ``ring=True`` -> sliding-window buffer of
-    size cfg.window with explicit position slots (-1: empty)."""
+    size cfg.window with explicit position slots (-1: empty).  On a mesh
+    it holds this rank's KV heads where they divide ``model``
+    (``tp.cache_kv_heads``), else every head."""
     if ring:
         length = min(length, cfg.window)
-    shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+    shape = (batch, length, tp.cache_kv_heads(cfg.num_kv_heads),
+             cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
     if ring:
@@ -56,12 +60,24 @@ def attn_apply(p: L.Params, x: torch.Tensor, cfg: ModelConfig, *,
     Decode: x is (B, 1, d) and ``cache`` holds past K/V; the new K/V is
     written at ``pos0`` (or ring slot pos0 % window).
     Returns (out, new_cache_or_None).
+
+    On a mesh (``tp.head_split``) the rank projects its query heads (every
+    head under ``"whole"``) and its KV heads under ``"kv"``, else every KV
+    head, keeps those in the cache, and ends with ``wo`` row-parallel and
+    one all-reduce over ``model``.
     """
     b, s, d = x.shape
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = L.dot(x, p.wq).reshape(b, s, hq, hd)
-    k = L.dot(x, p.wk).reshape(b, s, hkv, hd)
-    v = L.dot(x, p.wv).reshape(b, s, hkv, hd)
+    hd = cfg.head_dim
+    split = tp.head_split(cfg.num_heads, cfg.num_kv_heads, s)
+    kv_part = "local" if split.case == "kv" else "sum"
+    x = tp.copy_to(x)
+    wq = tp.use(p.wq, ("wq",),
+                model="sum" if split.case == "whole" else "local")
+    q = L.dot(x, wq).reshape(b, s, split.q_heads, hd)
+    k = L.dot(x, tp.use(p.wk, ("wk",), model=kv_part)).reshape(
+        b, s, split.kv_heads, hd)
+    v = L.dot(x, tp.use(p.wv, ("wv",), model=kv_part)).reshape(
+        b, s, split.kv_heads, hd)
 
     q_pos = pos0 + torch.arange(s, device=x.device)
     q = L.rope(q, q_pos[None, :], cfg.rope_theta)
@@ -86,13 +102,13 @@ def attn_apply(p: L.Params, x: torch.Tensor, cfg: ModelConfig, *,
                 # its own window); the cache keeps the trailing w tokens at
                 # their canonical ring slots pos % w
                 if s >= w:
-                    tk, tv, tp = k[:, -w:], v[:, -w:], q_pos[-w:]
+                    tk, tv, tpos = k[:, -w:], v[:, -w:], q_pos[-w:]
                 else:
-                    tk, tv, tp = k, v, q_pos
-                slots = tp % w
+                    tk, tv, tpos = k, v, q_pos
+                slots = tpos % w
                 cache["k"][:, slots] = tk
                 cache["v"][:, slots] = tv
-                cache["pos"][slots] = tp
+                cache["pos"][slots] = tpos
                 kk, vv, kv_pos = k, v, q_pos
         else:
             cache["k"][:, pos0:pos0 + s] = k
@@ -103,9 +119,12 @@ def attn_apply(p: L.Params, x: torch.Tensor, cfg: ModelConfig, *,
             new_cache = cache
 
     out = L.attention(q, kk, vv, q_pos=q_pos, kv_pos=kv_pos,
-                      causal=causal, window=window)
-    out = L.dot(out.reshape(b, s, hq * hd), p.wo)
-    return out, new_cache
+                      causal=causal, window=window, split=split)
+    out = out.reshape(b, s, split.q_heads * hd)
+    if split.case == "whole":     # this rank's columns for its rows of wo
+        a = out.shape[-1] // split.tp
+        out = out[..., tp.index() * a:(tp.index() + 1) * a]
+    return L.row_parallel(out, tp.use(p.wo, ("wo",))), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -120,7 +139,10 @@ def cross_attn_apply(p: L.Params, x: torch.Tensor, enc: torch.Tensor | None,
                      cfg: ModelConfig, *, cache: dict | None = None,
                      update_cache: bool = False):
     """Cross-attention over encoder output ``enc`` (B, Se, d).  At decode
-    time pass the prefill-computed ``cache`` instead of ``enc``."""
+    time pass the prefill-computed ``cache`` instead of ``enc``.  On a mesh
+    it reads its weights whole and computes every head on every rank
+    (``tp.whole``), with a cache of every head."""
+    p = tp.whole(p)
     b, s, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = L.dot(x, p.wq).reshape(b, s, hq, hd)

@@ -29,6 +29,8 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.parallel import tp
+
 F32 = torch.float32
 NEG_INF = -1e30
 
@@ -225,18 +227,34 @@ class _Flash(torch.autograd.Function):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_pos: torch.Tensor, kv_pos: torch.Tensor,
               causal: bool = True, window: int = 0,
-              chunk: int = 1024) -> torch.Tensor:
+              chunk: int = 1024, split=None) -> torch.Tensor:
     """Grouped-query attention (chunked online softmax).
 
     q: (B, Sq, Hq, hd);  k, v: (B, Skv, Hkv, hd);  Hq % Hkv == 0.
     q_pos: (Sq,) int; kv_pos: (Skv,) int (-1 marks an empty cache slot).
     window > 0 limits attention to the last ``window`` positions.
+
+    On a mesh ``split`` (``tp.head_split``) says which heads this rank
+    holds, JAX's three cases: ``"kv"``, q and k/v this rank's heads;
+    ``"rep"`` and ``"group"``, q this rank's query heads and k/v every KV
+    head, of which the rank's heads share one (under ``"rep"`` the rank's
+    virtual KV head, JAX's ``repeat`` of K/V ``rep`` times); ``"whole"``,
+    every head.
     """
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    if split is not None and split.tp > 1:
+        tp.CASES[split.case] += 1
+        if split.case in ("rep", "group"):
+            g_all = split.q_heads * split.tp // hkv
+            if g_all % hq:
+                raise ValueError(
+                    f"{hq} query heads a rank straddle the groups of "
+                    f"{hkv} KV heads on a model axis of {split.tp}")
+            kv = split.q0 // g_all
+            k, v = k[:, :, kv:kv + 1], v[:, :, kv:kv + 1]
+            hkv = 1
     g = hq // hkv
-    # JAX replicates KV heads here when they cannot cover a `model` mesh
-    # axis; on one device there is no such axis and it is a no-op.
     qg = q.reshape(b, sq, hkv, g, hd)
     if sq == 1:
         # decode: one query, the whole cache as a single chunk
@@ -256,20 +274,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # MLP variants
 # ---------------------------------------------------------------------------
 
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`dot` of this rank's columns of ``x`` and rows of ``w``,
+    summed over ``model`` in f32 before the cast (off-mesh :func:`dot`)."""
+    return tp.reduce_from(torch.matmul(x.float(), w.float())).to(x.dtype)
+
+
 def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The MLP; on a mesh ``wg``/``wu`` column-parallel and ``wd``
+    row-parallel over ``model``, gathered over ``data`` just before use."""
+    x = tp.copy_to(x)
+    wu = tp.use(p.wu, ("wu",))
     if kind == "swiglu":
-        h = torch.nn.functional.silu(dot(x, p.wg).float()).to(x.dtype)
-        h = h * dot(x, p.wu)
+        h = torch.nn.functional.silu(dot(x, tp.use(p.wg, ("wg",)))
+                                     .float()).to(x.dtype)
+        h = h * dot(x, wu)
     elif kind == "geglu":
-        h = torch.nn.functional.gelu(dot(x, p.wg).float(),
+        h = torch.nn.functional.gelu(dot(x, tp.use(p.wg, ("wg",))).float(),
                                      approximate="tanh").to(x.dtype)
-        h = h * dot(x, p.wu)
+        h = h * dot(x, wu)
     elif kind == "squared_relu":
-        h = torch.relu(dot(x, p.wu))
+        h = torch.relu(dot(x, wu))
         h = h * h
     else:
         raise ValueError(kind)
-    return dot(h, p.wd)
+    return row_parallel(h, tp.use(p.wd, ("wd",)))
 
 
 def mlp_init(gen, d: int, ff: int, kind: str, dtype, device) -> Params:
@@ -295,15 +324,29 @@ def embed_init(gen, vocab: int, d: int, dtype, tie: bool,
 
 
 def embed_lookup(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p.tok[tokens].to(dtype)
+    """The tokens' rows; on a mesh vocabulary-parallel: each rank looks up
+    the tokens in its rows, zeroes the others and the ranks' rows are
+    summed over ``model``."""
+    tok = tp.use(p.tok, ("tok",))
+    if tp.size() == 1:
+        return tok[tokens].to(dtype)
+    local = tokens - tp.vocab_start(tok.shape[0])
+    mine = (local >= 0) & (local < tok.shape[0])
+    h = tok[torch.where(mine, local, 0)].to(dtype)
+    return tp.reduce_from(torch.where(mine[..., None], h, 0))
 
 
 def logits_out(p: Params, x: torch.Tensor,
                vocab: int | None = None) -> torch.Tensor:
-    w = p.out if hasattr(p, "out") else p.tok
-    logits = torch.matmul(x.float(), w.float().T)
-    pv = w.shape[0]
+    """f32 logits, the vocabulary-padding columns masked; on a mesh this
+    rank's vocabulary columns (the padding masked by global column)."""
+    name = "out" if hasattr(p, "out") else "tok"
+    w = tp.use(getattr(p, name), (name,))
+    logits = torch.matmul(tp.copy_to(x).float(), w.float().T)
+    rows = w.shape[0]
+    pv = rows * tp.size()
     if vocab is not None and pv != vocab:  # mask vocab-padding rows
-        keep = torch.arange(pv, device=x.device) < vocab
+        keep = tp.vocab_start(rows) + torch.arange(rows,
+                                                   device=x.device) < vocab
         logits = torch.where(keep, logits, NEG_INF)
     return logits

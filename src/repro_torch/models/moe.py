@@ -5,8 +5,12 @@ expert (qwen2-moe style) (PyTorch).
 ``num_experts_padded`` rounds the expert count up (e.g. qwen2's 60 -> 64,
 so the experts divide the JAX package's ``model`` mesh axis); pads are
 masked out of routing.  There is no expert parallelism and no all-to-all:
-the expert buffers are plain tensors, on a mesh too (the JAX package's
-``constrain_experts`` is ROADMAP item 18).
+on a mesh the router and the experts are read whole on every rank of a
+``model`` line (``tp.whole``, gathered inside the layer) and computed
+there as on one device (the JAX package's ``constrain_experts`` is
+ROADMAP item 18 part 2); the shared expert is a dense MLP and takes the
+tensor-parallel path (``layers.mlp_apply``), as JAX's rules give it the
+``wu``/``wg``/``wd`` specs.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tp
 
 F32 = torch.float32
 
@@ -61,6 +66,7 @@ def moe_apply(p: L.Params, x: torch.Tensor, cfg: ModelConfig):
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.padded, m.top_k
+    p = tp.whole(p, ("moe",))
     mesh, dp = shd.data_parallel()
     if mesh is not None and not cfg.moe_dispatch_shard:
         raise ValueError(

@@ -12,6 +12,10 @@ O(1) state update, as in the JAX package:
     chunk size (:func:`_wkv_chunk_size`), so the chunk boundaries, and how
     the ``exp(-L)`` factors behave inside a chunk, match JAX's.
 
+On a mesh both mixers read their weights whole on every rank of a
+``model`` line (``tp.whole``, gathered inside the layer) and compute as on
+one device: their tensor parallelism is ROADMAP item 18 part 2.
+
 Simplifications vs the released checkpoints (kept from the JAX package):
   * RG-LRU input/recurrence gates are per-channel (diagonal) rather than
     block-diagonal linear — same data-dependent gating structure.
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import tp
 
 F32 = torch.float32
 _LRU_C = 8.0
@@ -92,6 +97,7 @@ def rglru_apply(p: L.Params, x: torch.Tensor, cfg: ModelConfig, *,
                 state: dict | None = None, update_state: bool = False):
     """x: (B, S, d). Train/prefill when state is None or S>1 (parallel
     scan over time); decode when S==1 with a carried state."""
+    p = tp.whole(p)
     b, s, d = x.shape
     cw = cfg.conv_width
     u = L.dot(x, p.wx)
@@ -233,6 +239,7 @@ def _wkv_chunked(r, k, v, w, u, S0):
 
 def rwkv_time_mix(p: L.Params, x: torch.Tensor, cfg: ModelConfig, *,
                   state: dict | None = None):
+    p = tp.whole(p)
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     nh = d // hd
@@ -278,6 +285,7 @@ def rwkv_time_mix(p: L.Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 def rwkv_channel_mix(p: L.Params, x: torch.Tensor, *,
                      state: dict | None = None):
+    p = tp.whole(p)
     prev = state["cm_x"] if state is not None else None
     xs = _token_shift(x, prev)
     mk = p.cmu[0].to(x.dtype)

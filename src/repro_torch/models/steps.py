@@ -7,22 +7,30 @@ gradients are taken (bf16 gradients with bf16 compute), f32 loss and
 optimizer math, the m/v moment dtype per config.  ``compute_dtype``
 defaults to bf16 as in JAX's factories; the serving CLI passes f32.
 
-With a mesh (``make_train_step(..., mesh=)``, ROADMAP item 17) the train
-state and the batch are laid out as JAX's ``state_specs`` and
-``batch_specs`` say: every f32 master, m and v leaf is split over
-``data`` (FSDP) and ``model``, the batch rows over (``pod``, ``data``).
-A step casts the master blocks to the compute dtype and gathers them
-into a whole compute model, runs forward and backward on this rank's
-rows, sums the gradients over the batch axes in their own dtype (bf16
-with bf16 compute: JAX's compressed gradient all-reduce), keeps its
-block of each, and runs AdamW on the blocks with the global clip.
-Compute along ``model`` stays replicated: the ranks that share a
-``data`` coordinate compute the same rows, which gives the numbers of
-JAX's partitioned program.  Tensor-parallel, sequence and
-expert-parallel compute, and gathering a layer at a time instead of the
-whole model, are ROADMAP item 18.  ``cache_specs`` gives the decode
-caches' specs JAX would place (the dry-run's record, ``launch/specs.py``);
-the port's serving steps take no mesh and hold whole caches.
+With a mesh (``make_train_step(..., mesh=)``) the train state and the
+batch are laid out as JAX's ``state_specs`` and ``batch_specs`` say: every
+f32 master, m and v leaf is split over ``data`` (FSDP) and ``model``, the
+batch rows over (``pod``, ``data``).  A step casts the master blocks to
+the compute dtype (each leaf stays this rank's block) and runs forward and
+backward on this rank's rows as JAX's partitioned program does
+(``parallel/tp.py``): Megatron tensor parallelism over ``model`` for the
+attention, the dense MLP, the vocabulary-parallel embedding, logits and
+cross-entropy, each layer's blocks gathered over ``data`` just before use
+(inside the remat unit, so the recompute gathers them again).  A
+gradient leaves the backward as this rank's block, reduce-scattered over
+``data`` in its own dtype (bf16 with bf16 compute: JAX's compressed
+gradient reduction); what no gather summed is summed over the batch axes
+after it; AdamW runs on the blocks with the global clip.  The MoE experts
+and router, the RG-LRU and RWKV mixers and the cross-attention are read
+whole on every rank of a ``model`` line and computed there as on one
+device, and no sequence is sharded (``seq_shard``): ROADMAP item 18 part
+2.
+
+:func:`make_prefill_step` and :func:`make_decode_step` take the same
+mesh: parameters as this rank's blocks, the batch rows over the batch
+axes, caches laid out by :func:`cache_specs`' head rule
+(:func:`held_cache_specs`; a sequence-sharded cache is held whole along
+``model`` until part 2), logits gathered over ``model``.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tp
 
 F32 = torch.float32
 
@@ -53,10 +62,25 @@ def model_module(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Token cross-entropy, f32, mean over all positions."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    """Token cross-entropy, f32, mean over all positions.  On a mesh
+    ``logits`` are this rank's vocabulary columns (``layers.logits_out``):
+    the largest logit by an all-reduce (max) over ``model``, the sum of
+    exponentials and the gold logit, which one rank owns, by sums over
+    ``model``."""
+    mesh = tp.active()
+    if tp.size() == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return torch.mean(logz - gold)
+    with torch.no_grad():
+        top = mesh.psum(logits.amax(dim=-1), axes=(shd.TP,), op="max",
+                        kind="tp_all_reduce")
+    sumexp = tp.reduce_from(torch.exp(logits - top[..., None]).sum(dim=-1))
+    local = targets - tp.vocab_start(logits.shape[-1])
+    mine = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
+    gold = tp.reduce_from(torch.where(mine, gold[..., 0], 0.0))
+    return torch.mean(top + torch.log(sumexp) - gold)
 
 
 def loss_fn(cfg: ModelConfig, model, batch, compute_dtype, *,
@@ -96,17 +120,15 @@ def is_matmul_weight(path: tuple, ndim: int) -> bool:
     return shd.spec_for(path, ndim) != ()
 
 
-def cast_compute(cfg: ModelConfig, model, compute_dtype, *, mesh=None,
-                 specs: dict | None = None):
+def cast_compute(cfg: ModelConfig, model, compute_dtype):
     """The model one step differentiates: a copy of ``model`` whose matmul
     weights (:func:`is_matmul_weight` at the leaf's JAX path and stacked
     ndim, f32 leaves only) are cast to ``compute_dtype`` and whose other
     leaves (norm scales, gates, decays) share the master's f32 storage.
     Every parameter of the copy is a new leaf that takes gradients, so a
     bf16 weight's gradient is bf16 and a norm scale's f32, as in JAX.
-    With ``mesh``, ``model`` holds this rank's blocks (``specs``: the
-    parameters' specs): each is cast, then gathered into the whole leaf
-    (the gathers move compute-dtype bytes); a replicated leaf is whole."""
+    On a mesh ``model`` holds this rank's blocks and so does the copy
+    (the layers gather them, ``parallel/tp.py``)."""
     memo = {}
     for name, p in model.named_parameters():
         path, idx = convert.jax_path(cfg, name)
@@ -114,8 +136,6 @@ def cast_compute(cfg: ModelConfig, model, compute_dtype, *, mesh=None,
         if p.dtype == F32 and is_matmul_weight(
                 tuple(map(str, path)), p.ndim + (idx is not None)):
             t = t.to(compute_dtype)
-        if mesh is not None:
-            t = shd.unshard_leaf(mesh, t, specs[name])
         memo[id(p)] = nn.Parameter(t)
     # deepcopy takes each memo entry in place of the parameter it names,
     # and copies the containers (and each block's ``kind``) around them
@@ -124,24 +144,27 @@ def cast_compute(cfg: ModelConfig, model, compute_dtype, *, mesh=None,
 
 def mesh_grads(cfg: ModelConfig, model, batch, compute_dtype, mesh,
                specs: dict) -> tuple:
-    """``(loss, load_balance_loss, {name: gradient})`` of the global
+    """``(loss, load_balance_loss, {name: gradient block})`` of the global
     ``batch`` (every rank passes the same one) on ``mesh``: the loss and
-    load-balance loss the global values, the gradients whole on every
-    rank.  ``model`` holds this rank's blocks (``specs``).
+    load-balance loss the global values, each gradient this rank's block
+    of the whole batch's.  ``model`` holds this rank's blocks (``specs``).
 
     The rows are split as :func:`batch_specs` says; each rank runs
-    :func:`loss_fn` for its share on :func:`cast_compute`'s gathered copy
-    and sums its gradients over the batch axes (``Mesh.psum``, counted as
-    ``grad_all_reduce``), each in its own dtype.  A batch that the batch
-    axes do not divide is not split: every rank computes the whole batch
-    and nothing is reduced."""
+    :func:`loss_fn` for its share on :func:`cast_compute`'s blocks
+    (tensor-parallel over ``model``, gathered over ``data`` a layer at a
+    time).  A leaf whose spec names ``data`` leaves the backward summed
+    over ``data`` (its gather's reduce-scatter, ``grad_reduce_scatter``);
+    the batch axes its spec does not name are summed after it
+    (``Mesh.psum``, ``grad_all_reduce``: ``pod``, and ``data`` for the
+    leaves it does not split), each in the gradient's dtype.  A batch
+    that the batch axes do not divide is not split: every rank computes
+    the whole batch and nothing is summed over them."""
     dp = dp_axes_for(mesh, batch["tokens"].shape[0])
     shards = math.prod(mesh.shape[a] for a in dp) if dp else 1
     if shards == 1:
         dp = None
-    bspecs = batch_specs(cfg, batch, mesh)
-    local = {k: shd.shard_leaf(mesh, v, bspecs[k]) for k, v in batch.items()}
-    cmodel = cast_compute(cfg, model, compute_dtype, mesh=mesh, specs=specs)
+    local = local_batch(cfg, batch, mesh)
+    cmodel = cast_compute(cfg, model, compute_dtype)
     with shd.set_mesh(mesh, dp_axes=dp):
         loss, aux = loss_fn(cfg, cmodel, local, compute_dtype, shards=shards)
         names, leaves = zip(*cmodel.named_parameters())
@@ -152,8 +175,11 @@ def mesh_grads(cfg: ModelConfig, model, batch, compute_dtype, mesh,
     sums = torch.stack([loss.detach(), aux["load_balance_loss"].detach()])
     if dp is not None:
         for name in names:
-            grads[name] = mesh.psum(grads[name], axes=dp,
-                                    kind="grad_all_reduce")
+            rest = tuple(a for a in dp
+                         if a not in shd.spec_axes(mesh, specs[name]))
+            if rest:
+                grads[name] = mesh.psum(grads[name], axes=rest,
+                                        kind="grad_all_reduce")
         sums = mesh.psum(sums, axes=dp, kind="metric_all_reduce")
     return sums[0], sums[1], grads
 
@@ -178,10 +204,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, mesh=None,
         specs = state_specs(cfg, state)["params"]
         loss, lb, grads = mesh_grads(cfg, model, batch, compute_dtype, mesh,
                                      specs)
-        blocks = {name: shd.shard_leaf(mesh, grads.pop(name), specs[name])
-                  for name in list(grads)}
         _, opt, gnorm = adamw_update(
-            dict(model.named_parameters()), blocks, state["opt"], opt_cfg,
+            dict(model.named_parameters()), grads, state["opt"], opt_cfg,
             lr_scale=schedule(state["opt"]["step"]), mesh=mesh, specs=specs)
         metrics = {"loss": loss, "grad_norm": gnorm,
                    "load_balance_loss": lb, "step": opt["step"]}
@@ -218,12 +242,19 @@ def init_train_state(cfg: ModelConfig, gen: torch.Generator | None,
     params = model_module(cfg).init_params(cfg, gen, dtype=param_dtype,
                                            device=device)
     if mesh is not None:
-        for name, p in params.named_parameters():
-            p.data = shd.shard_leaf(mesh, p.data,
-                                    convert.param_spec(cfg, name, p.ndim))
+        shard_model(cfg, params, mesh)
     opt_cfg = dataclasses.replace(opt_cfg, moment_dtype=cfg.opt_state_dtype)
     return {"params": params,
             "opt": adamw_init(dict(params.named_parameters()), opt_cfg)}
+
+
+def shard_model(cfg: ModelConfig, model, mesh):
+    """``model`` with each parameter replaced by this rank's block
+    (``convert.param_spec``), in place; returned."""
+    for name, p in model.named_parameters():
+        p.data = shd.shard_leaf(mesh, p.data,
+                                convert.param_spec(cfg, name, p.ndim))
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +294,12 @@ def batch_specs(cfg: ModelConfig, batch: dict, mesh) -> dict:
     return {k: (shd.entry(dp_axes_for(mesh, v.shape[0])),
                 *([None] * (v.dim() - 1)))
             for k, v in batch.items()}
+
+
+def local_batch(cfg: ModelConfig, batch: dict, mesh) -> dict:
+    """This rank's rows of a global ``batch`` (:func:`batch_specs`)."""
+    specs = batch_specs(cfg, batch, mesh)
+    return {k: shd.shard_leaf(mesh, v, specs[k]) for k, v in batch.items()}
 
 
 def _cache_spec(cfg: ModelConfig, mesh, name: str, shape) -> tuple:
@@ -306,33 +343,80 @@ def cache_specs(cfg: ModelConfig, caches, mesh):
     return per_layer(caches)
 
 
+def held_cache_specs(cfg: ModelConfig, caches, mesh):
+    """The specs of the caches the mesh serving steps hold (``caches`` at
+    their global shapes), keyed as :func:`cache_specs`: its rules, less the sequence sharding of
+    ``kv_seq_shard``, the RWKV state's heads and an encoder-decoder's
+    cross-attention heads, which stay whole along ``model`` (ROADMAP
+    item 18 part 2)."""
+    tp_size = mesh.shape[shd.TP]
+
+    def held(name, spec, shape):
+        if name in ("k", "v") and len(spec) == 4:
+            return (spec[0], None,
+                    shd.TP if shape[2] % tp_size == 0 else None, None)
+        if name == "S":
+            return (spec[0], None, None, None)
+        return spec
+
+    def per_layer(layers, specs):
+        return [{k: held(k, sp[k], c[k].shape) for k in c}
+                for c, sp in zip(layers, specs)]
+
+    specs = cache_specs(cfg, caches, mesh)
+    if cfg.is_encdec:
+        self_kv = per_layer(caches[0], specs[0])
+        cross = [{k: (sp[k][0], *([None] * (len(sp[k]) - 1))) for k in sp}
+                 for sp in specs[1]]
+        return self_kv, cross
+    return per_layer(caches, specs)
+
+
 # ---------------------------------------------------------------------------
 # Serve steps
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(cfg: ModelConfig, *, cache_len: int,
+def make_prefill_step(cfg: ModelConfig, *, cache_len: int, mesh=None,
                       compute_dtype=torch.bfloat16):
     """Returns prefill_step(model, batch) -> (last-position logits, caches);
     ``batch`` holds ``tokens`` and, by family, ``frames`` or
-    ``prefix_embeds``."""
+    ``prefix_embeds``.
+
+    With ``mesh``, ``model`` holds this rank's blocks (:func:`shard_model`)
+    and ``batch`` this rank's rows (:func:`local_batch`); the prompt runs
+    tensor-parallel over ``model``, each layer gathered over ``data``
+    before use; the caches are this rank's rows and, where the KV heads
+    divide ``model``, its heads (:func:`held_cache_specs`; a cache
+    ``cache_specs`` shards along the sequence is held whole along
+    ``model``, ROADMAP item 18 part 2); the logits are gathered over
+    ``model`` (every vocabulary column)."""
     def prefill_step(model, batch):
-        if cfg.is_encdec:
-            return ED.prefill(cfg, model, batch["tokens"],
-                              frames=batch["frames"], cache_len=cache_len,
-                              compute_dtype=compute_dtype)
-        return TF.prefill(cfg, model, batch["tokens"], cache_len=cache_len,
-                          prefix_embeds=batch.get("prefix_embeds"),
-                          compute_dtype=compute_dtype)
+        with shd.set_mesh(mesh):
+            if cfg.is_encdec:
+                logits, caches = ED.prefill(
+                    cfg, model, batch["tokens"], frames=batch["frames"],
+                    cache_len=cache_len, compute_dtype=compute_dtype)
+            else:
+                logits, caches = TF.prefill(
+                    cfg, model, batch["tokens"], cache_len=cache_len,
+                    prefix_embeds=batch.get("prefix_embeds"),
+                    compute_dtype=compute_dtype)
+            return tp.gather_vocab(logits), caches
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *, compute_dtype=torch.bfloat16):
+def make_decode_step(cfg: ModelConfig, *, mesh=None,
+                     compute_dtype=torch.bfloat16):
     """Returns decode_step(model, caches, tokens, pos) -> (next tokens
-    (B, 1), logits, caches): one greedy (argmax) step."""
+    (B, 1), logits, caches): one greedy (argmax) step.  With ``mesh`` as
+    :func:`make_prefill_step`: this rank's blocks, rows and caches; the
+    logits gathered over ``model`` and the tokens their argmax."""
     def decode_step(model, caches, tokens, pos):
-        logits, caches = model_module(cfg).decode_step(
-            cfg, model, tokens, pos, caches, compute_dtype=compute_dtype)
+        with shd.set_mesh(mesh):
+            logits, caches = model_module(cfg).decode_step(
+                cfg, model, tokens, pos, caches, compute_dtype=compute_dtype)
+            logits = tp.gather_vocab(logits)
         next_tok = torch.argmax(logits[:, -1], dim=-1)
         return next_tok[:, None], logits, caches
 

@@ -20,12 +20,14 @@ axes' sizes do not divide raises ``ValueError``, as JAX's ``device_put``
 and ``jit`` do for such a sharding.  :func:`unshard_leaf` gathers the
 blocks back into the whole tensor on every rank.
 
-What this slice ports of the strategy: the specs, and storage laid out
-by them (parameters, optimizer moments and the batch).  Compute along
-``model`` stays replicated: ``constrain``, ``constrain_batch``,
-``constrain_heads`` (Megatron tensor-parallel activations), the sequence
-sharding of ``set_mesh(seq_shard=True)`` and the expert parallelism of
-``moe.py::constrain_experts`` are not ported (ROADMAP item 18).
+The compute these specs imply (Megatron tensor parallelism over
+``model``, ``constrain_heads``' three attention cases, parameters gathered
+over ``data`` a layer at a time) is ``parallel/tp.py``.  Not ported yet
+(ROADMAP item 18 part 2): the sequence sharding of
+``set_mesh(seq_shard=True)`` (``constrain_batch``) and of the KV caches
+(``kv_seq_shard``), the expert parallelism of
+``moe.py::constrain_experts``, and tensor parallelism inside the RWKV and
+RG-LRU mixers and the cross-attention.
 """
 
 from __future__ import annotations

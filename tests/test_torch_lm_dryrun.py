@@ -19,9 +19,9 @@ tests/test_torch_lm_parallel.py, whose ranks count it):
 * (e) traced matmul flops of a forward and of a train step equal closed
   forms from the config's widths (glm4-9b and qwen2-moe smoke), and
   ``remat=False`` takes exactly one forward of the layers less;
-* (f) the gradient bytes phase 13 all-reduced on the card (glm4-9b at
-  full width, 1 layer, 2 x 1024 tokens on 2x2): 2,890,924,032 bf16 and
-  49,152 f32 a step and rank;
+* (f) the gradient bytes phase 13 reduces on the card (glm4-9b at full
+  width, 1 layer, 2 x 1024 tokens on 2x2): 1,445,462,016 bf16
+  reduce-scattered and 49,152 f32 all-reduced a step and rank;
 * (g) the live-bytes tracker against hand counts (a view, an in-place op,
   a saved tensor);
 * (h) the CLI's records of a train, a decode and a skipped cell, and the
@@ -234,10 +234,11 @@ def _global_rows(shape, rows: int, glob: int) -> tuple:
 @pytest.mark.parametrize("arch,shape_name", CELLS)
 def test_input_specs_equal_jax_eval_shape(arch, shape_name):
     """The port's cell arguments on the pod mesh, mapped to JAX's trees
-    (the train state's blocks at their global shapes by ``state_specs``, a
-    serving batch's and caches' rows over ``dp_axes_for``, the caches
-    stacked per segment), equal JAX's ``input_specs`` arguments in shape
-    and dtype; ``pos`` is a Python int where JAX's is an int32 scalar."""
+    (the train state's and the serving parameters' blocks at their global
+    shapes by ``state_specs``, a serving batch's rows over
+    ``dp_axes_for``, the caches' blocks by ``held_cache_specs``, stacked
+    per segment), equal JAX's ``input_specs`` arguments in shape and
+    dtype; ``pos`` is a Python int where JAX's is an int32 scalar."""
     from repro.compat import make_mesh
     from repro.launch.specs import input_specs as jinput_specs
 
@@ -284,9 +285,16 @@ def test_input_specs_equal_jax_eval_shape(arch, shape_name):
         same(jkw["batch"], {(k,): (tuple(v.shape), _dtype(v.dtype))
                             for k, v in kw["batch"].items()}, "batch")
         return
-    got = {path: (shp, _dtype(dt)) for path, (shp, dt) in _jax_flat(
-        convert.param_shapes(cfg, kw["params"].named_parameters()),
-        is_leaf=lambda x: isinstance(x, tuple)).items()}
+    sp = convert.train_state_specs_to_jax(
+        cfg, S.state_specs(cfg, {"params": kw["params"]}))["params"]
+    got = {}
+    for path, (shp, dt) in _jax_flat(
+            convert.param_shapes(cfg, kw["params"].named_parameters()),
+            is_leaf=lambda x: isinstance(x, tuple)).items():
+        node = sp
+        for k in path:
+            node = node[int(k) if isinstance(node, list) else k]
+        got[path] = (shd.global_shape(mesh, node, shp), _dtype(dt))
     same(jkw["params"], got, "params")
     if batch_key:
         same(jkw["batch"], {(k,): (_global_rows(v.shape, rows,
@@ -294,13 +302,13 @@ def test_input_specs_equal_jax_eval_shape(arch, shape_name):
                                    _dtype(v.dtype))
                             for k, v in kw["batch"].items()}, "batch")
         return
-    caches = _jax_cache_tree(cfg, kw["caches"])
+    caches = _jax_flat(_jax_cache_tree(cfg, kw["caches"]), is_leaf=_stacks)
+    held = _jax_flat(_jax_cache_tree(cfg, specs["held_caches"]),
+                     is_leaf=_stacks)
     got = {}
-    for path, leaves in _jax_flat(
-            caches, is_leaf=_stacks).items():
-        got[path] = ((len(leaves), *_global_rows(
-            leaves[0].shape, rows, shape.global_batch)),
-            _dtype(leaves[0].dtype))
+    for path, leaves in caches.items():
+        got[path] = ((len(leaves), *shd.global_shape(
+            mesh, held[path][0], leaves[0].shape)), _dtype(leaves[0].dtype))
     same(jkw["caches"], got, "caches")
     assert tuple(jkw["tokens"].shape) == _global_rows(
         kw["tokens"].shape, rows, shape.global_batch)
@@ -430,9 +438,12 @@ def test_traced_flops_equal_closed_form(arch):
 
 def test_recording_mesh_gives_phase13_gradient_bytes():
     """glm4-9b at full width cut to 1 layer, bf16 compute, 2 x 1024 tokens
-    on the 2x2 (data, model) mesh: the recording mesh tallies the bytes
-    each rank all-reduced a step on the card (phase 13 of chip_smoke.py),
-    on every rank, and the same collectives on every rank."""
+    on the 2x2 (data, model) mesh (phase 13 of chip_smoke.py): each rank
+    reduce-scatters over ``data`` its ``model`` block of every matmul
+    weight's bf16 gradient, 1,445,462,016 bytes a step (half of the
+    2,890,924,032 the replicated program all-reduced: the weights are
+    split in two over ``model``), and all-reduces the three f32 norm
+    scales' 49,152; the same collectives on every rank."""
     from repro_torch import configs
     from repro_torch.launch.mesh import MeshShape, RecordingMesh
     from repro_torch.models import steps as S
@@ -448,8 +459,10 @@ def test_recording_mesh_gives_phase13_gradient_bytes():
                                  compute_dtype=torch.bfloat16)
         step(state, {"tokens": torch.empty((2, 1024), dtype=torch.int64,
                                            device=META)})
-        assert mesh.nbytes["grad_all_reduce/bfloat16"] == 2_890_924_032
+        assert mesh.nbytes["grad_reduce_scatter/bfloat16"] == \
+            2_890_924_032 // 2
         assert mesh.nbytes["grad_all_reduce/float32"] == 49_152
+        assert "grad_all_reduce/bfloat16" not in mesh.nbytes
         seen.append((dict(mesh.counts), dict(mesh.nbytes)))
     assert seen[0] == seen[1]
 
@@ -522,8 +535,10 @@ def test_cli_writes_train_decode_and_skipped_records(tmp_path,
     assert skip["status"] == "skipped" and "O(S^2)" in skip["reason"]
     train = recs["gemma-7b__train_4k__pod.json"]
     dec = recs["glm4-9b__decode_32k__pod.json"]
-    assert train["program"] == "data-parallel, model axis replicated"
-    assert dec["program"] == "replicated serving"
+    assert train["program"] == dryrun.program("train")
+    assert dec["program"] == dryrun.program("decode")
+    assert "tensor-parallel over model" in train["program"]
+    assert "tensor-parallel serving over model" in dec["program"]
     for r in (train, dec):
         text = json.dumps(r)
         for absent in ("197e12", "1.97e+14", "819000000000", "8.19e+11",
@@ -540,11 +555,15 @@ def test_cli_writes_train_decode_and_skipped_records(tmp_path,
         assert r["useful_flops_ratio"] > 0
         assert r["cost_extrapolated"]["flops"] == pytest.approx(
             r["cost_fulltrace"]["flops"], rel=1e-9)
-    # the train cell's collectives: gathers and gradient reductions, in
-    # XLA's names too; serving runs none
+    # the train cell's collectives: gathers, tensor-parallel all-reduces
+    # and gradient reductions, in XLA's names too; serving's: gathers and
+    # tensor-parallel all-reduces
     kinds = train["collectives_fulltrace"]["jax_kinds"]
-    assert set(kinds) == {"all-gather", "all-reduce"}
-    assert dec["collectives_fulltrace"]["total_count"] == 0
+    assert set(kinds) == {"all-gather", "all-reduce", "reduce-scatter"}
+    assert set(dec["collectives_fulltrace"]["jax_kinds"]) == \
+        {"all-gather", "all-reduce"}
+    assert set(dec["collectives_fulltrace"]["by_kind"]) == \
+        {"param_gather", "tp_all_reduce", "logits_gather"}
     assert dryrun.run_all(out, meshes=("pod",), archs=["glm4-9b"],
                           shapes=["decode_32k", "long_500k"]) == []
 

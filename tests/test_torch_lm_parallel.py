@@ -188,12 +188,12 @@ def _worker(rank: int, d: pathlib.Path):
             res[f"grads_{tag}"] = dict(
                 loss=float(loss), lb=float(lb),
                 nbytes={k: v - before.get(k, 0) for k, v in
-                        mesh.nbytes.items() if k.startswith("grad_")},
+                        mesh.nbytes.items()
+                        if k.startswith("grad_") and v - before.get(k, 0)},
                 dtypes={n: str(g.dtype).removeprefix("torch.")
                         for n, g in grads.items()})
-            if rank == 0:
-                np.savez(d / f"grads_{tag}_{arch}.npz",
-                         **{n: g.float().numpy() for n, g in grads.items()})
+            np.savez(d / f"grads_{tag}_{arch}_rank{rank}.npz",
+                     **{n: g.float().numpy() for n, g in grads.items()})
             del grads
         step = S.make_train_step(cfg, opt, mesh=mesh,
                                  compute_dtype=torch.float32)
@@ -706,8 +706,31 @@ def _check_state_blocks(runs, name, cfg, want: dict, grads: dict, bar,
 
 
 def _mesh_grads(runs, tag, arch) -> dict:
-    with np.load(runs["d"] / f"grads_{tag}_{arch}.npz") as f:
-        return {k: f[k] for k in f.files}
+    """The whole gradients the four ranks' blocks make up on the 2x2 mesh
+    (``mesh_grads`` leaves each rank its block); the copies of a block
+    that ranks share agree bitwise."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.parallel import sharding as shd
+    specs = _specs(configs.get_smoke(arch))
+    shape, axes = MESHES["2x2"]
+    m = MeshShape(dict(zip(axes, shape)), axes)
+    out = {}
+    for r, rk in enumerate(runs["ranks"]):
+        with np.load(runs["d"] / f"grads_{tag}_{arch}_rank{r}.npz") as f:
+            for k in f.files:
+                spec, blk = specs[f"params/{k}"], f[k]
+                if k not in out:
+                    out[k] = np.full(shd.global_shape(m, spec, blk.shape),
+                                     np.nan, blk.dtype)
+                sl = shd.block_slices(m, spec, out[k].shape,
+                                      rk["coords"]["2x2"])
+                seen = out[k][sl]
+                assert np.isnan(seen).all() or \
+                    seen.tobytes() == blk.tobytes(), (arch, k, r)
+                out[k][sl] = blk
+    assert not any(np.isnan(g).any() for g in out.values()), arch
+    return out
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -808,10 +831,14 @@ def test_glm4_mesh_step_matches_jax_unsharded(runs):
 
 def test_bf16_gradients_reduce_in_bf16(runs):
     """glm4-9b with bf16 compute: every matmul weight's gradient crosses
-    the all-reduce as bf16 (the collective's bytes by dtype equal the
-    bf16 and f32 gradients' bytes) and the norm scales' as f32; every
-    reduced leaf within 2 bf16 ulps of its largest |g| (ulp: the spacing
-    of bf16 numbers at that value) of the one-device bf16 gradients."""
+    the reduction over ``data`` as bf16 and the norm scales' as f32: a
+    leaf split over ``data`` in its layer's reduce-scatter (its bytes
+    those of this rank's ``model`` block, the data ranks' blocks joined),
+    any other in an all-reduce of its block; every reduced leaf within 2
+    bf16 ulps of its largest |g| (ulp: the spacing of bf16 numbers at
+    that value) of the one-device bf16 gradients."""
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.parallel import sharding as shd
     arch = "glm4-9b"
     cfg, ref, _ = _one_device(arch)
     res = runs["ranks"][0][f"c/{arch}"]["grads_bfloat16"]
@@ -819,10 +846,18 @@ def test_bf16_gradients_reduce_in_bf16(runs):
     assert res["dtypes"] == {n: str(g.dtype).removeprefix("torch.")
                              for n, g in want.items()}
     assert "bfloat16" in res["dtypes"].values()
+    specs = _specs(cfg)
+    shape, axes = MESHES["2x2"]
+    m = MeshShape(dict(zip(axes, shape)), axes)
     nbytes = {}
-    for g in want.values():
-        key = f"grad_all_reduce/{str(g.dtype).removeprefix('torch.')}"
-        nbytes[key] = nbytes.get(key, 0) + g.numel() * g.element_size()
+    for n, g in want.items():
+        spec = specs[f"params/{n}"]
+        blk = math.prod(shd.block_shape(m, spec, g.shape)) * g.element_size()
+        split = "data" in shd.spec_axes(m, spec)
+        key = (f"grad_{'reduce_scatter' if split else 'all_reduce'}/"
+               f"{str(g.dtype).removeprefix('torch.')}")
+        nbytes[key] = nbytes.get(key, 0) + blk * (m.shape["data"] if split
+                                                  else 1)
     assert res["nbytes"] == nbytes
     got = _mesh_grads(runs, "bfloat16", arch)
     worst = 0.0
